@@ -1,0 +1,243 @@
+"""Cluster scoring and classification on tensors: the port of
+``cdrs_tpu/ops/scoring_jax.py`` (``classify_jax``), single device.
+
+* **Sort medians** — two stable sorts per column (by value, then by label)
+  put every cluster's values in one contiguous sorted run; the two middle
+  elements are gathered from the run offsets and averaged.  Global medians
+  from data average the two middle values too (``jnp.median``'s midpoint
+  rule, not ``torch.median``'s lower middle).
+* **Histogram medians** — a (k, bins) histogram per feature from one
+  integer ``bincount`` over (label, bin) keys; both middle ranks are read
+  off the cumulative counts with in-bin linear interpolation.
+* **Bisection medians** — ``iters = max(8, ceil(log2(bins)) + 1)`` rounds
+  of per-(rank, cluster, feature) threshold counting on
+  ``ops/seg_count.label_threshold_count`` (the CUDA kernel on the card),
+  both middle ranks at once; the global medians bisect on the same kernel
+  with every valid row in one cluster.
+* **Score table** and the replication-factor tie-break ``_pick_winner``.
+
+Empty clusters get NaN medians, which score 0 everywhere.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import ScoringConfig
+from .seg_count import label_threshold_count
+
+__all__ = ["HIST_MEDIAN_THRESHOLD", "resolve_median_method", "scoring_tables",
+           "cluster_medians_sort", "hist_medians", "bisect_medians",
+           "score_table", "pick_winner", "classify"]
+
+#: Row count past which "auto" leaves the exact sort medians.
+HIST_MEDIAN_THRESHOLD = 2_000_000
+
+
+def resolve_median_method(method: str, n_rows: int, device) -> str:
+    """"auto": exact sort up to ``HIST_MEDIAN_THRESHOLD`` rows; past it,
+    bisection on CUDA (its counting kernel) and histograms on the CPU."""
+    if method == "auto":
+        if n_rows <= HIST_MEDIAN_THRESHOLD:
+            return "sort"
+        return "bisect" if torch.device(device).type == "cuda" else "hist"
+    if method not in ("sort", "hist", "bisect"):
+        raise ValueError(f"unknown median_method {method!r}")
+    return method
+
+
+def scoring_tables(cfg: ScoringConfig) -> dict[str, torch.Tensor]:
+    """The scoring config as float64/bool CPU tensors: W, D (C, d),
+    rf, is_moderate (C,), band (), global_medians (d,)."""
+    f64 = torch.float64
+    return {
+        "W": torch.tensor(cfg.weight_matrix(), dtype=f64),
+        "D": torch.tensor(cfg.direction_matrix(), dtype=f64),
+        "rf": torch.tensor(cfg.rf_vector(), dtype=f64),
+        "is_moderate": torch.tensor([c == "Moderate" for c in cfg.categories]),
+        "band": torch.tensor(float(cfg.moderate_band), dtype=f64),
+        "global_medians": torch.tensor(
+            [cfg.global_medians[f] for f in cfg.features], dtype=f64),
+    }
+
+
+def _middle_pair(vals: torch.Tensor, lo, hi) -> torch.Tensor:
+    return (vals[lo] + vals[hi]) * 0.5
+
+
+def cluster_medians_sort(x: torch.Tensor, labels: torch.Tensor, k: int) -> torch.Tensor:
+    """(k, d) exact per-cluster medians; NaN rows for empty clusters."""
+    n = x.shape[0]
+    lab = labels.long()
+    counts = torch.bincount(lab, minlength=k)
+    starts = torch.cumsum(counts, 0) - counts
+    lo = torch.clamp(starts + (counts - 1) // 2, 0, n - 1)
+    hi = torch.clamp(starts + counts // 2, 0, n - 1)
+    vals, order = torch.sort(x, dim=0, stable=True)
+    _, by_label = torch.sort(lab[order], dim=0, stable=True)
+    vals = torch.gather(vals, 0, by_label)
+    med = _middle_pair(vals, lo, hi)
+    return torch.where(counts[:, None] > 0, med, torch.nan)
+
+
+def global_medians_sort(x: torch.Tensor) -> torch.Tensor:
+    """(d,) column medians, the two middle values averaged."""
+    n = x.shape[0]
+    vals = torch.sort(x, dim=0).values
+    return _middle_pair(vals, (n - 1) // 2, n // 2)
+
+
+def _medians_from_hist(H, counts, lo_f, w_f, bins, ftype):
+    """(k,) medians from a (k, bins) histogram: both middle-rank values off
+    the cumulative counts, linearly interpolated inside the bin."""
+    cum = torch.cumsum(H, dim=1)
+    r0 = (counts - 1) // 2
+    r1 = counts // 2
+
+    def value_at(r):
+        # First bin whose cumulative count exceeds rank r holds it.
+        j = torch.argmax((cum > r[:, None]).to(torch.uint8), dim=1)
+        before = torch.gather(cum, 1, torch.clamp(j - 1, min=0)[:, None])[:, 0]
+        cum_before = torch.where(j > 0, before, 0)
+        h = torch.gather(H, 1, j[:, None])[:, 0]
+        frac = ((r - cum_before).double() + 0.5) / torch.clamp(h, min=1).double()
+        return (j.to(ftype) + frac.to(ftype)) * (w_f / bins)
+
+    med = lo_f + 0.5 * (value_at(r0) + value_at(r1))
+    return torch.where(counts > 0, med, torch.nan)
+
+
+def hist_medians(x: torch.Tensor, labels: torch.Tensor, k: int, bins: int,
+                 with_global: bool):
+    """Per-cluster (k, d) and optionally global (d,) medians from fixed-bin
+    histograms; error <= feature range / bins, constant columns exact."""
+    n, d = x.shape
+    ftype = x.dtype
+    lab = labels.long()
+    counts = torch.bincount(lab, minlength=k)
+    n_total = counts.new_tensor([n])
+    lo = x.min(dim=0).values
+    hi = x.max(dim=0).values
+    meds, gmeds = [], []
+    for f in range(d):
+        lo_f, hi_f = lo[f], hi[f]
+        w_f = torch.where(hi_f > lo_f, hi_f - lo_f, 1.0)
+        b = torch.clamp(((x[:, f] - lo_f) / w_f * bins).to(torch.int32), 0, bins - 1)
+        H = torch.bincount(lab * bins + b, minlength=k * bins).reshape(k, bins)
+        const = hi_f <= lo_f
+        meds.append(torch.where(const, lo_f,
+                                _medians_from_hist(H, counts, lo_f, w_f, bins, ftype)))
+        if with_global:
+            g = _medians_from_hist(H.sum(0, keepdim=True), n_total, lo_f, w_f, bins, ftype)
+            gmeds.append(torch.where(const, lo_f, g[0]))
+    gm = torch.stack(gmeds) if with_global else None
+    return torch.stack(meds, dim=1), gm
+
+
+def bisect_medians(x: torch.Tensor, labels: torch.Tensor, k: int, bins: int,
+                   with_global: bool):
+    """Per-cluster (k, d) and optionally global (d,) medians by rank
+    bisection on the threshold-counting kernel.  Labels < 0 mark rows of no
+    cluster.  Error <= feature range / 2^iters; constant columns exact."""
+    n, d = x.shape
+    ftype = x.dtype
+    iters = max(8, int(np.ceil(np.log2(max(bins, 2)))) + 1)
+    lab = labels.to(torch.int32).contiguous()
+    valid = lab >= 0
+    counts = torch.bincount(lab[valid].long(), minlength=k)
+    n_total = counts.sum()
+    lo_f = torch.where(valid[:, None], x, torch.inf).min(dim=0).values
+    hi_f = torch.where(valid[:, None], x, -torch.inf).max(dim=0).values
+
+    # The value at 0-indexed rank r is the smallest v with count(x <= v) >= r+1.
+    targets = torch.stack([(counts - 1) // 2 + 1, counts // 2 + 1])        # (2, k)
+    g_targets = torch.stack([(n_total - 1) // 2 + 1, n_total // 2 + 1])    # (2,)
+    lo = lo_f.float().expand(2, k, d).clone()
+    hi = hi_f.float().expand(2, k, d).clone()
+    glo = lo_f.float().expand(2, d).clone()
+    ghi = hi_f.float().expand(2, d).clone()
+    glab = torch.where(valid, 0, -1).to(torch.int32)
+    for _ in range(iters):
+        thr = (0.5 * (lo + hi)).contiguous()
+        cb = label_threshold_count(x, lab, thr).view(k, 2, d).permute(1, 0, 2)
+        ge = cb >= targets[:, :, None]
+        lo = torch.where(ge, lo, thr)
+        hi = torch.where(ge, thr, hi)
+        if with_global:
+            gthr = 0.5 * (glo + ghi)
+            gcb = label_threshold_count(x, glab, gthr[:, None, :].contiguous())
+            gge = gcb.view(2, d) >= g_targets[:, None]
+            glo = torch.where(gge, glo, gthr)
+            ghi = torch.where(gge, gthr, ghi)
+
+    const = hi_f <= lo_f
+    med = (0.25 * (lo[0] + hi[0] + lo[1] + hi[1])).to(ftype)
+    med = torch.where(const[None, :], lo_f[None, :], med)
+    med = torch.where(counts[:, None] > 0, med, torch.nan)
+    gm = None
+    if with_global:
+        gm = (0.25 * (glo[0] + ghi[0] + glo[1] + ghi[1])).to(ftype)
+        gm = torch.where(const, lo_f, gm)
+    return med, gm
+
+
+def score_table(cluster_medians, global_medians, W, D, is_moderate, band):
+    """(k, C) directional-deviation scores."""
+    delta = cluster_medians - global_medians[None, :]
+    valid = ~torch.isnan(delta)
+    delta = torch.where(valid, delta, 0.0)
+    abs_d = torch.abs(delta)[:, None, :]
+    delta_b = delta[:, None, :]
+    valid_b = valid[:, None, :]
+    gate_dir = (D[None] == 0) | (torch.sign(delta_b) == D[None])
+    term_dir = W[None] * abs_d ** 2
+    gate_mod = abs_d < band
+    term_mod = W[None] * (1.0 - abs_d) ** 2
+    mod = is_moderate[None, :, None]
+    gate = torch.where(mod, gate_mod, gate_dir) & valid_b
+    term = torch.where(mod, term_mod, term_dir)
+    return torch.where(gate, term, 0.0).sum(dim=2)
+
+
+def pick_winner(scores: torch.Tensor, rf: torch.Tensor) -> torch.Tensor:
+    """Argmax score; score ties go to the largest replication factor (the
+    first such category)."""
+    tied = scores == scores.max(dim=1, keepdim=True).values
+    return torch.argmax(torch.where(tied, rf[None, :], -torch.inf), dim=1)
+
+
+def classify(x: torch.Tensor, labels: torch.Tensor, k: int,
+             cfg: ScoringConfig | None = None, global_medians=None,
+             tables: dict[str, torch.Tensor] | None = None):
+    """Medians -> scores -> categories.  Returns (category_idx (k,),
+    scores (k, C), cluster_medians (k, d)) on ``x``'s device.
+
+    ``tables`` (``scoring_tables(cfg)``, e.g. a model's buffers) default to
+    ``cfg``'s; ``cfg`` still names the median method and whether the global
+    medians come from the data.
+    """
+    cfg = cfg or ScoringConfig()
+    tables = scoring_tables(cfg) if tables is None else tables
+    dev, ftype = x.device, x.dtype
+    method = resolve_median_method(cfg.median_method, x.shape[0], dev)
+    bins = int(cfg.median_bins)
+    want_global = global_medians is None and cfg.compute_global_medians_from_data
+    if method == "bisect":
+        medians, gm = bisect_medians(x, labels, k, bins, want_global)
+    elif method == "hist":
+        medians, gm = hist_medians(x, labels, k, bins, want_global)
+    else:
+        medians = cluster_medians_sort(x, labels, k)
+        gm = global_medians_sort(x) if want_global else None
+    if global_medians is not None:
+        gm = torch.as_tensor(global_medians).to(device=dev, dtype=ftype)
+    elif not want_global:
+        gm = tables["global_medians"].to(device=dev, dtype=ftype)
+
+    def t(name):
+        return tables[name].to(device=dev, dtype=ftype)
+
+    scores = score_table(medians, gm, t("W"), t("D"),
+                         tables["is_moderate"].to(dev), t("band"))
+    return pick_winner(scores, t("rf")), scores, medians
