@@ -1,8 +1,7 @@
 """Command line of the PyTorch port: ``python -m cdrs_tpu_torch pipeline``.
 
 The flags are those of ``cdrs_tpu``'s ``pipeline`` subcommand that this
-port supports, plus ``--device`` (CUDA unless "cpu" is asked for) and
-``--dtype`` (the feature table's float type).
+port supports, plus ``--device`` (CUDA unless "cpu" is asked for).
 """
 
 from __future__ import annotations
@@ -35,7 +34,6 @@ def _cmd_pipeline(args) -> int:
 
     cfg = PipelineConfig(
         device=args.device,
-        dtype=args.dtype,
         generator=GeneratorConfig(n_files=args.n, seed=args.seed),
         simulator=SimulatorConfig(duration_seconds=args.duration_seconds,
                                   seed=None if args.seed is None else args.seed + 1),
@@ -66,8 +64,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "'auto' kmeans|| at k >= 256 and d2 below")
     p.add_argument("--device", default=None,
                    help="torch device: cuda (default) or cpu")
-    p.add_argument("--dtype", choices=["float32", "float64"], default="float32",
-                   help="feature table dtype (float64 on the CPU only)")
     p.set_defaults(fn=_cmd_pipeline)
     return parser
 

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, stat_dtype, torch_dtype
-from .lloyd import lloyd_assign_reduce, lloyd_assign_reduce_plain
+from .lloyd import lloyd_assign_reduce
 
 __all__ = ["kmeans_full", "kmeans", "resolve_update", "resolve_init_method",
            "AUTO_INIT_KMEANS_PAR_MIN_K", "generator"]
@@ -192,7 +192,6 @@ def kmeans_full(
     max_iter: int = 100,
     init_centroids=None,
     dtype=None,
-    update: str = "auto",
     n_valid: int | None = None,
     iter_offset: int = 0,
     init_method: str = "d2",
@@ -225,8 +224,7 @@ def kmeans_full(
         raise ValueError(f"n_valid={n_valid} outside [0, {n}]")
     if k > n_valid:
         raise ValueError(f"k={k} exceeds number of valid samples {n_valid}")
-    update = resolve_update(update, dev, dtype)
-    step = lloyd_assign_reduce if update == "kernel" else lloyd_assign_reduce_plain
+    resolve_update("auto", dev, dtype)  # CUDA points the kernel does not take raise here
 
     if init_centroids is not None:
         if not torch.is_tensor(init_centroids):
@@ -253,7 +251,7 @@ def kmeans_full(
 
     c_prev, it, shift = c, 0, math.inf
     while it < max_iter and (tol <= 0 or it == 0 or shift >= tol):
-        _, sums, counts = step(xp, c, n_valid, with_labels=False)
+        _, sums, counts = lloyd_assign_reduce(xp, c, n_valid, with_labels=False)
         new_c = sums / torch.clamp(counts, min=1.0)[:, None]
         if bool((counts == 0).any()):
             rows = _reseed_rows(seed, iter_offset + it, k, n_valid).to(dev)
@@ -265,7 +263,7 @@ def kmeans_full(
         it += 1
     if tol <= 0 and it:
         shift = float(shift_t)
-    labels, _, _ = step(xp, c_prev, n_valid, with_labels=True)
+    labels, _, _ = lloyd_assign_reduce(xp, c_prev, n_valid, with_labels=True)
     return c, labels[:n_valid], it, shift
 
 

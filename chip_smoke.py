@@ -11,8 +11,10 @@ Phases, each of which exits non-zero when a check fails:
    ``cdrs_tpu_torch/csrc`` (one nvcc per source, all at once).
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes and at wider ones: labels, sums and counts of the Lloyd
-   kernel, exact counts of the threshold-count kernel, and median times
-   over repeated launches (CUDA events).
+   kernel, exact counts of the threshold-count kernel at both of the
+   bisection's shapes (per-cluster ranks, k = 8, and global ranks, k = 1),
+   one whole bisection on the card against the same on the CPU, and
+   median times over repeated launches (CUDA events).
 3. The main path: ``run_pipeline`` on CUDA over 2,500,000 files (seed 10,
    60 s of simulated traffic, k = 8, validated scoring with medians from
    the data).  Both kernels' launch counters must rise during the run, and
@@ -166,14 +168,22 @@ def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen):
 
 
 def check_seg(name, n, d, k, reps, gen):
-    """The threshold-count kernel against its plain version (exact)."""
+    """The threshold-count kernel against its plain version (exact).
+
+    Labels are uniform in [-1, k).  At k = 1 they are the bisection's
+    global-rank call instead: every row 0 (all 32 lanes of a warp share
+    one counter, the worst case of the warp merge) and one row in 64 -1."""
     import torch
 
     from cdrs_tpu_torch.ops.seg_count import (label_threshold_count,
                                               label_threshold_count_plain)
 
     x = torch.rand((n, d), generator=gen, device="cuda")
-    labels = torch.randint(-1, k, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    if k == 1:
+        none = torch.randint(0, 64, (n,), generator=gen, device="cuda") == 0
+        labels = torch.where(none, -1, 0).to(torch.int32)
+    else:
+        labels = torch.randint(-1, k, (n,), generator=gen, device="cuda", dtype=torch.int32)
     thr = torch.rand((2, k, d), generator=gen, device="cuda")
     got = label_threshold_count(x, labels, thr)
     want = label_threshold_count_plain(x, labels, thr)
@@ -192,6 +202,37 @@ def check_seg(name, n, d, k, reps, gen):
             "max_abs_err": max_abs}
 
 
+def check_bisect(n, d, k, gen):
+    """Both counting calls of one bisection, as the main path makes them
+    (per-cluster and global ranks), on the card against the same bisection
+    on the CPU, where every count comes from the plain version.  The
+    thresholds are halvings of exact min/max values and the counts are
+    integers, so the medians must agree bit for bit."""
+    import torch
+
+    from cdrs_tpu_torch.ops.scoring import bisect_medians
+
+    x = torch.rand((n, d), generator=gen, device="cuda")
+    labels = torch.randint(0, k, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    before = label_launches()
+    med, gm = bisect_medians(x, labels, k, 2048, True)
+    launched = label_launches() - before
+    med_p, gm_p = bisect_medians(x.cpu(), labels.cpu(), k, 2048, True)
+    check(launched == 24, f"bisect: {launched} kernel launches, expected 24")
+    check(torch.equal(med.cpu(), med_p) and torch.equal(gm.cpu(), gm_p),
+          "bisect: card medians differ from the plain version's")
+    log(f"bisect n={n} d={d} k={k}: {launched} launches (per-cluster and global), "
+        f"medians identical to the plain version's")
+    del x, labels
+    torch.cuda.empty_cache()
+
+
+def label_launches() -> int:
+    from cdrs_tpu_torch.ops.seg_count import label_threshold_count
+
+    return label_threshold_count.launches
+
+
 def phase_kernels(reps):
     import torch
 
@@ -202,7 +243,15 @@ def phase_kernels(reps):
         "lloyd": check_lloyd("pipeline", n_main, 5, K, torch.float32, n_main, reps, gen),
         "seg_count": check_seg("pipeline", n_main, 5, K, reps, gen),
     }
+    # The main path's bisection calls the counting kernel at two shapes:
+    # per-cluster ranks (k = 8) and global ranks (k = 1, every row in one
+    # cluster).  The row's time is the k = 8 call's; its error covers both.
+    seg_global = check_seg("pipeline-global", n_main, 5, 1, reps, gen)
+    rows["seg_count"]["max_abs_err"] = max(rows["seg_count"]["max_abs_err"],
+                                           seg_global["max_abs_err"])
+    check_bisect(n_main, 5, K, gen)
     wide = {
+        "seg_count 2.5Mx5 k1 global": seg_global,
         "lloyd 1Mx32 k128 f32": check_lloyd("config2-f32", 1 << 20, 32, 128, torch.float32,
                                             (1 << 20) - 5, reps, gen),
         "lloyd 1Mx32 k128 bf16": check_lloyd("config2-bf16", 1 << 20, 32, 128,
@@ -271,20 +320,20 @@ def profile_cluster(cfg, norm):
 
     model = ReplicationPolicyModel(cfg.kmeans, cfg.scoring)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with deterministic(), torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.run(norm)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
     try:
-        with deterministic(), torch.profiler.profile(activities=acts) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model.run(norm)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
         by_name: dict[str, list] = {}
         for ev in prof.events():
             if ev.device_type == DeviceType.CUDA:
                 row = by_name.setdefault(ev.name, [0, 0.0])
                 row[0] += 1
                 row[1] += ev.time_range.elapsed_us()
-    except Exception as exc:  # the profile is a reading, not a check
+    except Exception as exc:  # reading the events is informational; the run above is not
         log(f"profile cluster: not measured ({type(exc).__name__}: {exc})")
         return
     busy_us = sum(us for _, us in by_name.values())

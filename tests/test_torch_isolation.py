@@ -23,7 +23,9 @@ def _deterministic():
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # _build holds build outputs (gitignored), not the package's sources.
+    return sorted(p for p in PKG.rglob("*.py") if "_build" not in p.relative_to(PKG).parts) \
+        + [ROOT / "chip_smoke.py"]
 
 
 def _forbidden(module: str) -> bool:
