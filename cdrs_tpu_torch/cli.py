@@ -1,7 +1,13 @@
-"""Command line of the PyTorch port: ``python -m cdrs_tpu_torch pipeline``.
+"""Command line of the PyTorch port: ``python -m cdrs_tpu_torch <command>``.
 
-The flags are those of ``cdrs_tpu``'s ``pipeline`` subcommand that this
-port supports, plus ``--device`` (CUDA unless "cpu" is asked for).
+* ``gen`` and ``simulate`` make a manifest and an access log on the host
+  (``simulate --out x.cdrsb`` writes the binary columnar log);
+* ``pipeline`` runs generator to decision in one process;
+* ``stream`` folds an access log in batches, then clusters (full-batch, or
+  mini-batch with ``--kmeans_batch``).
+
+The flags are those of ``cdrs_tpu``'s subcommands of the same names that
+this port supports, plus ``--device`` (CUDA unless "cpu" is asked for).
 """
 
 from __future__ import annotations
@@ -10,6 +16,7 @@ import argparse
 import dataclasses
 import json
 import sys
+import time
 
 from .config import (GeneratorConfig, KMeansConfig, PipelineConfig, ScoringConfig,
                      SimulatorConfig, load_scoring_config, validated_scoring_config)
@@ -45,6 +52,93 @@ def _cmd_pipeline(args) -> int:
     return 0
 
 
+def _cmd_gen(args) -> int:
+    from .sim.generator import generate_population
+
+    cfg = GeneratorConfig(n_files=args.n, base_dir=args.hdfs_dir, min_size=args.min_size,
+                          max_size=args.max_size, nodes=tuple(args.nodes.split(",")),
+                          age_days_max=args.age_days_max, seed=args.seed)
+    t0 = time.perf_counter()
+    manifest = generate_population(cfg)
+    manifest.write_csv(args.out_manifest)
+    print(f"Wrote {args.out_manifest} ({len(manifest)} files) in "
+          f"{time.perf_counter() - t0:.2f}s")
+    return 0
+
+
+def _cmd_simulate(args) -> int:
+    from .io.events import Manifest
+    from .sim.access import simulate_access
+
+    cfg = SimulatorConfig(duration_seconds=args.duration_seconds,
+                          clients=tuple(args.clients.split(",")), seed=args.seed)
+    fmt = args.format
+    if fmt == "auto":
+        fmt = "binary" if args.out.endswith(".cdrsb") else "csv"
+    t0 = time.perf_counter()
+    manifest = Manifest.read_csv(args.manifest)
+    events = simulate_access(manifest, cfg)
+    if fmt == "binary":
+        events.write_binary(args.out, manifest)
+    else:
+        events.write_csv(args.out, manifest)
+    print(f"Wrote {args.out} with {len(events)} entries in {time.perf_counter() - t0:.2f}s")
+    return 0
+
+
+def _cmd_stream(args) -> int:
+    """Fold the access log in batches on the device, finalize the features,
+    then cluster and score them there."""
+    from .device import deterministic
+    from .features.streaming import fold_stream, stream_finalize
+    from .io.events import Manifest
+    from .models.replication import ReplicationPolicyModel
+
+    if args.kmeans_batch is not None and args.kmeans_batch < 1:
+        print(f"error: --kmeans_batch must be >= 1, got {args.kmeans_batch}",
+              file=sys.stderr)
+        return 1
+    model = ReplicationPolicyModel(
+        kmeans_cfg=KMeansConfig(k=args.k, seed=args.seed, batch_size=args.kmeans_batch,
+                                init_method=args.init_method),
+        scoring_cfg=_load_scoring(args))
+    stats: dict = {}
+    with deterministic():
+        t0 = time.perf_counter()
+        manifest = Manifest.read_csv(args.manifest)
+        state = fold_stream(args.access_log, manifest, device=args.device,
+                            batch_size=args.batch_size, stats=stats,
+                            checkpoint_path=args.checkpoint,
+                            checkpoint_every=args.checkpoint_every)
+        table = stream_finalize(state, manifest)
+        if args.checkpoint and stats["resumed_from_offset"]:
+            print(f"Resumed from checkpoint at byte {stats['resumed_from_offset']}")
+        print(f"Streamed {state.n_events} events in {stats['batches']} batches "
+              f"({time.perf_counter() - t0:.2f}s)")
+        t0 = time.perf_counter()
+        decision = model.run(table.norm)
+        decision.write_csv(args.output_csv)
+    mode = f"mini-batch({args.kmeans_batch})" if args.kmeans_batch else "full-batch"
+    print(f"Cluster centroid assignments ({args.k} clusters, {mode}) saved to: "
+          f"{args.output_csv} in {time.perf_counter() - t0:.2f}s")
+    return 0
+
+
+def _add_scoring_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--medians_from_data", action="store_true")
+    p.add_argument("--scoring_config", default=None, metavar="JSON|validated")
+
+
+def _add_init_method_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--init_method", choices=["auto", "d2", "kmeans||"], default="auto",
+                   help="centroid init: 'd2' KMeans++, 'kmeans||' oversampling, "
+                        "'auto' kmeans|| at k >= 256 and d2 below")
+
+
+def _add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default=None, help="torch device: cuda (default) or cpu")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="cdrs_tpu_torch",
@@ -57,14 +151,53 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--k", type=int, default=4)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--outdir", default="output")
-    p.add_argument("--medians_from_data", action="store_true")
-    p.add_argument("--scoring_config", default=None, metavar="JSON|validated")
-    p.add_argument("--init_method", choices=["auto", "d2", "kmeans||"], default="auto",
-                   help="centroid init: 'd2' KMeans++, 'kmeans||' oversampling, "
-                        "'auto' kmeans|| at k >= 256 and d2 below")
-    p.add_argument("--device", default=None,
-                   help="torch device: cuda (default) or cpu")
+    _add_scoring_args(p)
+    _add_init_method_arg(p)
+    _add_device_arg(p)
     p.set_defaults(fn=_cmd_pipeline)
+
+    p = sub.add_parser("gen", help="generate a synthetic file population")
+    p.add_argument("--n", type=int, default=200)
+    p.add_argument("--hdfs_dir", default="/user/root/synth")
+    p.add_argument("--min_size", type=int, default=1024)
+    p.add_argument("--max_size", type=int, default=1024 * 1024)
+    p.add_argument("--nodes", default="dn1,dn2,dn3")
+    p.add_argument("--age_days_max", type=float, default=365.0)
+    p.add_argument("--out_manifest", default="metadata.csv")
+    p.add_argument("--seed", type=int, default=None)
+    p.set_defaults(fn=_cmd_gen)
+
+    p = sub.add_parser("simulate", help="simulate Poisson access events")
+    p.add_argument("--manifest", required=True)
+    p.add_argument("--out", default="access.log")
+    p.add_argument("--duration_seconds", type=float, default=300.0)
+    p.add_argument("--clients", default="dn1,dn2,dn3,dn4")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--format", choices=["auto", "csv", "binary"], default="auto",
+                   help="'csv' = access.log; 'binary' = the columnar .cdrsb log "
+                        "(every reader detects it); 'auto' = binary when --out "
+                        "ends in .cdrsb")
+    p.set_defaults(fn=_cmd_simulate)
+
+    p = sub.add_parser("stream", help="fold the access log in batches, then cluster")
+    p.add_argument("--manifest", required=True)
+    p.add_argument("--access_log", required=True)
+    p.add_argument("--batch_size", type=int, default=1_000_000,
+                   help="events per feature-fold batch")
+    p.add_argument("--kmeans_batch", type=int, default=None, metavar="ROWS",
+                   help="rows per mini-batch KMeans step (default: full-batch Lloyd)")
+    p.add_argument("--k", type=int, default=4)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--output_csv", default="final_categories.csv")
+    p.add_argument("--checkpoint", default=None, metavar="NPZ",
+                   help="snapshot the fold state and log offset here every "
+                        "--checkpoint_every batches; rerunning the same command "
+                        "resumes (offsets exist at .cdrsb block ends)")
+    p.add_argument("--checkpoint_every", type=int, default=25, metavar="B")
+    _add_scoring_args(p)
+    _add_init_method_arg(p)
+    _add_device_arg(p)
+    p.set_defaults(fn=_cmd_stream)
     return parser
 
 

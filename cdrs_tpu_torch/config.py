@@ -2,11 +2,9 @@
 batch pipeline needs, copied so the port never imports the JAX package.
 
 Defaults, validation and field meanings match the JAX package's
-(``cdrs_tpu/config.py``); the differences are the ones the port's scope
-forces: ``KMeansConfig`` has no mini-batch fields (``batch_size``/
-``batch_epochs`` belong to a later slice) and ``PipelineConfig`` names a
-torch ``device`` and the feature ``dtype`` in place of ``backend`` and
-``mesh_shape``.
+(``cdrs_tpu/config.py``); the difference is the one the port's scope
+forces: ``PipelineConfig`` names a torch ``device`` and the feature
+``dtype`` in place of ``backend`` and ``mesh_shape``.
 """
 
 from __future__ import annotations
@@ -235,6 +233,11 @@ class KMeansConfig:
     tol: float = 1e-4
     max_iter: int | None = None
     seed: int | None = 42
+    #: Rows per mini-batch of incremental (Sculley) KMeans; None = full-batch
+    #: Lloyd (ops/kmeans_stream.py).
+    batch_size: int | None = None
+    #: Shuffled passes over the data in mini-batch mode.
+    batch_epochs: int = 5
     #: "d2", "kmeans||", or "auto" (kmeans|| from k >= 256, d2 below).
     init_method: str = "auto"
     dtype: str | None = None

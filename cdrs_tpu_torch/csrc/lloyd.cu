@@ -1,8 +1,13 @@
 // Fused Lloyd step for Hopper (sm_90a): nearest-centroid labels plus the
 // per-cluster (sum, count) statistics, in one pass over the points.
 //
-// Replaces the TPU kernel lloyd_assign_reduce_pallas_t
-// (cdrs_tpu/ops/pallas_kernels.py, _kernel_t / _build_t).  What it computes:
+// Replaces both TPU kernels of the fused Lloyd step in
+// cdrs_tpu/ops/pallas_kernels.py: lloyd_assign_reduce_pallas_t (feature-major,
+// _kernel_t / _build_t; the full-batch Lloyd loop) and lloyd_assign_reduce_pallas
+// (row-major with a runtime n_valid mask and every label, _kernel / _build; the
+// mini-batch update and predict and the drift step).  The TPU needed two only
+// for its lane padding of narrow rows; this kernel has the row-major contract.
+// What it computes:
 //   label_i = first argmin_j ( |c_j|^2 - 2 <x_i, c_j> )
 //   sums[j] = sum_{i < n_valid, label_i = j} x_i     counts[j] = #{...}
 //

@@ -20,6 +20,7 @@ from torch import nn
 from ..config import (CATEGORIES, KMeansConfig, MetricsLog, ScoringConfig,
                       validate_replication_factors)
 from ..ops.kmeans import kmeans_full
+from ..ops.kmeans_stream import MiniBatchKMeans, MiniBatchState
 from ..ops.scoring import classify, scoring_tables
 
 __all__ = ["ClusterDecision", "ReplicationPolicyModel", "centroid_id"]
@@ -93,18 +94,60 @@ class ReplicationPolicyModel(nn.Module):
                 for name in ("W", "D", "rf", "is_moderate", "band", "global_medians")}
 
     def cluster(self, X: torch.Tensor, init_centroids=None):
-        """(centroids, labels) of a KMeans++ fit on ``X``; the centroids
-        become the model's ``centroids`` buffer."""
+        """(centroids, labels) of a KMeans++ fit on ``X`` (mini-batch when
+        ``batch_size`` is set); the centroids become the model's
+        ``centroids`` buffer.  ``n_iter`` counts Lloyd iterations, or
+        mini-batch updates."""
         cfg = self.kmeans_cfg
         n = X.shape[0]
         if n < cfg.k:
             raise ValueError(f"{n} samples found, but K={cfg.k} requested; cannot cluster")
-        centroids, labels, self.n_iter, _ = kmeans_full(
-            X, cfg.k, tol=cfg.tol, seed=cfg.seed, max_iter=cfg.resolve_max_iter(n),
-            init_centroids=init_centroids, init_method=cfg.init_method,
-            dtype=cfg.dtype)
+        if cfg.batch_size is not None:
+            centroids, labels = self._cluster_minibatch(X, init_centroids)
+        else:
+            centroids, labels, self.n_iter, _ = kmeans_full(
+                X, cfg.k, tol=cfg.tol, seed=cfg.seed, max_iter=cfg.resolve_max_iter(n),
+                init_centroids=init_centroids, init_method=cfg.init_method,
+                dtype=cfg.dtype)
         self.centroids = centroids
         return centroids, labels
+
+    def _cluster_minibatch(self, X: torch.Tensor, init_centroids=None):
+        """Mini-batch KMeans over ``batch_epochs`` shuffled passes of
+        ``batch_size`` rows, then a predict pass in chunks of
+        ``batch_size``.  The shuffles are ``np.random.default_rng(seed)``
+        permutations, the JAX package's, so both see the same batches;
+        batches are gathered on ``X``'s device.  Always float32."""
+        cfg = self.kmeans_cfg
+        n = X.shape[0]
+        bs = int(cfg.batch_size)
+        if bs < 1:
+            raise ValueError(f"batch_size must be >= 1, got {bs}")
+        if cfg.dtype not in (None, "float32"):
+            raise ValueError(f"dtype {cfg.dtype!r} is a full-batch Lloyd knob; mini-batch "
+                             f"KMeans (batch_size) always runs float32")
+        if bs < cfg.k and init_centroids is None:
+            raise ValueError(
+                f"batch_size={bs} must be >= k={cfg.k} (the first mini-batch seeds the "
+                f"centroid init; pass init_centroids to warm-start with smaller batches)")
+        mb = MiniBatchKMeans(k=cfg.k, seed=cfg.seed, device=X.device)
+        if init_centroids is not None:
+            if not torch.is_tensor(init_centroids):
+                init_centroids = torch.from_numpy(np.asarray(init_centroids, np.float64))
+            mb.state = MiniBatchState(
+                centroids=init_centroids.to(device=X.device, dtype=torch.float32),
+                counts=torch.zeros(cfg.k, dtype=torch.int32, device=X.device))
+        rng = np.random.default_rng(cfg.seed)
+        self.n_iter = 0
+        for _ in range(max(1, int(cfg.batch_epochs))):
+            order = torch.from_numpy(rng.permutation(n)).to(X.device)
+            for lo in range(0, n, bs):
+                mb.partial_fit(X[order[lo:lo + bs]])
+                self.n_iter += 1
+        labels = torch.empty(n, dtype=torch.int32, device=X.device)
+        for lo in range(0, n, bs):
+            labels[lo:lo + bs] = mb.predict(X[lo:lo + bs])
+        return mb.centroids, labels
 
     def score(self, X: torch.Tensor, labels: torch.Tensor):
         """(category_idx (k,), scores (k, C), cluster_medians (k, d))."""

@@ -1,19 +1,32 @@
 """One fused Lloyd step: nearest-centroid labels and per-cluster (sum, count).
 
 ``lloyd_assign_reduce`` is the wrapper of the CUDA kernel in
-``csrc/lloyd.cu``, which replaces the TPU kernel
-``lloyd_assign_reduce_pallas_t`` (``cdrs_tpu/ops/pallas_kernels.py:392``).
-On a CPU tensor the wrapper runs ``lloyd_assign_reduce_plain``, the same
-function in plain PyTorch; on a CUDA tensor it launches the kernel or
-raises.  The kernel's source note says what bounds it on the card and
-what its design does about that.
+``csrc/lloyd.cu``, which replaces both TPU kernels of the fused Lloyd step
+in ``cdrs_tpu/ops/pallas_kernels.py``:
+
+* ``lloyd_assign_reduce_pallas_t`` (``:392``), feature-major, run by the
+  full-batch Lloyd loop (``with_labels=False``) and its final label pass;
+* ``lloyd_assign_reduce_pallas`` (``:443``), row-major with a runtime
+  ``n_valid`` mask and a label for every row, run by the mini-batch update
+  and predict (``ops/kmeans_stream.py``) and the drift detector's step
+  (``control/drift.py``).
+
+The TPU needed two kernels only for its lane padding of narrow rows; the
+CUDA kernel reads row-major ``x``, masks rows ``>= n_valid`` itself and
+writes every label when asked, which is the second kernel's contract, so
+one kernel and one launch counter serve both.  On a CPU tensor the
+wrapper runs ``lloyd_assign_reduce_plain``, the same function in plain
+PyTorch; on a CUDA tensor it launches the kernel or raises.  The kernel's
+source note says what bounds it on the card and what its design does
+about that.
 
 Semantics shared by both versions:
 * distances ``|c|^2 - 2 x.c`` in float32 (float64 for float64 points on
   the CPU); for bf16 points ``c`` is rounded to bf16 and ``|c|^2`` is taken
   in f32 from the rounded centroids, as the TPU kernel does;
 * the first minimum wins;
-* rows ``>= n_valid`` get a label but add nothing to sums or counts;
+* rows ``>= n_valid`` get a label but add nothing to sums or counts,
+  whatever they hold (no zero-pad contract);
 * sums are float32 (the stat dtype), counts are exact integers returned
   as float32.
 """

@@ -10,8 +10,10 @@ Phases, each of which exits non-zero when a check fails:
    CUDA versions, and the build of every CUDA kernel from
    ``cdrs_tpu_torch/csrc`` (one nvcc per source, all at once).
 2. Kernels against their plain PyTorch versions on the card, at the main
-   path's shapes and at wider ones: labels, sums and counts of the Lloyd
-   kernel, exact counts of the threshold-count kernel at both of the
+   path's shapes and at wider ones: labels (every row), sums and counts of
+   the Lloyd kernel, both as the full-batch loop calls it and as the
+   stream path does (labels written, non-zero rows past ``n_valid``), exact
+   counts of the threshold-count kernel at both of the
    bisection's shapes (per-cluster ranks, k = 8, and global ranks, k = 1),
    one whole bisection on the card against the same on the CPU, and
    median times over repeated launches (CUDA events).
@@ -22,6 +24,15 @@ Phases, each of which exits non-zero when a check fails:
 4. The card against the CPU: the pipeline at 20,000 files from one carried
    init on both devices; labels agree on >= 99.9% of files and the
    per-cluster categories are identical.
+5. The stream path on CUDA over phase 3's population and events: the log
+   written as ``.cdrsb``; ``fold_stream`` in 4M-event batches, whose
+   finalized table must equal phase 3's batch table bit for bit;
+   mini-batch KMeans (``batch_size`` 262,144) through
+   ``ReplicationPolicyModel.run``, whose Lloyd launches must be one per
+   update plus one per predict chunk; ``detect_drift_torch`` on the first
+   half of the log against phase 3's model, one launch, held against the
+   host oracle (centroid shift within 1e-4, fractions within 1e-6); and
+   mini-batch on the card against the CPU at 20,000 files from one init.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It imports nothing of the JAX
@@ -46,6 +57,8 @@ MAIN_FILES = 2_500_000
 MAIN_SEED = 10
 MAIN_DURATION = 60.0
 K = 8
+STREAM_BATCH = 4_000_000     # events per fold batch
+MB_BATCH = 262_144           # rows per mini-batch update
 
 
 def fail(msg: str) -> None:
@@ -112,15 +125,21 @@ def _distances64(x, c, rows, labs):
     return ((x[rows].double() - c[labs].double()) ** 2).sum(dim=1)
 
 
-def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen):
-    """The Lloyd kernel against its plain version; returns a result row."""
+def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False):
+    """The Lloyd kernel against its plain version; returns a result row.
+
+    Labels are compared on every row, rows past ``n_valid`` included,
+    which hold values far outside the data (they must add nothing).  The
+    times are of calls with ``with_labels`` as the path makes them."""
     import torch
 
     from cdrs_tpu_torch.ops.lloyd import (centroid_operands, lloyd_assign_reduce,
                                           lloyd_assign_reduce_plain)
 
-    x = torch.rand((n, d), generator=gen, device="cuda").to(dtype)
-    c = x[torch.randperm(n, generator=gen, device="cuda")[:k]].float()
+    x = torch.rand((n, d), generator=gen, device="cuda")
+    x[n_valid:] += 50.0
+    x = x.to(dtype)
+    c = x[torch.randperm(n_valid, generator=gen, device="cuda")[:k]].float()
     lab_k, sums_k, cnt_k = lloyd_assign_reduce(x, c, n_valid, with_labels=True)
     lab_p, sums_p, cnt_p = lloyd_assign_reduce_plain(x, c, n_valid, with_labels=True)
     torch.cuda.synchronize()
@@ -151,14 +170,18 @@ def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen):
         rel_p = float(((sums_k - sums_p).abs() / sums_p.abs().clamp(min=1.0)).max())
         check(rel_p <= 1e-4, f"lloyd {name}: sums off the plain version by {rel_p:.3e} rel")
 
-    ms = time_ms(lambda: lloyd_assign_reduce(x, c, n_valid, with_labels=False), reps)
-    plain_ms = time_ms(lambda: lloyd_assign_reduce_plain(x, c, n_valid, with_labels=False),
-                       max(2, reps // 4))
-    xb = x.element_size()
-    n_bytes = n * d * xb + k * d * 4 + k * 4 + k * d * 4 + k * 4
+    ms = time_ms(lambda: lloyd_assign_reduce(x, c, n_valid, with_labels=with_labels), reps)
+    plain_ms = time_ms(
+        lambda: lloyd_assign_reduce_plain(x, c, n_valid, with_labels=with_labels),
+        max(2, reps // 4))
+    # Bytes: x read once, labels written once when asked, centroids and
+    # |c|^2 read, sums and counts written.
+    n_bytes = (n * d * x.element_size() + (n * 4 if with_labels else 0)
+               + k * d * 8 + k * 8)
     n_ops = 2.0 * n * k * d + n_valid * d
     b_ms, b_by = bound_ms(n_bytes, n_ops, str(dtype).replace("torch.", ""))
-    log(f"lloyd {name}: n={n} d={d} k={k} {dtype} n_valid={n_valid} labels agree "
+    log(f"lloyd {name}: n={n} d={d} k={k} {dtype} n_valid={n_valid} "
+        f"with_labels={with_labels} labels agree "
         f"{agree:.6f} ({diff.numel()} ties) sums rel {rel:.2e} |kernel-plain| {max_abs:.3e} "
         f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
     del x, lab_k, lab_p, ref
@@ -242,7 +265,16 @@ def phase_kernels(reps):
     rows = {
         "lloyd": check_lloyd("pipeline", n_main, 5, K, torch.float32, n_main, reps, gen),
         "seg_count": check_seg("pipeline", n_main, 5, K, reps, gen),
+        # The stream path's shape: one mini-batch update, labels written,
+        # the valid rows short of the buffer.
+        "lloyd_rowmajor": check_lloyd("minibatch", MB_BATCH, 5, K, torch.float32,
+                                      MB_BATCH - 1000, reps, gen, with_labels=True),
     }
+    # The drift and predict shape: every file, labels written.
+    lloyd_drift = check_lloyd("drift", n_main, 5, K, torch.float32, n_main - 3, reps, gen,
+                              with_labels=True)
+    rows["lloyd_rowmajor"]["max_abs_err"] = max(rows["lloyd_rowmajor"]["max_abs_err"],
+                                                lloyd_drift["max_abs_err"])
     # The main path's bisection calls the counting kernel at two shapes:
     # per-cluster ranks (k = 8) and global ranks (k = 1, every row in one
     # cluster).  The row's time is the k = 8 call's; its error covers both.
@@ -252,6 +284,7 @@ def phase_kernels(reps):
     check_bisect(n_main, 5, K, gen)
     wide = {
         "seg_count 2.5Mx5 k1 global": seg_global,
+        "lloyd 2.5Mx5 k8 labels": lloyd_drift,
         "lloyd 1Mx32 k128 f32": check_lloyd("config2-f32", 1 << 20, 32, 128, torch.float32,
                                             (1 << 20) - 5, reps, gen),
         "lloyd 1Mx32 k128 bf16": check_lloyd("config2-bf16", 1 << 20, 32, 128,
@@ -305,7 +338,7 @@ def phase_main_path():
     acc = result.planted_accuracy
     check(acc is not None and acc > 0.5, f"planted_accuracy {acc} <= 0.5")
     profile_cluster(cfg, result.table.norm)
-    return launches
+    return launches, cfg, result
 
 
 def profile_cluster(cfg, norm):
@@ -376,6 +409,143 @@ def phase_card_vs_cpu():
     check(agree >= 0.999, f"card and CPU labels agree on {agree:.6f} < 0.999")
     check(runs["cuda"].categories == runs["cpu"].categories,
           "card and CPU per-cluster categories differ")
+    return table.norm, init
+
+
+def phase_stream_path(cfg, main_result):
+    """Phase 5: the stream path on the card over phase 3's workload.
+    Returns the Lloyd kernel's launches on the path and the path's times."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cdrs_tpu_torch import KMeansConfig, validated_scoring_config
+    from cdrs_tpu_torch.config import CATEGORIES
+    from cdrs_tpu_torch.control.drift import assign_labels, detect_drift, detect_drift_torch
+    from cdrs_tpu_torch.device import deterministic
+    from cdrs_tpu_torch.features.streaming import fold_stream, stream_finalize
+    from cdrs_tpu_torch.io.events import EventLog
+    from cdrs_tpu_torch.models.replication import ReplicationPolicyModel
+    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
+    from cdrs_tpu_torch.ops.seg_count import label_threshold_count
+    from cdrs_tpu_torch.pipeline import recovery_accuracy
+    from cdrs_tpu_torch.sim.access import simulate_access
+    from cdrs_tpu_torch.sim.generator import generate_population
+
+    manifest = generate_population(cfg.generator)
+    events = simulate_access(manifest, cfg.simulator)
+    n, n_events = len(manifest), len(events)
+    check(n_events == main_result.n_events, "phase 3's workload did not regenerate alike")
+    check(bool((events.path_id >= 0).all()),
+          "the simulator emitted unknown paths; pass observation_end to stream_finalize")
+    dec3 = main_result.decision
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp, deterministic():
+        log_path = os.path.join(tmp, "access.cdrsb")
+        t0 = time.perf_counter()
+        events.write_binary(log_path, manifest)
+        times["write_seconds"] = time.perf_counter() - t0
+        log_bytes = os.path.getsize(log_path)
+
+        lloyd_assign_reduce.launches = 0
+        label_threshold_count.launches = 0
+        stats: dict = {}
+        t0 = time.perf_counter()
+        state = fold_stream(log_path, manifest, device="cuda", batch_size=STREAM_BATCH,
+                            stats=stats)
+        table = stream_finalize(state, manifest)
+        torch.cuda.synchronize()
+        times["fold_wall_seconds"] = time.perf_counter() - t0
+        times.update({key: stats[key] for key in ("parse_seconds", "prep_seconds",
+                                                  "fold_seconds", "batches")})
+        times["events_per_second"] = state.n_events / times["fold_wall_seconds"]
+        log(f"stream fold: {state.n_events} events from {log_bytes} B of .cdrsb in "
+            f"{stats['batches']} batches; wall {times['fold_wall_seconds']:.3f} s "
+            f"({times['events_per_second']:.0f} events/s), parse "
+            f"{stats['parse_seconds']:.3f} s, prep {stats['prep_seconds']:.3f} s, "
+            f"fold {stats['fold_seconds']:.3f} s (the producer thread overlaps the fold); "
+            f"log write {times['write_seconds']:.3f} s")
+        check(state.n_events == n_events, f"folded {state.n_events} of {n_events} events")
+        check(torch.equal(table.raw, main_result.table.raw)
+              and torch.equal(table.norm, main_result.table.norm),
+              "the streamed table differs from the batch table")
+        log(f"stream features: {n} x 5 raw and norm bit-identical to phase 3's batch table")
+
+        model = ReplicationPolicyModel(
+            KMeansConfig(k=K, seed=MAIN_SEED, batch_size=MB_BATCH), validated_scoring_config())
+        t0 = time.perf_counter()
+        dec = model.run(table.norm)
+        torch.cuda.synchronize()
+        times["minibatch_seconds"] = time.perf_counter() - t0
+        chunks = -(-n // MB_BATCH)
+        epochs = model.kmeans_cfg.batch_epochs
+        mb_launches = lloyd_assign_reduce.launches
+        check(mb_launches == chunks * epochs + chunks,
+              f"mini-batch made {mb_launches} Lloyd launches, expected {chunks} updates x "
+              f"{epochs} epochs + {chunks} predict chunks")
+        check(bool(np.isfinite(dec.centroids).all()), "mini-batch: non-finite centroids")
+        check(bool(np.isfinite(dec.scores).all()), "mini-batch: non-finite scores")
+        check(int(dec.labels.min()) >= 0 and int(dec.labels.max()) < K,
+              "mini-batch: labels out of range")
+        log(f"stream mini-batch: k={K} batch {MB_BATCH}, {model.n_iter} updates, "
+            f"{mb_launches} Lloyd launches, {label_threshold_count.launches} threshold-count "
+            f"launches, {times['minibatch_seconds']:.3f} s, categories {dec.categories}, "
+            f"planted accuracy {recovery_accuracy(dec, manifest.category):.4f}")
+
+    half = n_events // 2
+    parts = [EventLog(ts=events.ts[lo:min(lo + STREAM_BATCH, half)],
+                      path_id=events.path_id[lo:min(lo + STREAM_BATCH, half)],
+                      op=events.op[lo:min(lo + STREAM_BATCH, half)],
+                      client_id=events.client_id[lo:min(lo + STREAM_BATCH, half)],
+                      clients=events.clients)
+             for lo in range(0, half, STREAM_BATCH)]
+    with deterministic():
+        half_norm = stream_finalize(fold_stream(parts, manifest, device="cuda"),
+                                    manifest).norm
+        frac3 = np.bincount(dec3.category_idx[dec3.labels], minlength=len(CATEGORIES)) / n
+        args = (dec3.centroids, dec3.category_idx, frac3, len(CATEGORIES))
+        before = lloyd_assign_reduce.launches
+        rep = detect_drift_torch(half_norm, *args)
+        drift_launches = lloyd_assign_reduce.launches - before
+        launches = lloyd_assign_reduce.launches
+        check(drift_launches == 1, f"drift made {drift_launches} Lloyd launches, expected 1")
+        x64 = half_norm.cpu().double().numpy()
+        oracle = detect_drift(x64, *args)
+        d_shift = abs(rep.centroid_shift - oracle.centroid_shift)
+        d_frac = float(np.abs(rep.fractions - oracle.fractions).max())
+        c32 = torch.as_tensor(dec3.centroids, dtype=torch.float32, device="cuda")
+        lab = lloyd_assign_reduce(half_norm, c32, with_labels=True)[0].cpu().numpy()
+        flips = int((lab != assign_labels(x64, dec3.centroids.astype(np.float64))).sum())
+        times["drift_ms"] = time_ms(lambda: detect_drift_torch(half_norm, *args), 10)
+    log(f"stream drift: first {half} events, 1 launch, shift {rep.centroid_shift:.6f} "
+        f"(oracle {oracle.centroid_shift:.6f}, diff {d_shift:.2e}), population delta "
+        f"{rep.population_delta:.6f} (oracle {oracle.population_delta:.6f}), fractions "
+        f"diff {d_frac:.2e}, label flips against the oracle {flips}, "
+        f"{times['drift_ms']:.4f} ms per call")
+    check(d_shift <= 1e-4, f"drift centroid shift off the oracle by {d_shift:.3e}")
+    check(d_frac <= 1e-6, f"drift fractions off the oracle by {d_frac:.3e}")
+    return launches, times
+
+
+def phase_minibatch_card_vs_cpu(norm_cpu, init):
+    """Mini-batch on the card against the CPU at 20,000 files, one init."""
+    from cdrs_tpu_torch import KMeansConfig, validated_scoring_config
+    from cdrs_tpu_torch.device import deterministic
+    from cdrs_tpu_torch.models.replication import ReplicationPolicyModel
+
+    runs = {}
+    with deterministic():
+        for dev in ("cuda", "cpu"):
+            model = ReplicationPolicyModel(
+                KMeansConfig(k=K, seed=MAIN_SEED, batch_size=2048), validated_scoring_config())
+            runs[dev] = model.run(norm_cpu.to(dev), init_centroids=init)
+    agree = float((runs["cuda"].labels == runs["cpu"].labels).mean())
+    log(f"mini-batch card vs cpu at {norm_cpu.shape[0]} files: labels agree {agree:.6f}, "
+        f"categories {runs['cuda'].categories} vs {runs['cpu'].categories}")
+    check(agree >= 0.999, f"mini-batch card and CPU labels agree on {agree:.6f} < 0.999")
+    check(runs["cuda"].categories == runs["cpu"].categories,
+          "mini-batch card and CPU per-cluster categories differ")
 
 
 def main() -> int:
@@ -399,8 +569,11 @@ def main() -> int:
     if args.quick:
         log(f"quick run done in {time.perf_counter() - t_start:.1f} s; main path skipped")
         return 0
-    launches = phase_main_path()
-    phase_card_vs_cpu()
+    launches, cfg, main_result = phase_main_path()
+    norm_20k, init_20k = phase_card_vs_cpu()
+    stream_launches, stream_times = phase_stream_path(cfg, main_result)
+    phase_minibatch_card_vs_cpu(norm_20k, init_20k)
+    log("stream path times " + json.dumps(stream_times))
 
     kernels = [
         {"name": "lloyd_assign_reduce", "route": "cuda",
@@ -411,6 +584,10 @@ def main() -> int:
          "source": "cdrs_tpu_torch/csrc/seg_count.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:534",
          "launches": launches["seg_count"], **rows["seg_count"], "library_ms": None},
+        {"name": "lloyd_assign_reduce (row-major, labels)", "route": "cuda",
+         "source": "cdrs_tpu_torch/csrc/lloyd.cu",
+         "replaces": "cdrs_tpu/ops/pallas_kernels.py:443",
+         "launches": stream_launches, **rows["lloyd_rowmajor"], "library_ms": None},
     ]
     for row in kernels:
         check(all(isinstance(row[key], (int, float)) and math.isfinite(row[key])

@@ -1,0 +1,85 @@
+"""``python -m cdrs_tpu_torch gen | simulate | stream`` end to end on the CPU.
+
+``gen`` and ``simulate`` write byte-identical files to ``cdrs gen`` and
+``cdrs simulate`` on the same seeds (CSV manifest, ``.cdrsb`` log);
+``stream --kmeans_batch`` folds that log and writes ``final_categories.csv``,
+and the folded features equal the port's batch features of the same files.
+"""
+
+import csv
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+from cdrs_tpu.cli import main as reference_main  # noqa: E402
+
+from cdrs_tpu_torch.config import CATEGORIES  # noqa: E402
+from cdrs_tpu_torch.features.batch import compute_features_torch  # noqa: E402
+from cdrs_tpu_torch.features.streaming import fold_stream, stream_finalize  # noqa: E402
+from cdrs_tpu_torch.io.events import EventLog, Manifest  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+ENV = {**os.environ, "PYTHONPATH": str(ROOT)}
+
+
+def _port(*args, cwd):
+    proc = subprocess.run([sys.executable, "-m", "cdrs_tpu_torch", *args], cwd=cwd,
+                          env=ENV,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout
+
+
+def test_gen_simulate_stream_end_to_end(tmp_path):
+    _port("gen", "--n", "500", "--seed", "5", "--out_manifest", "m.csv", cwd=tmp_path)
+    out = _port("simulate", "--manifest", "m.csv", "--out", "a.cdrsb",
+                "--duration_seconds", "240", "--seed", "6", cwd=tmp_path)
+    assert out.startswith("Wrote a.cdrsb with ")
+    ref = tmp_path / "ref"
+    ref.mkdir()
+    assert reference_main(["gen", "--n", "500", "--seed", "5",
+                           "--out_manifest", str(ref / "m.csv")]) == 0
+    assert reference_main(["simulate", "--manifest", str(ref / "m.csv"),
+                           "--out", str(ref / "a.cdrsb"), "--duration_seconds", "240",
+                           "--seed", "6"]) == 0
+    for name in ("m.csv", "a.cdrsb"):
+        assert (tmp_path / name).read_bytes() == (ref / name).read_bytes(), name
+
+    out = _port("stream", "--manifest", "m.csv", "--access_log", "a.cdrsb",
+                "--batch_size", "4000", "--k", "4", "--seed", "0", "--kmeans_batch", "256",
+                "--scoring_config", "validated", "--device", "cpu",
+                "--checkpoint", "fold.npz", "--checkpoint_every", "1", cwd=tmp_path)
+    assert "mini-batch(256)" in out and not (tmp_path / "fold.npz").exists()
+    with open(tmp_path / "final_categories.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 4 and all(r["category"] in CATEGORIES for r in rows)
+    assert all(r["centroid_id"].startswith("CENTROID_") for r in rows)
+
+    manifest = Manifest.read_csv(str(tmp_path / "m.csv"))
+    log = str(tmp_path / "a.cdrsb")
+    streamed = stream_finalize(fold_stream(log, manifest, device="cpu", batch_size=4000),
+                               manifest)
+    batch = compute_features_torch(manifest, EventLog.read_csv(log, manifest), device="cpu")
+    assert torch.equal(streamed.raw, batch.raw) and torch.equal(streamed.norm, batch.norm)
+
+
+def test_stream_rejects_a_bad_kmeans_batch_and_a_cuda_less_default(tmp_path):
+    _port("gen", "--n", "50", "--seed", "1", "--out_manifest", "m.csv", cwd=tmp_path)
+    _port("simulate", "--manifest", "m.csv", "--out", "a.log", "--duration_seconds", "30",
+          "--seed", "2", cwd=tmp_path)
+    assert not (tmp_path / "a.log").read_bytes().startswith(b"CDRSBEV1")
+    args = [sys.executable, "-m", "cdrs_tpu_torch", "stream", "--manifest", "m.csv",
+            "--access_log", "a.log", "--k", "2"]
+    bad = subprocess.run(args + ["--kmeans_batch", "0", "--device", "cpu"], cwd=tmp_path,
+                         env=ENV, capture_output=True, text=True, timeout=300)
+    assert bad.returncode == 1 and "--kmeans_batch must be >= 1" in bad.stderr
+    if not torch.cuda.is_available():
+        no_cuda = subprocess.run(args, cwd=tmp_path, env=ENV, capture_output=True,
+                                 text=True, timeout=300)
+        assert no_cuda.returncode != 0 and "CUDA is not available" in no_cuda.stderr

@@ -1,7 +1,10 @@
-"""The plain version of the port's fused Lloyd step against the TPU kernel
-``lloyd_assign_reduce_pallas_t`` run in interpret mode.
+"""The plain version of the port's fused Lloyd step against both TPU
+kernels it replaces, run in interpret mode: the feature-major
+``lloyd_assign_reduce_pallas_t`` (B1) and the row-major
+``lloyd_assign_reduce_pallas`` (B3).
 
-Labels are identical on the valid rows (a label that differs must sit on
+Labels are identical on the valid rows, and for B3 on every row (a label
+that differs must sit on
 a distance tie within 1e-6 relative, where XLA's and torch's dot products
 may round apart); sums within atol 1e-3, the tolerance ``test_pallas.py``
 uses for f32 sums taken in another order; counts exact.  The CUDA kernel
@@ -15,7 +18,8 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
-from cdrs_tpu.ops.pallas_kernels import lloyd_assign_reduce_pallas_t  # noqa: E402
+from cdrs_tpu.ops.pallas_kernels import (lloyd_assign_reduce_pallas,  # noqa: E402
+                                         lloyd_assign_reduce_pallas_t)
 
 from cdrs_tpu_torch.ops.lloyd import (centroid_operands, lloyd_assign_reduce,  # noqa: E402
                                       lloyd_assign_reduce_plain)
@@ -62,6 +66,32 @@ def test_plain_lloyd_matches_pallas_kernel(n, d, k, n_valid, dtype):
                         lab.numpy()[:n_valid], np.asarray(lab_j)[:n_valid])
     np.testing.assert_allclose(sums.numpy(), np.asarray(sums_j), atol=1e-3)
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_j))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d,k,n_valid", [
+    (2048, 5, 8, 1999),      # the mini-batch and drift width
+    (3072, 32, 128, 2051),   # a wider model, three row tiles
+])
+def test_plain_lloyd_matches_row_major_pallas_kernel(n, d, k, n_valid, dtype):
+    """B3's contract: rows padded to the 1024-row tile, garbage (not zeros)
+    past ``n_valid`` adding nothing, and a label for every row."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[n_valid:] = rng.uniform(5.0, 50.0, size=(n - n_valid, d))
+    c = x[:k].copy()
+    xj = jnp.asarray(x).astype(getattr(jnp, dtype))
+    lab_j, sums_j, cnt_j = lloyd_assign_reduce_pallas(
+        xj, jnp.asarray(c), n_valid=n_valid, interpret=True, tile_rows=1024)
+
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    lab, sums, cnt = lloyd_assign_reduce(xt, torch.from_numpy(c), n_valid, with_labels=True)
+    assert lab.shape == (n,) and lab.dtype == torch.int32
+    c_used = centroid_operands(torch.from_numpy(c), xt.dtype)[0].double().numpy()
+    assert_labels_match(xt.float().numpy(), c_used, lab.numpy(), np.asarray(lab_j))
+    np.testing.assert_allclose(sums.numpy(), np.asarray(sums_j), atol=1e-3)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_j))
+    assert int(cnt.sum()) == n_valid
 
 
 def test_rows_past_n_valid_never_count():
