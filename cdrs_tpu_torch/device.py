@@ -7,15 +7,21 @@
   f32/f64 pass through.
 * ``deterministic``: the numerics the port is held to — deterministic
   algorithms on, TF32 off for matmuls and convolutions.
+* ``unfilled``: allocation without deterministic mode's NaN fill, for
+  buffers a kernel writes in full; ``sm_count``: a device's SM count,
+  read once.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
+import torch.utils.deterministic
 
-__all__ = ["resolve_device", "stat_dtype", "torch_dtype", "deterministic"]
+__all__ = ["resolve_device", "stat_dtype", "torch_dtype", "deterministic", "unfilled",
+           "sm_count"]
 
 _DTYPES = {
     "float32": torch.float32,
@@ -73,3 +79,30 @@ def deterministic():
         torch.use_deterministic_algorithms(prev[0])
         torch.backends.cuda.matmul.allow_tf32 = prev[1]
         torch.backends.cudnn.allow_tf32 = prev[2]
+
+
+class unfilled:
+    """``torch.empty`` inside the block skips deterministic mode's NaN fill
+    (``torch.utils.deterministic.fill_uninitialized_memory``); the flag comes
+    back on exit.  Only for buffers that a kernel writes in full.  Outside
+    deterministic mode nothing is filled and nothing is touched."""
+
+    __slots__ = ("_prev",)
+
+    def __enter__(self):
+        self._prev = (torch.are_deterministic_algorithms_enabled()
+                      and torch.utils.deterministic.fill_uninitialized_memory)
+        if self._prev:
+            torch.utils.deterministic.fill_uninitialized_memory = False
+        return self
+
+    def __exit__(self, *exc):
+        if self._prev:
+            torch.utils.deterministic.fill_uninitialized_memory = True
+        return False
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -4,13 +4,16 @@ Each source in ``cdrs_tpu_torch/csrc/`` compiles with ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, loaded
 with ``ctypes``.  Builds happen at first use, never at import, into
 ``cdrs_tpu_torch/_build/`` (listed in ``.gitignore``); a library's file
-name carries the hash of its source and flags, so an edited source
-rebuilds and an unchanged one loads as it is.  ``build_all`` starts one
-``nvcc`` per source at once and waits for all of them.
+name carries the hash of its source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source rebuilds and an unchanged one loads as
+it is.  ``build_all`` starts one ``nvcc`` per source at once and waits for
+all of them.  ``bind`` sets a function's ctypes signature once;
+``scratch`` keeps a kernel's reusable buffers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,7 +23,8 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load", "nvcc_path", "ptxas_info"]
+__all__ = ["SOURCES", "build_all", "load", "bind", "scratch", "on_device", "nvcc_path",
+           "ptxas_info"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -31,6 +35,9 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], object] = {}
+_scratch: dict[tuple, tuple] = {}
+_SCRATCH_ENTRIES = 8
 #: ``nvcc -Xptxas -v`` output (registers, shared memory, spills) per source.
 ptxas_info: dict[str, str] = {}
 
@@ -47,7 +54,8 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # The shared headers are hashed with every source: any of them may include them.
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -91,3 +99,39 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build_all((name,))
     return _libs[name]
+
+
+def bind(name: str, fn_name: str, argtypes, restype=ctypes.c_int):
+    """``fn_name`` of library ``name`` with its ctypes signature (an int
+    return code unless ``restype`` says otherwise), set once when the
+    function is first bound."""
+    fn = _fns.get((name, fn_name))
+    if fn is None:
+        fn = getattr(load(name), fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _fns[(name, fn_name)] = fn
+    return fn
+
+
+def scratch(key: tuple, make):
+    """Kernel scratch kept across calls, made by ``make()`` on first use of
+    ``key``, which names the device and stream among its fields: launches
+    on one stream run in order, so one buffer serves them all.  At most
+    ``_SCRATCH_ENTRIES`` keys are kept; the oldest goes first."""
+    buf = _scratch.get(key)
+    if buf is None:
+        if len(_scratch) >= _SCRATCH_ENTRIES:
+            _scratch.pop(next(iter(_scratch)))
+        buf = _scratch[key] = make()
+    return buf
+
+
+def on_device(index: int):
+    """A context on CUDA device ``index``, entered only when it is not
+    already the current one (ctypes calls run on the current device)."""
+    import torch
+
+    if torch.cuda.current_device() == index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)

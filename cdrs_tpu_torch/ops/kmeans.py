@@ -6,13 +6,16 @@ single device.
   the card (f32/bf16 points), its plain PyTorch version on the CPU.  The
   loop condition is the reference's ``it < max_iter and (it == 0 or
   shift >= tol)``; ``tol <= 0`` runs exactly ``max_iter`` iterations.
-  ``shift`` (the Frobenius centroid move) is read on the host once per
+  ``shift`` (the Frobenius centroid move) is the one host read per
   iteration.
 * **Labels** come from one pass against the centroids *before* the last
   update (the reference's loop order).
 * **Empty clusters** are reseeded to a uniformly drawn valid row, from a
   generator keyed by the global iteration ``iter_offset + it``, so a run
-  resumed at ``iter_offset`` draws what an uninterrupted run would.
+  resumed at ``iter_offset`` draws what an uninterrupted run would.  The
+  draws of each block of 64 iterations are made together and their rows
+  gathered on the device at once, so no iteration waits on the host for
+  them.
 * **D² init** — Gumbel-max over the valid prefix: the noise for all
   ``n_valid`` rows comes from one generator per round, so a later
   multi-device split of the rows leaves the draw unchanged.
@@ -45,6 +48,10 @@ AUTO_INIT_KMEANS_PAR_MIN_K = 256
 
 # Generator streams: init rounds, the k-means|| candidate reduction, reseeds.
 _INIT, _REDUCE, _RESEED = 0, 1, 2
+#: Lloyd iterations whose reseed rows are drawn together: ``max_iter`` is
+#: max(100, n // 100), 25,000 draws at 2.5M rows if all were made up front,
+#: while the loop usually stops after tens of iterations.
+_RESEED_BLOCK = 64
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -184,6 +191,15 @@ def _reseed_rows(seed, it_global: int, k: int, n_valid: int) -> torch.Tensor:
     return torch.randint(0, n_valid, (k,), generator=gen)
 
 
+def _reseed_table(seed, iter_offset: int, iters: int, k: int, n_valid: int) -> torch.Tensor:
+    """(iters, k) reseed rows of iterations ``iter_offset + it``, each the
+    draw ``_reseed_rows`` makes for it (the draws share no state)."""
+    if iters < 1:
+        return torch.empty((0, k), dtype=torch.int64)
+    return torch.stack([_reseed_rows(seed, iter_offset + it, k, n_valid)
+                        for it in range(iters)])
+
+
 def kmeans_full(
     X,
     k: int,
@@ -249,13 +265,21 @@ def kmeans_full(
             c = _d2_init(xv, k, seed)
         del xv
 
+    # The reseed rows of a block of iterations are drawn when the loop
+    # enters it and gathered on the device at once (from pinned memory, so
+    # the copy does not wait for the card): an empty cluster is reseeded by
+    # a device-side where, and the shift is the loop's only host read.
     c_prev, it, shift = c, 0, math.inf
     while it < max_iter and (tol <= 0 or it == 0 or shift >= tol):
+        if it % _RESEED_BLOCK == 0:
+            rows = _reseed_table(seed, iter_offset + it, min(_RESEED_BLOCK, max_iter - it),
+                                 k, n_valid)
+            if dev.type == "cuda":
+                rows = rows.pin_memory()
+            reseed = xp[rows.to(dev, non_blocking=True)].to(acc)
         _, sums, counts = lloyd_assign_reduce(xp, c, n_valid, with_labels=False)
-        new_c = sums / torch.clamp(counts, min=1.0)[:, None]
-        if bool((counts == 0).any()):
-            rows = _reseed_rows(seed, iter_offset + it, k, n_valid).to(dev)
-            new_c = torch.where(counts[:, None] > 0, new_c, xp[rows].to(acc))
+        new_c = torch.where(counts[:, None] > 0, sums / torch.clamp(counts, min=1.0)[:, None],
+                            reseed[it % _RESEED_BLOCK])
         shift_t = torch.sqrt(((new_c - c) ** 2).sum())
         if tol > 0:
             shift = float(shift_t)

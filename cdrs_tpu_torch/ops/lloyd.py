@@ -20,15 +20,27 @@ PyTorch; on a CUDA tensor it launches the kernel or raises.  The kernel's
 source note says what bounds it on the card and what its design does
 about that.
 
+One call is one launch.  The wrapper's fixed host cost is kept small: the
+ctypes signature is set once when the library is bound, the SM count is
+read once per device, and the kernel's scratch (block partials and the
+last-block ticket) is made once per (device, stream, k, d) and
+reused: calls on one stream run in order, so they never share it at once.
+Outputs are fresh on every call (callers keep them) and are allocated
+without deterministic mode's NaN fill, since the kernel writes them in
+full.
+
 Semantics shared by both versions:
 * distances ``|c|^2 - 2 x.c`` in float32 (float64 for float64 points on
   the CPU); for bf16 points ``c`` is rounded to bf16 and ``|c|^2`` is taken
-  in f32 from the rounded centroids, as the TPU kernel does;
+  in f32 from the rounded centroids, as the TPU kernel does; ``|c|^2``
+  adds the squares in feature order in both versions (the kernel takes it
+  itself, so the wrapper launches nothing else for f32 points);
 * the first minimum wins;
 * rows ``>= n_valid`` get a label but add nothing to sums or counts,
   whatever they hold (no zero-pad contract);
 * sums are float32 (the stat dtype), counts are exact integers returned
-  as float32.
+  as float32; the kernel adds in a fixed order, so two calls on the same
+  inputs give the same bits.
 """
 
 from __future__ import annotations
@@ -37,20 +49,32 @@ import ctypes
 
 import torch
 
-from ..device import stat_dtype
+from ..device import sm_count, stat_dtype, unfilled
 from . import _build
 
 __all__ = ["lloyd_assign_reduce", "lloyd_assign_reduce_plain", "centroid_operands"]
 
 _KERNEL_DTYPES = {torch.float32: "cdrs_lloyd_f32", torch.bfloat16: "cdrs_lloyd_bf16"}
+_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 def centroid_operands(c: torch.Tensor, dtype: torch.dtype):
     """(c as the distance pass reads it, |c|^2) in the stat dtype: ``c``
-    rounded to the points' dtype first, so the ranking is consistent."""
-    acc = stat_dtype(dtype)
-    c_used = c.to(dtype).to(acc).contiguous()
-    return c_used, (c_used * c_used).sum(dim=1)
+    rounded to the points' dtype first, so the ranking is consistent.
+    |c|^2 adds the squares in feature order, each rounded first, as the
+    kernel does."""
+    c_used = _rounded(c, dtype)
+    csq = c_used[:, 0] * c_used[:, 0]
+    for f in range(1, c_used.shape[1]):
+        csq = csq + c_used[:, f] * c_used[:, f]
+    return c_used, csq
+
+
+def _rounded(c: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if c.dtype == dtype == stat_dtype(dtype) and c.is_contiguous():
+        return c   # nothing to round: skip three no-op dispatches per call
+    return c.to(dtype).to(stat_dtype(dtype)).contiguous()
 
 
 def lloyd_assign_reduce_plain(x: torch.Tensor, c: torch.Tensor, n_valid: int,
@@ -96,29 +120,37 @@ def lloyd_assign_reduce(x: torch.Tensor, c: torch.Tensor, n_valid: int | None = 
         raise TypeError(f"the Lloyd kernel takes float32 or bfloat16 points, got {x.dtype}")
     n, d = x.shape
     k = c.shape[0]
-    c_used, csq = centroid_operands(c, x.dtype)
-    nb = max(1, min(2 * torch.cuda.get_device_properties(x.device).multi_processor_count,
-                    -(-n // 256)))
-    labels = torch.empty(n, dtype=torch.int32, device=x.device) if with_labels else None
-    part_sums = torch.empty((nb, k, d), dtype=torch.float32, device=x.device)
-    part_counts = torch.empty((nb, k), dtype=torch.int32, device=x.device)
-    sums = torch.empty((k, d), dtype=torch.float32, device=x.device)
-    counts = torch.empty(k, dtype=torch.int32, device=x.device)
-    fn = getattr(_build.load("lloyd"), fn_name)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2 \
-        + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), c_used.data_ptr(), csq.data_ptr(), n, n_valid, d, k,
+    dev = x.device
+    c_used = _rounded(c, x.dtype)   # the kernel takes |c|^2 itself
+    sms = sm_count(dev.index)
+    nb = 2 * sms   # neither path keeps more than two blocks on an SM
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part_sums, part_counts, ticket = _build.scratch(
+        ("lloyd", dev.index, stream, k, d), lambda: _make_scratch(dev, nb, k, d))
+    with unfilled():   # the kernel writes every label, sum and count
+        labels = torch.empty(n, dtype=torch.int32, device=dev) if with_labels else None
+        sums = torch.empty((k, d), dtype=torch.float32, device=dev)
+        counts = torch.empty(k, dtype=torch.float32, device=dev)
+    fn = _build.bind("lloyd", fn_name, _ARGTYPES)
+    with _build.on_device(dev.index):
+        err = fn(x.data_ptr(), c_used.data_ptr(), n, n_valid, d, k,
                  labels.data_ptr() if labels is not None else None,
-                 part_sums.data_ptr(), part_counts.data_ptr(), sums.data_ptr(),
-                 counts.data_ptr(), nb, stream)
+                 part_sums.data_ptr(), part_counts.data_ptr(), ticket.data_ptr(),
+                 sums.data_ptr(), counts.data_ptr(), nb, sms, stream)
     if err != 0:
         raise RuntimeError(f"lloyd kernel launch failed: cudaError {err} "
                            f"(n={n}, d={d}, k={k}, dtype={x.dtype})")
     lloyd_assign_reduce.launches += 1
-    return labels, sums, counts.to(torch.float32)
+    return labels, sums, counts
+
+
+def _make_scratch(dev, nb: int, k: int, d: int):
+    """Block partials (written in full by each launch) and the ticket (zero
+    between launches)."""
+    with unfilled():
+        part_sums = torch.empty(nb * k * d, dtype=torch.float32, device=dev)
+        part_counts = torch.empty(nb * k, dtype=torch.int32, device=dev)
+    return part_sums, part_counts, torch.zeros(1, dtype=torch.int32, device=dev)
 
 
 #: Launches of the CUDA kernel (CPU calls of the plain version do not count).

@@ -12,8 +12,9 @@
 * **Bisection medians** — ``iters = max(8, ceil(log2(bins)) + 1)`` rounds
   of per-(rank, cluster, feature) threshold counting on
   ``ops/seg_count.label_threshold_count`` (the CUDA kernel on the card),
-  both middle ranks at once; the global medians bisect on the same kernel
-  with every valid row in one cluster.
+  both middle ranks at once; the global medians' counts come from the
+  same call (its global table over every row with a valid label), so an
+  iteration is one pass over x.
 * **Score table** and the replication-factor tie-break ``_pick_winner``.
 
 Empty clusters get NaN medians, which score 0 everywhere.
@@ -157,17 +158,17 @@ def bisect_medians(x: torch.Tensor, labels: torch.Tensor, k: int, bins: int,
     hi = hi_f.float().expand(2, k, d).clone()
     glo = lo_f.float().expand(2, d).clone()
     ghi = hi_f.float().expand(2, d).clone()
-    glab = torch.where(valid, 0, -1).to(torch.int32)
     for _ in range(iters):
         thr = (0.5 * (lo + hi)).contiguous()
-        cb = label_threshold_count(x, lab, thr).view(k, 2, d).permute(1, 0, 2)
-        ge = cb >= targets[:, :, None]
+        # One counting call per iteration: the global ranks ride along.
+        gthr = (0.5 * (glo + ghi)).contiguous() if with_global else None
+        got = label_threshold_count(x, lab, thr, gthr)
+        cb, gcb = got if with_global else (got, None)
+        ge = cb.view(k, 2, d).permute(1, 0, 2) >= targets[:, :, None]
         lo = torch.where(ge, lo, thr)
         hi = torch.where(ge, thr, hi)
         if with_global:
-            gthr = 0.5 * (glo + ghi)
-            gcb = label_threshold_count(x, glab, gthr[:, None, :].contiguous())
-            gge = gcb.view(2, d) >= g_targets[:, None]
+            gge = gcb >= g_targets[:, None]
             glo = torch.where(gge, glo, gthr)
             ghi = torch.where(gge, gthr, ghi)
 

@@ -1,15 +1,29 @@
-"""Per-cluster threshold counts, the counting step of the bisection medians.
+"""Threshold counts, the counting step of the bisection medians.
 
-``label_threshold_count(x, labels, thr)`` returns the (k, 2d) int32 table
+``label_threshold_count(x, labels, thr, gthr=None)`` returns the (k, 2d)
+int32 per-cluster table
 
     counts[j, r*d + f] = #{ i : labels_i = j and x[i, f] <= thr[r, j, f] }
+
+and, given ``gthr`` of shape (2, d), also the (2, d) int32 global table
+
+    gcounts[r, f] = #{ i : labels_i in [0, k) and x[i, f] <= gthr[r, f] }
+
+from one pass over ``x`` and the labels, as the reference's chunk pass
+counts both (``_bisect_core``, ``cdrs_tpu/ops/scoring_jax.py:273-289``).
+Labels < 0 or >= k belong to no cluster.
 
 It is the wrapper of the CUDA kernel in ``csrc/seg_count.cu``, which
 replaces the TPU kernel ``label_segment_matmul``
 (``cdrs_tpu/ops/pallas_kernels.py:534``) applied to the 0/1 matrix its
-caller ``_bisect_core`` (``cdrs_tpu/ops/scoring_jax.py:273-288``) builds.
-On a CPU tensor the wrapper runs ``label_threshold_count_plain``; on a
-CUDA tensor it launches the kernel or raises.
+caller builds, with the caller's global count fused in.  On a CPU tensor
+the wrapper runs ``label_threshold_count_plain``; on a CUDA tensor it
+launches the kernel or raises.  As in ``ops/lloyd.py``, the ctypes
+signature is set once, the SM count is read once per device, and the
+block partials and last-block ticket are made once per (device, stream,
+d, k) and reused (calls on one stream run in order); the
+tables are fresh per call and allocated without deterministic mode's NaN
+fill, since the kernel writes them in full.
 """
 
 from __future__ import annotations
@@ -18,74 +32,105 @@ import ctypes
 
 import torch
 
+from ..device import sm_count, unfilled
 from . import _build
 
 __all__ = ["label_threshold_count", "label_threshold_count_plain"]
 
 _KERNEL_DTYPES = {torch.float32: "cdrs_seg_count_f32",
                   torch.bfloat16: "cdrs_seg_count_bf16"}
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 def label_threshold_count_plain(x: torch.Tensor, labels: torch.Tensor,
-                                thr: torch.Tensor) -> torch.Tensor:
+                                thr: torch.Tensor, gthr: torch.Tensor | None = None):
     """Plain PyTorch version, the unfused composition: build ``y`` as the
     JAX reference does (per-row thresholds gathered by label, both ranks
     side by side, compared in float32), then a one-hot segment sum in
-    int64 via ``bincount`` over (label, column) keys."""
+    int64 via ``bincount`` over (label, column) keys; the global table
+    compares the same rows against ``gthr`` and sums over them."""
     k, d = thr.shape[1], thr.shape[2]
     valid = (labels >= 0) & (labels < k)
     lab = labels[valid].long()
+    xv = x[valid].float()
     thr_cat = torch.cat([thr[0], thr[1]], dim=1).float()          # (k, 2d)
-    xx = torch.cat([x[valid], x[valid]], dim=1).float()           # (m, 2d)
-    y = xx <= thr_cat[lab]
+    y = torch.cat([xv, xv], dim=1) <= thr_cat[lab]                # (m, 2d)
     keys = lab[:, None] * (2 * d) + torch.arange(2 * d, device=x.device)
-    counts = torch.bincount(keys[y], minlength=k * 2 * d)
-    return counts.reshape(k, 2 * d).to(torch.int32)
+    counts = torch.bincount(keys[y], minlength=k * 2 * d).reshape(k, 2 * d).to(torch.int32)
+    if gthr is None:
+        return counts
+    gy = xv[None] <= gthr.float()[:, None, :]                     # (2, m, d)
+    return counts, gy.sum(dim=1, dtype=torch.int32)
 
 
-def _check(x, labels, thr):
+def _check(x, labels, thr, gthr):
     if x.dim() != 2 or labels.shape != (x.shape[0],):
         raise ValueError(f"x must be (n, d) and labels (n,); got {tuple(x.shape)}, "
                          f"{tuple(labels.shape)}")
     if thr.dim() != 3 or thr.shape[0] != 2 or thr.shape[2] != x.shape[1]:
         raise ValueError(f"thr must be (2, k, d={x.shape[1]}); got {tuple(thr.shape)}")
-    if not (x.is_contiguous() and labels.is_contiguous() and thr.is_contiguous()):
-        raise ValueError("x, labels and thr must be contiguous")
+    if gthr is not None and tuple(gthr.shape) != (2, x.shape[1]):
+        raise ValueError(f"gthr must be (2, d={x.shape[1]}); got {tuple(gthr.shape)}")
+    if not (x.is_contiguous() and labels.is_contiguous() and thr.is_contiguous()
+            and (gthr is None or gthr.is_contiguous())):
+        raise ValueError("x, labels, thr and gthr must be contiguous")
 
 
-def label_threshold_count(x: torch.Tensor, labels: torch.Tensor,
-                          thr: torch.Tensor) -> torch.Tensor:
-    """(k, 2d) int32 counts; labels < 0 (or >= k) belong to no cluster."""
-    _check(x, labels, thr)
+def label_threshold_count(x: torch.Tensor, labels: torch.Tensor, thr: torch.Tensor,
+                          gthr: torch.Tensor | None = None):
+    """(k, 2d) int32 counts, or (counts, (2, d) int32 global counts) when
+    ``gthr`` is given; labels < 0 (or >= k) belong to no cluster."""
+    _check(x, labels, thr, gthr)
     if x.device.type == "cpu":
-        return label_threshold_count_plain(x, labels, thr)
-    if x.device.type != "cuda" or labels.device != x.device or thr.device != x.device:
-        raise ValueError("x, labels and thr must share one CUDA device; got "
-                         f"{x.device}, {labels.device}, {thr.device}")
+        return label_threshold_count_plain(x, labels, thr, gthr)
+    dev = x.device
+    if dev.type != "cuda" or labels.device != dev or thr.device != dev or (
+            gthr is not None and gthr.device != dev):
+        raise ValueError("x, labels, thr and gthr must share one CUDA device; got "
+                         f"{dev}, {labels.device}, {thr.device}, "
+                         f"{None if gthr is None else gthr.device}")
     fn_name = _KERNEL_DTYPES.get(x.dtype)
     if fn_name is None:
         raise TypeError(f"the counting kernel takes float32 or bfloat16 x, got {x.dtype}")
-    if labels.dtype != torch.int32 or thr.dtype != torch.float32:
-        raise TypeError(f"labels must be int32 and thr float32; got {labels.dtype}, "
-                        f"{thr.dtype}")
+    if labels.dtype != torch.int32 or thr.dtype != torch.float32 or (
+            gthr is not None and gthr.dtype != torch.float32):
+        raise TypeError(f"labels must be int32 and thr, gthr float32; got {labels.dtype}, "
+                        f"{thr.dtype}, {None if gthr is None else gthr.dtype}")
     n, d = x.shape
     k = thr.shape[1]
-    out = torch.empty((k, 2 * d), dtype=torch.int32, device=x.device)
-    nb = max(1, min(2 * torch.cuda.get_device_properties(x.device).multi_processor_count,
-                    -(-n * d // 256)))
-    fn = getattr(_build.load("seg_count"), fn_name)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), labels.data_ptr(), thr.data_ptr(), n, d, k,
-                 out.data_ptr(), nb, stream)
+    cells = k * 2 * d + (2 * d if gthr is not None else 0)
+    sms = sm_count(dev.index)
+    nb = 2 * sms   # the small path keeps at most two blocks on an SM
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part, ticket = _build.scratch(("seg_count", dev.index, stream, d, k),
+                                  lambda: _make_scratch(dev, nb, d, k))
+    with unfilled():   # the kernel writes both tables in full
+        out = torch.empty(cells, dtype=torch.int32, device=dev)
+    fn = _build.bind("seg_count", fn_name, _ARGTYPES)
+    with _build.on_device(dev.index):
+        err = fn(x.data_ptr(), labels.data_ptr(), thr.data_ptr(),
+                 gthr.data_ptr() if gthr is not None else None, n, d, k, out.data_ptr(),
+                 part.data_ptr(), ticket.data_ptr(), nb, sms, stream)
     if err != 0:
         raise RuntimeError(f"seg_count kernel launch failed: cudaError {err} "
                            f"(n={n}, d={d}, k={k}, dtype={x.dtype})")
     label_threshold_count.launches += 1
-    return out
+    counts = out[:k * 2 * d].view(k, 2 * d)
+    if gthr is None:
+        return counts
+    return counts, out[k * 2 * d:].view(2, d)
+
+
+def _make_scratch(dev, nb: int, d: int, k: int):
+    """Block partials (written in full by each launch; as long as the
+    kernel's path needs, with or without the global table) and the ticket
+    (zero between launches)."""
+    part_len = _build.bind("seg_count", "cdrs_seg_count_part_len",
+                           [ctypes.c_int] * 3, ctypes.c_int64)(d, k, nb)
+    with unfilled():
+        part = torch.empty(part_len, dtype=torch.int32, device=dev)
+    return part, torch.zeros(1, dtype=torch.int32, device=dev)
 
 
 #: Launches of the CUDA kernel (CPU calls of the plain version do not count).

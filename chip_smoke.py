@@ -12,15 +12,20 @@ Phases, each of which exits non-zero when a check fails:
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes and at wider ones: labels (every row), sums and counts of
    the Lloyd kernel, both as the full-batch loop calls it and as the
-   stream path does (labels written, non-zero rows past ``n_valid``), exact
-   counts of the threshold-count kernel at both of the
-   bisection's shapes (per-cluster ranks, k = 8, and global ranks, k = 1),
-   one whole bisection on the card against the same on the CPU, and
-   median times over repeated launches (CUDA events).
+   stream path does (labels written, non-zero rows past ``n_valid``), and
+   two calls on the same inputs giving the same bits; exact per-cluster
+   and global tables of the fused threshold count, and its k = 1 form
+   without a global table; one whole bisection on the card (12 launches)
+   against the same on the CPU.  Each kernel's time per call is one pair
+   of CUDA events around back-to-back calls (wrapper included), its
+   ``device_ms`` the kernel's own time per launch from torch.profiler,
+   which also shows one launch per call.
 3. The main path: ``run_pipeline`` on CUDA over 2,500,000 files (seed 10,
    60 s of simulated traffic, k = 8, validated scoring with medians from
-   the data).  Both kernels' launch counters must rise during the run, and
-   the planted-category accuracy must exceed 0.5.
+   the data).  The Lloyd kernel must run ``kmeans.n_iter + 1`` times and
+   the threshold count 12 times, and the planted-category accuracy must
+   exceed 0.5.  A profiled second clustering pass shows the device idle
+   share, no separate reduction kernel and the NaN fills left.
 4. The card against the CPU: the pipeline at 20,000 files from one carried
    init on both devices; labels agree on >= 99.9% of files and the
    per-cluster categories are identical.
@@ -45,7 +50,6 @@ import argparse
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -76,21 +80,58 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of one call over ``reps`` calls (CUDA events)."""
+    """Milliseconds per call, wrapper included: one pair of CUDA events
+    around ``reps`` back-to-back calls, divided by ``reps``."""
     import torch
 
     for _ in range(warmup):
         fn()
-    times = []
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str, reps: int = 10):
+    """(device ms per launch, launches seen per call) of the kernels whose
+    name holds ``kernel``, from torch.profiler over ``reps`` calls; (None,
+    None) when the profiler sees no device time.  The profiler may miss
+    some of a run of short kernels, so the launches seen are at most one
+    per call, not exactly one."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and kernel in ev.name:
+            total_us += ev.time_range.elapsed_us()
+            count += 1
+    if not count:
+        return None, None
+    return total_us / count / 1e3, count / reps
+
+
+def l2_note(dev_ms, b_ms) -> str:
+    """The device time against the HBM bound, as a share only when it is
+    one: under the bound, the 50 MB L2 held part of x between calls."""
+    if dev_ms is None:
+        return "device not measured"
+    if dev_ms < b_ms:
+        return (f"device {dev_ms:.4f} ms, under the HBM bound: the 50 MB L2 held part "
+                f"of the inputs between back-to-back calls")
+    return f"device {dev_ms:.4f} ms ({b_ms / dev_ms:.1%} of the bound)"
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype_name: str):
@@ -115,9 +156,34 @@ def phase_environment():
     _build.build_all()
     log(f"build: {time.perf_counter() - t0:.3f} s for {', '.join(_build.SOURCES)}")
     for name, text in sorted(_build.ptxas_info.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+        for line in ptxas_summary(text):
+            log(f"ptxas {name}: {line}")
+
+
+def ptxas_summary(text: str) -> list[str]:
+    """One line per kernel instantiation that spills or serves d = 5 (the
+    main path's width), then the largest register count of the library."""
+    import re
+
+    rows, entry, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"([a-z_]+_kernel)I(\w*?)EEv", m.group(1))
+            entry = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)[:60]
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            rows.append((entry, regs, spill))
+    clean = "0 bytes stack frame, 0 bytes spill stores"
+    out = [f"{e}: {r} registers, {s}" for e, r, s in rows
+           if "Li5E" in e or not s.startswith(clean)]
+    if rows:
+        busy = sum(not s.startswith(clean) for _, _, s in rows)
+        out.append(f"{len(rows)} kernels, at most {max(r for _, r, _ in rows)} registers, "
+                   f"{busy} with a stack frame or spills")
+    return out
 
 
 def _distances64(x, c, rows, labs):
@@ -141,8 +207,13 @@ def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False):
     x = x.to(dtype)
     c = x[torch.randperm(n_valid, generator=gen, device="cuda")[:k]].float()
     lab_k, sums_k, cnt_k = lloyd_assign_reduce(x, c, n_valid, with_labels=True)
+    lab_2, sums_2, cnt_2 = lloyd_assign_reduce(x, c, n_valid, with_labels=with_labels)
     lab_p, sums_p, cnt_p = lloyd_assign_reduce_plain(x, c, n_valid, with_labels=True)
     torch.cuda.synchronize()
+    # The kernel adds in a fixed order: a second call gives the same bits.
+    check(torch.equal(sums_k, sums_2) and torch.equal(cnt_k, cnt_2)
+          and (lab_2 is None or torch.equal(lab_k, lab_2)),
+          f"lloyd {name}: two calls on the same inputs differ")
 
     c_used, _ = centroid_operands(c, dtype)
     diff = torch.nonzero(lab_k != lab_p).flatten()
@@ -170,7 +241,11 @@ def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False):
         rel_p = float(((sums_k - sums_p).abs() / sums_p.abs().clamp(min=1.0)).max())
         check(rel_p <= 1e-4, f"lloyd {name}: sums off the plain version by {rel_p:.3e} rel")
 
-    ms = time_ms(lambda: lloyd_assign_reduce(x, c, n_valid, with_labels=with_labels), reps)
+    call = lambda: lloyd_assign_reduce(x, c, n_valid, with_labels=with_labels)  # noqa: E731
+    ms = time_ms(call, reps)
+    dev_ms, per_call = device_ms(call, "lloyd_", max(3, min(reps, 10)))
+    check(per_call is None or 0 < per_call <= 1.0,
+          f"lloyd {name}: {per_call} kernel launches per call")
     plain_ms = time_ms(
         lambda: lloyd_assign_reduce_plain(x, c, n_valid, with_labels=with_labels),
         max(2, reps // 4))
@@ -183,54 +258,61 @@ def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False):
     log(f"lloyd {name}: n={n} d={d} k={k} {dtype} n_valid={n_valid} "
         f"with_labels={with_labels} labels agree "
         f"{agree:.6f} ({diff.numel()} ties) sums rel {rel:.2e} |kernel-plain| {max_abs:.3e} "
-        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
-    del x, lab_k, lab_p, ref
+        f"two calls bit-identical; kernel {ms:.4f} ms per call ({l2_note(dev_ms, b_ms)}, "
+        f"{per_call} launches seen per call) plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+    del x, lab_k, lab_2, lab_p, ref
     torch.cuda.empty_cache()
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": max_abs}
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": max_abs}
 
 
-def check_seg(name, n, d, k, reps, gen):
-    """The threshold-count kernel against its plain version (exact).
-
-    Labels are uniform in [-1, k).  At k = 1 they are the bisection's
-    global-rank call instead: every row 0 (all 32 lanes of a warp share
-    one counter, the worst case of the warp merge) and one row in 64 -1."""
+def check_seg(name, n, d, k, reps, gen, with_global=True):
+    """The threshold-count kernel against its plain version (exact), in
+    its fused form (per-cluster and global tables from one call) unless
+    ``with_global`` is false.  Labels are uniform in [-1, k)."""
     import torch
 
     from cdrs_tpu_torch.ops.seg_count import (label_threshold_count,
                                               label_threshold_count_plain)
 
     x = torch.rand((n, d), generator=gen, device="cuda")
-    if k == 1:
-        none = torch.randint(0, 64, (n,), generator=gen, device="cuda") == 0
-        labels = torch.where(none, -1, 0).to(torch.int32)
-    else:
-        labels = torch.randint(-1, k, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    labels = torch.randint(-1, k, (n,), generator=gen, device="cuda", dtype=torch.int32)
     thr = torch.rand((2, k, d), generator=gen, device="cuda")
-    got = label_threshold_count(x, labels, thr)
-    want = label_threshold_count_plain(x, labels, thr)
+    gthr = torch.rand((2, d), generator=gen, device="cuda") if with_global else None
+    got = label_threshold_count(x, labels, thr, gthr)
+    want = label_threshold_count_plain(x, labels, thr, gthr)
     torch.cuda.synchronize()
-    max_abs = float((got.long() - want.long()).abs().max())
+    pairs = list(zip(got, want)) if with_global else [(got, want)]
+    max_abs = max(float((g.long() - w.long()).abs().max()) for g, w in pairs)
     check(max_abs == 0, f"seg_count {name}: counts differ from plain by {max_abs}")
-    ms = time_ms(lambda: label_threshold_count(x, labels, thr), reps)
-    plain_ms = time_ms(lambda: label_threshold_count_plain(x, labels, thr), max(2, reps // 4))
-    n_bytes = n * d * 4 + n * 4 + 2 * k * d * 4 + 2 * k * d * 4
-    b_ms, b_by = bound_ms(n_bytes, 2.0 * n * d, "float32")
-    log(f"seg_count {name}: n={n} d={d} k={k} exact; kernel {ms:.4f} ms "
-        f"plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+    call = lambda: label_threshold_count(x, labels, thr, gthr)  # noqa: E731
+    ms = time_ms(call, reps)
+    dev_ms, per_call = device_ms(call, "seg_", max(3, min(reps, 10)))
+    check(per_call is None or 0 < per_call <= 1.0,
+          f"seg_count {name}: {per_call} kernel launches per call")
+    plain_ms = time_ms(lambda: label_threshold_count_plain(x, labels, thr, gthr),
+                       max(2, reps // 4))
+    # Bytes: x and the labels read once, both threshold tables read, both
+    # count tables written; operations: the four compares per element.
+    g_cells = 2 * d if with_global else 0
+    n_bytes = n * d * 4 + n * 4 + (2 * k * d + g_cells) * 4 * 2
+    b_ms, b_by = bound_ms(n_bytes, (4.0 if with_global else 2.0) * n * d, "float32")
+    log(f"seg_count {name}: n={n} d={d} k={k} global={with_global} exact; kernel "
+        f"{ms:.4f} ms per call ({l2_note(dev_ms, b_ms)}, {per_call} launches seen per "
+        f"call) plain "
+        f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
     del x, labels, got, want
     torch.cuda.empty_cache()
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": max_abs}
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": max_abs}
 
 
 def check_bisect(n, d, k, gen):
-    """Both counting calls of one bisection, as the main path makes them
-    (per-cluster and global ranks), on the card against the same bisection
-    on the CPU, where every count comes from the plain version.  The
-    thresholds are halvings of exact min/max values and the counts are
-    integers, so the medians must agree bit for bit."""
+    """One bisection as the main path makes it (one fused count of the
+    per-cluster and global ranks per iteration) on the card against the
+    same bisection on the CPU, where every count comes from the plain
+    version.  The thresholds are halvings of exact min/max values and the
+    counts are integers, so the medians must agree bit for bit."""
     import torch
 
     from cdrs_tpu_torch.ops.scoring import bisect_medians
@@ -241,10 +323,10 @@ def check_bisect(n, d, k, gen):
     med, gm = bisect_medians(x, labels, k, 2048, True)
     launched = label_launches() - before
     med_p, gm_p = bisect_medians(x.cpu(), labels.cpu(), k, 2048, True)
-    check(launched == 24, f"bisect: {launched} kernel launches, expected 24")
+    check(launched == 12, f"bisect: {launched} kernel launches, expected 12")
     check(torch.equal(med.cpu(), med_p) and torch.equal(gm.cpu(), gm_p),
           "bisect: card medians differ from the plain version's")
-    log(f"bisect n={n} d={d} k={k}: {launched} launches (per-cluster and global), "
+    log(f"bisect n={n} d={d} k={k}: {launched} launches (per-cluster and global fused), "
         f"medians identical to the plain version's")
     del x, labels
     torch.cuda.empty_cache()
@@ -275,15 +357,15 @@ def phase_kernels(reps):
                               with_labels=True)
     rows["lloyd_rowmajor"]["max_abs_err"] = max(rows["lloyd_rowmajor"]["max_abs_err"],
                                                 lloyd_drift["max_abs_err"])
-    # The main path's bisection calls the counting kernel at two shapes:
-    # per-cluster ranks (k = 8) and global ranks (k = 1, every row in one
-    # cluster).  The row's time is the k = 8 call's; its error covers both.
-    seg_global = check_seg("pipeline-global", n_main, 5, 1, reps, gen)
+    # The main path's bisection makes one fused call per iteration (the
+    # row above); the k = 1 form without a global table still works.  The
+    # row's error covers both.
+    seg_k1 = check_seg("pipeline-k1", n_main, 5, 1, reps, gen, with_global=False)
     rows["seg_count"]["max_abs_err"] = max(rows["seg_count"]["max_abs_err"],
-                                           seg_global["max_abs_err"])
+                                           seg_k1["max_abs_err"])
     check_bisect(n_main, 5, K, gen)
     wide = {
-        "seg_count 2.5Mx5 k1 global": seg_global,
+        "seg_count 2.5Mx5 k1": seg_k1,
         "lloyd 2.5Mx5 k8 labels": lloyd_drift,
         "lloyd 1Mx32 k128 f32": check_lloyd("config2-f32", 1 << 20, 32, 128, torch.float32,
                                             (1 << 20) - 5, reps, gen),
@@ -326,8 +408,12 @@ def phase_main_path():
     log(f"main path: {result.n_files} files, {result.n_events} events, wall {wall:.3f} s, "
         f"peak device memory {peak / 2**20:.1f} MiB, launches {launches}")
     log("main path stages " + json.dumps(result.summary()))
-    check(launches["lloyd"] > 0, "main path never launched the Lloyd kernel")
-    check(launches["seg_count"] > 0, "main path never launched the threshold-count kernel")
+    n_iter = int(result.summary()["kmeans.n_iter"])
+    check(launches["lloyd"] == n_iter + 1,
+          f"main path made {launches['lloyd']} Lloyd launches, expected {n_iter} "
+          f"iterations + 1 label pass")
+    check(launches["seg_count"] == 12,
+          f"main path made {launches['seg_count']} threshold-count launches, expected 12")
     check(dec.labels.shape == (MAIN_FILES,), f"labels shape {dec.labels.shape}")
     check(dec.centroids.shape == (K, 5), f"centroids shape {dec.centroids.shape}")
     import numpy as np
@@ -342,9 +428,10 @@ def phase_main_path():
 
 
 def profile_cluster(cfg, norm):
-    """Informational: one more clustering + scoring pass over the main
-    path's feature table under torch.profiler — device busy time, the
-    device's idle share of the stage's wall time, and time by kernel."""
+    """One more clustering + scoring pass over the main path's feature
+    table under torch.profiler — device busy time, the device's idle share
+    of the stage's wall time, time by kernel and the NaN fills of
+    deterministic mode.  Checks one kernel launch per wrapper call."""
     import torch
     from torch.autograd import DeviceType
 
@@ -373,11 +460,22 @@ def profile_cluster(cfg, norm):
     if not busy_us:
         log("profile cluster: not measured (the profiler saw no device time)")
         return
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    fills = sum(cnt for name, (cnt, _) in by_name.items() if "FillFunctor" in name)
+    lloyd = sum(cnt for name, (cnt, _) in by_name.items() if "lloyd_" in name)
+    seg = sum(cnt for name, (cnt, _) in by_name.items() if "seg_" in name)
     log(f"profile cluster: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
-        f"idle share {1 - busy_us / wall_us:.4f}, iterations {model.n_iter}")
+        f"idle share {1 - busy_us / wall_us:.4f}, iterations {model.n_iter}, Lloyd kernel "
+        f"launches {lloyd}, threshold-count launches {seg}, NaN-fill launches {fills}")
     for name, (count, us) in top:
         log(f"profile cluster kernel: {us / 1e3:.3f} ms in {count} launches: {name[:90]}")
+    check(not any("lloyd_reduce_kernel" in name for name in by_name),
+          "profile: a separate Lloyd reduction kernel ran")
+    # The wrappers' counters hold the exact counts (phase 3); the profiler
+    # may miss a few short kernels, but never sees more than one per call.
+    check(lloyd <= model.n_iter + 1 and seg <= 12,
+          f"profile: {lloyd} Lloyd and {seg} threshold-count launches, more than "
+          f"{model.n_iter + 1} and 12 (one launch per call)")
 
 
 def phase_card_vs_cpu():
