@@ -4,7 +4,9 @@
   (``simulate --out x.cdrsb`` writes the binary columnar log);
 * ``pipeline`` runs generator to decision in one process;
 * ``stream`` folds an access log in batches, then clusters (full-batch, or
-  mini-batch with ``--kmeans_batch``).
+  mini-batch with ``--kmeans_batch``);
+* ``control`` runs the online replication controller over an access log
+  and prints its JSON summary.
 
 The flags are those of ``cdrs_tpu``'s subcommands of the same names that
 this port supports, plus ``--device`` (CUDA unless "cpu" is asked for).
@@ -124,6 +126,45 @@ def _cmd_stream(args) -> int:
     return 0
 
 
+def _controller_cfg(args):
+    """ControllerConfig from the ``control`` arguments."""
+    from .control.controller import ControllerConfig
+
+    return ControllerConfig(
+        window_seconds=args.window_seconds, drift_threshold=args.drift_threshold,
+        full_recluster_drift=args.full_drift, warm_max_iter=args.warm_max_iter,
+        max_bytes_per_window=args.max_bytes, max_files_per_window=args.max_files,
+        hysteresis_windows=args.hysteresis, default_rf=args.default_rf,
+        kmeans=KMeansConfig(k=args.k, seed=args.seed, init_method=args.init_method),
+        scoring=_load_scoring(args), evaluate=not args.no_evaluate,
+        overlap_windows=args.overlap, device=args.device)
+
+
+def _cmd_control(args) -> int:
+    """Online replication controller: the log as time windows, drift-gated
+    re-clusters, bounded-churn migrations (control/controller.py)."""
+    from .control.controller import ReplicationController
+    from .io.events import Manifest
+
+    manifest = Manifest.read_csv(args.manifest)
+    controller = ReplicationController(manifest, _controller_cfg(args))
+    t0 = time.perf_counter()
+    result = controller.run(args.access_log, metrics_path=args.metrics,
+                            checkpoint_path=args.checkpoint,
+                            checkpoint_every=args.checkpoint_every,
+                            max_windows=args.max_windows, batch_size=args.batch_size)
+    elapsed = time.perf_counter() - t0
+    if args.plan_out:
+        from .cluster.plan import write_plan_csv
+
+        write_plan_csv(args.plan_out, result.plan_entries())
+        print(f"plan: {len(manifest)} files -> {args.plan_out}", file=sys.stderr)
+    out = result.summary()
+    out["seconds"] = round(elapsed, 3)
+    print(json.dumps(out, indent=2))
+    return 0
+
+
 def _add_scoring_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--medians_from_data", action="store_true")
     p.add_argument("--scoring_config", default=None, metavar="JSON|validated")
@@ -198,6 +239,50 @@ def build_parser() -> argparse.ArgumentParser:
     _add_init_method_arg(p)
     _add_device_arg(p)
     p.set_defaults(fn=_cmd_stream)
+
+    p = sub.add_parser("control", help="online replication controller: windowed drift "
+                       "detection -> incremental re-cluster -> bounded-churn migration")
+    p.add_argument("--manifest", required=True)
+    p.add_argument("--access_log", required=True,
+                   help="globally time-sorted log (CSV access.log or .cdrsb)")
+    p.add_argument("--window_seconds", type=float, default=60.0)
+    p.add_argument("--k", type=int, default=8)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--drift_threshold", type=float, default=0.05,
+                   help="drift score at/above which a re-cluster runs")
+    p.add_argument("--full_drift", type=float, default=0.30, metavar="SCORE",
+                   help="drift at/above which the warm start is abandoned (fresh init, "
+                        "full iteration budget)")
+    p.add_argument("--warm_max_iter", type=int, default=25)
+    p.add_argument("--max_bytes", type=int, default=None, metavar="BYTES",
+                   help="per-window migration byte budget (default: unbounded)")
+    p.add_argument("--max_files", type=int, default=None, metavar="N",
+                   help="per-window migrated-file cap (default: unbounded)")
+    p.add_argument("--hysteresis", type=int, default=1, metavar="WINDOWS",
+                   help="windows a migrated file stays frozen (anti-flap)")
+    p.add_argument("--default_rf", type=int, default=1)
+    p.add_argument("--batch_size", type=int, default=1_000_000,
+                   help="events per log read batch (windows re-slice it)")
+    p.add_argument("--metrics", default=None, metavar="JSONL",
+                   help="append one JSON line per window record here")
+    p.add_argument("--plan_out", default=None, metavar="CSV",
+                   help="write the final applied plan (path,category,rf)")
+    p.add_argument("--checkpoint", default=None, metavar="NPZ",
+                   help="snapshot the controller state here every --checkpoint_every "
+                        "windows; rerunning the same command resumes with an identical "
+                        "plan sequence")
+    p.add_argument("--checkpoint_every", type=int, default=1, metavar="W")
+    p.add_argument("--max_windows", type=int, default=None,
+                   help="stop after N processed windows")
+    p.add_argument("--no_evaluate", action="store_true",
+                   help="skip the per-window locality/balance replay")
+    p.add_argument("--overlap", action="store_true",
+                   help="run window t+1's re-cluster before window t's planning; "
+                        "decision-identical to the serial order")
+    _add_scoring_args(p)
+    _add_init_method_arg(p)
+    _add_device_arg(p)
+    p.set_defaults(fn=_cmd_control)
     return parser
 
 

@@ -1,0 +1,622 @@
+"""Online replication controller: the port of the controller core of
+``cdrs_tpu/control/controller.py`` with the semantics of its jax backend.
+
+Per time window (``control/windows.py``):
+
+1. **fold** — the window's events fold into the streaming feature counters
+   on the device (``features/streaming.stream_update``; exact cumulative
+   fold, cross-window concurrency carry).
+2. **drift** — the host oracle ``control/drift.detect_drift`` scores one
+   host copy of the float32 feature snapshot against the last accepted
+   model; below ``drift_threshold`` nothing else runs.
+3. **re-cluster** — the cold start, or on drift a warm re-cluster (the
+   accepted centroids as init, ``warm_max_iter`` Lloyd iterations) or,
+   from ``full_recluster_drift`` on, a full one with a fresh init:
+   ``ReplicationPolicyModel.run`` on the device-resident float32 snapshot,
+   so every Lloyd iteration and the label pass launch the Lloyd kernel and
+   the bisection medians (at scale) the threshold-count kernel.
+4. **diff + schedule** — the new plan is diffed against the applied one
+   (``control/migrate.plan_diff``; priority = scoring margin of the new
+   category over the applied one) and metered out by the
+   ``MigrationScheduler`` (byte and file budgets, hysteresis).
+5. **evaluate** — the window's events replay against the placements of
+   the applied plan before and after its moves
+   (``cluster/placement.place_replicas``, ``cluster/evaluate``).
+
+Every window gives one record (the reference's keys, among them
+``drift``, ``recluster_mode``, ``moves_applied``, locality and balance
+before and after, ``plan_hash`` and the per-stage ``seconds``), kept in
+memory and appended to an optional JSONL sink.  The whole state (counters,
+accepted model, applied plan, backlog) snapshots through
+``utils/checkpoint``; kill and resume reproduce the uninterrupted run's
+plans bit for bit.  ``run`` holds the loop inside ``device.deterministic()``.
+
+Departures from the reference:
+
+* No degraded mode: the reference moves a failed jax re-cluster to its
+  numpy backend (``_degraded_recluster``); here a failure of
+  ``model.run`` propagates out of ``run`` and nothing moves to the CPU.
+* Not ported yet, each refused by ``ControllerConfig`` with a
+  ``ValueError`` naming its ROADMAP item: fault schedules, failure-domain
+  topologies and scrubbing (A8c), serving and elasticity (A8d), storage
+  strategies (A8e), functional placement (A8f), ``mesh_shape`` (A9) and
+  decay below 1 (the jax backend's own restriction).  Window telemetry
+  (the reference's ``_instrument_window``) waits for A10.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import os
+import time
+import warnings
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..cluster.evaluate import evaluate_placement
+from ..cluster.placement import ClusterTopology, place_replicas
+from ..cluster.plan import PlanEntry
+from ..config import CATEGORIES, KMeansConfig, ScoringConfig
+from ..device import deterministic, resolve_device
+from ..features.streaming import StreamFeatureState, stream_finalize, stream_init, stream_update
+from ..io.events import EventLog, Manifest
+from ..models.replication import ReplicationPolicyModel
+from ..obs.aggregate import pacing_digest
+from ..obs.sink import JsonlSink
+from ..utils.checkpoint import CheckpointError, load_state, save_state
+from .drift import detect_drift
+from .migrate import MigrationScheduler, plan_diff
+from .windows import _slice, iter_windows
+
+__all__ = ["ControllerConfig", "ControllerResult", "ReplicationController"]
+
+#: Options of the reference's ControllerConfig that the port does not take
+#: yet: (value that leaves them off, ROADMAP item).
+_UNPORTED = {
+    "fault_schedule": (None, "A8c, the fault, repair and scrub path"),
+    "topology": (None, "A8c, failure-domain topologies with the fault path"),
+    "scrub": (None, "A8c, the fault, repair and scrub path"),
+    "serve": (None, "A8d, serving and elasticity"),
+    "elastic": (None, "A8d, serving and elasticity"),
+    "storage": (None, "A8e, storage strategies"),
+    "placement_mode": ("materialized", "A8f, functional placement"),
+    "mesh_shape": (None, "A9, multi-GPU"),
+}
+
+
+@dataclass
+class ControllerConfig:
+    """Knobs of the control loop, with the reference's defaults."""
+
+    window_seconds: float = 60.0
+    #: Drift score (max of centroid-shift RMS and category TV distance) at or
+    #: above which a re-cluster runs.
+    drift_threshold: float = 0.05
+    #: Drift at or above which the re-cluster drops the warm start.
+    full_recluster_drift: float = 0.30
+    #: Lloyd budget of a warm re-cluster.
+    warm_max_iter: int = 25
+    #: Per-window churn budget (None = unbounded).
+    max_bytes_per_window: int | None = None
+    max_files_per_window: int | None = None
+    #: Windows a migrated file stays frozen after a move.
+    hysteresis_windows: int = 1
+    #: Per-window counter decay; only 1.0 (the exact cumulative fold).
+    decay: float = 1.0
+    #: rf of every file before the first accepted plan.
+    default_rf: int = 1
+    kmeans: KMeansConfig = field(default_factory=lambda: KMeansConfig(k=8))
+    scoring: ScoringConfig = field(default_factory=ScoringConfig)
+    #: Replay each window's events against the placements before and after
+    #: its moves.
+    evaluate: bool = True
+    #: Run window t+1's fold, drift and re-cluster before window t's planning;
+    #: decision-identical to the serial order, suspended around checkpoints.
+    #: The re-cluster here returns host arrays, so this only reorders work.
+    overlap_windows: bool = False
+    #: torch device of the feature fold and the re-cluster: CUDA when None
+    #: (raises without CUDA), or "cpu".
+    device: str | None = None
+    fault_schedule: object | None = None
+    topology: object | None = None
+    serve: object | None = None
+    storage: object | None = None
+    scrub: object | None = None
+    elastic: object | None = None
+    placement_mode: str = "materialized"
+    mesh_shape: dict | None = None
+
+    def __post_init__(self):
+        if self.window_seconds <= 0:
+            raise ValueError(f"window_seconds must be > 0, got {self.window_seconds}")
+        if not 0.0 < self.decay <= 1.0:
+            raise ValueError(f"decay must be in (0, 1], got {self.decay}")
+        if self.decay < 1.0:
+            raise ValueError("decay < 1.0 is not supported: the device fold's cross-batch "
+                             "concurrency carry has no decayed analogue (the reference "
+                             "allows it on its numpy backend only)")
+        if self.drift_threshold < 0 or self.full_recluster_drift < 0:
+            raise ValueError("drift thresholds must be >= 0")
+        for name, (off, item) in _UNPORTED.items():
+            if getattr(self, name) != off:
+                raise ValueError(f"ControllerConfig.{name} is not ported yet (ROADMAP {item})")
+
+
+@dataclass
+class ControllerResult:
+    """Final applied plan and the per-window records."""
+
+    records: list[dict]
+    rf: np.ndarray             # (n,) applied replication factor per file
+    category_idx: np.ndarray   # (n,) applied category index, -1 = unplanned
+    manifest: Manifest
+    #: One {window, bytes, seconds} per checkpoint save.
+    checkpoints: list = field(default_factory=list)
+
+    def plan_entries(self):
+        """The applied plan as ``cluster/plan.PlanEntry`` rows."""
+        return [PlanEntry(p, CATEGORIES[int(c)] if c >= 0 else "Unplanned", int(r))
+                for p, c, r in zip(self.manifest.paths, self.category_idx, self.rf)]
+
+    def summary(self) -> dict:
+        """The reference's summary keys for a run without the unported
+        subsystems."""
+        recl = [r for r in self.records if r["recluster"]]
+        out = {
+            "windows": len(self.records),
+            "events": int(sum(r["n_events"] for r in self.records)),
+            "reclusters": len(recl),
+            "full_reclusters": sum(1 for r in recl if r["recluster_mode"] == "full"),
+            "moves_applied": int(sum(r["moves_applied"] for r in self.records)),
+            "bytes_migrated": int(sum(r["bytes_migrated"] for r in self.records)),
+            # From the applied plan: a resumed run that processed no new
+            # window still reports it.
+            "final_plan_hash": _plan_hash(self.rf, self.category_idx),
+        }
+        pacing = pacing_digest(self.records)
+        if pacing:
+            out["windows_per_sec"] = round(pacing["windows_per_sec"], 3)
+            if "plan_seconds_fraction" in pacing:
+                out["plan_seconds_fraction"] = round(pacing["plan_seconds_fraction"], 4)
+        if self.checkpoints:
+            last = self.checkpoints[-1]
+            out["checkpoint"] = {"saves": len(self.checkpoints),
+                                 "bytes_last": int(last["bytes"]),
+                                 "save_seconds_last": float(last["seconds"])}
+        return out
+
+
+def _plan_hash(rf: np.ndarray, cat: np.ndarray) -> str:
+    h = hashlib.blake2b(digest_size=8)
+    h.update(np.ascontiguousarray(rf, dtype=np.int32).tobytes())
+    h.update(np.ascontiguousarray(cat, dtype=np.int32).tobytes())
+    return h.hexdigest()
+
+
+class ReplicationController:
+    """Drives the window loop over one population (see the module docstring)."""
+
+    #: Counter fields of the streaming state that checkpoints hold.
+    _STATE_ARRAYS = ("access_freq", "writes", "local_acc", "conc_max", "last_sec",
+                     "last_count")
+
+    def __init__(self, manifest: Manifest, cfg: ControllerConfig):
+        n = len(manifest)
+        if n < cfg.kmeans.k:
+            raise ValueError(f"{n} files < k={cfg.kmeans.k}; cannot control this population")
+        self.manifest = manifest
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self._sizes = np.asarray(manifest.size_bytes, dtype=np.int64)
+        self._state = stream_init(n, self.device)
+        self._events_total = 0
+        self._model_full = self._make_model(warm=False)
+        self._model_warm = self._make_model(warm=True)
+
+        self._accepted_centroids: np.ndarray | None = None
+        self._accepted_category_idx: np.ndarray | None = None
+        self._accepted_fractions: np.ndarray | None = None
+        #: Per-file category of the last accepted decision, reused by the
+        #: plan diff.
+        self._accepted_file_cat: np.ndarray | None = None
+        #: The accepted decision not yet turned into the host model arrays.
+        self._pending_accept = None
+
+        self.current_rf = np.full(n, int(cfg.default_rf), dtype=np.int32)
+        self.current_cat = np.full(n, -1, dtype=np.int32)
+        self.scheduler = MigrationScheduler(
+            n, max_bytes_per_window=cfg.max_bytes_per_window,
+            max_files_per_window=cfg.max_files_per_window,
+            hysteresis_windows=cfg.hysteresis_windows)
+        self._placement_key: bytes | None = None
+        self._placement = None
+        #: One {window, bytes, seconds} per checkpoint save.
+        self.checkpoint_log: list[dict] = []
+        self.window_index = 0
+        #: Events of the last processed window, so a resume over a grown
+        #: (append-only) log folds that window's late tail.
+        self._last_window_events = 0
+        self._t0: float | None = None
+
+    def _make_model(self, warm: bool) -> ReplicationPolicyModel:
+        """The full or the warm (``warm_max_iter`` Lloyd budget) model."""
+        cfg = self.cfg
+        km = dataclasses.replace(cfg.kmeans, max_iter=cfg.warm_max_iter) if warm \
+            else cfg.kmeans
+        return ReplicationPolicyModel(kmeans_cfg=km, scoring_cfg=cfg.scoring)
+
+    # -- feature fold ------------------------------------------------------
+    def _fold_window(self, events: EventLog) -> None:
+        self._state = stream_update(self._state, events, self.manifest)
+        self._events_total = self._state.n_events
+
+    def _feature_snapshot(self) -> torch.Tensor:
+        """(n, 5) float32 normalized feature matrix on the device: the
+        reference finalizes, then casts to float32 on its jax backend."""
+        return stream_finalize(self._state, self.manifest).norm.to(torch.float32)
+
+    # -- one window --------------------------------------------------------
+    def process_window(self, w: int, events: EventLog) -> dict:
+        """Phase A (fold, drift, re-cluster) then phase B (planning)."""
+        return self._window_phase_b(self._window_phase_a(w, events))
+
+    def _window_phase_a(self, w: int, events: EventLog) -> dict:
+        """Fold, drift and (maybe) the re-cluster of window ``w``.  Mutates
+        only the feature carry and the pending-accept slot, which phase B
+        of the previous window does not read."""
+        cfg = self.cfg
+        seconds: dict[str, float] = {}
+        t_start = time.perf_counter()
+        rec: dict = {"window": int(w), "n_events": int(len(events))}
+
+        t0 = time.perf_counter()
+        if len(events):
+            self._fold_window(events)
+            if self.device.type == "cuda":   # the fold's kernels count toward it
+                torch.cuda.synchronize(self.device)
+        seconds["fold"] = time.perf_counter() - t0
+        rec["events_total"] = int(self._events_total)
+
+        X = None
+        drift = None
+        t0 = time.perf_counter()
+        self._ensure_accepted()
+        if self._accepted_centroids is not None and len(events):
+            X = self._feature_snapshot()
+            drift = detect_drift(X.cpu().numpy(), self._accepted_centroids,
+                                 self._accepted_category_idx, self._accepted_fractions,
+                                 len(CATEGORIES))
+        seconds["drift"] = time.perf_counter() - t0
+        rec["drift"] = None if drift is None else drift.score
+        rec["centroid_shift"] = None if drift is None else drift.centroid_shift
+        rec["population_delta"] = None if drift is None else drift.population_delta
+
+        cold = self._accepted_centroids is None and self._events_total > 0
+        drift_fire = drift is not None and drift.score >= cfg.drift_threshold
+        trigger = cold or drift_fire
+        rec["recluster"] = bool(trigger)
+        rec["recluster_trigger"] = "cold" if cold else "drift" if drift_fire else None
+        rec["recluster_mode"] = None
+        rec["plan_moves_pending"] = None
+        decision = None
+        t0 = time.perf_counter()
+        if trigger:
+            warm = not cold and drift.score < cfg.full_recluster_drift
+            rec["recluster_mode"] = "warm" if warm else "full"
+            if X is None:
+                X = self._feature_snapshot()
+            model = self._model_warm if warm else self._model_full
+            decision = model.run(X, init_centroids=self._accepted_centroids if warm else None)
+            # The model is accepted now (next window's drift reference); the
+            # plan diff runs in phase B against the then-applied plan.
+            self._pending_accept = decision
+        seconds["recluster"] = time.perf_counter() - t0
+        seconds["host_a"] = time.perf_counter() - t_start
+        return {"w": int(w), "events": events, "rec": rec, "seconds": seconds,
+                "decision": decision}
+
+    def _window_phase_b(self, ctx: dict) -> dict:
+        """Plan diff and submit, budgeted admission, evaluation, record."""
+        cfg = self.cfg
+        w = ctx["w"]
+        events: EventLog = ctx["events"]
+        rec: dict = ctx["rec"]
+        seconds: dict = ctx["seconds"]
+        t_b = time.perf_counter()
+        plan_seconds = 0.0
+
+        if ctx["decision"] is not None:
+            t0 = time.perf_counter()
+            if self._pending_accept is ctx["decision"]:
+                self._ensure_accepted()
+            self._accept_plan(ctx["decision"])
+            rec["plan_moves_pending"] = len(self.scheduler.backlog)
+            dt = time.perf_counter() - t0
+            seconds["recluster"] += dt
+            plan_seconds += dt
+
+        want_eval = cfg.evaluate and len(events) > 0
+        rf_before = self.current_rf.copy() if want_eval else None
+
+        t0 = time.perf_counter()
+        applied = self.scheduler.schedule(w)
+        if len(applied):
+            fi = applied.file_index
+            self.current_rf[fi] = applied.rf_new
+            self.current_cat[fi] = applied.cat_new
+        seconds["schedule"] = time.perf_counter() - t0
+        plan_seconds += seconds["schedule"]
+        rec["moves_applied"] = len(applied)
+        rec["bytes_migrated"] = applied.total_bytes
+        rec["backlog_files"] = len(self.scheduler.backlog)
+        rec["backlog_bytes"] = int(self.scheduler.backlog_bytes)
+        rec["deferred_hysteresis"] = self.scheduler.last_deferred_hysteresis
+        rec["deferred_budget"] = self.scheduler.last_deferred_budget
+
+        t0 = time.perf_counter()
+        rec["locality_before"] = rec["locality_after"] = None
+        rec["balance_before"] = rec["balance_after"] = None
+        if want_eval:
+            rec["locality_before"], rec["balance_before"] = self._evaluate(events, rf_before)
+            if applied:
+                rec["locality_after"], rec["balance_after"] = \
+                    self._evaluate(events, self.current_rf)
+            else:
+                rec["locality_after"] = rec["locality_before"]
+                rec["balance_after"] = rec["balance_before"]
+        seconds["evaluate"] = time.perf_counter() - t0
+
+        if len(applied):
+            # The reference's per-cause digest of the admitted moves.  Every
+            # plan here comes from a drift-gated re-cluster (a cold start is
+            # the first drift decision); the hotspot, conversion and repair
+            # causes belong to the unported subsystems.
+            rec["causes"] = {"drift": {"files": len(applied), "bytes": applied.total_bytes}}
+
+        rec["plan_hash"] = _plan_hash(self.current_rf, self.current_cat)
+        # ``plan``: plan diff and submit plus admission; ``total``: host wall
+        # clock of both phases of this window.
+        seconds["plan"] = plan_seconds
+        seconds["total"] = seconds.pop("host_a") + (time.perf_counter() - t_b)
+        rec["seconds"] = {k: round(v, 6) for k, v in seconds.items()}
+        return rec
+
+    def _ensure_accepted(self) -> None:
+        """Turn the pending accepted decision into the host model arrays:
+        float32 centroids, the category of each cluster and the category
+        fractions."""
+        decision = self._pending_accept
+        if decision is None:
+            return
+        self._pending_accept = None
+        self._accepted_centroids = np.asarray(decision.centroids, dtype=np.float32)
+        cat_idx = np.asarray(decision.category_idx).astype(np.int64)
+        self._accepted_category_idx = cat_idx
+        labels = np.asarray(decision.labels)
+        new_cat = cat_idx[labels]
+        self._accepted_file_cat = new_cat
+        frac = np.bincount(new_cat, minlength=len(CATEGORIES)).astype(np.float64)
+        self._accepted_fractions = frac / max(len(labels), 1)
+
+    def _accept_plan(self, decision) -> None:
+        """Diff the decision's plan against the applied plan and replace the
+        backlog with it."""
+        labels = np.asarray(decision.labels)
+        new_cat = self._accepted_file_cat
+        if new_cat is None:
+            new_cat = np.asarray(decision.category_idx).astype(np.int64)[labels]
+        rf_vec = np.asarray(self.cfg.scoring.rf_vector(), dtype=np.int64)
+        new_rf = rf_vec[new_cat]
+        # Priority: the new category's score margin over the applied one
+        # (unplanned files: over the cluster's worst category).
+        file_scores = np.asarray(decision.scores, dtype=np.float64)[labels]
+        new_score = np.take_along_axis(file_scores, new_cat[:, None], axis=1)[:, 0]
+        old_cat = self.current_cat.astype(np.int64)
+        old_ref = np.where(old_cat >= 0, old_cat, 0)
+        old_score = np.take_along_axis(file_scores, old_ref[:, None], axis=1)[:, 0]
+        old_score = np.where(old_cat >= 0, old_score, file_scores.min(axis=1))
+        self.scheduler.submit(plan_diff(self.current_rf, new_rf, self.current_cat, new_cat,
+                                        self._sizes, priority=new_score - old_score))
+
+    def _placement_for(self, rf: np.ndarray):
+        """The flat rng placement of an rf vector (seed 0), cached on the
+        vector: move-free windows and the before/after pair reuse it."""
+        key = rf.tobytes()
+        if self._placement_key != key:
+            self._placement = place_replicas(
+                self.manifest, rf.copy(), ClusterTopology(nodes=tuple(self.manifest.nodes)),
+                seed=0)
+            self._placement_key = key
+        return self._placement
+
+    def _evaluate(self, events: EventLog, rf: np.ndarray):
+        m = evaluate_placement(self.manifest, events, self._placement_for(rf), seed=0)
+        return float(m.read_locality), float(m.load_balance)
+
+    # -- checkpoint --------------------------------------------------------
+    def save_checkpoint(self, path: str) -> None:
+        """Atomic npz snapshot of the whole controller state (meta ``backend``
+        is ``"torch"``)."""
+        self._ensure_accepted()
+        arrays = {k: getattr(self._state, k).cpu().numpy() for k in self._STATE_ARRAYS}
+        arrays["current_rf"] = self.current_rf
+        arrays["current_cat"] = self.current_cat
+        if self._accepted_centroids is not None:
+            arrays["accepted_centroids"] = self._accepted_centroids
+            arrays["accepted_category_idx"] = self._accepted_category_idx
+            arrays["accepted_fractions"] = self._accepted_fractions
+        arrays.update(self.scheduler.state_arrays())
+        meta = {
+            "window_index": self.window_index,
+            "last_window_events": self._last_window_events,
+            "t0": self._t0,
+            "events_total": self._events_total,
+            "sec_base": self._state.sec_base,
+            "observation_end": self._state.observation_end,
+            "state_n_events": self._state.n_events,
+            "pad_events": self._state.pad_events,
+            "decay": self.cfg.decay,
+            "window_seconds": self.cfg.window_seconds,
+            "k": int(self.cfg.kmeans.k),
+            "backend": "torch",
+            "n_files": len(self.manifest),
+        }
+        stats = save_state(path, arrays, meta=meta)
+        self.checkpoint_log.append({"window": int(self.window_index), **stats})
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore a snapshot of this controller; one taken under another
+        population size, k, backend, decay or window raises ``ValueError``."""
+        arrays, meta = load_state(path)
+        for key, want in (("n_files", len(self.manifest)), ("k", int(self.cfg.kmeans.k)),
+                          ("backend", "torch"), ("decay", self.cfg.decay),
+                          ("window_seconds", self.cfg.window_seconds)):
+            if meta.get(key) != want:
+                raise ValueError(
+                    f"checkpoint {path!r} has {key}={meta.get(key)!r} but the controller "
+                    f"expects {want!r}: stale checkpoint? delete it to start over")
+        self._state = StreamFeatureState(
+            **{k: torch.from_numpy(np.asarray(arrays[k], dtype=np.int32)).to(self.device)
+               for k in self._STATE_ARRAYS},
+            sec_base=meta.get("sec_base"), observation_end=meta.get("observation_end"),
+            n_events=int(meta.get("state_n_events", 0)),
+            pad_events=int(meta.get("pad_events", 0)))
+        self.current_rf = arrays["current_rf"].astype(np.int32)
+        self.current_cat = arrays["current_cat"].astype(np.int32)
+        if "accepted_centroids" in arrays:
+            self._accepted_centroids = arrays["accepted_centroids"]
+            self._accepted_category_idx = arrays["accepted_category_idx"]
+            self._accepted_fractions = arrays["accepted_fractions"]
+        # Recomputed at the next acceptance; never carried over a load.
+        self._accepted_file_cat = None
+        self.scheduler.load_state_arrays(arrays)
+        self.window_index = int(meta["window_index"])
+        self._last_window_events = int(meta.get("last_window_events", 0))
+        self._t0 = meta.get("t0")
+        self._events_total = int(meta.get("events_total", 0))
+
+    def _load_checkpoint_with_fallback(self, path: str) -> None:
+        """Resume from ``path``; a corrupt or truncated snapshot falls back to
+        the retained ``<path>.prev`` (one checkpoint older; the loop replays
+        forward to the same state), which is then promoted over ``path``.
+        A stale checkpoint still raises."""
+        prev = path + ".prev"
+        if not os.path.exists(path):
+            return
+        try:
+            self.load_checkpoint(path)
+            return
+        except CheckpointError as e:
+            if not os.path.exists(prev):
+                raise
+            warnings.warn(f"{e}; falling back to the retained last-good snapshot {prev!r}",
+                          RuntimeWarning, stacklevel=2)
+        self.load_checkpoint(prev)
+        tmp = prev + ".promote"
+        try:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            os.link(prev, tmp)
+        except OSError:
+            import shutil
+
+            shutil.copyfile(prev, tmp)
+        os.replace(tmp, path)
+
+    # -- the loop ----------------------------------------------------------
+    def run(self, source, *, metrics_path: str | None = None,
+            checkpoint_path: str | None = None, checkpoint_every: int = 1,
+            max_windows: int | None = None, batch_size: int = 1_000_000) -> ControllerResult:
+        """Drive the controller over a log (path, EventLog or batch iterable).
+
+        ``checkpoint_path``: resume from an existing snapshot (earlier
+        windows are skipped unfolded; the log is re-read from its start, so
+        the grid is the same) and snapshot every ``checkpoint_every``
+        processed windows and at a clean exit.  The snapshot stays after
+        the run: a later run over the grown append-only log continues from
+        it, folding the late tail of the last processed window first.
+
+        ``metrics_path``: append each window record, with ``"kind":
+        "window"``, to a ``JsonlSink``.  ``max_windows`` stops after that
+        many processed windows (skipped ones do not count).
+        """
+        with deterministic():
+            return self._run(source, metrics_path, checkpoint_path, checkpoint_every,
+                             max_windows, batch_size)
+
+    def _run(self, source, metrics_path, checkpoint_path, checkpoint_every, max_windows,
+             batch_size) -> ControllerResult:
+        if checkpoint_path:
+            self._load_checkpoint_with_fallback(checkpoint_path)
+        records: list[dict] = []
+        sink = None
+        if metrics_path:
+            sink = JsonlSink(metrics_path)
+        processed = 0
+        since_ckpt = 0
+        t0_box: dict = {}
+        every = max(1, checkpoint_every)
+        #: Window dispatched (phase A) but not yet planned (phase B).
+        pending: dict | None = None
+
+        def finish(ctx: dict) -> None:
+            nonlocal processed, since_ckpt
+            rec = self._window_phase_b(ctx)
+            self.window_index = ctx["w"] + 1
+            self._last_window_events = len(ctx["events"])
+            records.append(rec)
+            if sink:
+                sink.emit({"kind": "window", **rec})
+            processed += 1
+            since_ckpt += 1
+
+        try:
+            for w, events in iter_windows(source, self.manifest, self.cfg.window_seconds,
+                                          batch_size=batch_size, t0=self._t0,
+                                          t0_out=t0_box):
+                # Before any work: max_windows=0 changes nothing, and a held
+                # window counts as if it were done.
+                if max_windows is not None and \
+                        processed + (pending is not None) >= max_windows:
+                    break
+                if self._t0 is None:
+                    self._t0 = t0_box.get("t0")
+                if w < self.window_index:
+                    # Already processed; fold the late tail of the last one.
+                    if (w == self.window_index - 1
+                            and len(events) > self._last_window_events):
+                        self._fold_window(_slice(events, self._last_window_events,
+                                                 len(events)))
+                        self._last_window_events = len(events)
+                        since_ckpt += 1
+                    continue
+                ctx = self._window_phase_a(w, events)
+                if pending is not None:
+                    finish(pending)
+                    pending = None
+                # A window is held only when finishing it cannot trigger a
+                # snapshot, so no snapshot holds a dispatched window's fold.
+                if self.cfg.overlap_windows and not (checkpoint_path
+                                                     and since_ckpt + 1 >= every):
+                    pending = ctx
+                else:
+                    finish(ctx)
+                    if checkpoint_path and since_ckpt >= every:
+                        self.save_checkpoint(checkpoint_path)
+                        since_ckpt = 0
+            if pending is not None:
+                finish(pending)
+                pending = None
+        finally:
+            if sink:
+                sink.close()
+        # Only on a clean exit: an exception can land mid-window, and that
+        # torn state would fold the window twice on resume.
+        if checkpoint_path and since_ckpt:
+            self.save_checkpoint(checkpoint_path)
+        return ControllerResult(records=records, rf=self.current_rf.copy(),
+                                category_idx=self.current_cat.copy(),
+                                manifest=self.manifest, checkpoints=list(self.checkpoint_log))

@@ -38,6 +38,20 @@ Phases, each of which exits non-zero when a check fails:
    half of the log against phase 3's model, one launch, held against the
    host oracle (centroid shift within 1e-4, fractions within 1e-6); and
    mini-batch on the card against the CPU at 20,000 files from one init.
+6. The controller on CUDA over phase 5's population and events, inside
+   ``deterministic()``: ``ReplicationController.run`` with 10 s windows,
+   drift threshold 0 (every window after the cold start re-clusters warm),
+   at most 250,000 migrated files per window and a checkpoint every
+   window.  Window 0 must be a cold full re-cluster and every later one a
+   warm drift re-cluster; the Lloyd kernel must run sum(n_iter + 1) times
+   and the threshold count 12 times per re-cluster; the final counters
+   must give phase 3's batch table bit for bit.  A run killed after 3
+   windows and resumed (one window of it under torch.profiler, for the
+   device idle share) must give the full run's plan hash in every window
+   and its final plan.  At 20,000 files (phase 4's workload), the
+   controller on the card and on the CPU, from one carried init, must make
+   the same re-clusters with the same per-cluster categories, and final
+   per-file categories agreeing on >= 99.9% of files.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It imports nothing of the JAX
@@ -63,6 +77,9 @@ MAIN_DURATION = 60.0
 K = 8
 STREAM_BATCH = 4_000_000     # events per fold batch
 MB_BATCH = 262_144           # rows per mini-batch update
+CONTROL_WINDOW = 10.0        # seconds per controller window
+CONTROL_MAX_FILES = 250_000  # migrated files per window
+CONTROL_KILL_AFTER = 3       # windows before the simulated kill
 
 
 def fail(msg: str) -> None:
@@ -623,7 +640,7 @@ def phase_stream_path(cfg, main_result):
         f"{times['drift_ms']:.4f} ms per call")
     check(d_shift <= 1e-4, f"drift centroid shift off the oracle by {d_shift:.3e}")
     check(d_frac <= 1e-6, f"drift fractions off the oracle by {d_frac:.3e}")
-    return launches, times
+    return launches, times, manifest, events
 
 
 def phase_minibatch_card_vs_cpu(norm_cpu, init):
@@ -644,6 +661,202 @@ def phase_minibatch_card_vs_cpu(norm_cpu, init):
     check(agree >= 0.999, f"mini-batch card and CPU labels agree on {agree:.6f} < 0.999")
     check(runs["cuda"].categories == runs["cpu"].categories,
           "mini-batch card and CPU per-cluster categories differ")
+
+
+def watch_reclusters(ctl, init_fn=None):
+    """Wrap the controller's two models so each re-cluster appends (warm,
+    n_iter, per-cluster categories) to the returned list; ``init_fn(X)``
+    gives the init of a full re-cluster."""
+    seen = []
+    for warm, model in ((False, ctl._model_full), (True, ctl._model_warm)):
+        def run(X, init_centroids=None, _run=model.run, _model=model, _warm=warm, **kw):
+            if init_centroids is None and init_fn is not None:
+                init_centroids = init_fn(X)
+            dec = _run(X, init_centroids=init_centroids, **kw)
+            seen.append({"warm": _warm, "n_iter": _model.n_iter, "categories": dec.categories})
+            return dec
+        model.run = run
+    return seen
+
+
+def time_methods(obj, names):
+    """Wrap the named methods of ``obj`` so each call adds its host seconds
+    to the returned dict."""
+    spent = dict.fromkeys(names, 0.0)
+    for name in names:
+        def timed(*args, _fn=getattr(obj, name), _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                spent[_name] += time.perf_counter() - t0
+        setattr(obj, name, timed)
+    return spent
+
+
+def control_config(device: str):
+    from cdrs_tpu_torch import KMeansConfig, validated_scoring_config
+    from cdrs_tpu_torch.control.controller import ControllerConfig
+
+    return ControllerConfig(
+        window_seconds=CONTROL_WINDOW, drift_threshold=0.0,
+        max_files_per_window=CONTROL_MAX_FILES, kmeans=KMeansConfig(k=K, seed=MAIN_SEED),
+        scoring=validated_scoring_config(), device=device)
+
+
+def profile_window(ctl, events):
+    """One window of a resumed controller under torch.profiler: its host
+    wall time (the record's ``seconds.total``), the device busy time and
+    the idle share, and the launches of each kernel."""
+    import torch
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        res = ctl.run(events, max_windows=1)
+        torch.cuda.synchronize()
+    rec = res.records[0]
+    busy_us, lloyd, seg = 0.0, 0, 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            busy_us += ev.time_range.elapsed_us()
+            lloyd += "lloyd_" in ev.name
+            seg += "seg_" in ev.name
+    wall = rec["seconds"]["total"]
+    out = {"window": rec["window"], "mode": rec["recluster_mode"], "wall_s": wall,
+           "device_busy_s": busy_us / 1e6,
+           "idle_share": 1 - busy_us / 1e6 / wall if busy_us else None,
+           "lloyd_launches_seen": lloyd, "seg_launches_seen": seg, "seconds": rec["seconds"]}
+    return res, out
+
+
+def phase_controller(manifest, events, main_result):
+    """Phase 6: the controller on the card over phase 5's workload, then at
+    20,000 files on the card against the CPU.  Returns the kernels'
+    launches on the control path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cdrs_tpu_torch.control.controller import ReplicationController
+    from cdrs_tpu_torch.device import deterministic
+    from cdrs_tpu_torch.features.streaming import stream_finalize
+    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
+    from cdrs_tpu_torch.ops.seg_count import label_threshold_count
+
+    with tempfile.TemporaryDirectory() as tmp, deterministic():
+        ctl = ReplicationController(manifest, control_config("cuda"))
+        seen = watch_reclusters(ctl)
+        split = time_methods(ctl, ("_feature_snapshot", "_ensure_accepted", "_accept_plan",
+                                   "_placement_for"))
+        lloyd_assign_reduce.launches = 0
+        label_threshold_count.launches = 0
+        t0 = time.perf_counter()
+        full = ctl.run(events, checkpoint_path=os.path.join(tmp, "full.npz"))
+        wall = time.perf_counter() - t0
+        launches = {"lloyd": lloyd_assign_reduce.launches,
+                    "seg_count": label_threshold_count.launches}
+        recs = full.records
+        modes = [(r["recluster_trigger"], r["recluster_mode"]) for r in recs]
+        log(f"control: {len(manifest)} files, {sum(r['n_events'] for r in recs)} events in "
+            f"{len(recs)} windows of {CONTROL_WINDOW:g} s; wall {wall:.3f} s "
+            f"({len(recs) / wall:.4f} windows/s, checkpoints included), re-clusters {modes}, "
+            f"Lloyd iterations {[c['n_iter'] for c in seen]}, launches {launches}")
+        for r in recs:
+            log("control window " + json.dumps(
+                {k: r[k] for k in ("window", "n_events", "drift", "recluster_mode",
+                                   "plan_moves_pending", "moves_applied", "backlog_files",
+                                   "locality_before", "locality_after", "plan_hash",
+                                   "seconds")}))
+        stages = ("fold", "drift", "recluster", "plan", "schedule", "evaluate", "total")
+        per_stage = {st: sum(r["seconds"].get(st, 0.0) for r in recs) / len(recs)
+                     for st in stages}
+        log("control stages mean seconds per window " + json.dumps(per_stage))
+        # Inside the stages: the snapshot (drift and re-cluster), the model
+        # acceptance and plan diff (plan), and the placement of each new rf
+        # vector (evaluate; the rest of evaluate replays the window's events).
+        log("control host split, seconds per window " + json.dumps(
+            {name: t / len(recs) for name, t in split.items()}))
+        log("control summary " + json.dumps(full.summary()))
+        check(modes[0] == ("cold", "full"), f"window 0 re-clustered as {modes[0]}")
+        check(len(recs) >= 2 and all(m == ("drift", "warm") for m in modes[1:]),
+              f"later windows re-clustered as {modes[1:]}, expected drift/warm")
+        check(len(seen) == len(recs), f"{len(seen)} re-clusters for {len(recs)} windows")
+        want_lloyd = sum(c["n_iter"] + 1 for c in seen)
+        check(launches["lloyd"] == want_lloyd,
+              f"control made {launches['lloyd']} Lloyd launches, expected {want_lloyd}")
+        check(launches["seg_count"] == 12 * len(seen),
+              f"control made {launches['seg_count']} threshold-count launches, expected "
+              f"{12 * len(seen)}")
+        check(all(r["moves_applied"] <= CONTROL_MAX_FILES for r in recs),
+              "a window admitted more moves than the file cap")
+        check(recs[0]["backlog_files"] > 0, "the backlog does not span windows")
+        table = stream_finalize(ctl._state, manifest)
+        check(torch.equal(table.raw, main_result.table.raw)
+              and torch.equal(table.norm, main_result.table.norm),
+              "the controller's final snapshot differs from phase 3's batch table")
+        log(f"control snapshot: {len(manifest)} x 5 raw and norm bit-identical to phase 3's "
+            f"batch table")
+
+        ck = os.path.join(tmp, "killed.npz")
+        killed = ReplicationController(manifest, control_config("cuda")).run(
+            events, checkpoint_path=ck, max_windows=CONTROL_KILL_AFTER)
+        resumed = ReplicationController(manifest, control_config("cuda"))
+        resumed.load_checkpoint(ck)
+        one, prof = profile_window(resumed, events)
+        resumed.save_checkpoint(ck)
+        rest = ReplicationController(manifest, control_config("cuda")).run(
+            events, checkpoint_path=ck)
+        got = [r["plan_hash"] for r in killed.records + one.records + rest.records]
+        want = [r["plan_hash"] for r in recs]
+        check(got == want, f"kill/resume plan hashes {got} differ from the full run's {want}")
+        check(np.array_equal(rest.rf, full.rf)
+              and np.array_equal(rest.category_idx, full.category_idx),
+              "kill/resume final plan differs from the full run's")
+        log(f"control kill/resume: killed after {CONTROL_KILL_AFTER} windows, resumed; "
+            f"plan hashes identical in all {len(want)} windows, final rf/categories identical")
+        log("control profile " + json.dumps(prof))
+
+    card_cpu_control()
+    return launches
+
+
+def card_cpu_control():
+    """The controller at 20,000 files (phase 4's workload) on the card and on
+    the CPU, full re-clusters from one init computed on the CPU."""
+    import numpy as np
+
+    from cdrs_tpu_torch import GeneratorConfig, SimulatorConfig
+    from cdrs_tpu_torch.control.controller import ReplicationController
+    from cdrs_tpu_torch.ops.kmeans import kmeans_full
+    from cdrs_tpu_torch.sim.access import simulate_access
+    from cdrs_tpu_torch.sim.generator import generate_population
+
+    manifest = generate_population(GeneratorConfig(n_files=20_000, seed=MAIN_SEED))
+    events = simulate_access(manifest, SimulatorConfig(duration_seconds=MAIN_DURATION,
+                                                       seed=MAIN_SEED + 1))
+
+    def init(X):
+        return kmeans_full(X.cpu(), K, seed=MAIN_SEED, max_iter=0, tol=0.0)[0]
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ctl = ReplicationController(manifest, control_config(dev))
+        seen = watch_reclusters(ctl, init)
+        runs[dev] = (ctl.run(events), seen)
+    (res_c, seen_c), (res_p, seen_p) = runs["cuda"], runs["cpu"]
+    modes = [[r["recluster_mode"] for r in res.records] for res in (res_c, res_p)]
+    cats = [[s["categories"] for s in seen] for seen in (seen_c, seen_p)]
+    agree = float((res_c.category_idx == res_p.category_idx).mean())
+    log(f"control card vs cpu at {len(manifest)} files: re-clusters {modes[0]} vs {modes[1]}, "
+        f"per-file categories agree {agree:.6f}; plan hashes card "
+        f"{[r['plan_hash'] for r in res_c.records]} cpu "
+        f"{[r['plan_hash'] for r in res_p.records]}")
+    check(modes[0] == modes[1], "card and CPU controllers re-clustered differently")
+    check(cats[0] == cats[1], f"per-cluster categories differ: {cats[0]} vs {cats[1]}")
+    check(agree >= 0.999, f"card and CPU final categories agree on {agree:.6f} < 0.999")
+    check(bool(np.all(res_c.category_idx >= 0)), "files left unplanned on the card")
 
 
 def main() -> int:
@@ -669,23 +882,31 @@ def main() -> int:
         return 0
     launches, cfg, main_result = phase_main_path()
     norm_20k, init_20k = phase_card_vs_cpu()
-    stream_launches, stream_times = phase_stream_path(cfg, main_result)
+    stream_launches, stream_times, manifest, events = phase_stream_path(cfg, main_result)
     phase_minibatch_card_vs_cpu(norm_20k, init_20k)
     log("stream path times " + json.dumps(stream_times))
+    t0 = time.perf_counter()
+    control_launches = phase_controller(manifest, events, main_result)
+    log(f"phase 6 (controller): {time.perf_counter() - t0:.1f} s")
+    del manifest, events
 
     kernels = [
         {"name": "lloyd_assign_reduce", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:392",
-         "launches": launches["lloyd"], **rows["lloyd"], "library_ms": None},
+         "launches": launches["lloyd"], "control_launches": control_launches["lloyd"],
+         **rows["lloyd"], "library_ms": None},
         {"name": "label_threshold_count", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/seg_count.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:534",
-         "launches": launches["seg_count"], **rows["seg_count"], "library_ms": None},
+         "launches": launches["seg_count"],
+         "control_launches": control_launches["seg_count"], **rows["seg_count"],
+         "library_ms": None},
         {"name": "lloyd_assign_reduce (row-major, labels)", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:443",
-         "launches": stream_launches, **rows["lloyd_rowmajor"], "library_ms": None},
+         "launches": stream_launches, "control_launches": 0, **rows["lloyd_rowmajor"],
+         "library_ms": None},
     ]
     for row in kernels:
         check(all(isinstance(row[key], (int, float)) and math.isfinite(row[key])

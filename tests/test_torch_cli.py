@@ -1,12 +1,14 @@
-"""``python -m cdrs_tpu_torch gen | simulate | stream`` end to end on the CPU.
+"""``python -m cdrs_tpu_torch gen | simulate | stream | control`` end to end on the CPU.
 
 ``gen`` and ``simulate`` write byte-identical files to ``cdrs gen`` and
 ``cdrs simulate`` on the same seeds (CSV manifest, ``.cdrsb`` log);
 ``stream --kmeans_batch`` folds that log and writes ``final_categories.csv``,
-and the folded features equal the port's batch features of the same files.
+and the folded features equal the port's batch features of the same files;
+``control`` prints the reference's summary keys.
 """
 
 import csv
+import json
 import os
 import subprocess
 import sys
@@ -83,3 +85,36 @@ def test_stream_rejects_a_bad_kmeans_batch_and_a_cuda_less_default(tmp_path):
         no_cuda = subprocess.run(args, cwd=tmp_path, env=ENV, capture_output=True,
                                  text=True, timeout=300)
         assert no_cuda.returncode != 0 and "CUDA is not available" in no_cuda.stderr
+
+
+def test_control_summary_has_the_reference_keys(tmp_path, capsys, monkeypatch):
+    """``control --device cpu`` over a ``gen``/``simulate`` log: the JSON
+    summary has the keys of ``cdrs control --backend jax`` with the same
+    options, and the plan CSV and window records are written."""
+    _port("gen", "--n", "300", "--seed", "5", "--out_manifest", "m.csv", cwd=tmp_path)
+    _port("simulate", "--manifest", "m.csv", "--out", "a.cdrsb", "--duration_seconds",
+          "600", "--seed", "6", cwd=tmp_path)
+    opts = ["--manifest", "m.csv", "--access_log", "a.cdrsb", "--window_seconds", "120",
+            "--k", "4", "--seed", "3", "--scoring_config", "validated", "--max_files", "50",
+            "--checkpoint", "ck.npz"]
+    out = _port("control", *opts, "--device", "cpu", "--plan_out", "plan.csv",
+                "--metrics", "m.jsonl", cwd=tmp_path)
+    summary = json.loads(out)
+    monkeypatch.chdir(tmp_path)
+    capsys.readouterr()
+    assert reference_main(["control", *[o.replace("ck.npz", "ref_ck.npz") for o in opts],
+                           "--backend", "jax"]) == 0
+    ref = json.loads(capsys.readouterr().out)
+    assert set(summary) == set(ref)
+    assert set(summary["checkpoint"]) == set(ref["checkpoint"])
+    for key in ("windows", "events", "reclusters"):
+        assert summary[key] == ref[key], key
+    with open(tmp_path / "plan.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 300 and set(rows[0]) == {"path", "category", "rf"}
+    records = [json.loads(ln) for ln in (tmp_path / "m.jsonl").read_text().splitlines()]
+    assert [r["window"] for r in records] == list(range(summary["windows"]))
+    assert records[-1]["plan_hash"] == summary["final_plan_hash"]
+    # Rerunning resumes from the checkpoint: nothing left to process.
+    again = json.loads(_port("control", *opts, "--device", "cpu", cwd=tmp_path))
+    assert again["windows"] == 0 and again["final_plan_hash"] == summary["final_plan_hash"]
