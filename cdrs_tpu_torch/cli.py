@@ -6,7 +6,9 @@
 * ``stream`` folds an access log in batches, then clusters (full-batch, or
   mini-batch with ``--kmeans_batch``);
 * ``control`` runs the online replication controller over an access log
-  and prints its JSON summary.
+  and prints its JSON summary;
+* ``daemon`` runs the controller as the always-on streaming daemon over a
+  ``.cdrsb`` log (once, or following it as it grows) and prints its digest.
 
 The flags are those of ``cdrs_tpu``'s subcommands of the same names that
 this port supports, plus ``--device`` (CUDA unless "cpu" is asked for).
@@ -165,6 +167,70 @@ def _cmd_control(args) -> int:
     return 0
 
 
+def _supervised_child(argv: list[str]) -> list[str]:
+    """``argv`` without the supervision flags, so that the child does not
+    supervise in turn."""
+    child, skip = [], False
+    for tok in argv:
+        if skip:
+            skip = False
+        elif tok in ("--supervise", "--max_restarts"):
+            skip = tok == "--max_restarts"
+        elif not tok.startswith("--max_restarts="):
+            child.append(tok)
+    return child
+
+
+def _cmd_daemon(args) -> int:
+    """The streaming daemon (daemon/): tail the ``.cdrsb`` log, decide per
+    window, publish epoch-pinned placements, checkpoint with the ingest
+    cursor so that SIGTERM and a rerun resume bit-identically."""
+    from .control.controller import ReplicationController
+    from .daemon import BrownoutConfig, DaemonConfig, StreamDaemon, supervise
+    from .io.events import Manifest
+
+    if args.supervise:
+        return supervise([sys.executable, "-m", "cdrs_tpu_torch"]
+                         + _supervised_child(args.argv), max_restarts=args.max_restarts)
+    brownout = None
+    if args.brownout:
+        kw = {}
+        if args.brownout_engage:
+            kw["engage"] = tuple(float(x) for x in args.brownout_engage.split(","))
+        if args.brownout_release:
+            kw["release"] = tuple(float(x) for x in args.brownout_release.split(","))
+        if args.shed_fraction is not None:
+            kw["shed_fraction"] = args.shed_fraction
+        brownout = BrownoutConfig(**kw)
+    manifest = Manifest.read_csv(args.manifest)
+    controller = ReplicationController(manifest, _controller_cfg(args))
+    daemon = StreamDaemon(controller, DaemonConfig(
+        follow=args.follow, poll=args.poll, checkpoint_every=args.checkpoint_every,
+        max_windows=args.max_windows, max_seconds=args.max_seconds,
+        recluster=args.recluster, minibatch_rows=args.minibatch_rows, brownout=brownout))
+    daemon.install_signal_handlers()
+    t0 = time.perf_counter()
+    digest = daemon.run(args.access_log, metrics_path=args.metrics,
+                        metrics_max_bytes=args.metrics_max_bytes,
+                        checkpoint_path=args.checkpoint)
+    elapsed = time.perf_counter() - t0
+    if args.plan_out:
+        from .cluster.plan import write_plan_csv
+        from .control.controller import ControllerResult
+
+        result = ControllerResult(records=daemon.records, rf=controller.current_rf,
+                                  category_idx=controller.current_cat, manifest=manifest)
+        write_plan_csv(args.plan_out, result.plan_entries())
+        print(f"plan: {len(manifest)} files -> {args.plan_out}", file=sys.stderr)
+    digest["seconds"] = round(elapsed, 3)
+    if args.digest_out:
+        with open(args.digest_out, "w", encoding="utf-8") as f:
+            json.dump(digest, f, indent=2)
+            f.write("\n")
+    print(json.dumps(digest, indent=2))
+    return 0
+
+
 def _add_scoring_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--medians_from_data", action="store_true")
     p.add_argument("--scoring_config", default=None, metavar="JSON|validated")
@@ -178,6 +244,50 @@ def _add_init_method_arg(p: argparse.ArgumentParser) -> None:
 
 def _add_device_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default=None, help="torch device: cuda (default) or cpu")
+
+
+def _add_control_args(p: argparse.ArgumentParser) -> None:
+    """Options shared by the ``control`` and ``daemon`` subcommands."""
+    p.add_argument("--manifest", required=True)
+    p.add_argument("--access_log", required=True,
+                   help="globally time-sorted log (CSV access.log or .cdrsb)")
+    p.add_argument("--window_seconds", type=float, default=60.0)
+    p.add_argument("--k", type=int, default=8)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--drift_threshold", type=float, default=0.05,
+                   help="drift score at/above which a re-cluster runs")
+    p.add_argument("--full_drift", type=float, default=0.30, metavar="SCORE",
+                   help="drift at/above which the warm start is abandoned (fresh init, "
+                        "full iteration budget)")
+    p.add_argument("--warm_max_iter", type=int, default=25)
+    p.add_argument("--max_bytes", type=int, default=None, metavar="BYTES",
+                   help="per-window migration byte budget (default: unbounded)")
+    p.add_argument("--max_files", type=int, default=None, metavar="N",
+                   help="per-window migrated-file cap (default: unbounded)")
+    p.add_argument("--hysteresis", type=int, default=1, metavar="WINDOWS",
+                   help="windows a migrated file stays frozen (anti-flap)")
+    p.add_argument("--default_rf", type=int, default=1)
+    p.add_argument("--batch_size", type=int, default=1_000_000,
+                   help="events per log read batch (windows re-slice it)")
+    p.add_argument("--metrics", default=None, metavar="JSONL",
+                   help="append one JSON line per window record here")
+    p.add_argument("--plan_out", default=None, metavar="CSV",
+                   help="write the final applied plan (path,category,rf)")
+    p.add_argument("--checkpoint", default=None, metavar="NPZ",
+                   help="snapshot the controller state here every --checkpoint_every "
+                        "windows; rerunning the same command resumes with an identical "
+                        "plan sequence")
+    p.add_argument("--checkpoint_every", type=int, default=1, metavar="W")
+    p.add_argument("--max_windows", type=int, default=None,
+                   help="stop after N processed windows")
+    p.add_argument("--no_evaluate", action="store_true",
+                   help="skip the per-window locality/balance replay")
+    p.add_argument("--overlap", action="store_true",
+                   help="run window t+1's re-cluster before window t's planning; "
+                        "decision-identical to the serial order")
+    _add_scoring_args(p)
+    _add_init_method_arg(p)
+    _add_device_arg(p)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -242,52 +352,56 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("control", help="online replication controller: windowed drift "
                        "detection -> incremental re-cluster -> bounded-churn migration")
-    p.add_argument("--manifest", required=True)
-    p.add_argument("--access_log", required=True,
-                   help="globally time-sorted log (CSV access.log or .cdrsb)")
-    p.add_argument("--window_seconds", type=float, default=60.0)
-    p.add_argument("--k", type=int, default=8)
-    p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--drift_threshold", type=float, default=0.05,
-                   help="drift score at/above which a re-cluster runs")
-    p.add_argument("--full_drift", type=float, default=0.30, metavar="SCORE",
-                   help="drift at/above which the warm start is abandoned (fresh init, "
-                        "full iteration budget)")
-    p.add_argument("--warm_max_iter", type=int, default=25)
-    p.add_argument("--max_bytes", type=int, default=None, metavar="BYTES",
-                   help="per-window migration byte budget (default: unbounded)")
-    p.add_argument("--max_files", type=int, default=None, metavar="N",
-                   help="per-window migrated-file cap (default: unbounded)")
-    p.add_argument("--hysteresis", type=int, default=1, metavar="WINDOWS",
-                   help="windows a migrated file stays frozen (anti-flap)")
-    p.add_argument("--default_rf", type=int, default=1)
-    p.add_argument("--batch_size", type=int, default=1_000_000,
-                   help="events per log read batch (windows re-slice it)")
-    p.add_argument("--metrics", default=None, metavar="JSONL",
-                   help="append one JSON line per window record here")
-    p.add_argument("--plan_out", default=None, metavar="CSV",
-                   help="write the final applied plan (path,category,rf)")
-    p.add_argument("--checkpoint", default=None, metavar="NPZ",
-                   help="snapshot the controller state here every --checkpoint_every "
-                        "windows; rerunning the same command resumes with an identical "
-                        "plan sequence")
-    p.add_argument("--checkpoint_every", type=int, default=1, metavar="W")
-    p.add_argument("--max_windows", type=int, default=None,
-                   help="stop after N processed windows")
-    p.add_argument("--no_evaluate", action="store_true",
-                   help="skip the per-window locality/balance replay")
-    p.add_argument("--overlap", action="store_true",
-                   help="run window t+1's re-cluster before window t's planning; "
-                        "decision-identical to the serial order")
-    _add_scoring_args(p)
-    _add_init_method_arg(p)
-    _add_device_arg(p)
+    _add_control_args(p)
     p.set_defaults(fn=_cmd_control)
+
+    p = sub.add_parser("daemon", help="always-on streaming controller: tail the growing "
+                       ".cdrsb log, decide per window, publish epoch-pinned placements, "
+                       "checkpoint with an ingest cursor for a bit-identical resume")
+    _add_control_args(p)
+    p.add_argument("--follow", action="store_true",
+                   help="keep tailing the log for appended blocks (default: process to "
+                        "EOF once and exit)")
+    p.add_argument("--poll", type=float, default=0.5, metavar="SECONDS",
+                   help="follow-mode poll cadence")
+    p.add_argument("--max_seconds", type=float, default=None,
+                   help="stop (checkpoint + digest) after this much wall clock")
+    p.add_argument("--recluster", choices=["controller", "minibatch"], default="controller",
+                   help="'minibatch' also advances a mini-batch Lloyd step per window on "
+                        "the device (live centroids and inertia; decisions unchanged)")
+    p.add_argument("--minibatch_rows", type=int, default=2048, metavar="ROWS")
+    p.add_argument("--metrics_max_bytes", type=int, default=None, metavar="BYTES",
+                   help="rotate the --metrics file past this size (path.1, path.2, ...)")
+    p.add_argument("--digest_out", default=None, metavar="JSON",
+                   help="also write the final digest here")
+    p.add_argument("--brownout", action="store_true",
+                   help="engage the overload brownout ladder: as decision lag crosses "
+                        "each rung's threshold, shed optional work in order (skip "
+                        "minibatch, defer scrub, cap trace exemplars, coalesce windows, "
+                        "shed reads), recovering hysteretically in reverse")
+    p.add_argument("--brownout_engage", default=None, metavar="CSV",
+                   help="5 comma-separated lag-window thresholds, one per rung "
+                        "(default 2,3,4,6,8)")
+    p.add_argument("--brownout_release", default=None, metavar="CSV",
+                   help="5 release thresholds, each strictly below its engage threshold "
+                        "(default 1,1.5,2,3,4)")
+    p.add_argument("--shed_fraction", type=float, default=None, metavar="F",
+                   help="fraction of reads shed while the shed_reads rung is engaged "
+                        "(default 0.2)")
+    p.add_argument("--supervise", action="store_true",
+                   help="run under the crash supervisor: restart on an abnormal exit with "
+                        "capped exponential backoff (a killed daemon resumes from its "
+                        "checkpoint)")
+    p.add_argument("--max_restarts", type=int, default=5, metavar="N",
+                   help="give up after N consecutive crash-restarts")
+    p.set_defaults(fn=_cmd_daemon)
     return parser
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    args.argv = argv
     return args.fn(args)
 
 

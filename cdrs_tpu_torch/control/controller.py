@@ -240,6 +240,15 @@ class ReplicationController:
         #: (append-only) log folds that window's late tail.
         self._last_window_events = 0
         self._t0: float | None = None
+        #: Meta blob of the last snapshot loaded (the daemon reads its
+        #: ``extra_meta`` back from here).
+        self.last_checkpoint_meta: dict | None = None
+        #: Degraded modes and serve shed set by the daemon's brownout ladder.
+        #: The modes that act here (``defer_scrub`` and, through
+        #: ``serve_shed``, ``shed_reads``) belong to scrub and serving, which
+        #: are not ported (ROADMAP A8c, A8d), so they change nothing yet.
+        self.degraded_modes: frozenset = frozenset()
+        self.serve_shed: tuple | None = None
 
     def _make_model(self, warm: bool) -> ReplicationPolicyModel:
         """The full or the warm (``warm_max_iter`` Lloyd budget) model."""
@@ -249,7 +258,10 @@ class ReplicationController:
         return ReplicationPolicyModel(kmeans_cfg=km, scoring_cfg=cfg.scoring)
 
     # -- feature fold ------------------------------------------------------
-    def _fold_window(self, events: EventLog) -> None:
+    def _fold_window(self, events: EventLog, new_window: bool = True) -> None:
+        """Fold events into the counters.  ``new_window=False`` marks the
+        late tail of an already processed window; it matters only to a
+        decayed fold, and the port's decay is 1."""
         self._state = stream_update(self._state, events, self.manifest)
         self._events_total = self._state.n_events
 
@@ -437,9 +449,10 @@ class ReplicationController:
         return float(m.read_locality), float(m.load_balance)
 
     # -- checkpoint --------------------------------------------------------
-    def save_checkpoint(self, path: str) -> None:
+    def save_checkpoint(self, path: str, extra_meta: dict | None = None) -> None:
         """Atomic npz snapshot of the whole controller state (meta ``backend``
-        is ``"torch"``)."""
+        is ``"torch"``); ``extra_meta`` goes into the meta blob under the
+        caller's keys (the daemon's ingest cursor)."""
         self._ensure_accepted()
         arrays = {k: getattr(self._state, k).cpu().numpy() for k in self._STATE_ARRAYS}
         arrays["current_rf"] = self.current_rf
@@ -464,6 +477,8 @@ class ReplicationController:
             "backend": "torch",
             "n_files": len(self.manifest),
         }
+        if extra_meta:
+            meta.update(extra_meta)
         stats = save_state(path, arrays, meta=meta)
         self.checkpoint_log.append({"window": int(self.window_index), **stats})
 
@@ -497,6 +512,7 @@ class ReplicationController:
         self._last_window_events = int(meta.get("last_window_events", 0))
         self._t0 = meta.get("t0")
         self._events_total = int(meta.get("events_total", 0))
+        self.last_checkpoint_meta = meta
 
     def _load_checkpoint_with_fallback(self, path: str) -> None:
         """Resume from ``path``; a corrupt or truncated snapshot falls back to

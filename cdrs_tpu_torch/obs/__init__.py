@@ -1,1 +1,2 @@
-"""Observability: the controller's JSONL window sink and pacing digest."""
+"""Observability: the JSONL sink and its readers, the pacing digest, the
+alert rules and the daemon's decision-trace contexts."""

@@ -52,6 +52,24 @@ Phases, each of which exits non-zero when a check fails:
    controller on the card and on the CPU, from one carried init, must make
    the same re-clusters with the same per-cluster categories, and final
    per-file categories agreeing on >= 99.9% of files.
+7. The streaming daemon on CUDA over phase 5's ``.cdrsb`` log, with phase
+   6's settings: (a) a full run with mini-batch tracking, decision tracing
+   and a checkpoint every window, whose records must equal phase 6's, with
+   one published epoch per window, the pinned epoch the final plan,
+   B1 = sum(n_iter + 1) and B2 = 12 per re-cluster by the counters, B3 one
+   launch per window (the mini-batch step), and every decision trace's
+   segments summing to its total; (b) a stop after 3 windows, one profiled
+   resumed decision (device idle share) and a second resume, whose joined
+   records must equal (a)'s after reading fewer events than the log holds,
+   with continuing epoch ids; (c) 1,000,000 seeded reads resolved from the
+   pinned epoch, equal to the CPU placement, with rf distinct nodes and the
+   primary first; (d) at 20,000 files (phase 4's workload) a follow-mode
+   daemon at the default drift threshold over a log written in 4 parts,
+   stopped by a SIGTERM request, whose records must be a prefix of a
+   non-follow run's, with at least one window that skips the re-cluster;
+   then brownout runs over the whole log, which must coalesce windows,
+   fold every event once, replay byte-identically apart from the
+   wall-clock fields, and give the CPU's plan hashes.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It imports nothing of the JAX
@@ -64,8 +82,10 @@ import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -527,11 +547,11 @@ def phase_card_vs_cpu():
     return table.norm, init
 
 
-def phase_stream_path(cfg, main_result):
-    """Phase 5: the stream path on the card over phase 3's workload.
-    Returns the Lloyd kernel's launches on the path and the path's times."""
-    import tempfile
-
+def phase_stream_path(cfg, main_result, work):
+    """Phase 5: the stream path on the card over phase 3's workload.  Its
+    ``.cdrsb`` log stays in ``work`` for phase 7.  Returns the Lloyd
+    kernel's launches on the path, the path's times, the workload and the
+    log's path."""
     import numpy as np
     import torch
 
@@ -556,8 +576,8 @@ def phase_stream_path(cfg, main_result):
           "the simulator emitted unknown paths; pass observation_end to stream_finalize")
     dec3 = main_result.decision
     times = {}
-    with tempfile.TemporaryDirectory() as tmp, deterministic():
-        log_path = os.path.join(tmp, "access.cdrsb")
+    log_path = os.path.join(work, "access.cdrsb")
+    with deterministic():
         t0 = time.perf_counter()
         events.write_binary(log_path, manifest)
         times["write_seconds"] = time.perf_counter() - t0
@@ -640,7 +660,7 @@ def phase_stream_path(cfg, main_result):
         f"{times['drift_ms']:.4f} ms per call")
     check(d_shift <= 1e-4, f"drift centroid shift off the oracle by {d_shift:.3e}")
     check(d_frac <= 1e-6, f"drift fractions off the oracle by {d_frac:.3e}")
-    return launches, times, manifest, events
+    return launches, times, manifest, events, log_path
 
 
 def phase_minibatch_card_vs_cpu(norm_cpu, init):
@@ -733,9 +753,7 @@ def profile_window(ctl, events):
 def phase_controller(manifest, events, main_result):
     """Phase 6: the controller on the card over phase 5's workload, then at
     20,000 files on the card against the CPU.  Returns the kernels'
-    launches on the control path."""
-    import tempfile
-
+    launches on the control path and the full run's records."""
     import numpy as np
     import torch
 
@@ -819,7 +837,7 @@ def phase_controller(manifest, events, main_result):
         log("control profile " + json.dumps(prof))
 
     card_cpu_control()
-    return launches
+    return launches, recs
 
 
 def card_cpu_control():
@@ -858,6 +876,303 @@ def card_cpu_control():
     check(agree >= 0.999, f"card and CPU final categories agree on {agree:.6f} < 0.999")
     check(bool(np.all(res_c.category_idx >= 0)), "files left unplanned on the card")
 
+def strip_seconds(records):
+    return [{k: v for k, v in r.items() if k != "seconds"} for r in records]
+
+
+def timed_tailer(spent):
+    """Route the daemon's tailer through a wrapper that adds the seconds
+    spent reading and parsing blocks to ``spent``; returns the original."""
+    from cdrs_tpu_torch.daemon import core
+
+    orig = core.tail_binary_log
+
+    def tail(*args, **kw):
+        blocks = orig(*args, **kw)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(blocks)
+            except StopIteration:
+                return
+            finally:
+                spent["parse_seconds"] += time.perf_counter() - t0
+            spent["blocks"] += 1
+            yield item
+
+    core.tail_binary_log = tail
+    return orig
+
+
+def count_minibatch(daemon, spent):
+    """Wrap the daemon's mini-batch step: its Lloyd launches (B3) and host
+    seconds go to ``spent``."""
+    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
+
+    step = daemon._minibatch_step
+
+    def counted():
+        before = lloyd_assign_reduce.launches
+        t0 = time.perf_counter()
+        step()
+        spent["seconds"] += time.perf_counter() - t0
+        spent["launches"] += lloyd_assign_reduce.launches - before
+
+    daemon._minibatch_step = counted
+
+
+def profile_decision(daemon, log_path, ck):
+    """One decision of a resumed daemon under torch.profiler: its host wall
+    time (the daemon's decision seconds), the device busy time of the
+    profiled run (the checkpoint restore's copies included) and the idle
+    share, and the launches of each kernel."""
+    import torch
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        daemon.run(log_path, checkpoint_path=ck)
+        torch.cuda.synchronize()
+    busy_us, lloyd, seg = 0.0, 0, 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            busy_us += ev.time_range.elapsed_us()
+            lloyd += "lloyd_" in ev.name
+            seg += "seg_" in ev.name
+    rec = daemon.records[0]
+    wall = daemon.decision_seconds[0]
+    return {"window": rec["window"], "mode": rec["recluster_mode"], "decision_s": wall,
+            "device_busy_s": busy_us / 1e6,
+            "idle_share": 1 - busy_us / 1e6 / wall if busy_us else None,
+            "lloyd_launches_seen": lloyd, "seg_launches_seen": seg,
+            "seconds": rec["seconds"]}
+
+
+def phase_daemon(manifest, events, log_path, control_records, work):
+    """Phase 7: the streaming daemon on the card over phase 5's ``.cdrsb``
+    log (7a-7c), then follow mode and the brownout ladder at 20,000 files
+    (7d).  Returns the kernels' launches in 7a."""
+    import numpy as np
+    import torch
+
+    from cdrs_tpu_torch.cluster.placement import ClusterTopology, primary_on_topology
+    from cdrs_tpu_torch.control.controller import ReplicationController
+    from cdrs_tpu_torch.daemon import DaemonConfig, StreamDaemon, core
+    from cdrs_tpu_torch.obs.sink import read_events
+    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
+    from cdrs_tpu_torch.ops.seg_count import label_threshold_count
+    from cdrs_tpu_torch.placement_fn import EpochMap
+
+    n_windows = len(control_records)
+    # 7a: the full run, mini-batch tracking on, a checkpoint every window.
+    ctl = ReplicationController(manifest, control_config("cuda"))
+    seen = watch_reclusters(ctl)
+    daemon = StreamDaemon(ctl, DaemonConfig(recluster="minibatch", checkpoint_every=1))
+    mb = {"seconds": 0.0, "launches": 0}
+    count_minibatch(daemon, mb)
+    tail = {"parse_seconds": 0.0, "blocks": 0}
+    orig_tailer = timed_tailer(tail)
+    metrics = os.path.join(work, "daemon.jsonl")
+    lloyd_assign_reduce.launches = 0
+    label_threshold_count.launches = 0
+    t0 = time.perf_counter()
+    try:
+        dig = daemon.run(log_path, metrics_path=metrics,
+                         checkpoint_path=os.path.join(work, "daemon.npz"))
+    finally:
+        core.tail_binary_log = orig_tailer
+    wall = time.perf_counter() - t0
+    launches = {"lloyd": lloyd_assign_reduce.launches - mb["launches"],
+                "seg_count": label_threshold_count.launches, "lloyd_rowmajor": mb["launches"]}
+    recs = daemon.records
+    traces = [e for e in read_events(metrics) if e["kind"] == "decision_trace"]
+    for r, t, dec in zip(recs, traces, daemon.decision_seconds):
+        log("daemon window " + json.dumps(
+            {"window": r["window"], "n_events": r["n_events"], "drift": r["drift"],
+             "recluster_mode": r["recluster_mode"], "decision_s": dec,
+             "segments_s": {k: v / 1e9 for k, v in t["segments_ns"].items()},
+             "controller_total_s": r["seconds"]["total"], "plan_hash": r["plan_hash"]}))
+    ckpts = ctl.checkpoint_log
+    log(f"daemon: {len(manifest)} files, {dig['events_ingested']} events from "
+        f"{os.path.getsize(log_path)} B of .cdrsb in {len(recs)} windows; wall {wall:.3f} s; "
+        f"decision p50 {dig['decision_p50_seconds']} s p99 {dig['decision_p99_seconds']} s; "
+        f"tailer {tail['blocks']} blocks, parse {tail['parse_seconds']:.3f} s; mini-batch "
+        f"{mb['seconds']:.3f} s in {mb['launches']} launches; checkpoints {len(ckpts)}, "
+        f"{sum(c['seconds'] for c in ckpts) / max(len(ckpts), 1):.3f} s and "
+        f"{ckpts[-1]['bytes'] if ckpts else 0} B each; launches {launches}")
+    stages = ("fold", "drift", "recluster", "plan", "schedule", "evaluate", "total")
+    log("daemon stages mean seconds per window " + json.dumps(
+        {st: sum(r["seconds"].get(st, 0.0) for r in recs) / len(recs) for st in stages}))
+    log("daemon digest " + json.dumps(dig))
+    check(strip_seconds(recs) == strip_seconds(control_records),
+          "daemon records differ from phase 6's controller records")
+    check(dig["epochs_published"] == len(recs) == n_windows,
+          f"{dig['epochs_published']} epochs for {len(recs)} windows (phase 6: {n_windows})")
+    ep = daemon.publisher.pin()
+    check(ep.plan_hash == recs[-1]["plan_hash"]
+          and np.array_equal(ep.rf, ctl.current_rf)
+          and np.array_equal(ep.category_idx, ctl.current_cat),
+          "the pinned epoch is not the controller's final plan")
+    want_lloyd = sum(c["n_iter"] + 1 for c in seen)
+    check(launches["lloyd"] == want_lloyd,
+          f"daemon made {launches['lloyd']} Lloyd launches in re-clusters, expected {want_lloyd}")
+    check(launches["seg_count"] == 12 * len(seen),
+          f"daemon made {launches['seg_count']} threshold-count launches, expected "
+          f"{12 * len(seen)}")
+    check(launches["lloyd_rowmajor"] == dig["windows_processed"] == dig["minibatch"]["n_batches"],
+          f"daemon made {launches['lloyd_rowmajor']} mini-batch launches for "
+          f"{dig['windows_processed']} windows")
+    check(len(traces) == len(recs)
+          and all(sum(t["segments_ns"].values()) == t["total_ns"] for t in traces),
+          "decision_trace segments do not sum to their totals")
+    check(bool(np.isfinite(dig["minibatch"]["inertia"])), "non-finite mini-batch inertia")
+
+    # 7b: stop after 3 windows, one profiled decision, then the rest.
+    ck = os.path.join(work, "stop.npz")
+    first = StreamDaemon(ReplicationController(manifest, control_config("cuda")),
+                         DaemonConfig(recluster="minibatch", max_windows=CONTROL_KILL_AFTER))
+    first.run(log_path, checkpoint_path=ck)
+    one = StreamDaemon(ReplicationController(manifest, control_config("cuda")),
+                       DaemonConfig(recluster="minibatch", max_windows=1))
+    prof = profile_decision(one, log_path, ck)
+    rest = StreamDaemon(ReplicationController(manifest, control_config("cuda")),
+                        DaemonConfig(recluster="minibatch"))
+    dig_rest = rest.run(log_path, checkpoint_path=ck)
+    joined = first.records + one.records + rest.records
+    check(strip_seconds(joined) == strip_seconds(recs),
+          "stop/resume records differ from the full run's")
+    check(one.events_ingested + rest.events_ingested < len(events),
+          f"the resumes read {one.events_ingested + rest.events_ingested} events, not fewer "
+          f"than the log's {len(events)}")
+    check(first.publisher.peek().epoch_id == CONTROL_KILL_AFTER
+          and one.publisher.peek().epoch_id == CONTROL_KILL_AFTER + 1
+          and rest.publisher.peek().epoch_id == dig_rest["epochs_published"] == len(recs),
+          "epoch ids do not continue across the resumes")
+    check(np.array_equal(rest.controller.current_rf, ctl.current_rf)
+          and np.array_equal(rest.controller.current_cat, ctl.current_cat),
+          "stop/resume final plan differs from the full run's")
+    log(f"daemon stop/resume: stopped after {CONTROL_KILL_AFTER} windows, resumed twice; "
+        f"records identical in all {len(recs)} windows, resumes read "
+        f"{one.events_ingested} + {rest.events_ingested} of {len(events)} events, epoch ids "
+        f"continue, final rf/categories identical")
+    log("daemon profile " + json.dumps(prof))
+
+    # 7c: reads served from the pinned final epoch.
+    ids = np.random.default_rng(MAIN_SEED).integers(0, len(manifest), size=1_000_000)
+    t0 = time.perf_counter()
+    view = ep.read_view(ids)
+    view_s = time.perf_counter() - t0
+    rows = view.replica_map[view.pid]
+    topo = ClusterTopology(nodes=tuple(manifest.nodes))
+    want, rf = EpochMap(manifest.nodes, topo).placement(0, ids, ep.rf[ids],
+                                                        manifest.primary_node_id[ids])
+    check(np.array_equal(rows, want), "pinned-epoch reads differ from the CPU placement")
+    prim = primary_on_topology(manifest.nodes, manifest.primary_node_id[ids], topo)
+    srt = np.sort(np.where(rows >= 0, rows, len(topo.nodes) + np.arange(rows.shape[1])), axis=1)
+    check(bool((rows[:, 0] == prim).all()) and bool(((rows >= 0).sum(1) == rf).all())
+          and bool((np.diff(srt, axis=1) > 0).all()),
+          "a served row lacks rf distinct nodes with the primary first")
+    log(f"daemon serve: {len(ids)} reads of {view.replica_map.shape[0]} unique files resolved "
+        f"from epoch {ep.epoch_id} in {view_s:.3f} s, rows equal to the CPU placement, rf "
+        f"distinct nodes each, primary first")
+    del view, rows, want, srt
+    daemon_small()
+    return launches
+
+
+def daemon_small():
+    """7d: at 20,000 files (phase 4's workload) a follow-mode daemon at the
+    default drift threshold tails a log written in 4 parts and stops on a
+    SIGTERM request; then brownout runs over the whole log on the card
+    (twice) and on the CPU, full re-clusters from one CPU init."""
+    import dataclasses
+    import threading
+
+    from cdrs_tpu_torch import GeneratorConfig, SimulatorConfig
+    from cdrs_tpu_torch.control.controller import ReplicationController
+    from cdrs_tpu_torch.daemon import BrownoutConfig, DaemonConfig, StreamDaemon
+    from cdrs_tpu_torch.io.events import EventLog
+    from cdrs_tpu_torch.ops.kmeans import kmeans_full
+    from cdrs_tpu_torch.sim.access import simulate_access
+    from cdrs_tpu_torch.sim.generator import generate_population
+
+    manifest = generate_population(GeneratorConfig(n_files=20_000, seed=MAIN_SEED))
+    events = simulate_access(manifest, SimulatorConfig(duration_seconds=MAIN_DURATION,
+                                                       seed=MAIN_SEED + 1))
+    n = len(events)
+    cuts = [0, n // 4, n // 2, 3 * n // 4, n]
+    parts = [EventLog(ts=events.ts[a:b], path_id=events.path_id[a:b], op=events.op[a:b],
+                      client_id=events.client_id[a:b], clients=events.clients)
+             for a, b in zip(cuts, cuts[1:])]
+
+    def config(dev):
+        return dataclasses.replace(control_config(dev), drift_threshold=0.05)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full_log = os.path.join(tmp, "full.cdrsb")
+        events.write_binary(full_log, manifest)
+        live = os.path.join(tmp, "live.cdrsb")
+        parts[0].write_binary(live, manifest)
+        follow = StreamDaemon(ReplicationController(manifest, config("cuda")),
+                              DaemonConfig(follow=True, poll=0.05))
+
+        def writer():
+            for part in parts[1:]:
+                time.sleep(0.3)
+                part.write_binary(live, manifest, append=True)
+            time.sleep(3.0)
+            follow.request_stop("SIGTERM")
+
+        thread = threading.Thread(target=writer)
+        thread.start()
+        dig_f = follow.run(live)
+        thread.join(timeout=60)
+        check(not thread.is_alive(), "the log writer did not finish")
+        batch = StreamDaemon(ReplicationController(manifest, config("cuda")))
+        batch.run(full_log)
+        k = len(follow.records)
+        skipped = sum(not r["recluster"] for r in batch.records)
+        log(f"daemon follow at {len(manifest)} files: {k} of {len(batch.records)} windows "
+            f"decided before the SIGTERM ({dig_f['stop_reason']}), {dig_f['epochs_published']} "
+            f"epochs; re-clusters {[r['recluster_mode'] for r in batch.records]}, drift "
+            f"{[r['drift'] for r in batch.records]}, {skipped} windows skip the re-cluster")
+        check(dig_f["stop_reason"] == "SIGTERM" and k >= 2 and dig_f["epochs_published"] == k,
+              f"follow mode decided {k} windows, {dig_f['epochs_published']} epochs")
+        check(strip_seconds(follow.records) == strip_seconds(batch.records)[:k],
+              "follow-mode records are not a prefix of the non-follow run's")
+        check(skipped >= 1, "no window skipped the re-cluster at the default threshold")
+
+        def init(X):
+            return kmeans_full(X.cpu(), K, seed=MAIN_SEED, max_iter=0, tol=0.0)[0]
+
+        runs = []
+        for dev in ("cuda", "cuda", "cpu"):
+            ctl = ReplicationController(manifest, config(dev))
+            watch_reclusters(ctl, init)
+            d = StreamDaemon(ctl, DaemonConfig(brownout=BrownoutConfig(
+                engage=(0.5, 1.0, 1.5, 2.0, 3.0), release=(0.2, 0.4, 0.6, 0.8, 1.0))))
+            runs.append((d, d.run(full_log)))
+    (d1, dig1), (d2, _), (dc, _) = runs
+
+    def canon(records):
+        out = []
+        for r in strip_seconds(records):
+            r = dict(r, daemon={k: v for k, v in r["daemon"].items() if k != "lag_seconds"})
+            out.append(json.dumps(r, sort_keys=True))
+        return out
+
+    hashes = [[r["plan_hash"] for r in d.records] for d in (d1, dc)]
+    log(f"daemon brownout at {len(manifest)} files: {len(d1.records)} decisions, coalesced "
+        f"{[r['daemon']['coalesced'] for r in d1.records]}, levels "
+        f"{[r['daemon']['brownout_level'] for r in d1.records]}, windows_coalesced "
+        f"{dig1['brownout']['windows_coalesced']}; plan hashes card {hashes[0]} cpu {hashes[1]}")
+    check(dig1["brownout"]["windows_coalesced"] > 0, "brownout coalesced no window")
+    check(sum(r["n_events"] for r in d1.records) == d1.events_ingested == n,
+          "brownout decisions do not fold every event once")
+    check(canon(d1.records) == canon(d2.records) and d1.brownout_log == d2.brownout_log,
+          "two brownout runs differ beyond the wall-clock fields")
+    check(hashes[0] == hashes[1], "brownout plan hashes differ between the card and the CPU")
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -880,32 +1195,42 @@ def main() -> int:
     if args.quick:
         log(f"quick run done in {time.perf_counter() - t_start:.1f} s; main path skipped")
         return 0
-    launches, cfg, main_result = phase_main_path()
-    norm_20k, init_20k = phase_card_vs_cpu()
-    stream_launches, stream_times, manifest, events = phase_stream_path(cfg, main_result)
-    phase_minibatch_card_vs_cpu(norm_20k, init_20k)
-    log("stream path times " + json.dumps(stream_times))
-    t0 = time.perf_counter()
-    control_launches = phase_controller(manifest, events, main_result)
-    log(f"phase 6 (controller): {time.perf_counter() - t0:.1f} s")
-    del manifest, events
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        launches, cfg, main_result = phase_main_path()
+        norm_20k, init_20k = phase_card_vs_cpu()
+        stream_launches, stream_times, manifest, events, log_path = phase_stream_path(
+            cfg, main_result, work)
+        phase_minibatch_card_vs_cpu(norm_20k, init_20k)
+        log("stream path times " + json.dumps(stream_times))
+        t0 = time.perf_counter()
+        control_launches, control_records = phase_controller(manifest, events, main_result)
+        log(f"phase 6 (controller): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        daemon_launches = phase_daemon(manifest, events, log_path, control_records, work)
+        log(f"phase 7 (daemon): {time.perf_counter() - t0:.1f} s")
+        del manifest, events
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     kernels = [
         {"name": "lloyd_assign_reduce", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:392",
          "launches": launches["lloyd"], "control_launches": control_launches["lloyd"],
-         **rows["lloyd"], "library_ms": None},
+         "daemon_launches": daemon_launches["lloyd"], **rows["lloyd"], "library_ms": None},
         {"name": "label_threshold_count", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/seg_count.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:534",
          "launches": launches["seg_count"],
-         "control_launches": control_launches["seg_count"], **rows["seg_count"],
+         "control_launches": control_launches["seg_count"],
+         "daemon_launches": daemon_launches["seg_count"], **rows["seg_count"],
          "library_ms": None},
         {"name": "lloyd_assign_reduce (row-major, labels)", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:443",
-         "launches": stream_launches, "control_launches": 0, **rows["lloyd_rowmajor"],
+         "launches": stream_launches, "control_launches": 0,
+         "daemon_launches": daemon_launches["lloyd_rowmajor"], **rows["lloyd_rowmajor"],
          "library_ms": None},
     ]
     for row in kernels:

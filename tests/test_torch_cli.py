@@ -1,10 +1,11 @@
-"""``python -m cdrs_tpu_torch gen | simulate | stream | control`` end to end on the CPU.
+"""``python -m cdrs_tpu_torch gen | simulate | stream | control | daemon`` end to
+end on the CPU.
 
 ``gen`` and ``simulate`` write byte-identical files to ``cdrs gen`` and
 ``cdrs simulate`` on the same seeds (CSV manifest, ``.cdrsb`` log);
 ``stream --kmeans_batch`` folds that log and writes ``final_categories.csv``,
 and the folded features equal the port's batch features of the same files;
-``control`` prints the reference's summary keys.
+``control`` and ``daemon`` print the reference's summary and digest keys.
 """
 
 import csv
@@ -118,3 +119,53 @@ def test_control_summary_has_the_reference_keys(tmp_path, capsys, monkeypatch):
     # Rerunning resumes from the checkpoint: nothing left to process.
     again = json.loads(_port("control", *opts, "--device", "cpu", cwd=tmp_path))
     assert again["windows"] == 0 and again["final_plan_hash"] == summary["final_plan_hash"]
+
+
+def test_daemon_digest_plan_resume_and_supervise(tmp_path, capsys, monkeypatch):
+    """``daemon --device cpu`` over a ``.cdrsb`` log: the digest has the keys of
+    ``cdrs daemon --backend jax``, the digest and plan files are written, a
+    rerun resumes from the checkpoint and processes no window, and
+    ``--supervise`` over a clean child exits 0."""
+    _port("gen", "--n", "300", "--seed", "5", "--out_manifest", "m.csv", cwd=tmp_path)
+    _port("simulate", "--manifest", "m.csv", "--out", "a.cdrsb", "--duration_seconds",
+          "600", "--seed", "6", cwd=tmp_path)
+    opts = ["--manifest", "m.csv", "--access_log", "a.cdrsb", "--window_seconds", "120",
+            "--k", "4", "--seed", "3", "--scoring_config", "validated", "--max_files", "50",
+            "--brownout", "--recluster", "minibatch", "--minibatch_rows", "128"]
+    digest = json.loads(_port("daemon", *opts, "--device", "cpu", "--checkpoint", "ck.npz",
+                              "--digest_out", "dig.json", "--plan_out", "plan.csv",
+                              "--metrics", "m.jsonl", "--metrics_max_bytes", "4000",
+                              cwd=tmp_path))
+    monkeypatch.chdir(tmp_path)
+    capsys.readouterr()
+    assert reference_main(["daemon", *opts, "--backend", "jax", "--checkpoint",
+                           "ref_ck.npz"]) == 0
+    ref = json.loads(capsys.readouterr().out)
+    assert set(digest) == set(ref)
+    for key in ("windows_processed", "events_ingested", "epochs_published", "cursor"):
+        assert digest[key] == ref[key], key
+    assert set(digest["brownout"]) == set(ref["brownout"]) and digest["minibatch"]["n_batches"]
+    on_disk = json.loads((tmp_path / "dig.json").read_text())
+    assert on_disk == digest and digest["stop_reason"] == "end_of_stream"
+    with open(tmp_path / "plan.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 300 and set(rows[0]) == {"path", "category", "rf"}
+    from cdrs_tpu_torch.obs.sink import read_events, rotated_paths
+
+    assert rotated_paths(str(tmp_path / "m.jsonl"))
+    windows = [e for e in read_events(str(tmp_path / "m.jsonl")) if e["kind"] == "window"]
+    assert [e["window"] for e in windows] == list(range(digest["windows_processed"]))
+    assert windows[-1]["plan_hash"] == digest["plan_hash"]
+    again = json.loads(_port("daemon", *opts, "--device", "cpu", "--checkpoint", "ck.npz",
+                             cwd=tmp_path))
+    assert again["windows_processed"] == 0 and again["plan_hash"] is None
+    assert again["epochs_published"] == digest["epochs_published"]
+    assert again["window_index"] == digest["window_index"]
+    proc = subprocess.run([sys.executable, "-m", "cdrs_tpu_torch", "daemon", *opts,
+                           "--device", "cpu", "--checkpoint", "sup.npz", "--supervise",
+                           "--max_restarts", "2"], cwd=tmp_path, env=ENV,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "child exited cleanly" in proc.stderr and "--supervise" not in \
+        proc.stderr.split("starting child (attempt 1): ")[1].splitlines()[0]
+    assert json.loads(proc.stdout)["windows_processed"] == digest["windows_processed"]
