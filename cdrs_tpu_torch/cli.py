@@ -8,7 +8,11 @@
 * ``control`` runs the online replication controller over an access log
   and prints its JSON summary;
 * ``daemon`` runs the controller as the always-on streaming daemon over a
-  ``.cdrsb`` log (once, or following it as it grows) and prints its digest.
+  ``.cdrsb`` log (once, or following it as it grows) and prints its digest;
+* ``chaos`` runs the controller with a fault schedule (node crashes,
+  partitions, stragglers, silent corruption), rack or geo failure domains,
+  repairs and the scrubber, and prints the summary with its
+  ``durability`` block.
 
 The flags are those of ``cdrs_tpu``'s subcommands of the same names that
 this port supports, plus ``--device`` (CUDA unless "cpu" is asked for).
@@ -128,28 +132,36 @@ def _cmd_stream(args) -> int:
     return 0
 
 
-def _controller_cfg(args):
-    """ControllerConfig from the ``control`` arguments."""
+def _controller_cfg(args, fault_schedule=None, topology=None):
+    """ControllerConfig from the ``control``/``chaos`` arguments."""
     from .control.controller import ControllerConfig
 
+    scrub = None
+    if getattr(args, "scrub", None):
+        from .faults import ScrubConfig
+
+        scrub = ScrubConfig(bytes_per_window=args.scrub)
     return ControllerConfig(
         window_seconds=args.window_seconds, drift_threshold=args.drift_threshold,
         full_recluster_drift=args.full_drift, warm_max_iter=args.warm_max_iter,
         max_bytes_per_window=args.max_bytes, max_files_per_window=args.max_files,
-        hysteresis_windows=args.hysteresis, default_rf=args.default_rf,
+        hysteresis_windows=args.hysteresis, decay=args.decay, default_rf=args.default_rf,
         kmeans=KMeansConfig(k=args.k, seed=args.seed, init_method=args.init_method),
         scoring=_load_scoring(args), evaluate=not args.no_evaluate,
-        overlap_windows=args.overlap, device=args.device)
+        overlap_windows=args.overlap, device=args.device, fault_schedule=fault_schedule,
+        repair_seed=getattr(args, "repair_seed", 0), topology=topology, scrub=scrub)
 
 
-def _cmd_control(args) -> int:
+def _cmd_control(args, manifest=None, cfg=None) -> int:
     """Online replication controller: the log as time windows, drift-gated
-    re-clusters, bounded-churn migrations (control/controller.py)."""
+    re-clusters, bounded-churn migrations (control/controller.py); ``chaos``
+    passes its manifest and fault-path config."""
     from .control.controller import ReplicationController
     from .io.events import Manifest
 
-    manifest = Manifest.read_csv(args.manifest)
-    controller = ReplicationController(manifest, _controller_cfg(args))
+    if manifest is None:
+        manifest = Manifest.read_csv(args.manifest)
+    controller = ReplicationController(manifest, cfg or _controller_cfg(args))
     t0 = time.perf_counter()
     result = controller.run(args.access_log, metrics_path=args.metrics,
                             checkpoint_path=args.checkpoint,
@@ -165,6 +177,65 @@ def _cmd_control(args) -> int:
     out["seconds"] = round(elapsed, 3)
     print(json.dumps(out, indent=2))
     return 0
+
+
+def _cmd_chaos(args) -> int:
+    """The controller with a fault schedule built from the fault flags,
+    ``--schedule`` and ``--random_faults``, on the ``--racks`` or
+    ``--topology`` failure domains."""
+    from .cluster.placement import ClusterTopology
+    from .faults import FaultSchedule
+    from .io.events import Manifest
+
+    manifest = Manifest.read_csv(args.manifest)
+    topology = None
+    if args.topology:
+        if args.racks:
+            print("error: --topology and --racks are mutually exclusive (the hierarchy "
+                  "spec subsumes the rack map)", file=sys.stderr)
+            return 2
+        text = args.topology
+        if not text.lstrip().startswith("{"):
+            with open(text, encoding="utf-8") as f:
+                text = f.read()
+        try:
+            topology = ClusterTopology.from_hierarchy(json.loads(text))
+        except ValueError as e:
+            print(f"error: bad --topology spec: {e}", file=sys.stderr)
+            return 2
+        unknown = sorted(set(manifest.nodes) - set(topology.nodes))
+        if unknown:
+            print(f"error: --topology is missing manifest nodes {unknown}", file=sys.stderr)
+            return 2
+    elif args.racks:
+        topology = ClusterTopology.from_rack_spec(manifest.nodes, args.racks)
+    events = []
+    for kind, flag in (("crash", args.kill), ("recover", args.recover),
+                       ("decommission", args.decommission), ("flaky", args.flaky),
+                       ("partition", args.partition), ("degrade", args.degrade),
+                       ("corrupt", args.corrupt)):
+        for spec in flag or ():
+            events.extend(FaultSchedule.from_specs([f"{kind}:{spec}"]))
+    if args.schedule:
+        with open(args.schedule, encoding="utf-8") as f:
+            events.extend(FaultSchedule.from_json(json.load(f)))
+    if args.random_faults:
+        events.extend(FaultSchedule.random(manifest.nodes, n_windows=args.random_faults,
+                                           seed=args.fault_seed,
+                                           corrupt_rate=args.corrupt_rate,
+                                           corrupt_frac=args.corrupt_frac))
+    if not events:
+        print("error: chaos needs at least one fault (--kill/--recover/--decommission/"
+              "--flaky/--partition/--degrade/--corrupt/--schedule/--random_faults)",
+              file=sys.stderr)
+        return 1
+    schedule = FaultSchedule(events)
+    if args.schedule_out:
+        with open(args.schedule_out, "w", encoding="utf-8") as f:
+            json.dump(schedule.to_json(), f, indent=2)
+            f.write("\n")
+        print(f"schedule: {len(schedule)} events -> {args.schedule_out}", file=sys.stderr)
+    return _cmd_control(args, manifest, _controller_cfg(args, schedule, topology))
 
 
 def _supervised_child(argv: list[str]) -> list[str]:
@@ -247,7 +318,7 @@ def _add_device_arg(p: argparse.ArgumentParser) -> None:
 
 
 def _add_control_args(p: argparse.ArgumentParser) -> None:
-    """Options shared by the ``control`` and ``daemon`` subcommands."""
+    """Options shared by the ``control``, ``daemon`` and ``chaos`` subcommands."""
     p.add_argument("--manifest", required=True)
     p.add_argument("--access_log", required=True,
                    help="globally time-sorted log (CSV access.log or .cdrsb)")
@@ -261,11 +332,15 @@ def _add_control_args(p: argparse.ArgumentParser) -> None:
                         "full iteration budget)")
     p.add_argument("--warm_max_iter", type=int, default=25)
     p.add_argument("--max_bytes", type=int, default=None, metavar="BYTES",
-                   help="per-window migration byte budget (default: unbounded)")
+                   help="per-window migration byte budget (default: unbounded); chaos "
+                        "runs charge repairs and scrub against it first")
     p.add_argument("--max_files", type=int, default=None, metavar="N",
                    help="per-window migrated-file cap (default: unbounded)")
     p.add_argument("--hysteresis", type=int, default=1, metavar="WINDOWS",
                    help="windows a migrated file stays frozen (anti-flap)")
+    p.add_argument("--decay", type=float, default=1.0,
+                   help="per-window feature-counter decay in (0, 1]; < 1.0 re-weights "
+                        "toward recent traffic")
     p.add_argument("--default_rf", type=int, default=1)
     p.add_argument("--batch_size", type=int, default=1_000_000,
                    help="events per log read batch (windows re-slice it)")
@@ -395,6 +470,59 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_restarts", type=int, default=5, metavar="N",
                    help="give up after N consecutive crash-restarts")
     p.set_defaults(fn=_cmd_daemon)
+
+    p = sub.add_parser("chaos", help="fault-injected controller run: node crash/recover/"
+                       "decommission/flaky/partition/degrade/corrupt events, durability "
+                       "accounting, self-healing repairs under the migration churn budget")
+    _add_control_args(p)
+    p.add_argument("--kill", action="append", metavar="NODE@W[-W2]",
+                   help="crash NODE at window W (recovering after W2, e.g. dn2@3-7); "
+                        "repeatable")
+    p.add_argument("--recover", action="append", metavar="NODE@W",
+                   help="recover a crashed NODE at window W; repeatable")
+    p.add_argument("--decommission", action="append", metavar="NODE@W",
+                   help="remove NODE for good at window W (replicas destroyed); repeatable")
+    p.add_argument("--flaky", action="append", metavar="NODE@W[-W2][:P]",
+                   help="repair copies to NODE fail with probability P (default 0.5) over "
+                        "windows W..W2, e.g. dn1@2-6:0.5; repeatable")
+    p.add_argument("--racks", default=None, metavar="SPEC",
+                   help="failure domains: ';'-separated rack groups, each 'name=n1,n2' or "
+                        "bare 'n1,n2', e.g. 'r0=dn1,dn2;r1=dn3,dn4'")
+    p.add_argument("--topology", default=None, metavar="JSON|FILE",
+                   help="geo-hierarchical failure domains (inline JSON or a file): "
+                        "{'nodes': [...], 'levels': ['rack', 'region'], 'rack': {'r0': "
+                        "['dn1','dn2'], ...}, 'region': {'eu': ['r0','r1'], ...}, "
+                        "'edge_bytes': {...}, 'edge_latency': {...}}; fault specs accept "
+                        "domain scopes (crash:region:eu@3-7).  Exclusive with --racks")
+    p.add_argument("--partition", action="append", metavar="NODES@W[-W2]",
+                   help="partition a '+'-joined node set over windows W..W2 (unreachable "
+                        "as a group, replicas intact), e.g. dn1+dn2@4-6; repeatable")
+    p.add_argument("--degrade", action="append", metavar="NODE@W[-W2][:M]",
+                   help="straggler: NODE moves data at M x nominal throughput (default "
+                        "0.5) over windows W..W2, e.g. dn3@2-6:0.25; repeatable")
+    p.add_argument("--corrupt", action="append", metavar="NODE[#FILE]@W[:F]",
+                   help="silent corruption of a seeded fraction F (default 0.1) of NODE's "
+                        "copies at window W (dn2@3:0.25), or of FILE's copy (dn2#17@3); "
+                        "repeatable")
+    p.add_argument("--scrub", type=int, default=None, metavar="BYTES",
+                   help="background scrubber: verification-read BYTES per window over "
+                        "the population, capped by what repairs left of --max_bytes")
+    p.add_argument("--schedule", default=None, metavar="JSON",
+                   help="add fault events from a JSON file (the --schedule_out format)")
+    p.add_argument("--schedule_out", default=None, metavar="JSON",
+                   help="write the whole schedule here (replayable via --schedule)")
+    p.add_argument("--random_faults", type=int, default=None, metavar="W",
+                   help="add a seeded random schedule over W windows (never downs the "
+                        "last node)")
+    p.add_argument("--fault_seed", type=int, default=0, help="seed of --random_faults")
+    p.add_argument("--corrupt_rate", type=float, default=0.0,
+                   help="with --random_faults: per-window probability that an up node "
+                        "rots a fraction of its copies")
+    p.add_argument("--corrupt_frac", type=float, default=0.05,
+                   help="fraction of a node's copies each --corrupt_rate event rots")
+    p.add_argument("--repair_seed", type=int, default=0,
+                   help="seed of the stateless flaky-copy failure rolls")
+    p.set_defaults(fn=_cmd_chaos)
     return parser
 
 

@@ -1,47 +1,70 @@
-"""Online replication controller: the port of the controller core of
-``cdrs_tpu/control/controller.py`` with the semantics of its jax backend.
+"""Online replication controller: the port of ``cdrs_tpu/control/controller.py``
+with the semantics of its jax backend (decay 1) and of its numpy backend's
+decayed counters (decay below 1).
 
 Per time window (``control/windows.py``):
 
 1. **fold** — the window's events fold into the streaming feature counters
    on the device (``features/streaming.stream_update``; exact cumulative
-   fold, cross-window concurrency carry).
+   fold, cross-window concurrency carry).  With ``decay`` below 1 each
+   window folds into a fresh exact state instead, whose four counters merge
+   into float64 accumulators on the device: multiply by the decay, then add
+   (two element-wise ops, never a fused multiply-add, so the values are
+   bit-equal to the reference's numpy ``*=`` then ``+=``); ``conc_max``
+   merges by a decayed max, and an empty window only decays.
 2. **drift** — the host oracle ``control/drift.detect_drift`` scores one
    host copy of the float32 feature snapshot against the last accepted
-   model; below ``drift_threshold`` nothing else runs.
+   model; below ``drift_threshold`` nothing else runs.  The decayed
+   snapshot is finalized on the host in float64 with the reference's
+   ``finalize_counters`` formula, then cast to float32.
 3. **re-cluster** — the cold start, or on drift a warm re-cluster (the
    accepted centroids as init, ``warm_max_iter`` Lloyd iterations) or,
    from ``full_recluster_drift`` on, a full one with a fresh init:
    ``ReplicationPolicyModel.run`` on the device-resident float32 snapshot,
    so every Lloyd iteration and the label pass launch the Lloyd kernel and
    the bisection medians (at scale) the threshold-count kernel.
-4. **diff + schedule** — the new plan is diffed against the applied one
+4. **faults, repair, scrub** (with a ``fault_schedule``) — the window's
+   fault events mutate the ``faults.ClusterState`` (placed at construction
+   on ``topology``, flat by default); the ``RepairScheduler`` re-replicates
+   under the window's byte and file budgets, then the ``Scrubber`` (with
+   ``scrub``) verifies copies with what is left of the byte budget.
+5. **diff + schedule** — the new plan is diffed against the applied one
    (``control/migrate.plan_diff``; priority = scoring margin of the new
    category over the applied one) and metered out by the
-   ``MigrationScheduler`` (byte and file budgets, hysteresis).
-5. **evaluate** — the window's events replay against the placements of
-   the applied plan before and after its moves
-   (``cluster/placement.place_replicas``, ``cluster/evaluate``).
+   ``MigrationScheduler`` with what repairs and scrub left of the budgets;
+   on the fault path each admitted move applies through
+   ``ClusterState.apply_rf_target``.
+6. **evaluate** — the window's events replay against the placements before
+   and after the window's moves (``cluster/evaluate``): the flat rng
+   placement of the applied rf vector, or the reachable copies of the
+   ``ClusterState``.  The fault path records the durability tiers, the
+   reads refused (``unavailable_reads``) and, when corruption can happen
+   or is looked for, the ``integrity`` digest.
 
-Every window gives one record (the reference's keys, among them
-``drift``, ``recluster_mode``, ``moves_applied``, locality and balance
-before and after, ``plan_hash`` and the per-stage ``seconds``), kept in
-memory and appended to an optional JSONL sink.  The whole state (counters,
-accepted model, applied plan, backlog) snapshots through
-``utils/checkpoint``; kill and resume reproduce the uninterrupted run's
-plans bit for bit.  ``run`` holds the loop inside ``device.deterministic()``.
+Every window gives one record with the reference's keys (among them
+``drift``, ``recluster_mode``, ``moves_applied``, ``fault_events``,
+``repair_moves``, ``durability``, ``scrub``, ``integrity``, locality and
+balance before and after, ``plan_hash`` and the per-stage ``seconds``),
+kept in memory and appended to an optional JSONL sink.  The whole state
+(counters or decayed accumulators, accepted model, applied plan, backlog,
+cluster state, repair backlog, scrub cursor) snapshots through
+``utils/checkpoint``; kill and resume reproduce the uninterrupted run
+bit for bit.  ``run`` holds the loop inside ``device.deterministic()``.
 
 Departures from the reference:
 
 * No degraded mode: the reference moves a failed jax re-cluster to its
   numpy backend (``_degraded_recluster``); here a failure of
   ``model.run`` propagates out of ``run`` and nothing moves to the CPU.
+* Decayed runs cluster the float32 snapshot, where the reference's numpy
+  backend clusters in float64; the accumulators and the float64 table are
+  the reference's bit for bit.
 * Not ported yet, each refused by ``ControllerConfig`` with a
-  ``ValueError`` naming its ROADMAP item: fault schedules, failure-domain
-  topologies and scrubbing (A8c), serving and elasticity (A8d), storage
-  strategies (A8e), functional placement (A8f), ``mesh_shape`` (A9) and
-  decay below 1 (the jax backend's own restriction).  Window telemetry
-  (the reference's ``_instrument_window``) waits for A10.
+  ``ValueError`` naming its ROADMAP item: serving and elasticity (A8d),
+  storage strategies (A8e), functional placement (A8f) and ``mesh_shape``
+  (A9).  Read detection of rot needs serving, so ``integrity`` counts no
+  read detections.  Window telemetry (the reference's
+  ``_instrument_window``) waits for A10.
 """
 
 from __future__ import annotations
@@ -61,30 +84,32 @@ from ..cluster.placement import ClusterTopology, place_replicas
 from ..cluster.plan import PlanEntry
 from ..config import CATEGORIES, KMeansConfig, ScoringConfig
 from ..device import deterministic, resolve_device
+from ..faults import ClusterState, FaultSchedule, RepairScheduler, Scrubber
 from ..features.streaming import StreamFeatureState, stream_finalize, stream_init, stream_update
 from ..io.events import EventLog, Manifest
 from ..models.replication import ReplicationPolicyModel
-from ..obs.aggregate import pacing_digest
+from ..obs.aggregate import integrity_digest, pacing_digest
 from ..obs.sink import JsonlSink
 from ..utils.checkpoint import CheckpointError, load_state, save_state
 from .drift import detect_drift
 from .migrate import MigrationScheduler, plan_diff
 from .windows import _slice, iter_windows
 
-__all__ = ["ControllerConfig", "ControllerResult", "ReplicationController"]
+__all__ = ["ControllerConfig", "ControllerResult", "ReplicationController",
+           "finalize_counters"]
 
 #: Options of the reference's ControllerConfig that the port does not take
 #: yet: (value that leaves them off, ROADMAP item).
 _UNPORTED = {
-    "fault_schedule": (None, "A8c, the fault, repair and scrub path"),
-    "topology": (None, "A8c, failure-domain topologies with the fault path"),
-    "scrub": (None, "A8c, the fault, repair and scrub path"),
     "serve": (None, "A8d, serving and elasticity"),
     "elastic": (None, "A8d, serving and elasticity"),
     "storage": (None, "A8e, storage strategies"),
     "placement_mode": ("materialized", "A8f, functional placement"),
     "mesh_shape": (None, "A9, multi-GPU"),
 }
+
+#: The decayed counters, in the reference's order.
+_DEC_KEYS = ("access_freq", "writes", "local_acc", "conc_max")
 
 
 @dataclass
@@ -99,12 +124,13 @@ class ControllerConfig:
     full_recluster_drift: float = 0.30
     #: Lloyd budget of a warm re-cluster.
     warm_max_iter: int = 25
-    #: Per-window churn budget (None = unbounded).
+    #: Per-window churn budget, shared by repairs, scrub and migrations
+    #: (None = unbounded).
     max_bytes_per_window: int | None = None
     max_files_per_window: int | None = None
     #: Windows a migrated file stays frozen after a move.
     hysteresis_windows: int = 1
-    #: Per-window counter decay; only 1.0 (the exact cumulative fold).
+    #: Per-window counter decay in (0, 1]; 1.0 is the exact cumulative fold.
     decay: float = 1.0
     #: rf of every file before the first accepted plan.
     default_rf: int = 1
@@ -113,6 +139,16 @@ class ControllerConfig:
     #: Replay each window's events against the placements before and after
     #: its moves.
     evaluate: bool = True
+    #: ``faults.FaultSchedule``: node events keyed to window indices.  Turns
+    #: on the mutable cluster state, durability accounting and repairs.
+    fault_schedule: object | None = None
+    #: Seed of the stateless flaky-copy failure rolls.
+    repair_seed: int = 0
+    #: ``cluster.placement.ClusterTopology`` of the fault path (racks or a
+    #: geo hierarchy); None = flat.  Its nodes must be the manifest's.
+    topology: object | None = None
+    #: ``faults.ScrubConfig`` of the background scrubber (fault path only).
+    scrub: object | None = None
     #: Run window t+1's fold, drift and re-cluster before window t's planning;
     #: decision-identical to the serial order, suspended around checkpoints.
     #: The re-cluster here returns host arrays, so this only reorders work.
@@ -120,11 +156,8 @@ class ControllerConfig:
     #: torch device of the feature fold and the re-cluster: CUDA when None
     #: (raises without CUDA), or "cpu".
     device: str | None = None
-    fault_schedule: object | None = None
-    topology: object | None = None
     serve: object | None = None
     storage: object | None = None
-    scrub: object | None = None
     elastic: object | None = None
     placement_mode: str = "materialized"
     mesh_shape: dict | None = None
@@ -134,12 +167,11 @@ class ControllerConfig:
             raise ValueError(f"window_seconds must be > 0, got {self.window_seconds}")
         if not 0.0 < self.decay <= 1.0:
             raise ValueError(f"decay must be in (0, 1], got {self.decay}")
-        if self.decay < 1.0:
-            raise ValueError("decay < 1.0 is not supported: the device fold's cross-batch "
-                             "concurrency carry has no decayed analogue (the reference "
-                             "allows it on its numpy backend only)")
         if self.drift_threshold < 0 or self.full_recluster_drift < 0:
             raise ValueError("drift thresholds must be >= 0")
+        if self.scrub is not None and self.fault_schedule is None:
+            raise ValueError("scrub requires a fault_schedule (the scrubber verifies the "
+                             "mutable ClusterState the fault path maintains)")
         for name, (off, item) in _UNPORTED.items():
             if getattr(self, name) != off:
                 raise ValueError(f"ControllerConfig.{name} is not ported yet (ROADMAP {item})")
@@ -163,7 +195,8 @@ class ControllerResult:
 
     def summary(self) -> dict:
         """The reference's summary keys for a run without the unported
-        subsystems."""
+        subsystems: with a fault schedule a ``durability`` block, and with
+        corruption or a scrubber an ``integrity`` block."""
         recl = [r for r in self.records if r["recluster"]]
         out = {
             "windows": len(self.records),
@@ -181,12 +214,50 @@ class ControllerResult:
             out["windows_per_sec"] = round(pacing["windows_per_sec"], 3)
             if "plan_seconds_fraction" in pacing:
                 out["plan_seconds_fraction"] = round(pacing["plan_seconds_fraction"], 4)
+        dur = [r for r in self.records if r.get("durability")]
+        if dur:
+            out["durability"] = _durability_digest(self.records, dur, out["events"])
         if self.checkpoints:
             last = self.checkpoints[-1]
             out["checkpoint"] = {"saves": len(self.checkpoints),
                                  "bytes_last": int(last["bytes"]),
                                  "save_seconds_last": float(last["seconds"])}
+        integrity = integrity_digest(self.records)
+        if integrity is not None:
+            out["integrity"] = integrity
         return out
+
+
+def _durability_digest(records: list[dict], dur: list[dict], n_events: int) -> dict:
+    """The summary's ``durability`` block: fault events, the worst and final
+    tiers, repair totals and unavailable reads (per read, or per event for
+    records without ``n_reads``)."""
+    last = dur[-1]["durability"]
+
+    def total(key):
+        return int(sum(r.get(key, 0) for r in records))
+
+    out = {
+        "fault_events": sum(len(r.get("fault_events") or ()) for r in records),
+        "files_lost_max": max(r["durability"]["lost"] for r in dur),
+        "unreachable_max": max(r["durability"].get("unreachable", 0) for r in dur),
+        "correlated_risk_max": max(r["durability"].get("correlated_risk", 0) for r in dur),
+        "lost_final": last["lost"],
+        "at_risk_final": last["at_risk"],
+        "under_replicated_final": last["under_replicated"],
+        "unreachable_final": last.get("unreachable", 0),
+        "correlated_risk_final": last.get("correlated_risk", 0),
+        "nodes_up_final": last["nodes_up"],
+        "repair_moves_total": total("repair_moves"),
+        "repair_bytes_total": total("repair_bytes"),
+        "repair_failed_total": total("repair_failed"),
+        "repair_rebalanced_total": total("repair_rebalanced"),
+        "partition_stalled_repairs": total("repair_deferred_partition"),
+        "unavailable_reads": total("unavailable_reads"),
+    }
+    denom = sum(int(r.get("n_reads", 0)) for r in records) or n_events
+    out["unavailable_read_fraction"] = out["unavailable_reads"] / denom if denom else 0.0
+    return out
 
 
 def _plan_hash(rf: np.ndarray, cat: np.ndarray) -> str:
@@ -194,6 +265,37 @@ def _plan_hash(rf: np.ndarray, cat: np.ndarray) -> str:
     h.update(np.ascontiguousarray(rf, dtype=np.int32).tobytes())
     h.update(np.ascontiguousarray(cat, dtype=np.int32).tobytes())
     return h.hexdigest()
+
+
+def _minmax_normalize(col: np.ndarray) -> np.ndarray:
+    lo, hi = float(col.min()), float(col.max())
+    if hi == lo:
+        return np.zeros_like(col, dtype=np.float64)
+    return (col - lo) / (hi - lo)
+
+
+def finalize_counters(access_freq, writes, local_acc, concurrency, manifest: Manifest,
+                      observation_end: float | None) -> tuple[np.ndarray, np.ndarray]:
+    """``(raw, norm)``, the (n, 5) float64 features and their min-max norms
+    from (decayed) counters: the formula of
+    ``cdrs_tpu/features/streaming_np.py``'s ``finalize_counters``, bit for
+    bit (numpy's pairwise mean included)."""
+    n = len(manifest)
+    if observation_end is None:
+        observation_end = time.time()
+    access_freq = np.asarray(access_freq, dtype=np.float64)
+    writes = np.asarray(writes, dtype=np.float64)
+    local_acc = np.asarray(local_acc, dtype=np.float64)
+    concurrency = np.asarray(concurrency, dtype=np.float64)
+    locality = np.where(access_freq > 0, local_acc / np.maximum(access_freq, 1.0), 1.0)
+    age_seconds = observation_end - manifest.creation_ts
+    mean_writes = float(writes.mean()) if n else 0.0
+    if mean_writes == 0:
+        mean_writes = 1.0
+    raw = np.stack([access_freq, age_seconds, writes / mean_writes, locality, concurrency],
+                   axis=1)
+    norm = np.stack([_minmax_normalize(raw[:, j]) for j in range(raw.shape[1])], axis=1)
+    return raw, norm
 
 
 class ReplicationController:
@@ -212,6 +314,12 @@ class ReplicationController:
         self.device = resolve_device(cfg.device)
         self._sizes = np.asarray(manifest.size_bytes, dtype=np.int64)
         self._state = stream_init(n, self.device)
+        #: Decayed float64 counters on the device (decay < 1 only).
+        self._dec: dict[str, torch.Tensor] | None = None
+        self._dec_obs_end: float | None = None
+        if cfg.decay < 1.0:
+            self._dec = {k: torch.zeros(n, dtype=torch.float64, device=self.device)
+                         for k in _DEC_KEYS}
         self._events_total = 0
         self._model_full = self._make_model(warm=False)
         self._model_warm = self._make_model(warm=True)
@@ -233,6 +341,32 @@ class ReplicationController:
             hysteresis_windows=cfg.hysteresis_windows)
         self._placement_key: bytes | None = None
         self._placement = None
+        #: The fault path: the schedule with its domain scopes resolved, the
+        #: mutable cluster state placed from the default rf, the repair
+        #: planner and the scrubber.
+        self._fault_schedule: FaultSchedule | None = None
+        self._cluster_state: ClusterState | None = None
+        self._repairs: RepairScheduler | None = None
+        if cfg.fault_schedule is not None:
+            topology = cfg.topology or ClusterTopology(nodes=tuple(manifest.nodes))
+            if set(topology.nodes) != set(manifest.nodes):
+                raise ValueError(
+                    f"topology nodes {tuple(topology.nodes)} != manifest nodes "
+                    f"{tuple(manifest.nodes)}: the failure-domain topology must cover "
+                    "exactly the manifest's node set")
+            schedule = cfg.fault_schedule.expand_domains(topology)
+            schedule.validate_nodes(topology.nodes)
+            self._fault_schedule = schedule
+            self._cluster_state = ClusterState(
+                place_replicas(manifest, self.current_rf, topology, seed=0), self._sizes)
+            self._repairs = RepairScheduler(seed=cfg.repair_seed)
+        self._scrub = Scrubber(n, cfg.scrub) if cfg.scrub is not None else None
+        #: Integrity records only when corruption can happen or is looked for.
+        self._integrity_on = self._cluster_state is not None and (
+            self._scrub is not None
+            or any(ev.kind == "corrupt" for ev in self._fault_schedule))
+        #: One window's (cause, file ids, bytes) batches: the record's ``causes``.
+        self._lineage: list[tuple[str, np.ndarray, int]] = []
         #: One {window, bytes, seconds} per checkpoint save.
         self.checkpoint_log: list[dict] = []
         self.window_index = 0
@@ -244,9 +378,8 @@ class ReplicationController:
         #: ``extra_meta`` back from here).
         self.last_checkpoint_meta: dict | None = None
         #: Degraded modes and serve shed set by the daemon's brownout ladder.
-        #: The modes that act here (``defer_scrub`` and, through
-        #: ``serve_shed``, ``shed_reads``) belong to scrub and serving, which
-        #: are not ported (ROADMAP A8c, A8d), so they change nothing yet.
+        #: ``defer_scrub`` skips the window's scrub (cursor and hints hold);
+        #: ``shed_reads`` belongs to serving (ROADMAP A8d) and changes nothing.
         self.degraded_modes: frozenset = frozenset()
         self.serve_shed: tuple | None = None
 
@@ -260,15 +393,41 @@ class ReplicationController:
     # -- feature fold ------------------------------------------------------
     def _fold_window(self, events: EventLog, new_window: bool = True) -> None:
         """Fold events into the counters.  ``new_window=False`` marks the
-        late tail of an already processed window; it matters only to a
-        decayed fold, and the port's decay is 1."""
-        self._state = stream_update(self._state, events, self.manifest)
-        self._events_total = self._state.n_events
+        late tail of an already processed window, which the decayed fold
+        merges without decaying again."""
+        if self._dec is None:
+            self._state = stream_update(self._state, events, self.manifest)
+            self._events_total = self._state.n_events
+            return
+        ws = stream_update(stream_init(len(self.manifest), self.device), events,
+                           self.manifest)
+        g = self.cfg.decay if new_window else 1.0
+        for k in ("access_freq", "writes", "local_acc"):
+            # Two ops, in this order: the reference's ``*=`` then ``+=``.
+            self._dec[k].mul_(g)
+            self._dec[k].add_(getattr(ws, k).to(torch.float64))
+        self._dec["conc_max"] = torch.maximum(self._dec["conc_max"] * g,
+                                              ws.conc_max.to(torch.float64))
+        if ws.observation_end is not None:
+            self._dec_obs_end = ws.observation_end if self._dec_obs_end is None \
+                else max(self._dec_obs_end, ws.observation_end)
+        self._events_total += ws.n_events
 
     def _feature_snapshot(self) -> torch.Tensor:
         """(n, 5) float32 normalized feature matrix on the device: the
-        reference finalizes, then casts to float32 on its jax backend."""
+        reference finalizes, then casts to float32 on its jax backend; the
+        decayed table is finalized on the host in float64 first."""
+        if self._dec is not None:
+            _, norm = finalize_counters(*(self._dec[k].cpu().numpy() for k in _DEC_KEYS),
+                                        self.manifest, self._dec_obs_end)
+            return torch.from_numpy(norm.astype(np.float32)).to(self.device)
         return stream_finalize(self._state, self.manifest).norm.to(torch.float32)
+
+    def decayed_counters(self) -> dict[str, np.ndarray] | None:
+        """Host float64 copies of the decayed accumulators (None at decay 1)."""
+        if self._dec is None:
+            return None
+        return {k: v.cpu().numpy() for k, v in self._dec.items()}
 
     # -- one window --------------------------------------------------------
     def process_window(self, w: int, events: EventLog) -> dict:
@@ -287,8 +446,11 @@ class ReplicationController:
         t0 = time.perf_counter()
         if len(events):
             self._fold_window(events)
-            if self.device.type == "cuda":   # the fold's kernels count toward it
-                torch.cuda.synchronize(self.device)
+        elif self._dec is not None:
+            for v in self._dec.values():
+                v.mul_(cfg.decay)
+        if self.device.type == "cuda":   # the fold's kernels count toward it
+            torch.cuda.synchronize(self.device)
         seconds["fold"] = time.perf_counter() - t0
         rec["events_total"] = int(self._events_total)
 
@@ -331,7 +493,8 @@ class ReplicationController:
                 "decision": decision}
 
     def _window_phase_b(self, ctx: dict) -> dict:
-        """Plan diff and submit, budgeted admission, evaluation, record."""
+        """Plan diff and submit, fault events, repairs, scrub, budgeted
+        admission, durability and integrity, evaluation, record."""
         cfg = self.cfg
         w = ctx["w"]
         events: EventLog = ctx["events"]
@@ -339,6 +502,8 @@ class ReplicationController:
         seconds: dict = ctx["seconds"]
         t_b = time.perf_counter()
         plan_seconds = 0.0
+        self._lineage = []
+        cs = self._cluster_state
 
         if ctx["decision"] is not None:
             t0 = time.perf_counter()
@@ -350,17 +515,101 @@ class ReplicationController:
             seconds["recluster"] += dt
             plan_seconds += dt
 
+        if cs is not None:
+            t0 = time.perf_counter()
+            fault_events = self._fault_schedule.for_window(w)
+            for ev in fault_events:
+                cs.apply_event(ev)
+            rec["fault_events"] = [ev.spec() for ev in fault_events]
+            rec["nodes_up"] = cs.n_available
+            seconds["faults"] = time.perf_counter() - t0
+
         want_eval = cfg.evaluate and len(events) > 0
+        view_before = None
+        ver_before = -1
+        if cs is not None and want_eval:
+            view_before = cs.placement_view()
+            ver_before = cs.version
         rf_before = self.current_rf.copy() if want_eval else None
 
+        # Repairs first, pre-charging the shared churn budget.
+        bytes_reserved = files_reserved = 0
+        if cs is not None:
+            t0 = time.perf_counter()
+            self._repairs.sync(cs, self.current_rf)
+            rr = self._repairs.schedule(w, cs, self.current_rf, self.current_cat,
+                                        max_bytes=cfg.max_bytes_per_window,
+                                        max_files=cfg.max_files_per_window)
+            seconds["repair"] = time.perf_counter() - t0
+            plan_seconds += seconds["repair"]
+            rec["repair_moves"] = len(rr.applied)
+            rec["repair_bytes"] = int(rr.bytes_used)
+            rec["repair_bytes_copied"] = int(rr.bytes_copied)
+            rec["repair_failed"] = rr.failed
+            rec["repair_rebalanced"] = rr.rebalanced
+            rec["repair_backlog"] = len(self._repairs.backlog)
+            rec["repair_deferred_budget"] = rr.deferred_budget
+            rec["repair_deferred_backoff"] = rr.deferred_backoff
+            rec["repair_deferred_no_source"] = rr.deferred_no_source
+            rec["repair_deferred_no_target"] = rr.deferred_no_target
+            rec["repair_deferred_partition"] = rr.deferred_partition
+            if rr.corrupt_sources:
+                rec["repair_corrupt_sources"] = rr.corrupt_sources
+            bytes_reserved = rr.bytes_used
+            files_reserved = rr.files_touched
+            if rr.applied or rr.failed:
+                # Repair copies and spread rebalances are two causes.
+                rb = set(rr.rebalanced_fids)
+                rep_fids = np.asarray(sorted({f for f, _, _ in rr.applied} - rb),
+                                      dtype=np.int64)
+                if rep_fids.size or rr.failed:
+                    self._lineage.append(("repair", rep_fids,
+                                          int(rr.bytes_used - rr.rebalanced_bytes)))
+                if rb:
+                    self._lineage.append(("correlated_rebalance",
+                                          np.asarray(sorted(rb), dtype=np.int64),
+                                          int(rr.rebalanced_bytes)))
+
+        # Scrub after repairs, on what is left of the byte budget; its
+        # quarantines reach the next window's repair sync.
+        if self._scrub is not None:
+            if "defer_scrub" in self.degraded_modes:
+                rec["scrub"] = {"bytes": 0, "copies_verified": 0, "files_verified": 0,
+                                "corrupt_found": 0, "hinted": 0, "starved": False,
+                                "cursor": int(self._scrub.cursor), "deferred": True}
+            else:
+                t0 = time.perf_counter()
+                left = None
+                if cfg.max_bytes_per_window is not None:
+                    left = max(int(cfg.max_bytes_per_window) - bytes_reserved, 0)
+                sr = self._scrub.run_window(w, cs, shared_left=left)
+                seconds["scrub"] = time.perf_counter() - t0
+                plan_seconds += seconds["scrub"]
+                rec["scrub"] = {"bytes": int(sr.bytes_used),
+                                "copies_verified": sr.copies_verified,
+                                "files_verified": sr.files_verified,
+                                "corrupt_found": sr.corrupt_found, "hinted": sr.hinted,
+                                "starved": bool(sr.starved), "cursor": int(sr.cursor)}
+                bytes_reserved += sr.bytes_used
+
         t0 = time.perf_counter()
-        applied = self.scheduler.schedule(w)
+        applied = self.scheduler.schedule(w, bytes_reserved=bytes_reserved,
+                                          files_reserved=files_reserved)
         if len(applied):
             fi = applied.file_index
             self.current_rf[fi] = applied.rf_new
             self.current_cat[fi] = applied.cat_new
+            if cs is not None:
+                # Placement mutates per file, in the admitted order.
+                for f, rf_new in zip(fi.tolist(), applied.rf_new.tolist()):
+                    cs.apply_rf_target(f, rf_new)
         seconds["schedule"] = time.perf_counter() - t0
         plan_seconds += seconds["schedule"]
+        if len(applied):
+            # Every plan here comes from a drift-gated re-cluster (a cold
+            # start is the first drift decision).
+            self._lineage.append(("drift", applied.file_index.copy(),
+                                  int(applied.bytes_moved.sum())))
         rec["moves_applied"] = len(applied)
         rec["bytes_migrated"] = applied.total_bytes
         rec["backlog_files"] = len(self.scheduler.backlog)
@@ -368,29 +617,67 @@ class ReplicationController:
         rec["deferred_hysteresis"] = self.scheduler.last_deferred_hysteresis
         rec["deferred_budget"] = self.scheduler.last_deferred_budget
 
+        if cs is not None:
+            rec["durability"] = cs.durability(self.current_rf, self.current_cat, CATEGORIES)
+            if len(events):
+                # Reads of files with no reachable copy this window.
+                unreadable = cs.unreadable_mask()
+                keep = events.path_id >= 0
+                pid = events.path_id[keep]
+                reads = np.asarray(events.op)[keep] == 0
+                rec["n_reads"] = int(reads.sum())
+                rec["unavailable_reads"] = int(unreadable[pid[reads]].sum())
+            else:
+                rec["n_reads"] = 0
+                rec["unavailable_reads"] = 0
+
+        if self._integrity_on:
+            # Ground truth after the window's detections quarantined what
+            # they found; there is no read path to detect rot yet.
+            integ = cs.integrity()
+            integ["detected_scrub"] = (rec.get("scrub") or {}).get("corrupt_found", 0)
+            integ["detected_repair"] = rec.get("repair_corrupt_sources", 0)
+            integ["detected_read"] = 0
+            rec["integrity"] = integ
+
         t0 = time.perf_counter()
         rec["locality_before"] = rec["locality_after"] = None
         rec["balance_before"] = rec["balance_after"] = None
         if want_eval:
-            rec["locality_before"], rec["balance_before"] = self._evaluate(events, rf_before)
-            if applied:
-                rec["locality_after"], rec["balance_after"] = \
-                    self._evaluate(events, self.current_rf)
+            if cs is not None:
+                mb = evaluate_placement(self.manifest, events, view_before, seed=0)
+                rec["locality_before"] = float(mb.read_locality)
+                rec["balance_before"] = float(mb.load_balance)
+                if cs.version != ver_before:
+                    ma = evaluate_placement(self.manifest, events, cs.placement_view(),
+                                            seed=0)
+                    rec["locality_after"] = float(ma.read_locality)
+                    rec["balance_after"] = float(ma.load_balance)
+                else:
+                    rec["locality_after"] = rec["locality_before"]
+                    rec["balance_after"] = rec["balance_before"]
             else:
-                rec["locality_after"] = rec["locality_before"]
-                rec["balance_after"] = rec["balance_before"]
+                rec["locality_before"], rec["balance_before"] = self._evaluate(events,
+                                                                               rf_before)
+                if applied:
+                    rec["locality_after"], rec["balance_after"] = \
+                        self._evaluate(events, self.current_rf)
+                else:
+                    rec["locality_after"] = rec["locality_before"]
+                    rec["balance_after"] = rec["balance_before"]
         seconds["evaluate"] = time.perf_counter() - t0
 
-        if len(applied):
-            # The reference's per-cause digest of the admitted moves.  Every
-            # plan here comes from a drift-gated re-cluster (a cold start is
-            # the first drift decision); the hotspot, conversion and repair
-            # causes belong to the unported subsystems.
-            rec["causes"] = {"drift": {"files": len(applied), "bytes": applied.total_bytes}}
+        if self._lineage:
+            causes: dict[str, dict] = {}
+            for name, fids, b in self._lineage:
+                c = causes.setdefault(name, {"files": 0, "bytes": 0})
+                c["files"] += int(fids.size)
+                c["bytes"] += int(b)
+            rec["causes"] = causes
 
         rec["plan_hash"] = _plan_hash(self.current_rf, self.current_cat)
-        # ``plan``: plan diff and submit plus admission; ``total``: host wall
-        # clock of both phases of this window.
+        # ``plan``: plan diff and submit, repairs, scrub and admission;
+        # ``total``: host wall clock of both phases of this window.
         seconds["plan"] = plan_seconds
         seconds["total"] = seconds.pop("host_a") + (time.perf_counter() - t_b)
         rec["seconds"] = {k: round(v, 6) for k, v in seconds.items()}
@@ -455,6 +742,8 @@ class ReplicationController:
         caller's keys (the daemon's ingest cursor)."""
         self._ensure_accepted()
         arrays = {k: getattr(self._state, k).cpu().numpy() for k in self._STATE_ARRAYS}
+        if self._dec is not None:
+            arrays.update({"dec_" + k: v for k, v in self.decayed_counters().items()})
         arrays["current_rf"] = self.current_rf
         arrays["current_cat"] = self.current_cat
         if self._accepted_centroids is not None:
@@ -462,6 +751,11 @@ class ReplicationController:
             arrays["accepted_category_idx"] = self._accepted_category_idx
             arrays["accepted_fractions"] = self._accepted_fractions
         arrays.update(self.scheduler.state_arrays())
+        if self._cluster_state is not None:
+            arrays.update(self._cluster_state.state_arrays())
+            arrays.update(self._repairs.state_arrays())
+        if self._scrub is not None:
+            arrays.update(self._scrub.state_arrays())
         meta = {
             "window_index": self.window_index,
             "last_window_events": self._last_window_events,
@@ -471,11 +765,14 @@ class ReplicationController:
             "observation_end": self._state.observation_end,
             "state_n_events": self._state.n_events,
             "pad_events": self._state.pad_events,
+            "dec_obs_end": self._dec_obs_end,
             "decay": self.cfg.decay,
             "window_seconds": self.cfg.window_seconds,
             "k": int(self.cfg.kmeans.k),
             "backend": "torch",
             "n_files": len(self.manifest),
+            "faults": self._cluster_state is not None,
+            "scrub": self._scrub is not None,
         }
         if extra_meta:
             meta.update(extra_meta)
@@ -484,14 +781,20 @@ class ReplicationController:
 
     def load_checkpoint(self, path: str) -> None:
         """Restore a snapshot of this controller; one taken under another
-        population size, k, backend, decay or window raises ``ValueError``."""
+        population size, k, backend, decay, window, fault mode or scrub
+        mode raises ``ValueError``."""
         arrays, meta = load_state(path)
         for key, want in (("n_files", len(self.manifest)), ("k", int(self.cfg.kmeans.k)),
                           ("backend", "torch"), ("decay", self.cfg.decay),
-                          ("window_seconds", self.cfg.window_seconds)):
-            if meta.get(key) != want:
+                          ("window_seconds", self.cfg.window_seconds),
+                          ("faults", self._cluster_state is not None),
+                          ("scrub", self._scrub is not None)):
+            got = meta.get(key)
+            if key in ("faults", "scrub"):
+                got = bool(got)
+            if got != want:
                 raise ValueError(
-                    f"checkpoint {path!r} has {key}={meta.get(key)!r} but the controller "
+                    f"checkpoint {path!r} has {key}={got!r} but the controller "
                     f"expects {want!r}: stale checkpoint? delete it to start over")
         self._state = StreamFeatureState(
             **{k: torch.from_numpy(np.asarray(arrays[k], dtype=np.int32)).to(self.device)
@@ -499,6 +802,11 @@ class ReplicationController:
             sec_base=meta.get("sec_base"), observation_end=meta.get("observation_end"),
             n_events=int(meta.get("state_n_events", 0)),
             pad_events=int(meta.get("pad_events", 0)))
+        if self._dec is not None:
+            self._dec = {k: torch.from_numpy(np.asarray(arrays["dec_" + k],
+                                                        dtype=np.float64)).to(self.device)
+                         for k in _DEC_KEYS}
+            self._dec_obs_end = meta.get("dec_obs_end")
         self.current_rf = arrays["current_rf"].astype(np.int32)
         self.current_cat = arrays["current_cat"].astype(np.int32)
         if "accepted_centroids" in arrays:
@@ -508,6 +816,11 @@ class ReplicationController:
         # Recomputed at the next acceptance; never carried over a load.
         self._accepted_file_cat = None
         self.scheduler.load_state_arrays(arrays)
+        if self._cluster_state is not None:
+            self._cluster_state.load_state_arrays(arrays)
+            self._repairs.load_state_arrays(arrays)
+        if self._scrub is not None:
+            self._scrub.load_state_arrays(arrays)
         self.window_index = int(meta["window_index"])
         self._last_window_events = int(meta.get("last_window_events", 0))
         self._t0 = meta.get("t0")
@@ -605,7 +918,7 @@ class ReplicationController:
                     if (w == self.window_index - 1
                             and len(events) > self._last_window_events):
                         self._fold_window(_slice(events, self._last_window_events,
-                                                 len(events)))
+                                                 len(events)), new_window=False)
                         self._last_window_events = len(events)
                         since_ckpt += 1
                     continue

@@ -13,9 +13,12 @@
   and ``searchsorted`` (``_greedy_admit``), with the reference's rules: the
   first byte-moving move of an unreserved window with a positive budget is
   admitted even when it alone exceeds the budget; zero-byte moves pass the
-  byte budget but count against the file cap.  (The reference's repair
-  reservations and storage-specific byte costs come with the fault path
-  and storage strategies, ROADMAP A8c and A8e.)
+  byte budget but count against the file cap.  ``schedule``'s
+  ``bytes_reserved``/``files_reserved`` pre-charge the window's budget with
+  what the repair pass and the scrubber spent first (one churn allowance
+  for all three); a nonzero byte reservation also takes the first-move
+  allowance.  (Storage-specific byte costs come with storage strategies,
+  ROADMAP A8e.)
 
 The scheduler's state round-trips through ``state_arrays`` /
 ``load_state_arrays`` (the ``sched_*`` columns of the controller's
@@ -139,18 +142,19 @@ def _next_le(values: np.ndarray, start: int, limit) -> int:
     return -1
 
 
-def _greedy_admit(bp: np.ndarray, max_bytes: int) -> np.ndarray:
+def _greedy_admit(bp: np.ndarray, max_bytes: int, reserved: int = 0) -> np.ndarray:
     """Admission flags of positive byte costs ``bp`` in admission order:
-    the sequential scan "admit while ``used + b <= max_bytes``, skip and go
-    on otherwise", plus the first-move allowance, as maximal admitted runs
-    found by ``searchsorted`` on the cumulative sum."""
+    the sequential scan "admit while ``reserved + used + b <= max_bytes``,
+    skip and go on otherwise", plus the first-move allowance of an
+    unreserved window, as maximal admitted runs found by ``searchsorted``
+    on the cumulative sum."""
     n = bp.shape[0]
     admit = np.zeros(n, dtype=bool)
     if n == 0:
         return admit
-    used = 0
+    used = int(reserved)
     j = 0
-    if max_bytes > 0:
+    if used == 0 and max_bytes > 0:
         admit[0] = True
         used += int(bp[0])
         j = 1
@@ -205,19 +209,25 @@ class MigrationScheduler:
             ms = ms.take(np.sort(keep))
         self.backlog = self._admission_order(ms)
 
-    def schedule(self, window_index: int) -> MoveSet:
+    def schedule(self, window_index: int, *, bytes_reserved: int = 0,
+                 files_reserved: int = 0) -> MoveSet:
         """This window's admitted moves, in admission order; they leave the
         backlog and stamp ``last_moved``.  ``max_bytes == 0`` admits no
         byte-moving move; the file cap is strict and, once reached, stops
         the scan (moves past it are neither admitted nor counted as
-        deferred)."""
+        deferred).  The reservations pre-charge both budgets (see the module
+        docstring); a file cap used up by them admits nothing."""
         bl = self.backlog
         self.last_deferred_hysteresis = 0
         self.last_deferred_budget = 0
         m = len(bl)
         if m == 0:
             return MoveSet.empty()
-        cap = self.max_files
+        cap = None
+        if self.max_files is not None:
+            cap = self.max_files - int(files_reserved)
+            if cap <= 0:
+                return MoveSet.empty()
 
         hyst_ok = (np.asarray(window_index, dtype=np.int64)
                    >= self.last_moved[bl.file_index] + 1 + self.hysteresis)
@@ -230,7 +240,8 @@ class MigrationScheduler:
             adm_c = b == 0
             pos = np.flatnonzero(b > 0)
             if pos.size:
-                adm_c[pos[_greedy_admit(b[pos], int(self.max_bytes))]] = True
+                adm_c[pos[_greedy_admit(b[pos], int(self.max_bytes),
+                                        int(bytes_reserved))]] = True
             admit[cand[adm_c]] = True
 
         limit = m

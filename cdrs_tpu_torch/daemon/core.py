@@ -11,8 +11,9 @@ loop it adds:
 
 * **epoch publication** — every processed window's plan freezes into a
   ``PlacementEpoch`` over a new ``placement_fn.EpochMap`` revision of the
-  flat topology, published by one reference swap (resolution is lazy,
-  per request batch);
+  controller's topology (the fault path's, else ``cfg.topology``, else
+  flat), published by one reference swap (resolution is lazy, per request
+  batch);
 * **live alerting** — each record feeds ``obs.alerts.AlertEngine``; a
   page-severity alert lands a protective checkpoint at once;
 * **cursor checkpoints** — the controller's snapshot carries the ingest
@@ -24,7 +25,9 @@ loop it adds:
   uninterrupted run's records bit for bit;
 * **lag and brownout** — the decision lag (from log bytes and
   timestamps, never the wall clock) drives ``daemon.brownout``'s ladder,
-  whose ``coalesce`` rung merges pending windows into one decision;
+  whose ``coalesce`` rung merges pending windows into one decision; a
+  window with fault events is never merged (the controller applies a
+  window's events at its own index only);
 * **decision tracing** — with a metrics sink, one ``decision_trace``
   event per decision whose integer-ns segments sum to its total, the
   slowest ``trace_exemplars`` with their span trees;
@@ -36,8 +39,7 @@ loop it adds:
   not depend on it.
 
 Not ported yet: the live HTTP plane (``attach_http`` and its snapshots)
-and the ambient telemetry spans (ROADMAP A10); fault schedules, whose
-windows the reference never coalesces (A8c).  ``run`` holds the loop
+and the ambient telemetry spans (ROADMAP A10).  ``run`` holds the loop
 inside ``device.deterministic()``, as the controller's ``run`` does.
 """
 
@@ -343,16 +345,20 @@ class StreamDaemon:
     def _coalesce(self, win_iter, w: int, events):
         """Merge up to ``coalesce_max`` consecutive pending windows onto the
         last one and decide once over their union (every event folds once;
-        the group size is a function of the lag).  Returns ``(last_w,
-        events, n_merged, pending)``: ``pending`` is a pulled window the
-        caller processes next."""
+        the group size is a function of the lag).  A window with fault
+        events is never merged: the group stops before it, and a faulted
+        ``w`` runs alone.  Returns ``(last_w, events, n_merged, pending)``:
+        ``pending`` is a pulled window the caller processes next."""
         group = min(int(self.cfg.brownout.coalesce_max), 1 + int(self._lag["windows"]))
-        if group <= 1:
+        sched = self.controller._fault_schedule
+        if group <= 1 or (sched is not None and len(sched.for_window(w))):
             return w, events, 1, None
         parts = [events]
         last = w
         pending = None
         while last - w + 1 < group:
+            if sched is not None and len(sched.for_window(last + 1)):
+                break
             try:
                 nw, nev = next(win_iter)
             except StopIteration:
@@ -369,12 +375,18 @@ class StreamDaemon:
     # -- per-window actions ------------------------------------------------
     def _publish(self, w: int, rec: dict, trace_id: str | None = None) -> PlacementEpoch:
         ctl = self.controller
+        if ctl._cluster_state is not None:
+            topo = ctl._cluster_state.topology
+        elif ctl.cfg.topology is not None:
+            topo = ctl.cfg.topology
+        else:
+            if self._flat_topo is None:
+                self._flat_topo = ClusterTopology(nodes=tuple(ctl.manifest.nodes))
+            topo = self._flat_topo
         if self._emap is None:
-            self._flat_topo = ClusterTopology(nodes=tuple(ctl.manifest.nodes))
-            self._emap = EpochMap(ctl.manifest.nodes, self._flat_topo,
-                                  seed=self.cfg.placement_seed)
+            self._emap = EpochMap(ctl.manifest.nodes, topo, seed=self.cfg.placement_seed)
         # Every admitted plan is a new map revision (the topology is fixed).
-        map_ep = self._emap.advance(self._flat_topo)
+        map_ep = self._emap.advance(topo)
         rf = ctl.current_rf.copy()
         cat = ctl.current_cat.copy()
         emap, prim = self._emap, ctl.manifest.primary_node_id
@@ -386,7 +398,7 @@ class StreamDaemon:
         epoch = self.publisher.publish(PlacementEpoch(
             epoch_id=self.publisher.published_total + 1, window=int(w),
             plan_hash=str(rec.get("plan_hash", "")), rf=rf, category_idx=cat,
-            n_nodes=len(self._flat_topo.nodes), map_epoch_id=map_ep.epoch_id,
+            n_nodes=len(topo.nodes), map_epoch_id=map_ep.epoch_id,
             resolver=resolver, trace_id=trace_id))
         self._last_epoch_id = int(epoch.epoch_id)
         if trace_id is not None:

@@ -1,19 +1,20 @@
-"""Stateless hash placement on a flat topology: the flat branch of
-``cdrs_tpu/placement_fn/compute.py``, host numpy, bit-identical to it.
+"""Stateless hash placement: ``cdrs_tpu/placement_fn/compute.py`` (without
+``explain_placement``), host numpy, bit-identical to it.
 
 The priority of node j for file f is a hash of (seed, file id, node
 name), CRUSH's straw2 draw, so any subset of files places in O(subset)
 with no per-file state, and a node's salt follows its name, not its
-index.  Replica 0 is the file's primary node; every further replica is
-the distinct node of best (lowest) priority.  Each packed priority holds
-the node id in its low 6 bits under a 26-bit hash, so the minimum over
-the node axis carries its winner and a file's values never tie; that
-caps a topology at 63 nodes.
-
-Failure-domain and hierarchical topologies (the rack-aware and
-hierarchical fills, the region-locality clip) are not ported yet (ROADMAP
-A8c): ``compute_placement`` raises for a topology with domains or levels.
-``explain_placement`` waits for ROADMAP A10.
+index.  Replica 0 is the file's primary node.  On a topology with racks,
+replica 1 is the best node outside the primary's rack and replica 2 the
+second-best of that same rack (HDFS rack-aware); every further replica is
+the distinct node of best (lowest) priority.  On a topology with
+hierarchy levels, ``hierarchical_fill`` takes each slot by the key (copies
+already in the candidate's top-level domain, copies in its rack, packed
+priority), and a region-local file is clipped to its primary's region
+(``clip_shards_for_locality``).  Each packed priority holds the node id in
+its low 6 bits under a 26-bit hash, so the minimum over the node axis
+carries its winner and a file's values never tie; that caps a topology at
+63 nodes.  ``explain_placement`` waits for ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import hashlib
 import numpy as np
 
 __all__ = ["node_salts", "file_keys", "hash_priorities", "compute_placement",
-           "PRIO_MAX", "NODE_MASK", "MAX_NODES"]
+           "hierarchical_fill", "clip_shards_for_locality", "PRIO_MAX", "NODE_MASK",
+           "MAX_NODES"]
 
 _SPLITMIX_GAMMA = np.uint64(0x9E3779B97F4A7C15)
 _MIX_1 = np.uint64(0xBF58476D1CE4E5B9)
@@ -91,22 +93,87 @@ def hash_priorities(keys: np.ndarray, salts: np.ndarray,
     return out
 
 
+_U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def clip_shards_for_locality(n_shards: np.ndarray, primary: np.ndarray, topology,
+                             local_mask: np.ndarray | None) -> np.ndarray:
+    """Shard counts under a region-locality mask: a file pinned to its
+    primary's top-level domain holds at most that domain's node count.
+    ``n_shards`` comes back untouched when no mask applies."""
+    if local_mask is None or topology.n_levels == 0:
+        return n_shards
+    local = np.asarray(local_mask, dtype=bool)
+    if not local.any():
+        return n_shards
+    top = topology.top_domain_index()
+    region_size = np.bincount(top, minlength=topology.n_domains_at(topology.n_levels))
+    cap = region_size[top[np.asarray(primary, dtype=np.int64)]]
+    return np.where(local, np.minimum(n_shards, cap), n_shards).astype(np.int32)
+
+
+def hierarchical_fill(w: np.ndarray, out: np.ndarray, prim: np.ndarray, max_rf: int,
+                      topology) -> None:
+    """Greedy highest-level-first fill of one chunk's slots 1..max_rf-1.
+
+    ``w`` is the (n_nodes, m) packed priority block, mutated (taken nodes
+    go to PRIO_MAX); slot 0 is already written to ``out`` and masked in
+    ``w``.  Each slot takes the node of least key (copies already in its
+    top-level domain, copies already in its base domain, packed priority),
+    so region counts differ by at most one across a row.  The cluster
+    package's rng chooser calls it with rng-packed priorities."""
+    n_nodes, m = w.shape
+    cols = np.arange(m)
+    dom_base = topology.domain_index()
+    dom_top = topology.top_domain_index()
+    n_base = topology.n_domains
+    n_top = topology.n_domains_at(topology.n_levels)
+    base_rows = [np.flatnonzero(dom_base == d) for d in range(n_base)]
+    top_of_base = np.asarray([int(dom_top[rows[0]]) for rows in base_rows], dtype=np.int64)
+    base_cnt = np.zeros((n_base, m), dtype=np.uint16)
+    top_cnt = np.zeros((n_top, m), dtype=np.uint16)
+    base_cnt[dom_base[prim], cols] = 1
+    top_cnt[dom_top[prim], cols] = 1
+    dvb = np.empty((n_base, m), dtype=np.uint32)
+    comp = np.empty((n_base, m), dtype=np.uint64)
+    span = np.uint64(n_nodes + 2)
+    for c in range(1, max_rf):
+        for d, rows in enumerate(base_rows):
+            np.copyto(dvb[d], w[rows[0]])
+            for r in rows[1:]:
+                np.minimum(dvb[d], w[r], out=dvb[d])
+        # (top count * span + base count) above the packed priority: the
+        # minimum over base domains carries the winning node's id.
+        np.multiply(top_cnt[top_of_base].astype(np.uint64), span, out=comp)
+        comp += base_cnt
+        comp <<= np.uint64(32)
+        comp |= dvb
+        comp[dvb == PRIO_MAX] = _U64_MAX
+        best = comp.min(axis=0)
+        valid = best != _U64_MAX
+        sel = (best.astype(np.uint32) & NODE_MASK).astype(np.int32)
+        np.copyto(sel, np.int32(0), where=~valid)
+        out[:, c] = np.where(valid, sel, -1)
+        w[sel, cols] = np.where(valid, PRIO_MAX, w[sel, cols])
+        np.add.at(base_cnt, (dom_base[sel], cols), valid.astype(np.uint16))
+        np.add.at(top_cnt, (dom_top[sel], cols), valid.astype(np.uint16))
+
+
 def compute_placement(file_ids: np.ndarray, n_shards: np.ndarray, primary: np.ndarray,
                       topology, seed: int = 0, *, out_width: int | None = None,
-                      chunk: int = 1 << 17) -> tuple[np.ndarray, np.ndarray]:
-    """Hash placement of an arbitrary subset of files on a flat topology.
+                      chunk: int = 1 << 17,
+                      local_mask: np.ndarray | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Hash placement of an arbitrary subset of files.
 
     Returns ``(slots, rf)``: ``slots`` (m, width) int32 node ids, -1 past
-    each row's rf; ``rf`` (m,) int32 = ``clip(n_shards, 1, n_nodes)``.
-    ``primary`` is already mapped onto ``topology``
+    each row's rf; ``rf`` (m,) int32 = ``clip(n_shards, 1, n_nodes)``
+    (clipped to the region for region-local files).  ``primary`` is
+    already mapped onto ``topology``
     (``cluster.placement.primary_on_topology``).  Row i depends only on
     (seed, file_ids[i], n_shards[i], primary[i], topology), and the slots
     nest in rf.  Files go in chunks of ``chunk`` with one reused priority
     block.
     """
-    if getattr(topology, "domains", None) or getattr(topology, "n_levels", 0):
-        raise ValueError("placement on a topology with failure domains or levels is not "
-                         "ported yet (ROADMAP A8c, failure-domain topologies)")
     fids = np.asarray(file_ids)
     m_total = fids.shape[0]
     n_nodes = len(topology)
@@ -117,6 +184,9 @@ def compute_placement(file_ids: np.ndarray, n_shards: np.ndarray, primary: np.nd
     rf = np.clip(rf, 1, n_nodes)
     if rf.shape == ():
         rf = np.full(m_total, int(rf), dtype=np.int32)
+    hier = getattr(topology, "n_levels", 0) > 0
+    if hier and m_total:
+        rf = clip_shards_for_locality(rf, primary, topology, local_mask)
     max_rf = int(rf.max()) if m_total else 1
     width = max_rf if out_width is None else int(out_width)
     # Every cell of [:, :max_rf] is written below (selection and rf padding).
@@ -124,10 +194,34 @@ def compute_placement(file_ids: np.ndarray, n_shards: np.ndarray, primary: np.nd
     if m_total == 0:
         return slots, rf
     primary_all = np.asarray(primary, dtype=np.int32)
+    n_domains = topology.n_domains
+    dom = topology.domain_index()
+    # All-singleton domains (the flat topology) reduce exactly to the
+    # generic ascending-priority fill.
+    multi_domain = not hier and 1 < n_domains < n_nodes and max_rf >= 2
+    dom_top = topology.top_domain_index() if hier else None
+    local_all = np.asarray(local_mask, dtype=bool) if hier and local_mask is not None \
+        else None
     uniform_rf = bool((rf == max_rf).all())
     chunk = max(int(chunk), 1)
-    work = np.empty((n_nodes, min(chunk, m_total)), dtype=np.uint32)
-    all_cols = np.arange(work.shape[1])
+    buf = min(chunk, m_total)
+    work = np.empty((n_nodes, buf), dtype=np.uint32)
+    dmin = dom_rows = None
+    if multi_domain:
+        dom_rows = [np.flatnonzero(dom == d) for d in range(n_domains)]
+        dmin = np.empty((n_domains, buf), dtype=np.uint32)
+
+    def _grouped_min(w, m):
+        """dmin[d] = min over domain d's rows of ``w`` (the value carries the
+        winning node's id)."""
+        dv = dmin[:, :m]
+        for d, rows in enumerate(dom_rows):
+            np.copyto(dv[d], w[rows[0]])
+            for r in rows[1:]:
+                np.minimum(dv[d], w[r], out=dv[d])
+        return dv
+
+    all_cols = np.arange(buf)
     for lo in range(0, m_total, chunk):
         hi = min(lo + chunk, m_total)
         m = hi - lo
@@ -138,7 +232,46 @@ def compute_placement(file_ids: np.ndarray, n_shards: np.ndarray, primary: np.nd
         out = slots[lo:hi]
         out[:, 0] = prim
         w[prim, cols] = PRIO_MAX
-        for c in range(1, max_rf):
+        start_col = 1
+        if hier:
+            if local_all is not None:
+                lc = local_all[lo:hi]
+                if lc.any():
+                    offr = dom_top[:, None] != dom_top[prim][None, :]
+                    w[offr & lc[None, :]] = PRIO_MAX
+            if max_rf >= 2:
+                hierarchical_fill(w, out, prim, max_rf, topology)
+            start_col = max_rf
+        if multi_domain:
+            # Replica 1: best node outside the primary's domain; replica 2:
+            # that domain's second-best.  A file without such a node falls
+            # back to the generic fill.
+            dv = _grouped_min(w, m)
+            best = dv.copy()
+            best[dom[prim], cols] = PRIO_MAX
+            mn1 = np.minimum.reduce(best, axis=0)
+            has1 = mn1 != PRIO_MAX
+            sel1 = (mn1 & NODE_MASK).astype(np.int32)
+            if not has1.all():
+                gen = (np.minimum.reduce(w, axis=0) & NODE_MASK).astype(np.int32)
+                sel1 = np.where(has1, sel1, gen)
+            out[:, 1] = sel1
+            w[sel1, cols] = PRIO_MAX
+            start_col = 2
+            if max_rf >= 3:
+                dv = _grouped_min(w, m)
+                mn2 = dv[dom[sel1], cols]
+                if not has1.all():
+                    mn2 = np.where(has1, mn2, PRIO_MAX)
+                has2 = mn2 != PRIO_MAX
+                sel2 = (mn2 & NODE_MASK).astype(np.int32)
+                if not has2.all():
+                    gen = (np.minimum.reduce(w, axis=0) & NODE_MASK).astype(np.int32)
+                    sel2 = np.where(has2, sel2, gen)
+                out[:, 2] = sel2
+                w[sel2, cols] = PRIO_MAX
+                start_col = 3
+        for c in range(start_col, max_rf):
             mn = np.minimum.reduce(w, axis=0)
             mn &= NODE_MASK
             s = mn.astype(np.int32)

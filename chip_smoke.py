@@ -70,6 +70,23 @@ Phases, each of which exits non-zero when a check fails:
    then brownout runs over the whole log, which must coalesce windows,
    fold every event once, replay byte-identically apart from the
    wall-clock fields, and give the CPU's plan hashes.
+8. The chaos controller (the fault, repair and scrub path) on CUDA over
+   phase 5's population and events, with phase 6's settings (the 250,000
+   files a window shared by repairs, scrub and migrations), rf >= 2 from
+   the start, dn2 crashed over windows 2-4, 5% of dn1's copies rotten at
+   window 1, a 50 GB scrub budget a window and repair seed 0: (a) B1 =
+   sum(n_iter + 1) and B2 = 12 per re-cluster by the counters, dn2 down and
+   repairs in windows 2-4, durability and integrity in every window, no
+   file lost while two nodes live beyond the rotten copies the scrubber
+   had quarantined, and a kill after window 3 (the run's snapshot then,
+   copied aside) resumed in a new controller (its first window, faulted,
+   profiled for the idle share) giving every later record but ``seconds``
+   and the final ``ClusterState.state_arrays()`` of the uninterrupted run;
+   (b) phase 4's workload on 12 nodes in 4 racks with a
+   whole-rack kill, a partition and a straggler, whose plan hashes,
+   durability tiers, repair counts and final state arrays on the card
+   equal the CPU's from one init; (c) phase 4's workload with decay 0.7,
+   whose float64 accumulators and plan hashes on the card equal the CPU's.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It imports nothing of the JAX
@@ -100,6 +117,10 @@ MB_BATCH = 262_144           # rows per mini-batch update
 CONTROL_WINDOW = 10.0        # seconds per controller window
 CONTROL_MAX_FILES = 250_000  # migrated files per window
 CONTROL_KILL_AFTER = 3       # windows before the simulated kill
+CHAOS_KILL = "dn2@2-4"       # crash at window 2, recover at 5
+CHAOS_CORRUPT = "dn1@1:0.05"  # 5% of dn1's copies rot at window 1
+CHAOS_SCRUB_BYTES = 50_000_000_000   # scrub verification reads a window
+CHAOS_RACKS = "r0=dn1,dn2,dn3;r1=dn4,dn5,dn6;r2=dn7,dn8,dn9;r3=dn10,dn11,dn12"
 
 
 def fail(msg: str) -> None:
@@ -840,28 +861,37 @@ def phase_controller(manifest, events, main_result):
     return launches, recs
 
 
+def _phase4_workload(nodes=None):
+    """Phase 4's workload (20,000 files, seed 10, 60 s), on ``nodes``."""
+    from cdrs_tpu_torch import GeneratorConfig, SimulatorConfig
+    from cdrs_tpu_torch.sim.access import simulate_access
+    from cdrs_tpu_torch.sim.generator import generate_population
+
+    kw = {} if nodes is None else {"nodes": nodes}
+    manifest = generate_population(GeneratorConfig(n_files=20_000, seed=MAIN_SEED, **kw))
+    events = simulate_access(manifest, SimulatorConfig(duration_seconds=MAIN_DURATION,
+                                                       seed=MAIN_SEED + 1))
+    return manifest, events
+
+
+def cpu_init(X):
+    from cdrs_tpu_torch.ops.kmeans import kmeans_full
+
+    return kmeans_full(X.cpu(), K, seed=MAIN_SEED, max_iter=0, tol=0.0)[0]
+
+
 def card_cpu_control():
     """The controller at 20,000 files (phase 4's workload) on the card and on
     the CPU, full re-clusters from one init computed on the CPU."""
     import numpy as np
 
-    from cdrs_tpu_torch import GeneratorConfig, SimulatorConfig
     from cdrs_tpu_torch.control.controller import ReplicationController
-    from cdrs_tpu_torch.ops.kmeans import kmeans_full
-    from cdrs_tpu_torch.sim.access import simulate_access
-    from cdrs_tpu_torch.sim.generator import generate_population
 
-    manifest = generate_population(GeneratorConfig(n_files=20_000, seed=MAIN_SEED))
-    events = simulate_access(manifest, SimulatorConfig(duration_seconds=MAIN_DURATION,
-                                                       seed=MAIN_SEED + 1))
-
-    def init(X):
-        return kmeans_full(X.cpu(), K, seed=MAIN_SEED, max_iter=0, tol=0.0)[0]
-
+    manifest, events = _phase4_workload()
     runs = {}
     for dev in ("cuda", "cpu"):
         ctl = ReplicationController(manifest, control_config(dev))
-        seen = watch_reclusters(ctl, init)
+        seen = watch_reclusters(ctl, cpu_init)
         runs[dev] = (ctl.run(events), seen)
     (res_c, seen_c), (res_p, seen_p) = runs["cuda"], runs["cpu"]
     modes = [[r["recluster_mode"] for r in res.records] for res in (res_c, res_p)]
@@ -1088,17 +1118,11 @@ def daemon_small():
     import dataclasses
     import threading
 
-    from cdrs_tpu_torch import GeneratorConfig, SimulatorConfig
     from cdrs_tpu_torch.control.controller import ReplicationController
     from cdrs_tpu_torch.daemon import BrownoutConfig, DaemonConfig, StreamDaemon
     from cdrs_tpu_torch.io.events import EventLog
-    from cdrs_tpu_torch.ops.kmeans import kmeans_full
-    from cdrs_tpu_torch.sim.access import simulate_access
-    from cdrs_tpu_torch.sim.generator import generate_population
 
-    manifest = generate_population(GeneratorConfig(n_files=20_000, seed=MAIN_SEED))
-    events = simulate_access(manifest, SimulatorConfig(duration_seconds=MAIN_DURATION,
-                                                       seed=MAIN_SEED + 1))
+    manifest, events = _phase4_workload()
     n = len(events)
     cuts = [0, n // 4, n // 2, 3 * n // 4, n]
     parts = [EventLog(ts=events.ts[a:b], path_id=events.path_id[a:b], op=events.op[a:b],
@@ -1142,13 +1166,10 @@ def daemon_small():
               "follow-mode records are not a prefix of the non-follow run's")
         check(skipped >= 1, "no window skipped the re-cluster at the default threshold")
 
-        def init(X):
-            return kmeans_full(X.cpu(), K, seed=MAIN_SEED, max_iter=0, tol=0.0)[0]
-
         runs = []
         for dev in ("cuda", "cuda", "cpu"):
             ctl = ReplicationController(manifest, config(dev))
-            watch_reclusters(ctl, init)
+            watch_reclusters(ctl, cpu_init)
             d = StreamDaemon(ctl, DaemonConfig(brownout=BrownoutConfig(
                 engage=(0.5, 1.0, 1.5, 2.0, 3.0), release=(0.2, 0.4, 0.6, 0.8, 1.0))))
             runs.append((d, d.run(full_log)))
@@ -1172,6 +1193,216 @@ def daemon_small():
     check(canon(d1.records) == canon(d2.records) and d1.brownout_log == d2.brownout_log,
           "two brownout runs differ beyond the wall-clock fields")
     check(hashes[0] == hashes[1], "brownout plan hashes differ between the card and the CPU")
+
+
+def rf2_scoring():
+    """The validated scoring table with every category at rf >= 2."""
+    import dataclasses
+
+    from cdrs_tpu_torch import validated_scoring_config
+
+    base = validated_scoring_config()
+    return dataclasses.replace(base, replication_factors={
+        c: max(2, r) for c, r in base.replication_factors.items()})
+
+
+def chaos_config(device: str, specs, **kw):
+    """Phase 6's settings on the fault path: the schedule ``specs``, rf >= 2
+    from the start, repair seed 0."""
+    import dataclasses
+
+    from cdrs_tpu_torch.faults import FaultSchedule
+
+    return dataclasses.replace(control_config(device), default_rf=2, scoring=rf2_scoring(),
+                               fault_schedule=FaultSchedule.from_specs(specs), repair_seed=0,
+                               **kw)
+
+
+CHAOS_STAGES = ("fold", "drift", "recluster", "faults", "repair", "scrub", "plan", "schedule",
+                "evaluate", "total")
+
+
+def phase_chaos(manifest, events):
+    """Phase 8: the chaos controller on the card over phase 5's workload
+    (8a), then at 20,000 files on 12 nodes in 4 racks (8b) and with decay
+    0.7 (8c), each on the card against the CPU.  Returns the kernels'
+    launches in 8a."""
+    import numpy as np
+
+    from cdrs_tpu_torch.control.controller import ReplicationController
+    from cdrs_tpu_torch.device import deterministic
+    from cdrs_tpu_torch.faults import ScrubConfig
+    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
+    from cdrs_tpu_torch.ops.seg_count import label_threshold_count
+
+    specs = [f"crash:{CHAOS_KILL}", f"corrupt:{CHAOS_CORRUPT}"]
+
+    def config():
+        return chaos_config("cuda", specs, scrub=ScrubConfig(bytes_per_window=CHAOS_SCRUB_BYTES))
+
+    with tempfile.TemporaryDirectory() as tmp, deterministic():
+        ctl = ReplicationController(manifest, config())
+        seen = watch_reclusters(ctl)
+        # The kill: the snapshot after window 3, copied aside as the run goes
+        # on (re-running windows 0-3 would double the smoke's longest part).
+        ck = os.path.join(tmp, "killed.npz")
+        save = ctl.save_checkpoint
+
+        def save_and_keep(path, *args, **kw):
+            save(path, *args, **kw)
+            if ctl.window_index == CONTROL_KILL_AFTER + 1:
+                shutil.copyfile(path, ck)
+
+        ctl.save_checkpoint = save_and_keep
+        lloyd_assign_reduce.launches = 0
+        label_threshold_count.launches = 0
+        t0 = time.perf_counter()
+        full = ctl.run(events, checkpoint_path=os.path.join(tmp, "full.npz"))
+        wall = time.perf_counter() - t0
+        launches = {"lloyd": lloyd_assign_reduce.launches,
+                    "seg_count": label_threshold_count.launches}
+        recs = full.records
+        log(f"chaos: {len(manifest)} files, {len(recs)} windows of {CONTROL_WINDOW:g} s, "
+            f"faults {specs}, scrub {CHAOS_SCRUB_BYTES} B a window; wall {wall:.3f} s "
+            f"(checkpoints included), re-clusters {[r['recluster_mode'] for r in recs]}, "
+            f"Lloyd iterations {[c['n_iter'] for c in seen]}, launches {launches}")
+        for r in recs:
+            log("chaos window " + json.dumps(
+                {k: r.get(k) for k in ("window", "fault_events", "nodes_up", "moves_applied",
+                                       "repair_moves", "repair_bytes", "repair_backlog",
+                                       "repair_deferred_budget", "repair_deferred_no_source",
+                                       "scrub", "durability", "integrity", "unavailable_reads",
+                                       "plan_hash", "seconds")}))
+        per_stage = {st: sum(r["seconds"].get(st, 0.0) for r in recs) / len(recs)
+                     for st in CHAOS_STAGES}
+        log("chaos stages mean seconds per window " + json.dumps(per_stage))
+        log("chaos summary " + json.dumps(full.summary()))
+        want_lloyd = sum(c["n_iter"] + 1 for c in seen)
+        check(len(seen) == len(recs), f"chaos: {len(seen)} re-clusters for {len(recs)} windows")
+        check(launches["lloyd"] == want_lloyd,
+              f"chaos made {launches['lloyd']} Lloyd launches, expected {want_lloyd}")
+        check(launches["seg_count"] == 12 * len(seen),
+              f"chaos made {launches['seg_count']} threshold-count launches, expected "
+              f"{12 * len(seen)}")
+        check(len(recs) >= 5, f"chaos ran {len(recs)} windows, the kill spans windows 2-4")
+        check(recs[2]["fault_events"] == [f"crash:{CHAOS_KILL.split('-')[0]}"],
+              f"window 2's fault events are {recs[2]['fault_events']}")
+        for r in recs[2:5]:
+            check(r["nodes_up"] == 2 and r["durability"]["nodes_up"] == 2
+                  and r["repair_moves"] > 0,
+                  f"window {r['window']}: nodes up {r['nodes_up']}, repairs "
+                  f"{r['repair_moves']} while dn2 is down")
+        check(all("integrity" in r and "durability" in r for r in recs),
+              "a chaos window lacks its integrity or durability record")
+        # rf >= 2 everywhere: while two of three nodes are live, a file can
+        # lose every live copy only if a rotten one was quarantined (by the
+        # scrubber or a repair's source check) and not yet replaced.
+        detected = np.cumsum([r["integrity"]["detected_scrub"]
+                              + r["integrity"]["detected_repair"] for r in recs])
+        for r, det in zip(recs, detected):
+            check(r["durability"]["lost"] <= r["integrity"]["true_lost"],
+                  f"window {r['window']}: the lost tier overstates the ground truth")
+            if r["nodes_up"] >= 2:
+                check(r["durability"]["lost"] <= det,
+                      f"window {r['window']}: {r['durability']['lost']} files lost with "
+                      f"{r['nodes_up']} nodes live and {det} rotten copies quarantined")
+        check(all(r["durability"]["lost"] == 0 for r in recs[:2]),
+              "files lost before the kill")
+        check(sum(r["integrity"]["detected_scrub"] for r in recs) > 0,
+              "the scrubber found none of the rot")
+
+        check(os.path.exists(ck), "no snapshot after window 3")
+        resumed = ReplicationController(manifest, config())
+        resumed.load_checkpoint(ck)
+        one, prof = profile_window(resumed, events)
+        resumed.save_checkpoint(ck)
+        rest_ctl = ReplicationController(manifest, config())
+        rest = rest_ctl.run(events, checkpoint_path=ck)
+        joined = one.records + rest.records
+        check(strip_seconds(joined) == strip_seconds(recs[CONTROL_KILL_AFTER + 1:]),
+              "chaos kill/resume records differ from the uninterrupted run's")
+        got, want = rest_ctl._cluster_state.state_arrays(), ctl._cluster_state.state_arrays()
+        check(set(got) == set(want) and all(np.array_equal(got[k], want[k]) for k in want),
+              "chaos kill/resume ClusterState.state_arrays() differ from the full run's")
+        log(f"chaos kill/resume: killed after window {CONTROL_KILL_AFTER} (dn2 down), "
+            f"resumed; records identical apart from seconds in windows "
+            f"{[r['window'] for r in joined]}, "
+            f"state_arrays identical ({', '.join(sorted(want))})")
+        log("chaos profile " + json.dumps(prof))
+        check(prof["window"] in (2, 3, 4), f"the profiled window {prof['window']} is not faulted")
+
+    chaos_racks_card_cpu()
+    decay_card_cpu()
+    return launches
+
+
+def chaos_racks_card_cpu():
+    """8b: phase 4's workload on 12 nodes in 4 racks, a whole-rack kill, a
+    partition and a straggler, on the card and on the CPU from one init."""
+    import numpy as np
+
+    from cdrs_tpu_torch.cluster.placement import ClusterTopology
+    from cdrs_tpu_torch.control.controller import ReplicationController
+
+    nodes = tuple(f"dn{i}" for i in range(1, 13))
+    manifest, events = _phase4_workload(nodes)
+    topo = ClusterTopology.from_rack_spec(nodes, CHAOS_RACKS)
+    specs = ["crash:rack:r1@2-3", "partition:dn7+dn8@1-2", "degrade:dn9@1-3:0.25"]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ctl = ReplicationController(manifest, chaos_config(dev, specs, topology=topo))
+        watch_reclusters(ctl, cpu_init)
+        runs[dev] = (ctl, ctl.run(events))
+    keys = ("repair_moves", "repair_bytes", "repair_failed", "repair_rebalanced",
+            "repair_deferred_partition", "repair_deferred_no_source")
+    per = {dev: [(r["plan_hash"], r["durability"], [r[k] for k in keys]) for r in res.records]
+           for dev, (_, res) in runs.items()}
+    (ctl_c, res_c), (ctl_p, _) = runs["cuda"], runs["cpu"]
+    log(f"chaos racks at {len(manifest)} files on 12 nodes, {specs}: plan hashes "
+        f"{[p[0] for p in per['cuda']]}; lost {[p[1]['lost'] for p in per['cuda']]}, "
+        f"unreachable {[p[1]['unreachable'] for p in per['cuda']]}, correlated_risk "
+        f"{[p[1]['correlated_risk'] for p in per['cuda']]}, repairs "
+        f"{[p[2][0] for p in per['cuda']]}")
+    check([p[0] for p in per["cuda"]] == [p[0] for p in per["cpu"]],
+          "8b plan hashes differ between the card and the CPU")
+    check([p[1] for p in per["cuda"]] == [p[1] for p in per["cpu"]],
+          "8b durability tiers differ between the card and the CPU")
+    check([p[2] for p in per["cuda"]] == [p[2] for p in per["cpu"]],
+          "8b repair counts differ between the card and the CPU")
+    got, want = ctl_c._cluster_state.state_arrays(), ctl_p._cluster_state.state_arrays()
+    check(all(np.array_equal(got[k], want[k]) for k in want),
+          "8b final state_arrays differ between the card and the CPU")
+    check(sum(p[2][0] for p in per["cuda"]) > 0, "8b made no repair")
+    check(all(p[1]["lost"] == 0 for p in per["cuda"]), "8b lost files in a rack kill at rf >= 2")
+    log(f"chaos racks card vs cpu: plan hashes, durability tiers, repair counts and final "
+        f"state_arrays identical in all {len(res_c.records)} windows")
+
+
+def decay_card_cpu():
+    """8c: phase 4's workload with decay 0.7 on the card and on the CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from cdrs_tpu_torch.control.controller import ReplicationController
+
+    manifest, events = _phase4_workload()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ctl = ReplicationController(manifest, dataclasses.replace(control_config(dev),
+                                                                  decay=0.7))
+        watch_reclusters(ctl, cpu_init)
+        runs[dev] = (ctl, ctl.run(events))
+    (ctl_c, res_c), (ctl_p, res_p) = runs["cuda"], runs["cpu"]
+    hashes = [[r["plan_hash"] for r in res.records] for res in (res_c, res_p)]
+    dec_c, dec_p = ctl_c.decayed_counters(), ctl_p.decayed_counters()
+    log(f"decay 0.7 at {len(manifest)} files: plan hashes card {hashes[0]} cpu {hashes[1]}; "
+        f"accumulator sums " + json.dumps({k: float(v.sum()) for k, v in dec_c.items()}))
+    check(all(v.dtype == np.float64 and np.array_equal(v, dec_p[k]) for k, v in dec_c.items()),
+          "8c decayed accumulators differ between the card and the CPU")
+    check(ctl_c._dec_obs_end == ctl_p._dec_obs_end, "8c observation ends differ")
+    check(hashes[0] == hashes[1], "8c plan hashes differ between the card and the CPU")
+    log("decay card vs cpu: float64 accumulators bit-equal, plan hashes identical")
 
 
 def main() -> int:
@@ -1209,6 +1440,9 @@ def main() -> int:
         t0 = time.perf_counter()
         daemon_launches = phase_daemon(manifest, events, log_path, control_records, work)
         log(f"phase 7 (daemon): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        chaos_launches = phase_chaos(manifest, events)
+        log(f"phase 8 (chaos): {time.perf_counter() - t0:.1f} s")
         del manifest, events
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1218,19 +1452,22 @@ def main() -> int:
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:392",
          "launches": launches["lloyd"], "control_launches": control_launches["lloyd"],
-         "daemon_launches": daemon_launches["lloyd"], **rows["lloyd"], "library_ms": None},
+         "daemon_launches": daemon_launches["lloyd"],
+         "chaos_launches": chaos_launches["lloyd"], **rows["lloyd"], "library_ms": None},
         {"name": "label_threshold_count", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/seg_count.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:534",
          "launches": launches["seg_count"],
          "control_launches": control_launches["seg_count"],
-         "daemon_launches": daemon_launches["seg_count"], **rows["seg_count"],
+         "daemon_launches": daemon_launches["seg_count"],
+         "chaos_launches": chaos_launches["seg_count"], **rows["seg_count"],
          "library_ms": None},
         {"name": "lloyd_assign_reduce (row-major, labels)", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:443",
          "launches": stream_launches, "control_launches": 0,
-         "daemon_launches": daemon_launches["lloyd_rowmajor"], **rows["lloyd_rowmajor"],
+         "daemon_launches": daemon_launches["lloyd_rowmajor"], "chaos_launches": 0,
+         **rows["lloyd_rowmajor"],
          "library_ms": None},
     ]
     for row in kernels:

@@ -200,8 +200,13 @@ def test_placement_refuses_what_is_not_ported(workloads):
     rf = np.ones(N_FILES, dtype=np.int32)
     with pytest.raises(ValueError, match="A8f"):
         place_replicas(manifest, rf, method="hash")
-    with pytest.raises(ValueError, match="A8c"):
-        place_replicas(manifest, rf, RefTopology(nodes=("dn1", "dn2"), domains=("r0", "r1")))
+    # A rack topology is ported: the domain-aware fill places as the reference does.
+    nodes = tuple(manifest.nodes)
+    domains = tuple(f"r{i // 2}" for i in range(len(nodes)))
+    rf3 = np.random.default_rng(0).integers(1, 4, N_FILES).astype(np.int32)
+    got = place_replicas(manifest, rf3, ClusterTopology(nodes=nodes, domains=domains))
+    want = ref_place(workloads[2], rf3, RefTopology(nodes=nodes, domains=domains))
+    np.testing.assert_array_equal(got.replica_map, want.replica_map)
     with pytest.raises(ValueError, match="duplicate"):
         ClusterTopology(nodes=("dn1", "dn1"))
 

@@ -277,15 +277,29 @@ def test_budgets_are_respected(workload):
 
 
 @pytest.mark.parametrize("option,value,match", [
-    ("fault_schedule", object(), "A8c"), ("topology", object(), "A8c"),
-    ("scrub", object(), "A8c"), ("serve", object(), "A8d"), ("elastic", object(), "A8d"),
+    ("serve", object(), "A8d"), ("elastic", object(), "A8d"),
     ("storage", object(), "A8e"), ("placement_mode", "functional", "A8f"),
-    ("mesh_shape", {"data": 2}, "A9"), ("decay", 0.8, "decay"),
+    ("mesh_shape", {"data": 2}, "A9"), ("decay", 0.0, "decay"),
     ("decay", 1.5, "decay"), ("window_seconds", 0.0, "window_seconds"),
 ])
 def test_unported_options_raise(option, value, match):
     with pytest.raises(ValueError, match=match):
         _cfg(**{option: value})
+
+
+@pytest.mark.parametrize("option", ["fault_schedule", "topology", "scrub", "decay"])
+def test_fault_path_and_decay_options_are_accepted(option):
+    from cdrs_tpu_torch.cluster.placement import ClusterTopology
+    from cdrs_tpu_torch.faults import FaultSchedule, ScrubConfig
+
+    kw = {"decay": dict(decay=0.7),
+          "fault_schedule": dict(fault_schedule=FaultSchedule.from_specs(["crash:dn1@1"])),
+          "topology": dict(fault_schedule=FaultSchedule.from_specs(["crash:dn1@1"]),
+                           topology=ClusterTopology.from_rack_spec(("dn1", "dn2"), "dn1;dn2")),
+          "scrub": dict(fault_schedule=FaultSchedule.from_specs(["crash:dn1@1"]),
+                        scrub=ScrubConfig(bytes_per_window=1000))}[option]
+    cfg = _cfg(**kw)
+    assert getattr(cfg, option) == kw[option]
 
 
 def test_failing_recluster_propagates(tmp_path, workload, monkeypatch):

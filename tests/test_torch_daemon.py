@@ -278,6 +278,10 @@ def test_follow_mode_with_a_writer_and_a_timer_stop(tmp_path):
 
     part(0).write_binary(p, manifest)
     ck = str(tmp_path / "f.npz")
+    # Compile the carried init's jax path before the clock starts, so the
+    # timer measures the daemon and not the reference's first trace.
+    kmeans_jax_full(np.random.default_rng(0).random((len(manifest), 5), dtype=np.float32),
+                    K, seed=KMEANS_SEED, max_iter=0, tol=0.0)
     d = StreamDaemon(_controller(manifest), DaemonConfig(follow=True, poll=0.05))
 
     def writer():

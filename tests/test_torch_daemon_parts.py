@@ -228,9 +228,14 @@ def test_hash_placement_and_epochs_bit_equal(seed, n_nodes):
 
 
 def test_placement_refuses_a_domain_topology_and_too_many_nodes():
-    racks = RefTopology(nodes=("a", "b", "c", "d"), domains=("r0", "r0", "r1", "r1"))
-    with pytest.raises(ValueError, match="A8c"):
-        compute.compute_placement(np.arange(4), np.full(4, 2), np.zeros(4, np.int32), racks)
+    # A rack topology is ported: the multi-domain fill is the reference's.
+    nodes, domains = ("a", "b", "c", "d"), ("r0", "r0", "r1", "r1")
+    fids, rf = np.arange(64), np.full(64, 3)
+    prim = np.random.default_rng(0).integers(0, 4, 64).astype(np.int32)
+    got = compute.compute_placement(fids, rf, prim, ClusterTopology(nodes=nodes, domains=domains))
+    want = ref_compute.compute_placement(fids, rf, prim, RefTopology(nodes=nodes, domains=domains))
+    np.testing.assert_array_equal(got[0], want[0])
+    assert (got[0][:, :2] >= 0).all()
     with pytest.raises(ValueError, match="up to 63 nodes"):
         compute.node_salts([f"n{i}" for i in range(64)])
     empty = compute.compute_placement(np.zeros(0, np.int64), np.zeros(0, np.int32),
