@@ -12,7 +12,9 @@
 * ``chaos`` runs the controller with a fault schedule (node crashes,
   partitions, stragglers, silent corruption), rack or geo failure domains,
   repairs and the scrubber, and prints the summary with its
-  ``durability`` block.
+  ``durability`` block;
+* ``scenarios list|run|sweep`` runs cells of the scenario matrix, each
+  gated on invariants (a failing cell prints its repro line).
 
 The flags are those of ``cdrs_tpu``'s subcommands of the same names that
 this port supports, plus ``--device`` (CUDA unless "cpu" is asked for).
@@ -21,8 +23,10 @@ this port supports, plus ``--device`` (CUDA unless "cpu" is asked for).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -280,11 +284,27 @@ def _cmd_daemon(args) -> int:
         max_windows=args.max_windows, max_seconds=args.max_seconds,
         recluster=args.recluster, minibatch_rows=args.minibatch_rows, brownout=brownout))
     daemon.install_signal_handlers()
-    t0 = time.perf_counter()
-    digest = daemon.run(args.access_log, metrics_path=args.metrics,
-                        metrics_max_bytes=args.metrics_max_bytes,
-                        checkpoint_path=args.checkpoint)
-    elapsed = time.perf_counter() - t0
+    with contextlib.ExitStack() as stack:
+        if args.http:
+            from .obs.httpz import ObsServer
+
+            host, _, port = args.http.rpartition(":")
+            try:
+                server = ObsServer(host or "127.0.0.1", int(port))
+            except (OSError, ValueError) as e:
+                print(f"error: cannot bind --http {args.http}: {e}", file=sys.stderr)
+                return 2
+            stack.callback(server.close)
+            server.start()
+            daemon.attach_http(server)
+            # The bound address (port 0 binds an ephemeral one).
+            print(f"http: serving /metrics /healthz /readyz /statusz /debug/trace on "
+                  f"{server.url}", file=sys.stderr)
+        t0 = time.perf_counter()
+        digest = daemon.run(args.access_log, metrics_path=args.metrics,
+                            metrics_max_bytes=args.metrics_max_bytes,
+                            checkpoint_path=args.checkpoint)
+        elapsed = time.perf_counter() - t0
     if args.plan_out:
         from .cluster.plan import write_plan_csv
         from .control.controller import ControllerResult
@@ -299,6 +319,147 @@ def _cmd_daemon(args) -> int:
             json.dump(digest, f, indent=2)
             f.write("\n")
     print(json.dumps(digest, indent=2))
+    return 0
+
+
+def _scenario_spec(args):
+    """The cell ``scenarios run`` names, or an error message."""
+    from .scenarios import ScenarioSpec, preset, suite_cells
+
+    if args.preset:
+        if args.seed:
+            # A preset names its pinned workload; shifted variants are suite cells.
+            return None, (f"--preset runs the pinned cell and takes no --seed — use "
+                          f"--suite ... --seed N --cell {args.preset} for the shifted "
+                          f"variant")
+        try:
+            return preset(args.preset), None
+        except KeyError as e:
+            return None, str(e.args[0])
+    if args.cell:
+        try:
+            cells = {c.name: c for c in suite_cells(args.suite, args.seed)}
+        except KeyError as e:
+            return None, str(e.args[0])
+        if args.cell not in cells:
+            return None, f"no cell {args.cell!r} in suite {args.suite!r} (have {sorted(cells)})"
+        return cells[args.cell], None
+    if args.spec:
+        text = args.spec
+        inline = text.lstrip().startswith("{")
+        if not inline:
+            try:
+                with open(text, encoding="utf-8") as f:
+                    text = f.read()
+            except OSError as e:
+                return None, f"cannot read spec file {args.spec}: {e.strerror or e}"
+        try:
+            doc = json.loads(text)
+            if not isinstance(doc, dict):
+                raise ValueError("spec must be a JSON object")
+            if isinstance(doc.get("spec"), dict):
+                doc = doc["spec"]   # a banked search-corpus entry wraps its spec
+            return ScenarioSpec.from_dict(doc), None
+        except (TypeError, ValueError) as e:
+            return None, f"invalid scenario spec in {'--spec' if inline else args.spec}: {e}"
+    return None, "scenarios run needs --preset NAME, --cell NAME (with --suite), or --spec JSON|FILE"
+
+
+def _cmd_scenarios(args) -> int:
+    """The scenario matrix: list the presets and suites, run one cell, or
+    sweep a suite; every cell runs the controller end to end and is gated
+    on invariants.  Cells with an axis the port does not run yet are
+    refused by name with their ROADMAP item."""
+    from .scenarios import PRESETS, SUITES, run_cell, unported_axes
+    from .scenarios.harness import check_ported
+
+    if args.action in ("search", "triage"):
+        print(f"error: scenarios {args.action} (the failure-space search) is not ported "
+              f"yet (ROADMAP A12, after A8d-A8f)", file=sys.stderr)
+        return 2
+    if args.round_no is not None or args.history:
+        print("error: --round/--history (the bench history append) belong to the "
+              "port's benchmark, not ported yet (ROADMAP A10a)", file=sys.stderr)
+        return 2
+    if args.action == "list":
+        print("presets:")
+        for name in sorted(PRESETS):
+            sp = PRESETS[name]
+            axes = [(sp.workload or {}).get("kind", "poisson")]
+            if sp.drift:
+                axes.append(f"drift={sp.drift['kind']}")
+            if sp.faults:
+                axes.append("faults")
+            if sp.racks:
+                axes.append("racks")
+            if sp.storage:
+                axes.append(f"storage={sp.storage}")
+            if sp.serve:
+                axes.append(f"serve={sp.serve.get('policy', 'p2c')}")
+            if sp.scrub:
+                axes.append("scrub")
+            if sp.resume_window is not None:
+                axes.append("resume-check")
+            missing = sorted({item for _, item, _ in unported_axes(sp)})
+            if missing:
+                axes.append(f"[waits for {', '.join(missing)}]")
+            print(f"  {name:<22} n={sp.n_files:<5} windows={sp.n_windows:<3} "
+                  f"seed={sp.seed:<3} " + " ".join(axes))
+        print("suites:")
+        for name, (names, n_random) in SUITES.items():
+            print(f"  {name:<22} {len(names)} presets + {n_random} random cells")
+        return 0
+    if args.action == "run":
+        spec, err = _scenario_spec(args)
+        if err is None:
+            try:
+                check_ported(spec)
+            except ValueError as e:
+                err = str(e)
+        if err is not None:
+            print(f"error: {err}", file=sys.stderr)
+            return 2
+        cell = run_cell(spec, suite=args.suite if args.cell else None,
+                        suite_seed=args.seed if args.cell else 0, device=args.device)
+        print(json.dumps(cell, indent=2))
+        if not cell["ok"]:
+            print(f"FAILED; repro: {cell['repro']}", file=sys.stderr)
+            return 1
+        return 0
+
+    from .scenarios.sweep import format_cell_line, run_sweep
+
+    try:
+        out = run_sweep(args.suite, seed=args.seed, extra=args.extra_cells or None,
+                        device=args.device,
+                        progress=lambda line: print(line, file=sys.stderr, flush=True))
+    except (KeyError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.metrics:
+        from .obs.sink import JsonlSink
+
+        sink = JsonlSink(args.metrics)
+        try:
+            for c in out["cells"]:
+                sink.emit({"kind": "cell", **{k: v for k, v in c.items() if k != "spec"}})
+        finally:
+            sink.close()
+    if args.out:
+        parent = os.path.dirname(args.out)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        with open(args.out, "w", encoding="utf-8") as f:
+            json.dump(out, f, indent=2)
+            f.write("\n")
+    print(json.dumps({k: out[k] for k in ("suite", "seed", "n_cells", "n_failed",
+                                          "n_not_ported", "invariants_checked", "ok",
+                                          "seconds")}, indent=2))
+    if not out["ok"]:
+        for c in out["cells"]:
+            if not c["ok"]:
+                print(format_cell_line(c), file=sys.stderr)
+        return 1
     return 0
 
 
@@ -449,6 +610,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rotate the --metrics file past this size (path.1, path.2, ...)")
     p.add_argument("--digest_out", default=None, metavar="JSON",
                    help="also write the final digest here")
+    p.add_argument("--http", default=None, metavar="HOST:PORT",
+                   help="serve the live operational plane while running (obs/httpz.py): "
+                        "/metrics, /healthz, /readyz, /statusz, /debug/trace, off the "
+                        "decision path; port 0 binds an ephemeral port (printed to stderr)")
     p.add_argument("--brownout", action="store_true",
                    help="engage the overload brownout ladder: as decision lag crosses "
                         "each rung's threshold, shed optional work in order (skip "
@@ -523,6 +688,48 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--repair_seed", type=int, default=0,
                    help="seed of the stateless flaky-copy failure rolls")
     p.set_defaults(fn=_cmd_chaos)
+
+    p = sub.add_parser("scenarios", help="declarative scenario matrix: list presets and "
+                       "suites, run one cell, or sweep a suite gated on invariants (zero "
+                       "silent loss, churn budget, domain diversity, kill/resume "
+                       "bit-identity, alerts)")
+    p.add_argument("action", choices=["list", "run", "sweep", "search", "triage"],
+                   help="list = presets and suites; run = one cell (--preset, "
+                        "--suite + --cell, or --spec); sweep = every ported cell of "
+                        "--suite, non-zero exit on any invariant failure; search and "
+                        "triage are not ported yet")
+    p.add_argument("--suite", default="ci-smoke", help="cell suite (default ci-smoke)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="suite seed: shifts every preset's workload seed and draws the "
+                        "random cells")
+    p.add_argument("--preset", default=None, metavar="NAME", help="(run) a named preset")
+    p.add_argument("--cell", default=None, metavar="NAME",
+                   help="(run) one cell of --suite: the failing-cell repro path")
+    p.add_argument("--spec", default=None, metavar="JSON|FILE",
+                   help="(run) an inline spec JSON object or a path to one")
+    p.add_argument("--out", default=None, metavar="JSON",
+                   help="(sweep) write the full artifact here")
+    p.add_argument("--extra_cells", action="append", default=None, metavar="JSON",
+                   help="(sweep) corpus cell files riding along with the suite "
+                        "({'cells': [...], 'names': [...]}); never seed-shifted")
+    p.add_argument("--round", type=int, default=None, dest="round_no",
+                   help="(sweep) bench-history round stamp: not ported yet (A10a)")
+    p.add_argument("--history", default=None, metavar="JSONL",
+                   help="(sweep) bench-history file: not ported yet (A10a)")
+    p.add_argument("--metrics", default=None, metavar="JSONL",
+                   help="(sweep) emit the per-cell records as 'cell' events here")
+    p.add_argument("--budget-cells", type=int, default=50, dest="budget_cells",
+                   help="(search) mutation iterations")
+    p.add_argument("--budget-seconds", type=float, default=None, dest="budget_seconds",
+                   help="(search) wall-clock cap")
+    p.add_argument("--corpus", default="data/search_corpus", metavar="DIR",
+                   help="(search/triage) corpus directory")
+    p.add_argument("--base", default=None, metavar="P1,P2,...",
+                   help="(search) presets seeding the corpus")
+    p.add_argument("--distill", action="store_true",
+                   help="(search) distill the corpus after the run")
+    _add_device_arg(p)
+    p.set_defaults(fn=_cmd_scenarios)
     return parser
 
 

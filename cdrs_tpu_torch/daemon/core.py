@@ -36,11 +36,15 @@ loop it adds:
   reference's numpy generator and call, gathered on the device, one fused
   Lloyd launch (``ops/kmeans_stream.minibatch_update``), the inertia one
   device reduction read once.  Observability only: records and plans do
-  not depend on it.
+  not depend on it;
+* **the live operational plane** (``attach_http``, obs/httpz.py) — one
+  immutable ``ObsSnapshot`` published per processed window, readiness
+  from the first epoch until the drain, the tailer's poll as the liveness
+  heartbeat.  Off the decision path: records are the same with it.
 
-Not ported yet: the live HTTP plane (``attach_http`` and its snapshots)
-and the ambient telemetry spans (ROADMAP A10).  ``run`` holds the loop
-inside ``device.deterministic()``, as the controller's ``run`` does.
+Not ported yet: the ambient telemetry spans (ROADMAP A10b).  ``run`` holds
+the loop inside ``device.deterministic()``, as the controller's ``run``
+does.
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ from ..device import deterministic
 from ..io.events import EventLog, is_binary_log
 from ..obs.alerts import SEVERE_ALERTS, AlertEngine, default_rules
 from ..obs.sink import JsonlSink
-from ..obs.trace import build_span_tree, decision_trace_id
+from ..obs.trace import STAGE_ORDER, build_span_tree, decision_trace_id
 from ..ops.kmeans_stream import MiniBatchKMeans
 from ..placement_fn import EpochMap
 from .brownout import RUNGS, BrownoutConfig, BrownoutLadder
@@ -180,13 +184,30 @@ class StreamDaemon:
         self.brownout_log: list[dict] = []
         self.windows_coalesced = 0
         self.reads_shed_total = 0
+        # The live operational plane (``attach_http``) and the running totals
+        # its snapshots carry.
+        self._obs = None
+        self._reclusters = 0
+        self._bytes_migrated = 0
+        self._stage_ns: dict[str, int] = {}
 
     # -- lifecycle ---------------------------------------------------------
+    def attach_http(self, server) -> None:
+        """Attach an ``obs.httpz.ObsServer``: one snapshot per processed
+        window, plus the readiness and health bits.  Call before :meth:`run`;
+        the caller owns the server's lifecycle."""
+        self._obs = server
+        server.heartbeat()
+
     def request_stop(self, reason: str = "requested") -> None:
         """Stop after the window in flight (thread- and signal-safe)."""
         if self._stop_reason is None:
             self._stop_reason = reason
         self._stop.set()
+        obs = self._obs
+        if obs is not None:
+            # The drain begins now: readiness drops before the window ends.
+            obs.set_draining(True)
 
     def install_signal_handlers(self, signals=(signal.SIGTERM, signal.SIGINT)) -> None:
         """SIGTERM/SIGINT -> finish the window, checkpoint, return (main
@@ -196,6 +217,14 @@ class StreamDaemon:
                 signal.Signals(signum).name))
 
     # -- ingest ------------------------------------------------------------
+    def _ingest_stop(self) -> bool:
+        """The tailer's stop probe, also the liveness heartbeat: it runs at
+        every poll and batch boundary."""
+        obs = self._obs
+        if obs is not None:
+            obs.heartbeat()
+        return self._stop.is_set()
+
     def _batches(self, source):
         """Any source as EventLog batches, each registered in ``_inflight``
         so a checkpoint can name the position of the first unprocessed
@@ -209,7 +238,7 @@ class StreamDaemon:
                     f"EventLog.write_binary")
             stream = tail_binary_log(str(source), self.controller.manifest,
                                      follow=self.cfg.follow, poll=self.cfg.poll,
-                                     stop=self._stop.is_set,
+                                     stop=self._ingest_stop,
                                      start_offset=int(self._cursor["offset"]),
                                      ingest_box=self._ingest_box)
             for ev, off, nxt in stream:
@@ -408,6 +437,8 @@ class StreamDaemon:
             stale = epoch.epoch_id - 256
             for eid in [e for e in self._publish_info if e < stale]:
                 del self._publish_info[eid]
+        if self._obs is not None and not self._stop.is_set():
+            self._obs.set_ready(True)   # an epoch exists to pin
         return epoch
 
     def _observe_alerts(self, rec: dict, sink, checkpoint_path: str | None) -> None:
@@ -453,8 +484,9 @@ class StreamDaemon:
     def _emit_decision_trace(self, sink, w: int, trace_id: str, rec: dict,
                              epoch: PlacementEpoch, segments_ns: dict, total_ns: int,
                              ref_ns: int, n_events: int) -> None:
-        """One ``decision_trace`` event; the ``trace_exemplars`` slowest so
-        far also embed their span tree."""
+        """One ``decision_trace`` event, emitted when ``sink`` is given; the
+        ``trace_exemplars`` slowest so far also embed their span tree (kept
+        for ``/debug/trace`` with or without a sink)."""
         ev = {
             "kind": "decision_trace", "trace": trace_id, "window": int(w),
             "total_ns": int(total_ns),
@@ -477,8 +509,9 @@ class StreamDaemon:
                 heapq.heappush(self._exemplar_heap, item)
             else:
                 heapq.heapreplace(self._exemplar_heap, item)
-        sink.emit(ev)
-        self.traced_decisions += 1
+        if sink is not None:
+            sink.emit(ev)
+            self.traced_decisions += 1
 
     def _drain_pins(self, sink) -> None:
         """First serve-path pins as ``epoch_pin`` events (publish-to-pin
@@ -499,6 +532,79 @@ class StreamDaemon:
                 fp.pop(eid, None)
                 self._pins_seen.discard(eid)
                 self._publish_info.pop(eid, None)
+
+    def _publish_snapshot(self, w: int, rec: dict, segments_ns: dict) -> None:
+        """Build one ``ObsSnapshot`` and install it by one reference swap;
+        runs after the decision's segment clocks close."""
+        from ..obs.httpz import ObsSnapshot
+
+        # The decide segment expands into the controller's stages, scaled to
+        # the segment's integer nanoseconds.
+        secs = rec.get("seconds") or {}
+        decide_ns = int(segments_ns.get("decide", 0))
+        stage_sum = sum(float(secs[k]) for k in STAGE_ORDER if k in secs)
+        for name, ns in segments_ns.items():
+            if name == "decide" and decide_ns > 0 and stage_sum > 0:
+                for k in STAGE_ORDER:
+                    if k in secs:
+                        self._stage_ns[k] = self._stage_ns.get(k, 0) + int(
+                            round(float(secs[k]) / stage_sum * decide_ns))
+                continue
+            self._stage_ns[name] = self._stage_ns.get(name, 0) + int(ns)
+        total_stage = sum(self._stage_ns.values()) or 1
+        order = ("tail",) + STAGE_ORDER + ("decide", "observe", "publish", "minibatch")
+        stages = tuple((name, self._stage_ns[name] / 1e9, self._stage_ns[name] / total_stage)
+                       for name in order if name in self._stage_ns)
+        self._reclusters += 1 if rec.get("recluster") else 0
+        self._bytes_migrated += int(rec.get("bytes_migrated", 0) or 0)
+        backlog_bytes = 0
+        if self._source_path is not None:
+            try:
+                # Block-granular: the log at and after the resume cursor.
+                backlog_bytes = max(0, os.path.getsize(self._source_path)
+                                    - int(self._cursor["offset"]))
+            except OSError:
+                pass
+        # Buffered events past the closed window (a batch keeps its whole ts).
+        w_end = self.controller._t0 + (w + 1) * float(self.controller.cfg.window_seconds)
+        backlog_events = int(sum(len(fl.ts) - int(np.searchsorted(fl.ts, w_end, side="left"))
+                                 for fl in self._inflight))
+        lat = self.decision_seconds
+        arr = np.asarray(lat, dtype=np.float64)
+        alerts = tuple({k: r[k] for k in ("name", "severity", "kind", "firing", "fired",
+                                          "since", "streak")}
+                       for r in self.engine.results())
+        self._obs.publish(ObsSnapshot(
+            seq=int(self.windows_processed),
+            epoch_id=int(self._last_epoch_id) or None,
+            window=int(w),
+            windows_processed=int(self.windows_processed),
+            events_ingested=int(self.events_ingested),
+            epochs_published=int(self.publisher.published_total),
+            checkpoints_written=int(self.checkpoint_count),
+            reclusters=int(self._reclusters),
+            bytes_migrated=int(self._bytes_migrated),
+            traced_decisions=int(self.traced_decisions),
+            backlog_events=backlog_events,
+            backlog_bytes=int(backlog_bytes),
+            lag_bytes=int(self._lag["bytes"]),
+            lag_blocks=round(float(self._lag["blocks"]), 3),
+            lag_seconds=round(float(self._lag["seconds"]), 3),
+            lag_windows=round(float(self._lag["windows"]), 3),
+            brownout_level=0 if self._ladder is None else int(self._ladder.level),
+            brownout_rungs=() if self._ladder is None else tuple(RUNGS[:self._ladder.level]),
+            reads_shed=int(self.reads_shed_total),
+            windows_coalesced=int(self.windows_coalesced),
+            decision_seconds=tuple(lat),
+            decision_p50_seconds=(None if arr.size == 0
+                                  else round(float(np.quantile(arr, 0.5)), 6)),
+            decision_p99_seconds=(None if arr.size == 0
+                                  else round(float(np.quantile(arr, 0.99)), 6)),
+            stages=stages,
+            alerts=alerts,
+            exemplars=tuple(ev for _t, _w, ev in sorted(self._exemplar_heap,
+                                                        key=lambda it: it[1])),
+        ))
 
     def _save(self, path: str) -> None:
         dmeta = {
@@ -564,7 +670,8 @@ class StreamDaemon:
         # Decision tracing rides the metrics sink.
         sink = JsonlSink(metrics_path, max_bytes=metrics_max_bytes) if metrics_path \
             else None
-        if sink is not None:
+        trace_on = sink is not None
+        if trace_on:
             self.publisher.record_pins = True
         deadline = (time.monotonic() + float(cfg.max_seconds)
                     if cfg.max_seconds is not None else None)
@@ -642,7 +749,7 @@ class StreamDaemon:
                     sink.emit({"kind": "window", **rec})
                 self._observe_alerts(rec, sink, checkpoint_path)
                 t2 = time.perf_counter_ns()
-                epoch = self._publish(w, rec, trace_id=tid if sink is not None else None)
+                epoch = self._publish(w, rec, trace_id=tid if trace_on else None)
                 t3 = time.perf_counter_ns()
                 t4 = t3
                 did_minibatch = (cfg.recluster == "minibatch"
@@ -655,15 +762,20 @@ class StreamDaemon:
                 if did_minibatch:
                     segments["minibatch"] = t4 - t3
                 self._record_decision((t4 - t_start) / 1e9)
-                if sink is not None:
+                if trace_on or self._obs is not None:
+                    # Exemplars also feed /debug/trace: a sink-less run with
+                    # the plane attached builds the events without emitting.
                     self._emit_decision_trace(sink, w, tid, rec, epoch, segments,
                                               t4 - ref, ref, len(events))
+                if trace_on:
                     self._drain_pins(sink)
                 self._prev_end_ns = t4
                 self.windows_processed += 1
                 since_ckpt += 1
                 if self._ladder is not None:
                     self._step_ladder(w, rec, sink)
+                if self._obs is not None:
+                    self._publish_snapshot(w, rec, segments)
                 if checkpoint_path and since_ckpt >= every:
                     self._save(checkpoint_path)
                     since_ckpt = 0
@@ -675,6 +787,10 @@ class StreamDaemon:
         finally:
             if sink is not None:
                 sink.close()
+            if self._obs is not None:
+                # The loop is over: a pinned epoch stays with its holders,
+                # but no new work should come here.
+                self._obs.set_ready(False)
         if checkpoint_path and since_ckpt:
             self._save(checkpoint_path)
         return self.digest()

@@ -1,9 +1,15 @@
-"""Window-record digests of ``cdrs_tpu/obs/aggregate.py``: ``pacing_digest``
-(with its ``percentile``) and ``integrity_digest``."""
+"""Stream aggregation of ``cdrs_tpu/obs/aggregate.py``: the window-record
+digests (``pacing_digest`` with its ``percentile``, ``integrity_digest``),
+the stream folds the Prometheus renderer reads (``final_counters``,
+``merge_hist_buckets``, ``dedup_windows``) and the scenario cells'
+``coverage_fingerprint``."""
 
 from __future__ import annotations
 
-__all__ = ["percentile", "pacing_digest", "integrity_digest"]
+import hashlib
+
+__all__ = ["percentile", "pacing_digest", "integrity_digest", "merge_hist_buckets",
+           "dedup_windows", "final_counters", "coverage_fingerprint"]
 
 
 def percentile(values: list[float], q: float) -> float:
@@ -12,6 +18,57 @@ def percentile(values: list[float], q: float) -> float:
     if not s:
         return float("nan")
     return s[min(len(s) - 1, max(0, int(round(q * (len(s) - 1)))))]
+
+
+def _norm_le(le) -> float:
+    """Bucket upper bound from its JSON form (``"+Inf"`` -> inf)."""
+    return float("inf") if le in ("+Inf", "inf", None) else float(le)
+
+
+def merge_hist_buckets(target: dict, event: dict) -> None:
+    """Fold one ``hist_bulk`` event into a per-name aggregate
+    ``{"count", "sum", "min", "max", "buckets": {le: count}}``."""
+    n = int(event.get("count", 0))
+    if n <= 0:
+        return
+    target["count"] = target.get("count", 0) + n
+    target["sum"] = target.get("sum", 0.0) + float(event.get("sum", 0.0))
+    vmin, vmax = float(event.get("min", 0.0)), float(event.get("max", 0.0))
+    target["min"] = vmin if "min" not in target else min(target["min"], vmin)
+    target["max"] = vmax if "max" not in target else max(target["max"], vmax)
+    buckets = target.setdefault("buckets", {})
+    for le, c in event.get("buckets", ()):
+        key = _norm_le(le)
+        buckets[key] = buckets.get(key, 0) + int(c)
+
+
+def dedup_windows(events: list[dict], kind: str = "window") -> list[dict]:
+    """Per-window records of one ``kind``, last-wins per window index (a
+    resumed run's append-only tail may repeat windows), in window order."""
+    by_index: dict = {}
+    for e in events:
+        if e.get("kind") == kind:
+            by_index[e.get("window")] = e
+    return [by_index[w] for w in sorted(by_index, key=lambda x: (x is None, x))]
+
+
+def final_counters(events: list[dict]) -> dict[str, float]:
+    """Final counter values: the last event of each (run, name) wins, and
+    separate runs (each restarting at zero) add."""
+    per_run: dict[tuple, float] = {}
+    for e in events:
+        if e.get("kind") == "counter":
+            per_run[(e.get("run"), e["name"])] = e["value"]
+    totals: dict[str, float] = {}
+    for (_, name), v in per_run.items():
+        totals[name] = totals.get(name, 0.0) + v
+    return totals
+
+
+def coverage_fingerprint(bits) -> str:
+    """sha256 over the sorted, newline-joined distinct coverage bits: runs
+    showing the same behaviour set hash alike whatever the order."""
+    return hashlib.sha256("\n".join(sorted(set(map(str, bits)))).encode()).hexdigest()
 
 
 def pacing_digest(windows: list[dict]) -> dict | None:

@@ -13,11 +13,13 @@ Three kinds:
 * ``absence`` — staleness of the stream; any arriving window resolves it.
 
 A record that lacks a rule's field leaves the rule alone (neither fires
-nor resolves): the rules on fields of unported subsystems (durability,
-integrity, scrub, serving) stay in the table and never apply to the
-port's records, as in the reference when those subsystems are off.  The
-wall-clock staleness poll and the batch ``finish`` of the reference
-belong to ``cdrs metrics alerts``, which the port does not have yet.
+nor resolves): the rules on fields of unported subsystems (serving) stay in
+the table and never apply to the port's records, as in the reference when
+those subsystems are off.  :func:`evaluate_records` is the batch verdict
+over a list of window records (the scenario harness's alert gates); its
+``finish`` fires the absence rules of a stream with no window at all.  The
+wall-clock staleness poll of the reference belongs to ``cdrs metrics
+alerts``, which the port does not have yet (ROADMAP A10b).
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from __future__ import annotations
 import json
 from dataclasses import asdict, dataclass
 
-__all__ = ["AlertRule", "AlertEngine", "default_rules", "rules_from_json", "SEVERE_ALERTS"]
+__all__ = ["AlertRule", "AlertEngine", "default_rules", "rules_from_json", "evaluate_records",
+           "DEFAULT_RULE_NAMES", "SEVERE_ALERTS"]
 
 _KINDS = ("threshold", "burn_rate", "absence")
 _OPS = {
@@ -126,6 +129,11 @@ def default_rules() -> tuple[AlertRule, ...]:
     )
 
 
+#: Names of the built-in rules (scenario specs validate their alert axes
+#: against them).
+DEFAULT_RULE_NAMES: frozenset = frozenset(r.name for r in default_rules())
+
+
 def rules_from_json(obj) -> tuple[AlertRule, ...]:
     """Rules from a JSON list of :meth:`AlertRule.to_dict` objects (or its
     text); unknown keys and duplicate names raise."""
@@ -187,6 +195,7 @@ class AlertEngine:
         self.rules: tuple[AlertRule, ...] = tuple(rules) if rules is not None \
             else default_rules()
         self._st = {r.name: _RuleState() for r in self.rules}
+        self.windows_seen = 0
 
     def _fire(self, rule: AlertRule, st: _RuleState, window, value) -> dict:
         st.firing = True
@@ -211,6 +220,7 @@ class AlertEngine:
         (none for events other than window records)."""
         if event.get("kind") != "window":
             return []
+        self.windows_seen += 1
         w = event.get("window")
         out: list[dict] = []
         for rule in self.rules:
@@ -242,6 +252,17 @@ class AlertEngine:
                 out.append(self._resolve_alert(rule, st, w))
         return out
 
+    def finish(self) -> list[dict]:
+        """End of a batch stream: absence rules fire iff it carried no window
+        record at all."""
+        out = []
+        if self.windows_seen == 0:
+            for rule in self.rules:
+                st = self._st[rule.name]
+                if rule.kind == "absence" and not st.firing:
+                    out.append(self._fire(rule, st, None, None))
+        return out
+
     def results(self) -> list[dict]:
         """Per-rule verdicts in rule order: ``{name, severity, kind, firing,
         fired, since, streak, transitions}``."""
@@ -250,3 +271,13 @@ class AlertEngine:
                  "since": self._st[r.name].since, "streak": self._st[r.name].streak,
                  "transitions": list(self._st[r.name].transitions)}
                 for r in self.rules]
+
+
+def evaluate_records(records: list[dict], rules=None) -> list[dict]:
+    """Batch verdicts (:meth:`AlertEngine.results`) over window records:
+    each record is observed as a window event, then the stream finishes."""
+    eng = AlertEngine(rules)
+    for r in records:
+        eng.observe(r if r.get("kind") == "window" else {"kind": "window", **r})
+    eng.finish()
+    return eng.results()

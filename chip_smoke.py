@@ -87,6 +87,20 @@ Phases, each of which exits non-zero when a check fails:
    durability tiers, repair counts and final state arrays on the card
    equal the CPU's from one init; (c) phase 4's workload with decay 0.7,
    whose float64 accumulators and plan hashes on the card equal the CPU's.
+9. The scenario matrix (``cdrs_tpu_torch.scenarios.run_cell``) on CUDA:
+   (a) every cell of the ``full`` suite at suite seed 0 whose axes the port
+   runs (the ten ported ``ci-smoke`` cells and ``control-shift``), each
+   ``ok`` from the card's own cold init (the rows its D² init picked are
+   logged; a cell of ``SCENARIO_QUEUE_C`` must fail exactly its recorded
+   invariants there), with B1 = sum(n_iter + 1) over the cell's
+   re-clusters and no B2 launch (300-400 files sort their medians); the
+   ported cells at suite seeds 1 and 2, each ``ok`` on the card's own init;
+   then each cell on the card and on the CPU from cold inits computed on
+   the CPU, whose invariants, metrics and coverage bits must be equal;
+   (b) ``gradual-drift`` at 2,500,000 files over 60 s (cuts: files, span,
+   no alert gating), ``ok`` to its end, with B1 = sum(n_iter + 1) and B2 =
+   12 per re-cluster (2.5M rows resolve to bisection), its mean seconds a
+   window by stage and the idle share of one profiled window.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It imports nothing of the JAX
@@ -121,6 +135,17 @@ CHAOS_KILL = "dn2@2-4"       # crash at window 2, recover at 5
 CHAOS_CORRUPT = "dn1@1:0.05"  # 5% of dn1's copies rot at window 1
 CHAOS_SCRUB_BYTES = 50_000_000_000   # scrub verification reads a window
 CHAOS_RACKS = "r0=dn1,dn2,dn3;r1=dn4,dn5,dn6;r2=dn7,dn8,dn9;r3=dn10,dn11,dn12"
+#: The cells of 9a: the full suite's ported cells at suite seed 0.
+SCENARIO_CELLS = ("control-shift", "chaos-kill", "rack-kill", "rack-partition", "cascade",
+                  "rolling-decommission", "integrity-scrub", "daemon-stream",
+                  "adversarial-drift", "gradual-drift", "random-s0-0")
+SCENARIO_SCALE = {"n_files": MAIN_FILES, "duration": MAIN_DURATION, "alerts": None}  # 9b's cuts
+#: Cells red on the card's own cold init, with the reference red on that
+#: init too (ROADMAP Queue C): the entry and the invariants that fail.
+#: 9a judges them from the CPU-computed init.
+SCENARIO_QUEUE_C = {"rack-kill": ("ROADMAP Queue C2 (repair_backlog holds 2 windows, its "
+                                  "rule needs 3)", ["alerts_expected"])}
+SCENARIO_PROFILED_WINDOW = 10
 
 
 def fail(msg: str) -> None:
@@ -1405,6 +1430,201 @@ def decay_card_cpu():
     log("decay card vs cpu: float64 accumulators bit-equal, plan hashes identical")
 
 
+def model_runs():
+    """Wrap ``ReplicationPolicyModel.run`` class-wide so each re-cluster of
+    any controller appends its Lloyd iterations to the returned list;
+    ``init_fn(X, model)``, when set in ``hooks``, gives the cold init."""
+    from cdrs_tpu_torch.models.replication import ReplicationPolicyModel
+
+    seen, hooks = [], {"init_fn": None}
+    run = ReplicationPolicyModel.run
+
+    def counted(self, X, feature_names=None, init_centroids=None, **kw):
+        if init_centroids is None and hooks["init_fn"] is not None:
+            init_centroids = hooks["init_fn"](X, self)
+        dec = run(self, X, feature_names, init_centroids=init_centroids, **kw)
+        seen.append(self.n_iter)
+        return dec
+
+    ReplicationPolicyModel.run = counted
+    return seen, hooks, lambda: setattr(ReplicationPolicyModel, "run", run)
+
+
+def cpu_model_init(X, model):
+    """The D² init of the model's k and seed, computed on the CPU."""
+    from cdrs_tpu_torch.ops.kmeans import kmeans_full
+
+    cfg = model.kmeans_cfg
+    return kmeans_full(X.cpu(), cfg.k, seed=cfg.seed, max_iter=0, tol=0.0)[0]
+
+
+def phase_scenarios():
+    """Phase 9: the scenario matrix on the card (9a), then one cell at the
+    main path's scale (9b).  Returns the kernels' launches in the cells'
+    runs on the card's own init."""
+    import torch
+
+    import cdrs_tpu_torch.ops.kmeans as kmeans_mod
+    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
+    from cdrs_tpu_torch.ops.seg_count import label_threshold_count
+    from cdrs_tpu_torch.scenarios import run_cell, suite_cells, unported_axes
+
+    cells = [c for c in suite_cells("full", 0) if not unported_axes(c)]
+    check(sorted(c.name for c in cells) == sorted(SCENARIO_CELLS),
+          f"the ported cells at suite seed 0 are {[c.name for c in cells]}")
+    seen, hooks, restore = model_runs()
+    launches = {"lloyd": 0, "seg_count": 0}
+    # The rows each D² init on the card picks: its centroids are those rows,
+    # so the init carries to any device (ROADMAP Queue C's protocol).
+    init_rows, d2 = [], kmeans_mod._d2_init
+
+    def d2_rows(x, k, seed):
+        c = d2(x, k, seed)
+        rows = torch.argmin(((x[:, None, :] - c[None, :, :]) ** 2).sum(-1), dim=0)
+        check(torch.equal(x[rows], c), "a D² centroid is not a row of its points")
+        init_rows.append(rows.cpu().tolist())
+        return c
+
+    kmeans_mod._d2_init = d2_rows
+    try:
+        for spec in cells:
+            seen.clear()
+            init_rows.clear()
+            lloyd_assign_reduce.launches = 0
+            label_threshold_count.launches = 0
+            cell = run_cell(spec, device="cuda")
+            got = {"lloyd": lloyd_assign_reduce.launches,
+                   "seg_count": label_threshold_count.launches}
+            for k in launches:
+                launches[k] += got[k]
+            failed = sorted(k for k, v in cell["invariants"].items() if not v)
+            log("scenario cell " + json.dumps(
+                {"cell": spec.name, "ok": cell["ok"], "seconds": cell["seconds"],
+                 "windows": cell["metrics"]["windows"],
+                 "reclusters": cell["metrics"]["reclusters"], "model_runs": len(seen),
+                 "b1_launches": got["lloyd"], "b2_launches": got["seg_count"],
+                 "alerts_fired": cell["metrics"]["alerts_fired"], "failed": failed,
+                 "init_rows": init_rows}))
+            if spec.name in SCENARIO_QUEUE_C:
+                entry, want = SCENARIO_QUEUE_C[spec.name]
+                check(failed == want, f"scenario {spec.name} on the card's own init fails "
+                      f"{failed}, {entry} records {want}")
+                log(f"scenario {spec.name}: red on the card's own init as {entry} records; "
+                    f"judged from the CPU-computed init below")
+            else:
+                check(cell["ok"], f"scenario {spec.name} is red on the card's own init: "
+                      f"{cell['invariants']}")
+            check(got["lloyd"] == sum(n + 1 for n in seen),
+                  f"scenario {spec.name}: {got['lloyd']} Lloyd launches, expected "
+                  f"{sum(n + 1 for n in seen)}")
+            check(got["seg_count"] == 0, f"scenario {spec.name}: {got['seg_count']} "
+                  f"threshold-count launches at {spec.n_files} files")
+        kmeans_mod._d2_init = d2
+        for seed in (1, 2):
+            shifted = [c for c in suite_cells("full", seed) if not unported_axes(c)]
+            for spec in shifted:
+                cell = run_cell(spec, suite="full", suite_seed=seed, device="cuda")
+                check(cell["ok"], f"scenario {spec.name} at suite seed {seed} is red on the "
+                      f"card's own init: {cell['invariants']}")
+            log(f"scenario suite seed {seed}: all {len(shifted)} ported cells ok on the card's "
+                f"own init")
+        # The card against the CPU, both from cold inits computed on the CPU.
+        hooks["init_fn"] = cpu_model_init
+        for spec in cells:
+            card, cpu = (run_cell(spec, device=d) for d in ("cuda", "cpu"))
+            for key in ("invariants", "metrics", "coverage", "fingerprint"):
+                check(card[key] == cpu[key], f"scenario {spec.name}: {key} differ between "
+                      f"the card and the CPU: {card[key]} vs {cpu[key]}")
+            check(card["ok"], f"scenario {spec.name} is red from the CPU init")
+        log(f"scenario card vs cpu: invariants, metrics, coverage bits equal in all "
+            f"{len(cells)} cells from CPU-computed inits")
+        hooks["init_fn"] = None
+        scale = scenario_at_scale(seen)
+    finally:
+        kmeans_mod._d2_init = d2
+        restore()
+    for k in launches:
+        launches[k] += scale[k]
+    return launches
+
+
+def scenario_at_scale(seen):
+    """9b: ``gradual-drift`` at the main path's scale; returns its launches."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from cdrs_tpu_torch.control.controller import ReplicationController
+    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
+    from cdrs_tpu_torch.ops.seg_count import label_threshold_count
+    from cdrs_tpu_torch.scenarios import preset, run_cell
+
+    spec = preset("gradual-drift").replace(**SCENARIO_SCALE)
+    results, prof = [], {}
+    run, phase_a, phase_b = (ReplicationController.run, ReplicationController._window_phase_a,
+                             ReplicationController._window_phase_b)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def keep(self, *a, **kw):
+        res = run(self, *a, **kw)
+        results.append(res)
+        return res
+
+    def profiled_a(self, w, events):
+        if w == SCENARIO_PROFILED_WINDOW:
+            prof["p"] = torch.profiler.profile(activities=acts)
+            prof["p"].__enter__()
+        return phase_a(self, w, events)
+
+    def profiled_b(self, ctx):
+        rec = phase_b(self, ctx)
+        if ctx["w"] == SCENARIO_PROFILED_WINDOW:
+            torch.cuda.synchronize()
+            prof["p"].__exit__(None, None, None)
+            busy = sum(ev.time_range.elapsed_us() for ev in prof["p"].events()
+                       if ev.device_type == DeviceType.CUDA) / 1e6
+            wall = rec["seconds"]["total"]
+            del prof["p"]
+            prof.update(window=rec["window"], mode=rec["recluster_mode"], wall_s=wall,
+                        device_busy_s=busy, idle_share=1 - busy / wall if busy else None)
+        return rec
+
+    seen.clear()
+    lloyd_assign_reduce.launches = 0
+    label_threshold_count.launches = 0
+    (ReplicationController.run, ReplicationController._window_phase_a,
+     ReplicationController._window_phase_b) = keep, profiled_a, profiled_b
+    try:
+        cell = run_cell(spec, device="cuda")
+    finally:
+        (ReplicationController.run, ReplicationController._window_phase_a,
+         ReplicationController._window_phase_b) = run, phase_a, phase_b
+    launches = {"lloyd": lloyd_assign_reduce.launches, "seg_count": label_threshold_count.launches}
+    recs = results[0].records
+    stages = ("fold", "drift", "recluster", "plan", "schedule", "evaluate", "total")
+    per_stage = {st: sum(r["seconds"].get(st, 0.0) for r in recs) / len(recs) for st in stages}
+    log(f"scenario at scale: gradual-drift, cuts {json.dumps(SCENARIO_SCALE)} (preset: 300 "
+        f"files, 2400 s, alerts {{expect: [], forbid: others}}); {cell['metrics']['events']} "
+        f"events in {len(recs)} windows of {spec.window_seconds:g} s; cell {cell['seconds']} s; "
+        f"re-clusters {[r['recluster_mode'] for r in recs]}, Lloyd iterations {list(seen)}, "
+        f"launches {launches}")
+    log("scenario at scale cell " + json.dumps({k: cell[k] for k in ("ok", "invariants",
+                                                                      "metrics", "coverage")}))
+    log("scenario at scale stages mean seconds per window " + json.dumps(per_stage))
+    log("scenario at scale profile " + json.dumps(prof))
+    check(cell["ok"], f"gradual-drift at scale is red: {cell['invariants']}")
+    check(set(cell["invariants"]) == {"budget_conserved", "drift_engaged"},
+          f"gradual-drift at scale checked {sorted(cell['invariants'])}")
+    check(len(seen) == cell["metrics"]["reclusters"] > 0,
+          f"{len(seen)} model runs for {cell['metrics']['reclusters']} re-clusters")
+    check(launches["lloyd"] == sum(n + 1 for n in seen),
+          f"at scale: {launches['lloyd']} Lloyd launches, expected {sum(n + 1 for n in seen)}")
+    check(launches["seg_count"] == 12 * len(seen),
+          f"at scale: {launches['seg_count']} threshold-count launches, expected "
+          f"{12 * len(seen)}")
+    check(prof.get("window") == SCENARIO_PROFILED_WINDOW, "the profiled window did not run")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
@@ -1444,6 +1664,9 @@ def main() -> int:
         chaos_launches = phase_chaos(manifest, events)
         log(f"phase 8 (chaos): {time.perf_counter() - t0:.1f} s")
         del manifest, events
+        t0 = time.perf_counter()
+        scenario_launches = phase_scenarios()
+        log(f"phase 9 (scenarios): {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1453,20 +1676,23 @@ def main() -> int:
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:392",
          "launches": launches["lloyd"], "control_launches": control_launches["lloyd"],
          "daemon_launches": daemon_launches["lloyd"],
-         "chaos_launches": chaos_launches["lloyd"], **rows["lloyd"], "library_ms": None},
+         "chaos_launches": chaos_launches["lloyd"],
+         "scenario_launches": scenario_launches["lloyd"], **rows["lloyd"], "library_ms": None},
         {"name": "label_threshold_count", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/seg_count.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:534",
          "launches": launches["seg_count"],
          "control_launches": control_launches["seg_count"],
          "daemon_launches": daemon_launches["seg_count"],
-         "chaos_launches": chaos_launches["seg_count"], **rows["seg_count"],
+         "chaos_launches": chaos_launches["seg_count"],
+         "scenario_launches": scenario_launches["seg_count"], **rows["seg_count"],
          "library_ms": None},
         {"name": "lloyd_assign_reduce (row-major, labels)", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:443",
          "launches": stream_launches, "control_launches": 0,
          "daemon_launches": daemon_launches["lloyd_rowmajor"], "chaos_launches": 0,
+         "scenario_launches": 0,
          **rows["lloyd_rowmajor"],
          "library_ms": None},
     ]
