@@ -13,6 +13,11 @@
   partitions, stragglers, silent corruption), rack or geo failure domains,
   repairs and the scrubber, and prints the summary with its
   ``durability`` block;
+* ``control``, ``daemon`` and ``chaos`` take ``--serve``: every window's
+  reads route through the read router and hotspots trigger re-clusters;
+* ``serve`` replays the log's reads against a static placement (or a
+  faulted cluster state) through the read router, on the host, and
+  prints the serving digest;
 * ``scenarios list|run|sweep`` runs cells of the scenario matrix, each
   gated on invariants (a failing cell prints its repro line).
 
@@ -145,6 +150,15 @@ def _controller_cfg(args, fault_schedule=None, topology=None):
         from .faults import ScrubConfig
 
         scrub = ScrubConfig(bytes_per_window=args.scrub)
+    serve = None
+    if args.serve:
+        from .serve import ServeConfig, SloSpec
+
+        serve = ServeConfig(
+            policy=args.serve_policy, seed=args.serve_seed, service_ms=args.serve_service_ms,
+            slo=SloSpec(target_ms=args.serve_slo_ms, availability=args.serve_slo_availability),
+            recluster_on_hotspot=not args.no_hotspot_recluster,
+            verify_reads=not getattr(args, "no_verify_reads", False))
     return ControllerConfig(
         window_seconds=args.window_seconds, drift_threshold=args.drift_threshold,
         full_recluster_drift=args.full_drift, warm_max_iter=args.warm_max_iter,
@@ -153,7 +167,8 @@ def _controller_cfg(args, fault_schedule=None, topology=None):
         kmeans=KMeansConfig(k=args.k, seed=args.seed, init_method=args.init_method),
         scoring=_load_scoring(args), evaluate=not args.no_evaluate,
         overlap_windows=args.overlap, device=args.device, fault_schedule=fault_schedule,
-        repair_seed=getattr(args, "repair_seed", 0), topology=topology, scrub=scrub)
+        repair_seed=getattr(args, "repair_seed", 0), topology=topology, scrub=scrub,
+        serve=serve)
 
 
 def _cmd_control(args, manifest=None, cfg=None) -> int:
@@ -240,6 +255,100 @@ def _cmd_chaos(args) -> int:
             f.write("\n")
         print(f"schedule: {len(schedule)} events -> {args.schedule_out}", file=sys.stderr)
     return _cmd_control(args, manifest, _controller_cfg(args, schedule, topology))
+
+
+def _cmd_serve(args) -> int:
+    """Read-path SLO replay: the log's reads, window by window, through the
+    read router against the static rng placement of ``--default_rf`` (or,
+    with fault flags, a ``ClusterState`` they mutate), with hotspot
+    scoring; prints the serving digest.  Host numpy: no device, no kernel."""
+    import numpy as np
+
+    from .cluster.evaluate import _client_to_topology
+    from .cluster.placement import ClusterTopology, place_replicas
+    from .control.windows import iter_windows
+    from .faults import ClusterState, FaultSchedule
+    from .io.events import Manifest
+    from .obs.aggregate import serve_digest
+    from .obs.sink import JsonlSink
+    from .serve import HotspotDetector, ReadRouter, ServeConfig, SloSpec, read_view
+
+    if args.placement != "materialized":
+        print(f"error: --placement {args.placement} (the hash chooser) is not ported yet "
+              f"(ROADMAP A8f, functional placement)", file=sys.stderr)
+        return 2
+    manifest = Manifest.read_csv(args.manifest)
+    topology = ClusterTopology(nodes=tuple(manifest.nodes))
+    if args.racks:
+        topology = ClusterTopology.from_rack_spec(manifest.nodes, args.racks)
+    serve_cfg = ServeConfig(
+        policy=args.policy, seed=args.seed, service_ms=args.service_ms,
+        slo=SloSpec(target_ms=args.slo_ms, availability=args.slo_availability),
+        verify_reads=not args.no_verify_reads)
+    rf = np.full(len(manifest), args.default_rf, dtype=np.int32)
+    events = []
+    for kind, flag in (("crash", args.kill), ("partition", args.partition),
+                       ("degrade", args.degrade), ("corrupt", args.corrupt)):
+        for spec in flag or ():
+            events.extend(FaultSchedule.from_specs([f"{kind}:{spec}"]))
+    schedule = FaultSchedule(events) if events else None
+    placement = place_replicas(manifest, rf, topology, seed=0)
+    state = None
+    if schedule is not None:
+        schedule.validate_nodes(topology.nodes)
+        state = ClusterState(placement, np.asarray(manifest.size_bytes, dtype=np.int64))
+    router = ReadRouter(len(topology), serve_cfg)
+    hotspot = HotspotDetector(len(manifest), alpha=serve_cfg.hotspot_alpha,
+                              spike_factor=serve_cfg.hotspot_spike_factor,
+                              min_reads=serve_cfg.hotspot_min_reads,
+                              top_k=serve_cfg.hotspot_top_k)
+    records: list[dict] = []
+    sink = JsonlSink(args.metrics) if args.metrics else None
+    t0 = time.perf_counter()
+    try:
+        for w, ev in iter_windows(args.access_log, manifest, args.window_seconds,
+                                  batch_size=args.batch_size):
+            if args.max_windows is not None and len(records) >= args.max_windows:
+                break
+            if state is not None:
+                for fev in schedule.for_window(w):
+                    state.apply_event(fev)
+            rec: dict = {"window": int(w), "n_events": int(len(ev))}
+            if len(ev):
+                keep = ev.path_id >= 0
+                is_read = np.asarray(ev.op)[keep] == 0
+                pid = ev.path_id[keep][is_read]
+                hs = hotspot.observe(np.bincount(pid, minlength=len(manifest)))
+                view = read_view(pid, state=state, placement=placement)
+                res = router.route(
+                    view.replica_map, view.slot_ok, view.node_throughput,
+                    ts=ev.ts[keep][is_read], pid=view.pid,
+                    client=_client_to_topology(ev, topology)[keep][is_read],
+                    window_seconds=args.window_seconds,
+                    rng=np.random.default_rng([args.seed, int(w)]),
+                    slot_corrupt=view.slot_corrupt)
+                if res.corrupt_pairs is not None and len(res.corrupt_pairs):
+                    # Detect-on-read: drop the rotten copies the reads found.
+                    for fid, node in res.corrupt_pairs:
+                        state.quarantine(int(fid), int(node))
+                rec["n_reads"] = res.n_reads
+                rec.update(res.record_fields())
+                rec["hotspot_score"] = round(hs.score, 6)
+                rec["hotspot_files"] = list(hs.files)
+            records.append(rec)
+            if sink is not None:
+                sink.emit({"kind": "window", **rec})
+    finally:
+        if sink is not None:
+            sink.close()
+    elapsed = time.perf_counter() - t0
+    out = serve_digest(records) or {"windows": len(records), "reads_routed": 0}
+    out["policy"] = args.policy
+    out["seconds"] = round(elapsed, 3)
+    if out.get("reads_routed"):
+        out["routed_reads_per_sec"] = round(out["reads_routed"] / max(elapsed, 1e-9), 1)
+    print(json.dumps(out, indent=2))
+    return 0
 
 
 def _supervised_child(argv: list[str]) -> list[str]:
@@ -375,7 +484,7 @@ def _cmd_scenarios(args) -> int:
 
     if args.action in ("search", "triage"):
         print(f"error: scenarios {args.action} (the failure-space search) is not ported "
-              f"yet (ROADMAP A12, after A8d-A8f)", file=sys.stderr)
+              f"yet (ROADMAP A12, after A8e-A8f)", file=sys.stderr)
         return 2
     if args.round_no is not None or args.history:
         print("error: --round/--history (the bench history append) belong to the "
@@ -521,6 +630,19 @@ def _add_control_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--overlap", action="store_true",
                    help="run window t+1's re-cluster before window t's planning; "
                         "decision-identical to the serial order")
+    p.add_argument("--serve", action="store_true",
+                   help="route every window's reads through the read router (serve/): "
+                        "latency p50/p95/p99, SLO burn, utilization and hotspot fields on "
+                        "the window records; hotspot spikes trigger re-clusters")
+    p.add_argument("--serve_policy", choices=["primary", "random", "least_loaded", "p2c"],
+                   default="p2c")
+    p.add_argument("--serve_seed", type=int, default=0)
+    p.add_argument("--serve_service_ms", type=float, default=0.5)
+    p.add_argument("--serve_slo_ms", type=float, default=10.0)
+    p.add_argument("--serve_slo_availability", type=float, default=0.999)
+    p.add_argument("--no_hotspot_recluster", action="store_true",
+                   help="observe hotspots without feeding them back into the re-cluster "
+                        "trigger")
     _add_scoring_args(p)
     _add_init_method_arg(p)
     _add_device_arg(p)
@@ -672,6 +794,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scrub", type=int, default=None, metavar="BYTES",
                    help="background scrubber: verification-read BYTES per window over "
                         "the population, capped by what repairs left of --max_bytes")
+    p.add_argument("--no_verify_reads", action="store_true",
+                   help="with --serve: serve rotten copies as if intact (the unverified "
+                        "baseline; reads_corrupt_served counts them) instead of detecting "
+                        "and redirecting")
     p.add_argument("--schedule", default=None, metavar="JSON",
                    help="add fault events from a JSON file (the --schedule_out format)")
     p.add_argument("--schedule_out", default=None, metavar="JSON",
@@ -688,6 +814,53 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--repair_seed", type=int, default=0,
                    help="seed of the stateless flaky-copy failure rolls")
     p.set_defaults(fn=_cmd_chaos)
+
+    p = sub.add_parser("serve", help="read-path SLO replay on the host (no device, no "
+                       "kernel): route the log's reads against a placement (replica-"
+                       "selection policies, FIFO queue latency, p99 and SLO burn, hotspot "
+                       "detection; optional crashes, partitions, stragglers, rot); takes "
+                       "no --device")
+    p.add_argument("--manifest", required=True)
+    p.add_argument("--access_log", required=True,
+                   help="globally time-sorted log (CSV access.log or .cdrsb)")
+    p.add_argument("--window_seconds", type=float, default=60.0)
+    p.add_argument("--policy", choices=["primary", "random", "least_loaded", "p2c"],
+                   default="p2c",
+                   help="replica selection: primary-only | seeded random | global "
+                        "least-loaded | power-of-two-choices (default)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="replica-choice seed (per-window streams derive from it)")
+    p.add_argument("--default_rf", type=int, default=2)
+    p.add_argument("--service_ms", type=float, default=0.5,
+                   help="per-read service time at nominal node throughput")
+    p.add_argument("--slo_ms", type=float, default=10.0, help="read-latency SLO target")
+    p.add_argument("--slo_availability", type=float, default=0.999,
+                   help="SLO availability objective (error budget = 1 - this)")
+    p.add_argument("--racks", default=None, metavar="SPEC",
+                   help="failure domains (the chaos --racks spec): placement spreads "
+                        "replicas across racks")
+    p.add_argument("--placement", choices=["materialized", "functional", "materialized_hash"],
+                   default="materialized",
+                   help="placement source; only 'materialized' (the rng chooser) is "
+                        "ported, the hash chooser comes with ROADMAP A8f")
+    p.add_argument("--kill", action="append", metavar="NODE@W[-W2]",
+                   help="crash NODE over windows W..W2; repeatable")
+    p.add_argument("--partition", action="append", metavar="NODES@W[-W2]",
+                   help="network-partition a '+'-joined node set; repeatable")
+    p.add_argument("--degrade", action="append", metavar="NODE@W[-W2][:M]",
+                   help="straggler: NODE serves reads at M x nominal speed; repeatable")
+    p.add_argument("--corrupt", action="append", metavar="NODE[#FILE]@W[:F]",
+                   help="silently rot NODE's copies at window W (the chaos --corrupt "
+                        "spec); reads that select a rotten copy detect and redirect")
+    p.add_argument("--no_verify_reads", action="store_true",
+                   help="serve rotten copies as if intact (reads_corrupt_served counts "
+                        "them)")
+    p.add_argument("--batch_size", type=int, default=1_000_000)
+    p.add_argument("--max_windows", type=int, default=None)
+    p.add_argument("--metrics", default=None, metavar="JSONL",
+                   help="append one JSON line per window record here (the serve.* "
+                        "telemetry events are not ported yet, ROADMAP A10b)")
+    p.set_defaults(fn=_cmd_serve)
 
     p = sub.add_parser("scenarios", help="declarative scenario matrix: list presets and "
                        "suites, run one cell, or sweep a suite gated on invariants (zero "

@@ -22,7 +22,10 @@ Per time window (``control/windows.py``):
    from ``full_recluster_drift`` on, a full one with a fresh init:
    ``ReplicationPolicyModel.run`` on the device-resident float32 snapshot,
    so every Lloyd iteration and the label pass launch the Lloyd kernel and
-   the bisection medians (at scale) the threshold-count kernel.
+   the bisection medians (at scale) the threshold-count kernel.  With
+   ``serve`` a fired hotspot (``serve/hotspot.py``, scored on the window's
+   per-file read counts right after the fold) triggers the re-cluster too;
+   drift keeps the trigger's name when both fire.
 4. **faults, repair, scrub** (with a ``fault_schedule``) — the window's
    fault events mutate the ``faults.ClusterState`` (placed at construction
    on ``topology``, flat by default); the ``RepairScheduler`` re-replicates
@@ -40,14 +43,22 @@ Per time window (``control/windows.py``):
    ``ClusterState``.  The fault path records the durability tiers, the
    reads refused (``unavailable_reads``) and, when corruption can happen
    or is looked for, the ``integrity`` digest.
+7. **serve** (with ``serve``) — after repairs, scrub and migrations the
+   window's reads route through ``serve/router.ReadRouter`` against the
+   live ``ClusterState`` or the static placement of the applied rf vector
+   (less a seeded ``serve_shed`` fraction under the daemon's brownout);
+   the record gains the latency percentiles, SLO burn and hotspot fields,
+   and rotten copies the reads detect are quarantined and hinted to the
+   scrubber (``integrity.detected_read``).  Routing is host numpy.
 
 Every window gives one record with the reference's keys (among them
 ``drift``, ``recluster_mode``, ``moves_applied``, ``fault_events``,
-``repair_moves``, ``durability``, ``scrub``, ``integrity``, locality and
-balance before and after, ``plan_hash`` and the per-stage ``seconds``),
-kept in memory and appended to an optional JSONL sink.  The whole state
-(counters or decayed accumulators, accepted model, applied plan, backlog,
-cluster state, repair backlog, scrub cursor) snapshots through
+``repair_moves``, ``durability``, ``scrub``, ``integrity``, the serving
+fields, locality and balance before and after, ``plan_hash`` and the
+per-stage ``seconds``), kept in memory and appended to an optional JSONL
+sink.  The whole state (counters or decayed accumulators, accepted model,
+applied plan, backlog with its move causes, cluster state, repair backlog,
+scrub cursor, hotspot baseline) snapshots through
 ``utils/checkpoint``; kill and resume reproduce the uninterrupted run
 bit for bit.  ``run`` holds the loop inside ``device.deterministic()``.
 
@@ -60,11 +71,10 @@ Departures from the reference:
   backend clusters in float64; the accumulators and the float64 table are
   the reference's bit for bit.
 * Not ported yet, each refused by ``ControllerConfig`` with a
-  ``ValueError`` naming its ROADMAP item: serving and elasticity (A8d),
-  storage strategies (A8e), functional placement (A8f) and ``mesh_shape``
-  (A9).  Read detection of rot needs serving, so ``integrity`` counts no
-  read detections.  Window telemetry (the reference's
-  ``_instrument_window``) waits for A10.
+  ``ValueError`` naming its ROADMAP item: storage strategies (A8e),
+  functional placement and elasticity, which needs a hash placement mode
+  (A8f), and ``mesh_shape`` (A9).  Window telemetry (the reference's
+  ``_instrument_window`` and its ``serve.*`` events) waits for A10b.
 """
 
 from __future__ import annotations
@@ -79,7 +89,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..cluster.evaluate import evaluate_placement
+from ..cluster.evaluate import _client_to_topology, evaluate_placement
 from ..cluster.placement import ClusterTopology, place_replicas
 from ..cluster.plan import PlanEntry
 from ..config import CATEGORIES, KMeansConfig, ScoringConfig
@@ -88,21 +98,26 @@ from ..faults import ClusterState, FaultSchedule, RepairScheduler, Scrubber
 from ..features.streaming import StreamFeatureState, stream_finalize, stream_init, stream_update
 from ..io.events import EventLog, Manifest
 from ..models.replication import ReplicationPolicyModel
-from ..obs.aggregate import integrity_digest, pacing_digest
+from ..obs.aggregate import integrity_digest, pacing_digest, serve_digest
 from ..obs.sink import JsonlSink
+from ..serve import HotspotDetector, ReadRouter, read_view
 from ..utils.checkpoint import CheckpointError, load_state, save_state
 from .drift import detect_drift
 from .migrate import MigrationScheduler, plan_diff
 from .windows import _slice, iter_windows
 
 __all__ = ["ControllerConfig", "ControllerResult", "ReplicationController",
-           "finalize_counters"]
+           "finalize_counters", "MOVE_CAUSES"]
+
+#: Why an admitted migration happened: the code rides the per-file
+#: ``_move_cause`` vector from plan submission to admission (and the
+#: checkpoint); 0 is a backlog resumed from a snapshot without causes.
+MOVE_CAUSES = {0: "unknown", 1: "drift", 2: "hotspot"}
 
 #: Options of the reference's ControllerConfig that the port does not take
 #: yet: (value that leaves them off, ROADMAP item).
 _UNPORTED = {
-    "serve": (None, "A8d, serving and elasticity"),
-    "elastic": (None, "A8d, serving and elasticity"),
+    "elastic": (None, "A8f, elasticity, which needs a hash placement mode"),
     "storage": (None, "A8e, storage strategies"),
     "placement_mode": ("materialized", "A8f, functional placement"),
     "mesh_shape": (None, "A9, multi-GPU"),
@@ -156,6 +171,8 @@ class ControllerConfig:
     #: torch device of the feature fold and the re-cluster: CUDA when None
     #: (raises without CUDA), or "cpu".
     device: str | None = None
+    #: ``serve.ServeConfig``: route every window's reads and feed hotspots
+    #: back into the re-cluster trigger (None = no read path).
     serve: object | None = None
     storage: object | None = None
     elastic: object | None = None
@@ -195,8 +212,9 @@ class ControllerResult:
 
     def summary(self) -> dict:
         """The reference's summary keys for a run without the unported
-        subsystems: with a fault schedule a ``durability`` block, and with
-        corruption or a scrubber an ``integrity`` block."""
+        subsystems: with a fault schedule a ``durability`` block, with
+        serving a ``serve`` block, and with corruption or a scrubber an
+        ``integrity`` block."""
         recl = [r for r in self.records if r["recluster"]]
         out = {
             "windows": len(self.records),
@@ -222,6 +240,9 @@ class ControllerResult:
             out["checkpoint"] = {"saves": len(self.checkpoints),
                                  "bytes_last": int(last["bytes"]),
                                  "save_seconds_last": float(last["seconds"])}
+        serve = serve_digest(self.records)
+        if serve is not None:
+            out["serve"] = serve
         integrity = integrity_digest(self.records)
         if integrity is not None:
             out["integrity"] = integrity
@@ -335,6 +356,8 @@ class ReplicationController:
 
         self.current_rf = np.full(n, int(cfg.default_rf), dtype=np.int32)
         self.current_cat = np.full(n, -1, dtype=np.int32)
+        #: ``MOVE_CAUSES`` code of each file's pending submitted move.
+        self._move_cause = np.zeros(n, dtype=np.int8)
         self.scheduler = MigrationScheduler(
             n, max_bytes_per_window=cfg.max_bytes_per_window,
             max_files_per_window=cfg.max_files_per_window,
@@ -365,6 +388,22 @@ class ReplicationController:
         self._integrity_on = self._cluster_state is not None and (
             self._scrub is not None
             or any(ev.kind == "corrupt" for ev in self._fault_schedule))
+        #: The serve plane: router and hotspot detector on the fault path's
+        #: topology, else ``cfg.topology``, else flat.  The hotspot EWMA is
+        #: its only state.
+        self._router: ReadRouter | None = None
+        self._hotspot: HotspotDetector | None = None
+        self._serve_topology = None
+        self._edge_ms: np.ndarray | None = None
+        if cfg.serve is not None:
+            self._serve_topology = (
+                self._cluster_state.topology if self._cluster_state is not None
+                else cfg.topology or ClusterTopology(nodes=tuple(manifest.nodes)))
+            self._router = ReadRouter(len(self._serve_topology.nodes), cfg.serve)
+            self._edge_ms = self._edge_latency_ms(self._serve_topology)
+            self._hotspot = HotspotDetector(
+                n, alpha=cfg.serve.hotspot_alpha, spike_factor=cfg.serve.hotspot_spike_factor,
+                min_reads=cfg.serve.hotspot_min_reads, top_k=cfg.serve.hotspot_top_k)
         #: One window's (cause, file ids, bytes) batches: the record's ``causes``.
         self._lineage: list[tuple[str, np.ndarray, int]] = []
         #: One {window, bytes, seconds} per checkpoint save.
@@ -379,7 +418,9 @@ class ReplicationController:
         self.last_checkpoint_meta: dict | None = None
         #: Degraded modes and serve shed set by the daemon's brownout ladder.
         #: ``defer_scrub`` skips the window's scrub (cursor and hints hold);
-        #: ``shed_reads`` belongs to serving (ROADMAP A8d) and changes nothing.
+        #: ``serve_shed`` is ``(fraction, seed)`` under ``shed_reads``: a
+        #: seeded draw drops that fraction of the window's reads before
+        #: routing.
         self.degraded_modes: frozenset = frozenset()
         self.serve_shed: tuple | None = None
 
@@ -454,6 +495,23 @@ class ReplicationController:
         seconds["fold"] = time.perf_counter() - t0
         rec["events_total"] = int(self._events_total)
 
+        # Serving: the window's reads, extracted once (routed in phase B),
+        # and their per-file counts scored against the hotspot baseline.
+        reads = None
+        hotspot = None
+        if self._router is not None and len(events):
+            t0 = time.perf_counter()
+            keep = events.path_id >= 0
+            is_read = np.asarray(events.op)[keep] == 0
+            read_pid = events.path_id[keep][is_read]
+            reads = (read_pid, events.ts[keep][is_read],
+                     _client_to_topology(events, self._serve_topology)[keep][is_read])
+            hotspot = self._hotspot.observe(np.bincount(read_pid, minlength=len(self.manifest)))
+            rec["n_reads"] = int(read_pid.shape[0])
+            rec["hotspot_score"] = round(hotspot.score, 6)
+            rec["hotspot_files"] = list(hotspot.files)
+            seconds["hotspot"] = time.perf_counter() - t0
+
         X = None
         drift = None
         t0 = time.perf_counter()
@@ -470,9 +528,12 @@ class ReplicationController:
 
         cold = self._accepted_centroids is None and self._events_total > 0
         drift_fire = drift is not None and drift.score >= cfg.drift_threshold
-        trigger = cold or drift_fire
+        hot_fire = (hotspot is not None and hotspot.fired and cfg.serve.recluster_on_hotspot
+                    and self._accepted_centroids is not None)
+        trigger = cold or drift_fire or hot_fire
         rec["recluster"] = bool(trigger)
-        rec["recluster_trigger"] = "cold" if cold else "drift" if drift_fire else None
+        rec["recluster_trigger"] = ("cold" if cold else "drift" if drift_fire
+                                    else "hotspot" if hot_fire else None)
         rec["recluster_mode"] = None
         rec["plan_moves_pending"] = None
         decision = None
@@ -490,7 +551,7 @@ class ReplicationController:
         seconds["recluster"] = time.perf_counter() - t0
         seconds["host_a"] = time.perf_counter() - t_start
         return {"w": int(w), "events": events, "rec": rec, "seconds": seconds,
-                "decision": decision}
+                "decision": decision, "reads": reads}
 
     def _window_phase_b(self, ctx: dict) -> dict:
         """Plan diff and submit, fault events, repairs, scrub, budgeted
@@ -509,7 +570,7 @@ class ReplicationController:
             t0 = time.perf_counter()
             if self._pending_accept is ctx["decision"]:
                 self._ensure_accepted()
-            self._accept_plan(ctx["decision"])
+            self._accept_plan(ctx["decision"], trigger=rec["recluster_trigger"])
             rec["plan_moves_pending"] = len(self.scheduler.backlog)
             dt = time.perf_counter() - t0
             seconds["recluster"] += dt
@@ -606,10 +667,13 @@ class ReplicationController:
         seconds["schedule"] = time.perf_counter() - t0
         plan_seconds += seconds["schedule"]
         if len(applied):
-            # Every plan here comes from a drift-gated re-cluster (a cold
-            # start is the first drift decision).
-            self._lineage.append(("drift", applied.file_index.copy(),
-                                  int(applied.bytes_moved.sum())))
+            # Admitted moves carry the cause their plan was submitted under.
+            cc = self._move_cause[applied.file_index]
+            for code, name in sorted(MOVE_CAUSES.items()):
+                m = cc == code
+                if m.any():
+                    self._lineage.append((name, applied.file_index[m].copy(),
+                                          int(applied.bytes_moved[m].sum())))
         rec["moves_applied"] = len(applied)
         rec["bytes_migrated"] = applied.total_bytes
         rec["backlog_files"] = len(self.scheduler.backlog)
@@ -631,13 +695,20 @@ class ReplicationController:
                 rec["n_reads"] = 0
                 rec["unavailable_reads"] = 0
 
+        read_detect_copies = 0
+        if ctx["reads"] is not None:
+            t0 = time.perf_counter()
+            read_detect_copies = self._serve_window(w, rec, *ctx["reads"])
+            seconds["serve"] = time.perf_counter() - t0
+
         if self._integrity_on:
-            # Ground truth after the window's detections quarantined what
-            # they found; there is no read path to detect rot yet.
+            # Ground truth after the window's detections (scrub, repairs,
+            # reads) quarantined what they found.
             integ = cs.integrity()
             integ["detected_scrub"] = (rec.get("scrub") or {}).get("corrupt_found", 0)
             integ["detected_repair"] = rec.get("repair_corrupt_sources", 0)
-            integ["detected_read"] = 0
+            # Unique copies, not reads: one unit for every detection path.
+            integ["detected_read"] = read_detect_copies
             rec["integrity"] = integ
 
         t0 = time.perf_counter()
@@ -683,6 +754,54 @@ class ReplicationController:
         rec["seconds"] = {k: round(v, 6) for k, v in seconds.items()}
         return rec
 
+    def _serve_window(self, w: int, rec: dict, read_pid: np.ndarray, read_ts: np.ndarray,
+                      read_client: np.ndarray) -> int:
+        """Route the window's reads against the end-of-window placement and
+        put the serving fields on ``rec``; returns the rotten copies the
+        reads detected (quarantined here, hinted to the scrubber)."""
+        cfg = self.cfg
+        reads_shed = 0
+        if self.serve_shed is not None and read_pid.shape[0]:
+            frac, shed_seed = self.serve_shed
+            keep = np.random.default_rng([int(shed_seed), int(w)]).random(
+                read_pid.shape[0]) >= float(frac)
+            if keep.any() and not keep.all():
+                reads_shed = int(read_pid.shape[0] - int(keep.sum()))
+                read_pid, read_ts, read_client = read_pid[keep], read_ts[keep], read_client[keep]
+        cs = self._cluster_state
+        if cs is not None:
+            view = read_view(read_pid, state=cs)
+            if not self._integrity_on:
+                # Without corruption in the schedule or a scrubber the
+                # router ignores rot bits a resumed snapshot may carry.
+                view.slot_corrupt = None
+        else:
+            view = read_view(read_pid, placement=self._placement_for(self.current_rf))
+        res = self._router.route(
+            view.replica_map, view.slot_ok, view.node_throughput, ts=read_ts, pid=view.pid,
+            client=read_client, window_seconds=cfg.window_seconds,
+            rng=np.random.default_rng([int(cfg.serve.seed), int(w)]), edge_ms=self._edge_ms,
+            slot_corrupt=view.slot_corrupt)
+        rec.update(res.record_fields())
+        if self.serve_shed is not None:
+            # Only brownout runs carry the key.
+            rec["reads_shed"] = reads_shed
+        if res.corrupt_pairs is None or not len(res.corrupt_pairs):
+            return 0
+        for fid, node in res.corrupt_pairs:
+            cs.quarantine(int(fid), int(node))
+        if self._scrub is not None:
+            self._scrub.add_hints(res.corrupt_pairs[:, 0])
+        return len(res.corrupt_pairs)
+
+    def _edge_latency_ms(self, topology) -> np.ndarray | None:
+        """(n_nodes, n_nodes) cross-hierarchy propagation delay of a read:
+        ``service_ms`` times the ``edge_latency`` multiplier less one; None
+        for a topology without ``edge_latency``."""
+        if not getattr(topology, "edge_latency", ()):
+            return None
+        return float(self.cfg.serve.service_ms) * (topology.latency_matrix() - 1.0)
+
     def _ensure_accepted(self) -> None:
         """Turn the pending accepted decision into the host model arrays:
         float32 centroids, the category of each cluster and the category
@@ -700,9 +819,10 @@ class ReplicationController:
         frac = np.bincount(new_cat, minlength=len(CATEGORIES)).astype(np.float64)
         self._accepted_fractions = frac / max(len(labels), 1)
 
-    def _accept_plan(self, decision) -> None:
+    def _accept_plan(self, decision, trigger: str | None = None) -> None:
         """Diff the decision's plan against the applied plan and replace the
-        backlog with it."""
+        backlog with it; the moves are tagged ``hotspot`` when ``trigger``
+        is, else ``drift`` (a cold start is the first drift decision)."""
         labels = np.asarray(decision.labels)
         new_cat = self._accepted_file_cat
         if new_cat is None:
@@ -717,17 +837,20 @@ class ReplicationController:
         old_ref = np.where(old_cat >= 0, old_cat, 0)
         old_score = np.take_along_axis(file_scores, old_ref[:, None], axis=1)[:, 0]
         old_score = np.where(old_cat >= 0, old_score, file_scores.min(axis=1))
-        self.scheduler.submit(plan_diff(self.current_rf, new_rf, self.current_cat, new_cat,
-                                        self._sizes, priority=new_score - old_score))
+        moves = plan_diff(self.current_rf, new_rf, self.current_cat, new_cat, self._sizes,
+                          priority=new_score - old_score)
+        if len(moves):
+            self._move_cause[moves.file_index] = 2 if trigger == "hotspot" else 1
+        self.scheduler.submit(moves)
 
     def _placement_for(self, rf: np.ndarray):
-        """The flat rng placement of an rf vector (seed 0), cached on the
-        vector: move-free windows and the before/after pair reuse it."""
+        """The rng placement of an rf vector (seed 0) on the serve topology,
+        flat without serving; cached on the vector, so move-free windows,
+        the before/after pair and the router reuse it."""
         key = rf.tobytes()
         if self._placement_key != key:
-            self._placement = place_replicas(
-                self.manifest, rf.copy(), ClusterTopology(nodes=tuple(self.manifest.nodes)),
-                seed=0)
+            topology = self._serve_topology or ClusterTopology(nodes=tuple(self.manifest.nodes))
+            self._placement = place_replicas(self.manifest, rf.copy(), topology, seed=0)
             self._placement_key = key
         return self._placement
 
@@ -746,6 +869,11 @@ class ReplicationController:
             arrays.update({"dec_" + k: v for k, v in self.decayed_counters().items()})
         arrays["current_rf"] = self.current_rf
         arrays["current_cat"] = self.current_cat
+        # Move causes, sparse over the backlog (the only moves still to be
+        # admitted).
+        bl_fids = self.scheduler.backlog.file_index
+        arrays["move_cause_fids"] = bl_fids.copy()
+        arrays["move_cause_vals"] = self._move_cause[bl_fids]
         if self._accepted_centroids is not None:
             arrays["accepted_centroids"] = self._accepted_centroids
             arrays["accepted_category_idx"] = self._accepted_category_idx
@@ -754,6 +882,8 @@ class ReplicationController:
         if self._cluster_state is not None:
             arrays.update(self._cluster_state.state_arrays())
             arrays.update(self._repairs.state_arrays())
+        if self._hotspot is not None:
+            arrays.update(self._hotspot.state_arrays())
         if self._scrub is not None:
             arrays.update(self._scrub.state_arrays())
         meta = {
@@ -772,6 +902,7 @@ class ReplicationController:
             "backend": "torch",
             "n_files": len(self.manifest),
             "faults": self._cluster_state is not None,
+            "serve": self._router is not None,
             "scrub": self._scrub is not None,
         }
         if extra_meta:
@@ -781,16 +912,17 @@ class ReplicationController:
 
     def load_checkpoint(self, path: str) -> None:
         """Restore a snapshot of this controller; one taken under another
-        population size, k, backend, decay, window, fault mode or scrub
+        population size, k, backend, decay, window, fault, serve or scrub
         mode raises ``ValueError``."""
         arrays, meta = load_state(path)
         for key, want in (("n_files", len(self.manifest)), ("k", int(self.cfg.kmeans.k)),
                           ("backend", "torch"), ("decay", self.cfg.decay),
                           ("window_seconds", self.cfg.window_seconds),
                           ("faults", self._cluster_state is not None),
+                          ("serve", self._router is not None),
                           ("scrub", self._scrub is not None)):
             got = meta.get(key)
-            if key in ("faults", "scrub"):
+            if key in ("faults", "serve", "scrub"):
                 got = bool(got)
             if got != want:
                 raise ValueError(
@@ -809,6 +941,10 @@ class ReplicationController:
             self._dec_obs_end = meta.get("dec_obs_end")
         self.current_rf = arrays["current_rf"].astype(np.int32)
         self.current_cat = arrays["current_cat"].astype(np.int32)
+        self._move_cause = np.zeros(len(self.manifest), dtype=np.int8)
+        if "move_cause_fids" in arrays:
+            self._move_cause[arrays["move_cause_fids"]] = \
+                arrays["move_cause_vals"].astype(np.int8)
         if "accepted_centroids" in arrays:
             self._accepted_centroids = arrays["accepted_centroids"]
             self._accepted_category_idx = arrays["accepted_category_idx"]
@@ -819,6 +955,8 @@ class ReplicationController:
         if self._cluster_state is not None:
             self._cluster_state.load_state_arrays(arrays)
             self._repairs.load_state_arrays(arrays)
+        if self._hotspot is not None:
+            self._hotspot.load_state_arrays(arrays)
         if self._scrub is not None:
             self._scrub.load_state_arrays(arrays)
         self.window_index = int(meta["window_index"])

@@ -25,9 +25,12 @@ loop it adds:
   uninterrupted run's records bit for bit;
 * **lag and brownout** — the decision lag (from log bytes and
   timestamps, never the wall clock) drives ``daemon.brownout``'s ladder,
-  whose ``coalesce`` rung merges pending windows into one decision; a
-  window with fault events is never merged (the controller applies a
-  window's events at its own index only);
+  whose ``coalesce`` rung merges pending windows into one decision (a
+  window with fault events is never merged: the controller applies a
+  window's events at its own index only) and whose ``shed_reads`` rung
+  drops a seeded fraction of a serving controller's reads before routing
+  (``ControllerConfig.serve``; the records' ``reads_shed`` add up to the
+  digest's);
 * **decision tracing** — with a metrics sink, one ``decision_trace``
   event per decision whose integer-ns segments sum to its total, the
   slowest ``trace_exemplars`` with their span trees;

@@ -29,8 +29,8 @@ for ``cluster/evaluate.py``.
 The storage-strategy fields (``min_live``, ``shard_bytes``, ``ec_k``,
 ``region_local``, ``installed_shards``) stay at their replicate defaults
 here; re-encoding a file between strategies (``apply_strategy_target``)
-comes with storage (ROADMAP A8e), the growing topology of elasticity with
-A8d, and the functional and overlay states with A8f.
+comes with storage (ROADMAP A8e), and the growing topology of elasticity
+and the functional and overlay states with A8f.
 """
 
 from __future__ import annotations

@@ -1,15 +1,15 @@
 """Stream aggregation of ``cdrs_tpu/obs/aggregate.py``: the window-record
-digests (``pacing_digest`` with its ``percentile``, ``integrity_digest``),
-the stream folds the Prometheus renderer reads (``final_counters``,
-``merge_hist_buckets``, ``dedup_windows``) and the scenario cells'
-``coverage_fingerprint``."""
+digests (``pacing_digest`` with its ``percentile``, ``integrity_digest``,
+``serve_digest``), the stream folds the Prometheus renderer reads
+(``final_counters``, ``merge_hist_buckets``, ``dedup_windows``) and the
+scenario cells' ``coverage_fingerprint``."""
 
 from __future__ import annotations
 
 import hashlib
 
-__all__ = ["percentile", "pacing_digest", "integrity_digest", "merge_hist_buckets",
-           "dedup_windows", "final_counters", "coverage_fingerprint"]
+__all__ = ["percentile", "pacing_digest", "integrity_digest", "serve_digest",
+           "merge_hist_buckets", "dedup_windows", "final_counters", "coverage_fingerprint"]
 
 
 def percentile(values: list[float], q: float) -> float:
@@ -117,4 +117,39 @@ def integrity_digest(windows: list[dict]) -> dict | None:
         "scrub_bytes_total": sum(int(s.get("bytes", 0)) for s in scrubs),
         "scrub_copies_verified": sum(int(s.get("copies_verified", 0)) for s in scrubs),
         "scrub_starved_windows": sum(1 for s in scrubs if s.get("starved")),
+    }
+
+
+def serve_digest(windows: list[dict]) -> dict | None:
+    """Read-path SLO digest over the serving records (those carrying
+    ``reads_routed``); None when there are none.  Latency fields are None
+    when no window routed a read; outage windows still count toward the
+    unavailable fraction."""
+    sw = [w for w in windows if w.get("reads_routed") is not None]
+    if not sw:
+        return None
+    routed = sum(int(w.get("reads_routed", 0)) for w in sw)
+    unavail = sum(int(w.get("reads_unavailable", 0)) for w in sw)
+    total = routed + unavail
+    lat = [w for w in sw if w.get("latency_p99_ms") is not None]
+    hot = [w for w in sw if w.get("hotspot_files")]
+    last_lat = lat[-1] if lat else {}
+    burns = [float(w.get("slo_burn", 0.0)) for w in sw]
+    return {
+        "windows": len(sw),
+        "reads_routed": routed,
+        "reads_unavailable": unavail,
+        "unavailable_fraction": unavail / total if total else 0.0,
+        "latency_p50_ms_last": last_lat.get("latency_p50_ms"),
+        "latency_p99_ms_last": last_lat.get("latency_p99_ms"),
+        "latency_p99_ms_max": max((float(w["latency_p99_ms"]) for w in lat), default=None),
+        "slo_burn_max": max(burns),
+        "slo_burn_mean": sum(burns) / len(burns),
+        "utilization_max": max(float(w.get("utilization_max", 0.0)) for w in sw),
+        "hotspot_windows": len(hot),
+        "hotspot_files_last": list(hot[-1].get("hotspot_files", ())) if hot else [],
+        "hotspot_reclusters": sum(1 for w in sw if w.get("recluster_trigger") == "hotspot"),
+        "locality_last": sw[-1].get("serve_locality"),
+        "reads_corrupt_served": sum(int(w.get("reads_corrupt_served") or 0) for w in sw),
+        "reads_corrupt_detected": sum(int(w.get("reads_corrupt_detected") or 0) for w in sw),
     }

@@ -5,7 +5,7 @@ An ``EpochMap`` keeps the history of topologies; ``placement`` computes
 the hash placement of any subset of files under one epoch, resolving the
 manifest's primaries onto that epoch's topology by node name.  The epoch
 diff (``diff``, ``EpochDiff``, ``addition_moved``) serves the elastic
-path and is not ported yet (ROADMAP A8d).
+path and is not ported yet (ROADMAP A8f, with elasticity).
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@ the port's controller.
 
 ``run_cell`` turns a ``ScenarioSpec`` into a run of the port's
 ``ReplicationController`` on ``device`` (CUDA unless "cpu" is asked for) —
-manifest, workload curve, drift phases, fault schedule, topology, scrubber
-— and checks invariants, not just metrics:
+manifest, workload curve, drift phases, fault schedule, topology, scrubber,
+read path — and checks invariants, not just metrics:
 
 * **zero silent loss** — no file ends lost (``durability.lost``), no file
   ends truly lost (``integrity.true_lost``) and no rot outlives a scrubber;
@@ -21,13 +21,16 @@ manifest, workload curve, drift phases, fault schedule, topology, scrubber
   corruption rotted or found: an axis that silently did nothing fails;
 * **alerting** — a cell's expected alerts (obs/alerts.py) fire and its
   forbidden ones stay silent;
+* **the read path** (``spec.serve``) — reads were routed, and the last
+  window in which reads happened has a finite p99 within the cell's bound,
+  refused no read and, where the cell sets one, kept its SLO burn;
 * **the daemon** (``spec.daemon``) — the same stream through the streaming
   daemon: records equal to the batch run's, at least two epochs, the pinned
   epoch frozen, stop/resume stitching exact, decision traces reconciled,
   and the live HTTP plane scraped over real HTTP.
 
-A cell that needs an axis the port does not run yet (serving, elasticity,
-storage, a hash placement, a mesh) is refused before anything is built,
+A cell that needs an axis the port does not run yet (elasticity, storage,
+a hash placement, a mesh) is refused before anything is built,
 with the ROADMAP item that brings it (:func:`unported_axes`).  A failing
 cell carries a one-line repro command (:func:`repro_line`).
 """
@@ -62,7 +65,6 @@ _DEFAULT_FLIP = {"hot": "archival", "archival": "hot"}
 #: Axes of the reference's matrix that the port does not run yet: (axis,
 #: present in the spec, the ControllerConfig option that refuses it).
 _UNPORTED_AXES = (
-    ("serve", lambda s: s.serve is not None, "serve"),
     ("elastic", lambda s: s.elastic is not None, "elastic"),
     ("storage", lambda s: bool(s.storage), "storage"),
     ("placement", lambda s: s.placement != "materialized", "placement_mode"),
@@ -186,6 +188,18 @@ def _controller(spec: ScenarioSpec, manifest: Manifest, schedule: FaultSchedule 
         from ..faults import ScrubConfig
 
         scrub = ScrubConfig(bytes_per_window=int(spec.scrub))
+    serve = None
+    if spec.serve is not None:
+        from ..serve import ServeConfig, SloSpec
+
+        sv = spec.serve
+        serve = ServeConfig(
+            policy=sv.get("policy", "p2c"), seed=int(sv.get("seed", 0)),
+            service_ms=float(sv.get("service_ms", 0.5)),
+            slo=SloSpec(target_ms=float(sv.get("slo_ms", 10.0)),
+                        availability=float(sv.get("availability", 0.999))),
+            recluster_on_hotspot=bool(sv.get("recluster_on_hotspot", True)),
+            verify_reads=bool(sv.get("verify_reads", True)))
     max_bytes = None
     if spec.budget_frac is not None:
         sizes = np.asarray(manifest.size_bytes, dtype=np.int64)
@@ -203,6 +217,7 @@ def _controller(spec: ScenarioSpec, manifest: Manifest, schedule: FaultSchedule 
         scoring=_scoring(spec),
         topology=topology,
         fault_schedule=None if schedule is None else FaultSchedule(schedule.events),
+        serve=serve,
         scrub=scrub,
         device=device,
     )
@@ -212,6 +227,14 @@ def _controller(spec: ScenarioSpec, manifest: Manifest, schedule: FaultSchedule 
 def _strip(records: list[dict]) -> list[dict]:
     """Records without the wall-clock ``seconds``: the bit-identity key."""
     return [{k: v for k, v in r.items() if k != "seconds"} for r in records]
+
+
+def _served_windows(records: list[dict]) -> list[dict]:
+    """Windows in which reads happened, routed or refused: the one
+    definition behind the SLO invariants and the reported final p99 (an
+    outage that refuses every read to the end stays the final window)."""
+    return [r for r in records if r.get("reads_routed") is not None
+            and int(r.get("reads_routed", 0)) + int(r.get("reads_unavailable", 0)) > 0]
 
 
 def _check_invariants(spec: ScenarioSpec, records: list[dict], max_bytes: int | None,
@@ -274,6 +297,23 @@ def _check_invariants(spec: ScenarioSpec, records: list[dict], max_bytes: int | 
             inv["alerts_silent"] = not (fired - expect)
         elif forbid:
             inv["alerts_silent"] = not (fired & set(forbid))
+    if spec.serve is not None:
+        served = _served_windows(records)
+        inv["serve_engaged"] = sum(int(r.get("reads_routed", 0)) for r in served) > 0
+        if served:
+            last = served[-1]
+            p99 = last.get("latency_p99_ms")
+            # A final window that routed nothing has no latency sample: an
+            # SLO failure, not a vacuous pass.
+            ok = p99 is not None and np.isfinite(p99)
+            bound = spec.serve.get("p99_max_ms")
+            if ok and bound is not None:
+                ok = p99 <= float(bound)
+            inv["slo_p99"] = bool(ok)
+            inv["slo_no_unavailable_final"] = last.get("reads_unavailable", 0) == 0
+            burn_max = spec.serve.get("burn_max")
+            if burn_max is not None:
+                inv["slo_burn"] = last.get("slo_burn", 0.0) <= float(burn_max)
     return inv
 
 
@@ -364,9 +404,9 @@ def coverage_bits(records: list[dict], inv: dict, alerts_fired: set) -> list[str
     """The behaviour the run showed, as sorted bits: ``fault:<kind>``
     applied, ``tier:<name>`` entered (``true_lost`` included),
     ``repair:<branch>`` taken, ``integrity:detected_*``, ``scrub:*``,
-    ``recluster:<trigger>``, ``cause:<name>`` charged, ``alert:<name>``
-    fired and ``inv:<name>`` evaluated.  (The reference's ``serve:*`` bits
-    come with serving, A8d; its ``degraded:kernel_fallback`` has no
+    ``recluster:<trigger>``, ``serve:unavailable`` and ``serve:hotspot``,
+    ``cause:<name>`` charged, ``alert:<name>`` fired and ``inv:<name>``
+    evaluated.  (The reference's ``degraded:kernel_fallback`` has no
     counterpart: a failed re-cluster stops the port's run.)"""
     bits: set[str] = set()
     for r in records:
@@ -390,6 +430,10 @@ def coverage_bits(records: list[dict], inv: dict, alerts_fired: set) -> list[str
                 bits.add("scrub:starved")
         if r.get("recluster"):
             bits.add("recluster:" + str(r.get("recluster_trigger")))
+        if int(r.get("reads_unavailable", 0) or 0):
+            bits.add("serve:unavailable")
+        if r.get("hotspot_files"):
+            bits.add("serve:hotspot")
         bits.update("cause:" + cause for cause in r.get("causes") or ())
     bits.update("alert:" + a for a in alerts_fired)
     bits.update("inv:" + k for k in inv)
@@ -478,9 +522,18 @@ def run_cell(spec: ScenarioSpec, *, suite: str | None = None, suite_seed: int = 
         metrics.update({k: d[k] for k in ("repair_bytes_total", "files_lost_max",
                                           "lost_final", "unavailable_reads")})
     metrics["alerts_fired"] = sorted(alerts_fired)
+    served = _served_windows(records)
+    if served:
+        metrics["latency_p99_ms_final"] = served[-1].get("latency_p99_ms")
     if "integrity" in summary:
         metrics["true_lost_final"] = summary["integrity"]["true_lost_final"]
         metrics["corrupt_copies_final"] = summary["integrity"]["corrupt_copies_final"]
+    bench_records = [{"metric": f"scenario_{spec.name}_churn_bytes", "value": float(churn),
+                      "unit": "bytes", "direction": "lower", "backend": "torch"}]
+    if served and metrics.get("latency_p99_ms_final") is not None:
+        bench_records.append({"metric": f"scenario_{spec.name}_p99_ms",
+                              "value": float(metrics["latency_p99_ms_final"]), "unit": "ms",
+                              "backend": "torch"})
     coverage = coverage_bits(records, inv, alerts_fired)
     return {
         "cell": spec.name,
@@ -491,10 +544,7 @@ def run_cell(spec: ScenarioSpec, *, suite: str | None = None, suite_seed: int = 
         "metrics": metrics,
         "coverage": coverage,
         "fingerprint": coverage_fingerprint(coverage),
-        "bench_records": [{
-            "metric": f"scenario_{spec.name}_churn_bytes", "value": float(churn),
-            "unit": "bytes", "direction": "lower", "backend": "torch",
-        }],
+        "bench_records": bench_records,
         "seconds": round(time.perf_counter() - t0, 3),
         "repro": repro_line(spec, suite, suite_seed),
     }

@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernel checks only (no ok line)
+    python3 chip_smoke.py --phase 10 # build, kernel checks and one phase (9 or
+                                     # 10) alone; no ok line
 
 Phases, each of which exits non-zero when a check fails:
 
@@ -73,14 +75,14 @@ Phases, each of which exits non-zero when a check fails:
 8. The chaos controller (the fault, repair and scrub path) on CUDA over
    phase 5's population and events, with phase 6's settings (the 250,000
    files a window shared by repairs, scrub and migrations), rf >= 2 from
-   the start, dn2 crashed over windows 2-4, 5% of dn1's copies rotten at
+   the start, dn2 crashed over windows 2-3, 5% of dn1's copies rotten at
    window 1, a 50 GB scrub budget a window and repair seed 0: (a) B1 =
    sum(n_iter + 1) and B2 = 12 per re-cluster by the counters, dn2 down and
-   repairs in windows 2-4, durability and integrity in every window, no
+   repairs in windows 2-3, durability and integrity in every window, no
    file lost while two nodes live beyond the rotten copies the scrubber
    had quarantined, and a kill after window 3 (the run's snapshot then,
-   copied aside) resumed in a new controller (its first window, faulted,
-   profiled for the idle share) giving every later record but ``seconds``
+   copied aside) resumed in a new controller (its first window, dn2's
+   recovery, profiled for the idle share) giving every later record but ``seconds``
    and the final ``ClusterState.state_arrays()`` of the uninterrupted run;
    (b) phase 4's workload on 12 nodes in 4 racks with a
    whole-rack kill, a partition and a straggler, whose plan hashes,
@@ -89,7 +91,8 @@ Phases, each of which exits non-zero when a check fails:
    whose float64 accumulators and plan hashes on the card equal the CPU's.
 9. The scenario matrix (``cdrs_tpu_torch.scenarios.run_cell``) on CUDA:
    (a) every cell of the ``full`` suite at suite seed 0 whose axes the port
-   runs (the ten ported ``ci-smoke`` cells and ``control-shift``), each
+   runs (the sixteen ported ``ci-smoke`` cells, ``control-shift`` and the
+   serving ``random-s0-3``), each
    ``ok`` from the card's own cold init (the rows its D² init picked are
    logged; a cell of ``SCENARIO_QUEUE_C`` must fail exactly its recorded
    invariants there), with B1 = sum(n_iter + 1) over the cell's
@@ -101,6 +104,26 @@ Phases, each of which exits non-zero when a check fails:
    no alert gating), ``ok`` to its end, with B1 = sum(n_iter + 1) and B2 =
    12 per re-cluster (2.5M rows resolve to bisection), its mean seconds a
    window by stage and the idle share of one profiled window.
+10. The read path: (a) the serving controller (``ServeConfig(policy=
+   "p2c")``) on CUDA over phase 3's population and a flash crowd (phase 3's
+   traffic plus a seeded 1% cohort of hot files, 25,000, boosted 40x over
+   [30 s, 36 s)), with phase 6's settings and a drift threshold above any
+   drift score, so that only the cold start and the hotspot re-cluster: at
+   least one ``hotspot`` re-cluster, B1 = sum(n_iter + 1) and B2 = 12 per
+   re-cluster by the counters, the ``serve`` digest, seconds a window by
+   stage (``hotspot`` and ``serve`` among them), the idle share of the
+   profiled hotspot window, and a kill after window 3 resumed in a new
+   controller giving the uninterrupted records and hotspot baseline; (b)
+   ``python -m cdrs_tpu_torch serve`` over 10a's manifest and log (p2c,
+   host only: it runs with no card visible), its digest and routed reads a
+   second; (c) at 20,000 files on 6 nodes in 3 racks the serving chaos
+   controller with a partition and a straggler, and with rot and verified
+   reads, on the card and on the CPU from one init: every record (drift
+   scalars within 1e-6), ``state_arrays()`` and the hotspot baseline
+   equal, and reads detecting rot; (d) at 20,000 files the daemon with
+   serving and the brownout ladder forced to ``shed_reads`` (burn trip
+   wire 0): reads shed in the shed windows and every record equal to a
+   controller's fed the same windows under the same ``serve_shed``.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It imports nothing of the JAX
@@ -114,6 +137,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -131,14 +155,16 @@ MB_BATCH = 262_144           # rows per mini-batch update
 CONTROL_WINDOW = 10.0        # seconds per controller window
 CONTROL_MAX_FILES = 250_000  # migrated files per window
 CONTROL_KILL_AFTER = 3       # windows before the simulated kill
-CHAOS_KILL = "dn2@2-4"       # crash at window 2, recover at 5
+CHAOS_KILL = "dn2@2-3"       # crash at window 2, recover at 4
 CHAOS_CORRUPT = "dn1@1:0.05"  # 5% of dn1's copies rot at window 1
 CHAOS_SCRUB_BYTES = 50_000_000_000   # scrub verification reads a window
 CHAOS_RACKS = "r0=dn1,dn2,dn3;r1=dn4,dn5,dn6;r2=dn7,dn8,dn9;r3=dn10,dn11,dn12"
 #: The cells of 9a: the full suite's ported cells at suite seed 0.
 SCENARIO_CELLS = ("control-shift", "chaos-kill", "rack-kill", "rack-partition", "cascade",
                   "rolling-decommission", "integrity-scrub", "daemon-stream",
-                  "adversarial-drift", "gradual-drift", "random-s0-0")
+                  "adversarial-drift", "gradual-drift", "random-s0-0", "serve-chaos",
+                  "flash-crowd", "slo-burn", "integrity-read", "diurnal", "random-s0-1",
+                  "random-s0-3")
 SCENARIO_SCALE = {"n_files": MAIN_FILES, "duration": MAIN_DURATION, "alerts": None}  # 9b's cuts
 #: Cells red on the card's own cold init, with the reference red on that
 #: init too (ROADMAP Queue C): the entry and the invariants that fail.
@@ -146,6 +172,16 @@ SCENARIO_SCALE = {"n_files": MAIN_FILES, "duration": MAIN_DURATION, "alerts": No
 SCENARIO_QUEUE_C = {"rack-kill": ("ROADMAP Queue C2 (repair_backlog holds 2 windows, its "
                                   "rule needs 3)", ["alerts_expected"])}
 SCENARIO_PROFILED_WINDOW = 10
+SERVE_COHORT_FRAC = 0.01     # 10a: flash-crowd cohort, a share of all files (hot ones)
+SERVE_BURST = (30.0, 6.0)    # 10a: burst start and length in seconds of the span
+SERVE_BOOST = 40.0
+#: 10a: above any drift score (a max of an RMS shift of [0, 1] features and a
+#: total-variation distance), so only the cold start and hotspots re-cluster.
+SERVE_DRIFT_THRESHOLD = 100.0
+SERVE_PROFILED_WINDOW = 3    # the window [30 s, 40 s) the burst lands in
+SERVE_RACKS = "r0=dn1,dn2;r1=dn3,dn4;r2=dn5,dn6"
+SERVE_STAGES = ("fold", "hotspot", "drift", "recluster", "plan", "schedule", "serve",
+                "evaluate", "total")
 
 
 def fail(msg: str) -> None:
@@ -1309,10 +1345,11 @@ def phase_chaos(manifest, events):
         check(launches["seg_count"] == 12 * len(seen),
               f"chaos made {launches['seg_count']} threshold-count launches, expected "
               f"{12 * len(seen)}")
-        check(len(recs) >= 5, f"chaos ran {len(recs)} windows, the kill spans windows 2-4")
+        check(len(recs) >= 5, f"chaos ran {len(recs)} windows, the kill spans windows 2-3 "
+              f"and the recovery window 4")
         check(recs[2]["fault_events"] == [f"crash:{CHAOS_KILL.split('-')[0]}"],
               f"window 2's fault events are {recs[2]['fault_events']}")
-        for r in recs[2:5]:
+        for r in recs[2:4]:
             check(r["nodes_up"] == 2 and r["durability"]["nodes_up"] == 2
                   and r["repair_moves"] > 0,
                   f"window {r['window']}: nodes up {r['nodes_up']}, repairs "
@@ -1625,10 +1662,360 @@ def scenario_at_scale(seen):
     return launches
 
 
+def serve_config(device: str, **kw):
+    """Phase 6's settings with the read path (p2c, defaults)."""
+    import dataclasses
+
+    from cdrs_tpu_torch.serve import ServeConfig
+
+    return dataclasses.replace(control_config(device), serve=ServeConfig(policy="p2c"), **kw)
+
+
+def flash_crowd_events(manifest):
+    """Phase 3's traffic plus the flash crowd of 10a; returns the log and the
+    cohort's size."""
+    import numpy as np
+
+    from cdrs_tpu_torch import SimulatorConfig
+    from cdrs_tpu_torch.sim.access import simulate_flash_crowd
+
+    hot = np.flatnonzero(np.asarray(manifest.category) == "hot")
+    n = int(SERVE_COHORT_FRAC * len(manifest))
+    cohort = np.zeros(len(manifest), dtype=bool)
+    cohort[np.random.default_rng(MAIN_SEED).choice(hot, n, replace=False)] = True
+    events, _ = simulate_flash_crowd(
+        manifest, SimulatorConfig(duration_seconds=MAIN_DURATION, seed=MAIN_SEED + 1),
+        cohort=cohort, start=SERVE_BURST[0], duration=SERVE_BURST[1], boost=SERVE_BOOST)
+    return events, n
+
+
+def profile_phases(ctl, window, prof):
+    """Profile window ``window`` of ``ctl``'s run (its phase A through its
+    phase B) with torch.profiler; fills ``prof`` with the host wall time,
+    device busy time, idle share and the kernels' launches seen."""
+    import torch
+    from torch.autograd import DeviceType
+
+    phase_a, phase_b = ctl._window_phase_a, ctl._window_phase_b
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def profiled_a(w, events):
+        if w == window:
+            prof["p"] = torch.profiler.profile(activities=acts)
+            prof["p"].__enter__()
+        return phase_a(w, events)
+
+    def profiled_b(ctx):
+        rec = phase_b(ctx)
+        if ctx["w"] == window:
+            torch.cuda.synchronize()
+            p = prof.pop("p")
+            p.__exit__(None, None, None)
+            busy_us, lloyd, seg = 0.0, 0, 0
+            for ev in p.events():
+                if ev.device_type == DeviceType.CUDA:
+                    busy_us += ev.time_range.elapsed_us()
+                    lloyd += "lloyd_" in ev.name
+                    seg += "seg_" in ev.name
+            wall = rec["seconds"]["total"]
+            prof.update(window=rec["window"], trigger=rec["recluster_trigger"],
+                        mode=rec["recluster_mode"], wall_s=wall, device_busy_s=busy_us / 1e6,
+                        idle_share=1 - busy_us / 1e6 / wall if busy_us else None,
+                        lloyd_launches_seen=lloyd, seg_launches_seen=seg,
+                        seconds=rec["seconds"])
+        return rec
+
+    ctl._window_phase_a, ctl._window_phase_b = profiled_a, profiled_b
+
+
+def phase_serve(manifest, work):
+    """Phase 10: the serving controller at the main path's scale (10a), the
+    ``serve`` command over its log (10b, in a child process from the
+    start), and the card against the CPU at 20,000 files (10c, 10d).
+    Returns the kernels' launches in 10a."""
+    # 10b runs in a child from the start: it writes 10a's manifest and log
+    # (the same seeded generation) and runs the serve command over them.
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    child_log = os.path.join(work, "serve_child.log")
+    with open(child_log, "w") as out:
+        child = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+                 f"sys.exit(chip_smoke.serve_cli_child({work!r}))")
+        cli = subprocess.Popen([sys.executable, "-c", child], cwd=work, env=env, stdout=out,
+                               stderr=subprocess.STDOUT, start_new_session=True)
+    try:
+        launches, n_reads = serve_at_scale(manifest, work)
+        serve_card_cpu()
+        daemon_shed()
+        rc = cli.wait(timeout=900)
+    finally:
+        if cli.poll() is None:
+            os.killpg(cli.pid, signal.SIGKILL)
+            cli.wait()
+    with open(child_log) as f:
+        child_text = f.read()
+    for line in child_text.splitlines():
+        if line.startswith("serve cli"):
+            log(line)
+    check(rc == 0, f"the serve command's child exited {rc}: {child_text[-2000:]}")
+    with open(os.path.join(work, "serve_cli.json")) as f:
+        cli_out = json.load(f)
+    log("serve cli " + json.dumps(cli_out))
+    log(f"serve cli: host only (CUDA_VISIBLE_DEVICES empty; the command takes no --device and "
+        f"runs no kernel), {cli_out.get('reads_routed')} reads routed in "
+        f"{cli_out.get('seconds')} s of routing ({cli_out.get('routed_reads_per_sec')} reads/s)")
+    check(cli_out.get("reads_routed", 0) + cli_out.get("reads_unavailable", 0) == n_reads,
+          f"the serve command routed {cli_out.get('reads_routed')} + refused "
+          f"{cli_out.get('reads_unavailable')} reads; 10a saw {n_reads}")
+    check(cli_out.get("latency_p99_ms_last") is not None
+          and cli_out.get("hotspot_windows", 0) >= 1, f"the serve command's digest {cli_out}")
+    return launches
+
+
+def serve_cli_child(work) -> int:
+    """10b's child process: 10a's manifest and flash-crowd log written as a
+    CSV manifest and a ``.cdrsb`` log, then ``python -m cdrs_tpu_torch
+    serve`` over them, its JSON digest into ``serve_cli.json``."""
+    from cdrs_tpu_torch import GeneratorConfig
+    from cdrs_tpu_torch.sim.generator import generate_population
+
+    t0 = time.perf_counter()
+    manifest = generate_population(GeneratorConfig(n_files=MAIN_FILES, seed=MAIN_SEED))
+    events, _ = flash_crowd_events(manifest)
+    man_path, log_path = os.path.join(work, "serve_m.csv"), os.path.join(work, "serve.cdrsb")
+    manifest.write_csv(man_path)
+    events.write_binary(log_path, manifest)
+    log(f"serve cli inputs: manifest csv {os.path.getsize(man_path)} B, log "
+        f"{os.path.getsize(log_path)} B, generated and written in "
+        f"{time.perf_counter() - t0:.3f} s")
+    del manifest, events
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "serve_cli.json"), "w") as out:
+        rc = subprocess.run([sys.executable, "-m", "cdrs_tpu_torch", "serve", "--manifest",
+                             man_path, "--access_log", log_path, "--window_seconds",
+                             str(CONTROL_WINDOW), "--policy", "p2c"], cwd=work, stdout=out,
+                            timeout=900).returncode
+    log(f"serve cli command: exit {rc}, {time.perf_counter() - t0:.3f} s with start-up and "
+        f"the manifest parse, alongside 10a, 10c and 10d")
+    return rc
+
+
+def serve_at_scale(manifest, work):
+    """10a; returns the kernels' launches and the reads the windows saw."""
+    from cdrs_tpu_torch.control.controller import ReplicationController
+    from cdrs_tpu_torch.device import deterministic
+    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
+    from cdrs_tpu_torch.ops.seg_count import label_threshold_count
+
+    t0 = time.perf_counter()
+    events, n_cohort = flash_crowd_events(manifest)
+    sim_s = time.perf_counter() - t0
+    log(f"serve workload: {len(manifest)} files, {len(events)} events with a flash crowd of "
+        f"{n_cohort} hot files x{SERVE_BOOST:g} over [{SERVE_BURST[0]:g} s, "
+        f"{SERVE_BURST[0] + SERVE_BURST[1]:g} s); simulate {sim_s:.3f} s")
+    config = lambda: serve_config("cuda", drift_threshold=SERVE_DRIFT_THRESHOLD)  # noqa: E731
+    ck = os.path.join(work, "serve_killed.npz")
+    with deterministic():
+        ctl = ReplicationController(manifest, config())
+        seen = watch_reclusters(ctl)
+        save = ctl.save_checkpoint
+
+        def save_and_keep(path, *args, **kw):
+            save(path, *args, **kw)
+            if ctl.window_index == CONTROL_KILL_AFTER + 1:
+                shutil.copyfile(path, ck)
+
+        ctl.save_checkpoint = save_and_keep
+        prof: dict = {}
+        profile_phases(ctl, SERVE_PROFILED_WINDOW, prof)
+        lloyd_assign_reduce.launches = 0
+        label_threshold_count.launches = 0
+        t0 = time.perf_counter()
+        full = ctl.run(events, checkpoint_path=os.path.join(work, "serve_full.npz"))
+        wall = time.perf_counter() - t0
+        launches = {"lloyd": lloyd_assign_reduce.launches,
+                    "seg_count": label_threshold_count.launches}
+    recs = full.records
+    triggers = [r["recluster_trigger"] for r in recs]
+    drifts = [r["drift"] for r in recs]
+    log(f"serve control: {len(recs)} windows of {CONTROL_WINDOW:g} s; wall {wall:.3f} s "
+        f"(checkpoints included); re-cluster triggers {triggers}, modes "
+        f"{[r['recluster_mode'] for r in recs]}, drift scores {drifts} (threshold "
+        f"{SERVE_DRIFT_THRESHOLD:g}), Lloyd iterations {[c['n_iter'] for c in seen]}, "
+        f"launches {launches}")
+    for r in recs:
+        log("serve window " + json.dumps(
+            {k: r.get(k) for k in ("window", "n_events", "n_reads", "drift", "hotspot_score",
+                                   "recluster_trigger", "recluster_mode", "reads_routed",
+                                   "reads_unavailable", "serve_locality", "latency_p50_ms",
+                                   "latency_p95_ms", "latency_p99_ms", "utilization_max",
+                                   "slo_burn", "moves_applied", "causes", "plan_hash",
+                                   "seconds")}
+            | {"hotspot_files_head": (r.get("hotspot_files") or [])[:3]}))
+    per_stage = {st: sum(r["seconds"].get(st, 0.0) for r in recs) / len(recs)
+                 for st in SERVE_STAGES}
+    log("serve stages mean seconds per window " + json.dumps(per_stage))
+    summary = full.summary()
+    log("serve summary " + json.dumps(summary))
+    log("serve profile " + json.dumps(prof))
+    check("hotspot" in triggers, f"no hotspot re-cluster in 10a: triggers {triggers}")
+    check(triggers[0] == "cold" and all(t in (None, "hotspot") for t in triggers[1:]),
+          f"10a re-clustered on {triggers}, expected the cold start and hotspots only")
+    check(max((d for d in drifts if d is not None), default=0.0) < SERVE_DRIFT_THRESHOLD,
+          "a drift score reached 10a's threshold")
+    check(len(seen) == sum(t is not None for t in triggers),
+          f"10a: {len(seen)} model runs for {sum(t is not None for t in triggers)} re-clusters")
+    want_lloyd = sum(c["n_iter"] + 1 for c in seen)
+    check(launches["lloyd"] == want_lloyd,
+          f"10a made {launches['lloyd']} Lloyd launches, expected {want_lloyd}")
+    check(launches["seg_count"] == 12 * len(seen),
+          f"10a made {launches['seg_count']} threshold-count launches, expected "
+          f"{12 * len(seen)}")
+    sd = summary.get("serve") or {}
+    check(sd.get("windows") == len(recs) and sd.get("reads_routed", 0) > 0
+          and sd.get("hotspot_reclusters", 0) >= 1 and sd.get("latency_p99_ms_max") is not None
+          and math.isfinite(sd["latency_p99_ms_max"]), f"10a serve digest {sd}")
+    check(all({"hotspot", "serve"} <= set(r["seconds"]) for r in recs if r["n_events"]),
+          "a 10a window lacks its hotspot or serve seconds")
+    check(all(r["reads_routed"] + r["reads_unavailable"] == r["n_reads"] for r in recs),
+          "10a routed and refused reads do not add up to the window's reads")
+    check(prof.get("window") == SERVE_PROFILED_WINDOW and prof.get("trigger") == "hotspot",
+          f"the profiled window is not the hotspot window: {prof.get('window')} "
+          f"{prof.get('trigger')}")
+
+    check(os.path.exists(ck), "no snapshot after window 3")
+    with deterministic():
+        rest_ctl = ReplicationController(manifest, config())
+        rest_ctl.load_checkpoint(ck)
+        rest = rest_ctl.run(events)
+    check(strip_seconds(rest.records) == strip_seconds(recs[CONTROL_KILL_AFTER + 1:]),
+          "10a kill/resume records differ from the uninterrupted run's")
+    check(rest_ctl._hotspot.ewma.tobytes() == ctl._hotspot.ewma.tobytes(),
+          "10a kill/resume hotspot baseline differs from the uninterrupted run's")
+    log(f"serve kill/resume: killed after window {CONTROL_KILL_AFTER}, resumed; records "
+        f"identical apart from seconds in windows {[r['window'] for r in rest.records]}, "
+        f"serve_ewma identical ({len(manifest)} float64)")
+    return launches, sum(r["n_reads"] for r in recs)
+
+
+def _records_match(got, want, what):
+    """Every record equal but ``seconds``, drift scalars within 1e-6."""
+    check(len(got) == len(want) > 0, f"{what}: {len(got)} vs {len(want)} records")
+    drift_keys = ("drift", "centroid_shift", "population_delta")
+    for g, w in zip(got, want):
+        check(set(g) == set(w), f"{what} window {w['window']}: keys {set(g) ^ set(w)}")
+        for key in w:
+            if key == "seconds":
+                continue
+            if key in drift_keys and w[key] is not None:
+                check(abs(g[key] - w[key]) <= 1e-6, f"{what} window {w['window']}: {key} "
+                      f"{g[key]} vs {w[key]}")
+            else:
+                check(g[key] == w[key], f"{what} window {w['window']}: {key} {g[key]} vs "
+                      f"{w[key]}")
+
+
+def serve_card_cpu():
+    """10c: phase 4's workload on 6 nodes in 3 racks, the serving chaos
+    controller on the card and on the CPU from one init."""
+    import numpy as np
+
+    from cdrs_tpu_torch.cluster.placement import ClusterTopology
+    from cdrs_tpu_torch.control.controller import ReplicationController
+    from cdrs_tpu_torch.serve import ServeConfig
+
+    nodes = tuple(f"dn{i}" for i in range(1, 7))
+    manifest, events = _phase4_workload(nodes)
+    topo = ClusterTopology.from_rack_spec(nodes, SERVE_RACKS)
+    for shape, specs in (("serve-chaos", ["partition:dn2@1-3", "degrade:dn3@1-4:0.25"]),
+                         ("integrity-read", ["corrupt:dn2@1:0.5"])):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            ctl = ReplicationController(manifest, chaos_config(
+                dev, specs, topology=topo, serve=ServeConfig(policy="p2c", verify_reads=True)))
+            watch_reclusters(ctl, cpu_init)
+            runs[dev] = (ctl, ctl.run(events))
+        (ctl_c, res_c), (ctl_p, res_p) = runs["cuda"], runs["cpu"]
+        recs = res_c.records
+        log(f"serve {shape} at {len(manifest)} files on 6 nodes in 3 racks, {specs}: p99 ms "
+            f"{[r['latency_p99_ms'] for r in recs]}, unavailable "
+            f"{[r['reads_unavailable'] for r in recs]}, detected_read "
+            f"{[r['integrity']['detected_read'] for r in recs if 'integrity' in r]}, "
+            f"plan hashes {[r['plan_hash'] for r in recs]}")
+        _records_match(recs, res_p.records, f"10c {shape} card vs cpu")
+        got, want = ctl_c._cluster_state.state_arrays(), ctl_p._cluster_state.state_arrays()
+        check(set(got) == set(want) and all(np.array_equal(got[k], want[k]) for k in want),
+              f"10c {shape}: final state_arrays differ between the card and the CPU")
+        check(ctl_c._hotspot.ewma.tobytes() == ctl_p._hotspot.ewma.tobytes(),
+              f"10c {shape}: serve_ewma differs between the card and the CPU")
+        if shape == "integrity-read":
+            check(sum(r["integrity"]["detected_read"] for r in recs) > 0,
+                  "10c: the reads detected no rot")
+        else:
+            p99 = [r["latency_p99_ms"] for r in recs]
+            check(recs[1]["fault_events"] and max(p99[1:5]) > p99[0],
+                  f"10c: the partition and the straggler changed nothing (p99 ms {p99})")
+        log(f"serve {shape} card vs cpu: every record (drift within 1e-6), state_arrays and "
+            f"serve_ewma equal in all {len(recs)} windows")
+
+
+def daemon_shed():
+    """10d: phase 4's workload through the serving daemon with the brownout
+    ladder forced up (burn trip wire 0), then the same windows through a
+    controller under the same ``serve_shed``."""
+    from cdrs_tpu_torch.control.controller import ReplicationController
+    from cdrs_tpu_torch.daemon import BrownoutConfig, DaemonConfig, StreamDaemon
+    from cdrs_tpu_torch.daemon.brownout import RUNGS
+    from cdrs_tpu_torch.device import deterministic
+
+    manifest, events = _phase4_workload()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "shed.cdrsb")
+        events.write_binary(path, manifest)
+        ctl = ReplicationController(manifest, serve_config("cuda"))
+        watch_reclusters(ctl, cpu_init)
+        calls = []
+        decide = ctl.process_window
+
+        def captured(w, ev):
+            calls.append((w, ev, ctl.serve_shed))
+            return decide(w, ev)
+
+        ctl.process_window = captured
+        daemon = StreamDaemon(ctl, DaemonConfig(brownout=BrownoutConfig(burn_engage=0.0)))
+        dig = daemon.run(path)
+    recs = daemon.records
+    replay = ReplicationController(manifest, serve_config("cuda"))
+    watch_reclusters(replay, cpu_init)
+    want = []
+    with deterministic():
+        for w, ev, shed in calls:
+            replay.serve_shed = shed
+            want.append(replay.process_window(w, ev))
+    shed_recs = [r for r in recs if r["daemon"]["brownout_level"] == len(RUNGS)]
+    log(f"serve daemon shed at {len(manifest)} files: {len(recs)} decisions, levels "
+        f"{[r['daemon']['brownout_level'] for r in recs]}, coalesced "
+        f"{[r['daemon']['coalesced'] for r in recs]}, reads {[r['n_reads'] for r in recs]}, "
+        f"shed {[r.get('reads_shed') for r in recs]}, digest reads_shed "
+        f"{dig['brownout']['reads_shed']}")
+    check(len(shed_recs) >= 1, "the ladder never reached shed_reads")
+    check(all("reads_shed" in r for r in recs[1:]), "a window after the first lacks reads_shed")
+    check(all(0 < r["reads_shed"] < r["n_reads"] for r in recs[1:] if r["n_reads"] > 100),
+          "a shed window shed no read or every read")
+    check(dig["brownout"]["reads_shed"] == sum(r.get("reads_shed", 0) for r in recs) > 0,
+          "the digest's reads_shed is not the records' sum")
+    _records_match([{k: v for k, v in r.items() if k != "daemon"} for r in recs], want,
+                   "10d daemon vs controller")
+    log(f"serve daemon shed: every record equal to a controller's over the same "
+        f"{len(calls)} windows under the same serve_shed")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
                         help="build and check the kernels only; prints no ok line")
+    parser.add_argument("--phase", type=int, choices=(9, 10), default=None,
+                        help="build and check the kernels, then run this phase alone; prints "
+                             "no ok line")
     args = parser.parse_args()
     try:
         import torch
@@ -1647,6 +2034,21 @@ def main() -> int:
         log(f"quick run done in {time.perf_counter() - t_start:.1f} s; main path skipped")
         return 0
     work = tempfile.mkdtemp(prefix="chip_smoke_")
+    if args.phase is not None:
+        try:
+            if args.phase == 9:
+                log(f"phase 9 launches {phase_scenarios()}")
+            else:
+                from cdrs_tpu_torch import GeneratorConfig
+                from cdrs_tpu_torch.sim.generator import generate_population
+
+                manifest = generate_population(GeneratorConfig(n_files=MAIN_FILES,
+                                                               seed=MAIN_SEED))
+                log(f"phase 10 launches {phase_serve(manifest, work)}")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        log(f"phase {args.phase} run done in {time.perf_counter() - t_start:.1f} s")
+        return 0
     try:
         launches, cfg, main_result = phase_main_path()
         norm_20k, init_20k = phase_card_vs_cpu()
@@ -1663,10 +2065,13 @@ def main() -> int:
         t0 = time.perf_counter()
         chaos_launches = phase_chaos(manifest, events)
         log(f"phase 8 (chaos): {time.perf_counter() - t0:.1f} s")
-        del manifest, events
+        del events
         t0 = time.perf_counter()
         scenario_launches = phase_scenarios()
         log(f"phase 9 (scenarios): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        serve_launches = phase_serve(manifest, work)
+        log(f"phase 10 (serve): {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1677,7 +2082,8 @@ def main() -> int:
          "launches": launches["lloyd"], "control_launches": control_launches["lloyd"],
          "daemon_launches": daemon_launches["lloyd"],
          "chaos_launches": chaos_launches["lloyd"],
-         "scenario_launches": scenario_launches["lloyd"], **rows["lloyd"], "library_ms": None},
+         "scenario_launches": scenario_launches["lloyd"],
+         "serve_launches": serve_launches["lloyd"], **rows["lloyd"], "library_ms": None},
         {"name": "label_threshold_count", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/seg_count.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:534",
@@ -1685,14 +2091,15 @@ def main() -> int:
          "control_launches": control_launches["seg_count"],
          "daemon_launches": daemon_launches["seg_count"],
          "chaos_launches": chaos_launches["seg_count"],
-         "scenario_launches": scenario_launches["seg_count"], **rows["seg_count"],
+         "scenario_launches": scenario_launches["seg_count"],
+         "serve_launches": serve_launches["seg_count"], **rows["seg_count"],
          "library_ms": None},
         {"name": "lloyd_assign_reduce (row-major, labels)", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:443",
          "launches": stream_launches, "control_launches": 0,
          "daemon_launches": daemon_launches["lloyd_rowmajor"], "chaos_launches": 0,
-         "scenario_launches": 0,
+         "scenario_launches": 0, "serve_launches": 0,
          **rows["lloyd_rowmajor"],
          "library_ms": None},
     ]

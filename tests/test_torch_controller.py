@@ -277,7 +277,7 @@ def test_budgets_are_respected(workload):
 
 
 @pytest.mark.parametrize("option,value,match", [
-    ("serve", object(), "A8d"), ("elastic", object(), "A8d"),
+    ("placement_mode", "materialized_hash", "A8f"), ("elastic", object(), "A8f"),
     ("storage", object(), "A8e"), ("placement_mode", "functional", "A8f"),
     ("mesh_shape", {"data": 2}, "A9"), ("decay", 0.0, "decay"),
     ("decay", 1.5, "decay"), ("window_seconds", 0.0, "window_seconds"),

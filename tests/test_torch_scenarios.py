@@ -109,9 +109,9 @@ def test_suite_cells_equal_the_reference(suite, seed):
 # -- unported axes ------------------------------------------------------------------
 
 @pytest.mark.parametrize("axis,kw,item", [
-    ("serve", {"serve": {"policy": "p2c"}}, "A8d"),
+    ("placement", {"placement": "materialized_hash"}, "A8f"),
     ("elastic", {"serve": {"policy": "p2c"}, "placement": "functional",
-                 "elastic": {"pool": ["sb1"]}}, "A8d"),
+                 "elastic": {"pool": ["sb1"]}}, "A8f"),
     ("storage", {"storage": "ec_archival"}, "A8e"),
     ("placement", {"placement": "functional"}, "A8f"),
     ("mesh", {"mesh": {"data": 2}, "backend": "jax"}, "A9"),
@@ -133,18 +133,20 @@ def test_sweep_lists_unported_cells_and_runs_the_rest():
     cells = [_tiny(name="s1", faults={"specs": ["crash:dn2@2-4"]}),
              _tiny(name="s2", seed=SEED + 1),
              _tiny(name="s3", serve={"policy": "p2c"}),
-             _tiny(name="s4", storage="replicate", placement="functional")]
+             _tiny(name="s4", storage="replicate", placement="functional"),
+             _tiny(name="s5", mesh={"data": 2}, backend="jax")]
     lines = []
     out = run_cells(cells, device="cpu", progress=lines.append)
-    assert out["ok"] and out["n_cells"] == 2 and out["n_failed"] == 0
-    assert [c["cell"] for c in out["cells"]] == ["s1", "s2"]
+    assert out["ok"] and out["n_cells"] == 3 and out["n_failed"] == 0
+    assert [c["cell"] for c in out["cells"]] == ["s1", "s2", "s3"]
     assert out["n_not_ported"] == 2
     assert out["not_ported"] == [
-        {"cell": "s3", "item": "A8d", "axes": ["serve (A8d)"]},
-        {"cell": "s4", "item": "A8e", "axes": ["storage (A8e)", "placement (A8f)"]}]
+        {"cell": "s4", "item": "A8e", "axes": ["storage (A8e)", "placement (A8f)"]},
+        {"cell": "s5", "item": "A9", "axes": ["mesh (A9)"]}]
     assert out["invariants_checked"] == sum(len(c["invariants"]) for c in out["cells"])
     assert {r["metric"] for r in out["bench_records"]} == \
-        {"scenario_s1_churn_bytes", "scenario_s2_churn_bytes"}
+        {"scenario_s1_churn_bytes", "scenario_s2_churn_bytes", "scenario_s3_churn_bytes",
+         "scenario_s3_p99_ms"}
     assert sum("[skip]" in line for line in lines) == 2
 
 
@@ -268,8 +270,9 @@ def test_cli_scenarios_list(capsys):
     assert "control-shift" in out and "ci-smoke" in out
     assert all(name in out for name in PRESETS)
     lines = {ln.split()[0]: ln for ln in out.splitlines() if ln.startswith("  ")}
-    assert "waits for A8d" in lines["serve-chaos"] and "waits for A9" in lines["scale-mesh"]
-    assert "waits for" not in lines["chaos-kill"]
+    assert "waits for A8f" in lines["black-friday"] and "waits for A9" in lines["scale-mesh"]
+    assert "waits for" not in lines["chaos-kill"] and "waits for" not in lines["serve-chaos"]
+    assert "serve=p2c" in lines["serve-chaos"]
 
 
 def test_cli_scenarios_run_spec_and_errors(tmp_path, capsys):
@@ -285,10 +288,10 @@ def test_cli_scenarios_run_spec_and_errors(tmp_path, capsys):
                           "--device", "cpu"]) == 2
     capsys.readouterr()
     # An unported preset exits non-zero before anything runs, naming its item.
-    assert port_cli.main(["scenarios", "run", "--preset", "serve-chaos", "--device",
+    assert port_cli.main(["scenarios", "run", "--preset", "storage-ec", "--device",
                           "cpu"]) == 2
     captured = capsys.readouterr()
-    assert "A8d" in captured.err and captured.out == ""
+    assert "A8e" in captured.err and captured.out == ""
     for action in ("search", "triage"):
         assert port_cli.main(["scenarios", action]) == 2
         assert "A12" in capsys.readouterr().err
@@ -320,11 +323,13 @@ def test_cli_scenarios_sweep_extra_cells(tmp_path, capsys):
     assert rc == 0 and digest["ok"] and digest["n_failed"] == 0
     art = json.loads(out_path.read_text())
     ran = [c["cell"] for c in art["cells"]]
-    assert ran[-1] == "corpus-a" and digest["n_cells"] == len(ran) == 11
-    assert digest["n_not_ported"] == 13
-    assert {e["cell"] for e in art["not_ported"]} >= {"corpus-b", "serve-chaos", "scale-mesh"}
-    assert all(e["item"] in ("A8d", "A8e", "A8f", "A9") for e in art["not_ported"])
-    assert captured.err.count("[skip]") == 13
+    assert ran[-2:] == ["corpus-a", "corpus-b"] and digest["n_cells"] == len(ran) == 18
+    assert digest["n_not_ported"] == 6
+    assert {e["cell"] for e in art["not_ported"]} == {
+        "storage-ec", "scale-mesh", "scale-placement", "region-loss", "wan-partition",
+        "black-friday"}
+    assert all(e["item"] in ("A8e", "A8f", "A9") for e in art["not_ported"])
+    assert captured.err.count("[skip]") == 6
     events = [json.loads(line) for line in metrics.read_text().splitlines()]
     assert [e["cell"] for e in events if e.get("kind") == "cell"] == ran
 
