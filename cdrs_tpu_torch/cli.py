@@ -15,6 +15,10 @@
   ``durability`` block;
 * ``control``, ``daemon`` and ``chaos`` take ``--serve``: every window's
   reads route through the read router and hotspots trigger re-clusters;
+  and ``--storage_config``: categories map to replicate or erasure-coded
+  strategies on storage tiers;
+* ``storage show|estimate`` resolves a storage config per category, or
+  estimates its bytes and cost over a manifest and a category table;
 * ``serve`` replays the log's reads against a static placement (or a
   faulted cluster state) through the read router, on the host, and
   prints the serving digest;
@@ -159,16 +163,22 @@ def _controller_cfg(args, fault_schedule=None, topology=None):
             slo=SloSpec(target_ms=args.serve_slo_ms, availability=args.serve_slo_availability),
             recluster_on_hotspot=not args.no_hotspot_recluster,
             verify_reads=not getattr(args, "no_verify_reads", False))
+    scoring = _load_scoring(args)
+    storage = None
+    if args.storage_config:
+        from .storage import resolve_storage_config
+
+        storage = resolve_storage_config(args.storage_config, scoring)
     return ControllerConfig(
         window_seconds=args.window_seconds, drift_threshold=args.drift_threshold,
         full_recluster_drift=args.full_drift, warm_max_iter=args.warm_max_iter,
         max_bytes_per_window=args.max_bytes, max_files_per_window=args.max_files,
         hysteresis_windows=args.hysteresis, decay=args.decay, default_rf=args.default_rf,
         kmeans=KMeansConfig(k=args.k, seed=args.seed, init_method=args.init_method),
-        scoring=_load_scoring(args), evaluate=not args.no_evaluate,
+        scoring=scoring, evaluate=not args.no_evaluate,
         overlap_windows=args.overlap, device=args.device, fault_schedule=fault_schedule,
         repair_seed=getattr(args, "repair_seed", 0), topology=topology, scrub=scrub,
-        serve=serve)
+        serve=serve, storage=storage)
 
 
 def _cmd_control(args, manifest=None, cfg=None) -> int:
@@ -255,6 +265,103 @@ def _cmd_chaos(args) -> int:
             f.write("\n")
         print(f"schedule: {len(schedule)} events -> {args.schedule_out}", file=sys.stderr)
     return _cmd_control(args, manifest, _controller_cfg(args, schedule, topology))
+
+
+def _read_assignments(manifest, path, categories):
+    """``(file id, category)`` pairs of an assignments CSV (path,category,...)
+    matched against the manifest; None (with an error) when rows exist but
+    none matched, a warning when some did not."""
+    import csv
+
+    pairs, rows = [], 0
+    with open(path, newline="") as f:
+        for row in csv.DictReader(f):
+            rows += 1
+            i = manifest.path_to_id.get(row.get("path"))
+            c = row.get("category")
+            if i is not None and c in categories:
+                pairs.append((i, c))
+    if rows and not pairs:
+        print(f"error: no row of {path} matched a manifest path with a known category — "
+              f"is this the cluster --assignments_csv output?", file=sys.stderr)
+        return None
+    if len(pairs) < rows:
+        print(f"warning: {rows - len(pairs)}/{rows} assignment rows ignored (unknown path "
+              f"or category)", file=sys.stderr)
+    return pairs
+
+
+def _cmd_storage(args) -> int:
+    """Storage strategies offline: the per-category resolution of a config
+    (``show``), or its bytes and cost over a manifest and a category table
+    against the scoring rf table's replicate baseline (``estimate``).  The
+    stdout JSON is the reference's.  Host numpy: no device."""
+    import numpy as np
+
+    from .config import CATEGORIES
+    from .io.events import Manifest
+    from .storage import resolve_storage_config
+
+    scoring = _load_scoring(args)
+    cfg = resolve_storage_config(args.storage_config, scoring)
+    rows = cfg.describe(CATEGORIES, scoring.replication_factors)
+    if args.action == "show":
+        print(json.dumps({
+            "storage_config": args.storage_config,
+            "pure_replication": cfg.pure_replication,
+            "default_tier": cfg.default_tier,
+            "tiers": cfg.to_dict()["tiers"],
+            "categories": rows,
+        }, indent=2))
+        return 0
+    if not args.manifest or not args.assignments_csv:
+        print("error: storage estimate needs --manifest and --assignments_csv (the "
+              "cluster/control per-file path,cluster,category table)", file=sys.stderr)
+        return 1
+    manifest = Manifest.read_csv(args.manifest)
+    sizes = np.asarray(manifest.size_bytes, dtype=np.int64)
+    cat_idx = {c: i for i, c in enumerate(CATEGORIES)}
+    cat = np.full(len(manifest), -1, dtype=np.int64)
+    pairs = _read_assignments(manifest, args.assignments_csv, cat_idx)
+    if pairs is None:
+        return 1
+    for i, c in pairs:
+        cat[i] = cat_idx[c]
+    rf_vec = np.asarray([scoring.replication_factors[c] for c in CATEGORIES], dtype=np.int64)
+    by_cat = []
+    tot = {"raw": 0, "stored": 0, "cost": 0.0, "baseline": 0}
+    for ci, c in enumerate(CATEGORIES):
+        sel = cat == ci
+        if not sel.any():
+            continue
+        st = cfg.strategy_for(c, scoring.replication_factors.get(c))
+        raw = int(sizes[sel].sum())
+        stored = int((-(-sizes[sel] // st.shard_div) * st.n_shards).sum())
+        cost = stored * cfg.tiers[st.tier].byte_cost
+        baseline = int(raw * rf_vec[ci])
+        by_cat.append({
+            "category": c, "files": int(sel.sum()), "strategy": st.spec(),
+            "bytes_raw": raw, "bytes_stored": stored, "cost_units": round(cost, 3),
+            "bytes_replicate_baseline": baseline,
+            "bytes_saved_vs_baseline": baseline - stored,
+        })
+        tot["raw"] += raw
+        tot["stored"] += stored
+        tot["cost"] += cost
+        tot["baseline"] += baseline
+    print(json.dumps({
+        "storage_config": args.storage_config,
+        "note": "logical estimate — shard counts are not capped at the node count "
+                "(a live run's `storage` record is)",
+        "files": len(manifest), "files_categorized": len(pairs),
+        "per_category": by_cat,
+        "bytes_raw": tot["raw"], "bytes_stored": tot["stored"],
+        "cost_units": round(tot["cost"], 3),
+        "bytes_replicate_baseline": tot["baseline"],
+        "stored_vs_baseline_ratio": round(tot["baseline"] / tot["stored"], 4)
+        if tot["stored"] else None,
+    }, indent=2))
+    return 0
 
 
 def _cmd_serve(args) -> int:
@@ -484,7 +591,7 @@ def _cmd_scenarios(args) -> int:
 
     if args.action in ("search", "triage"):
         print(f"error: scenarios {args.action} (the failure-space search) is not ported "
-              f"yet (ROADMAP A12, after A8e-A8f)", file=sys.stderr)
+              f"yet (ROADMAP A12, after A8f)", file=sys.stderr)
         return 2
     if args.round_no is not None or args.history:
         print("error: --round/--history (the bench history append) belong to the "
@@ -643,6 +750,12 @@ def _add_control_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no_hotspot_recluster", action="store_true",
                    help="observe hotspots without feeding them back into the re-cluster "
                         "trigger")
+    p.add_argument("--storage_config", default=None, metavar="JSON|replicate|ec_archival",
+                   help="storage strategies (storage/): a JSON config mapping categories "
+                        "to replicate(rf)/ec(k,m) strategies on hot/warm/cold tiers, "
+                        "'replicate' for the explicit degenerate config, or 'ec_archival' "
+                        "for the built-in EC(6,3)-cold Archival preset; window records "
+                        "gain a 'storage' record; see 'storage show'")
     _add_scoring_args(p)
     _add_init_method_arg(p)
     _add_device_arg(p)
@@ -861,6 +974,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="append one JSON line per window record here (the serve.* "
                         "telemetry events are not ported yet, ROADMAP A10b)")
     p.set_defaults(fn=_cmd_serve)
+
+    p = sub.add_parser("storage", help="storage strategies: resolve a replicate/EC/tier "
+                       "config ('show') or estimate its byte/cost footprint over a manifest "
+                       "('estimate'); host only, takes no --device")
+    p.add_argument("action", choices=["show", "estimate"],
+                   help="show = resolved per-category strategy table; estimate = byte/cost "
+                        "footprint of a category assignment vs the replicate baseline")
+    p.add_argument("--storage_config", default="ec_archival",
+                   metavar="JSON|replicate|ec_archival",
+                   help="strategy config (default: the built-in EC(6,3)-cold Archival "
+                        "preset)")
+    p.add_argument("--manifest", default=None, help="(estimate) manifest CSV")
+    p.add_argument("--assignments_csv", default=None,
+                   help="(estimate) per-file path,cluster,category table (control "
+                        "--plan_out)")
+    _add_scoring_args(p)
+    p.set_defaults(fn=_cmd_storage)
 
     p = sub.add_parser("scenarios", help="declarative scenario matrix: list presets and "
                        "suites, run one cell, or sweep a suite gated on invariants (zero "

@@ -11,8 +11,10 @@ priority order.  A flat topology makes every node its own domain, and the
 policy reduces to the distinct-node random chooser.  A topology with
 hierarchy ``levels`` (racks inside regions) fills the slots greedily,
 least-covered region first, then least-covered rack, then best priority
-(``placement_fn.compute.hierarchical_fill``).  The rf is capped at the
-node count, with a one-time warning.
+(``placement_fn.compute.hierarchical_fill``); there a region-local file
+(``local_mask``) stays in its primary's region.  The rf is capped at the
+node count, with a one-time warning.  ``place_stripes`` places the shards
+of storage strategies the same way, accounting a slot at its shard size.
 
 ``ClusterTopology`` parses the CLI's rack spec (``from_rack_spec``) and
 the ``--topology`` JSON hierarchy (``from_hierarchy``, with optional
@@ -31,8 +33,8 @@ import numpy as np
 
 from ..io.events import Manifest
 
-__all__ = ["ClusterTopology", "PlacementResult", "place_replicas", "primary_on_topology",
-           "reset_rf_cap_warning"]
+__all__ = ["ClusterTopology", "PlacementResult", "place_replicas", "place_stripes",
+           "primary_on_topology", "reset_rf_cap_warning"]
 
 
 class _OnceWarning:
@@ -408,9 +410,14 @@ def primary_on_topology(node_vocab, primary_node_id: np.ndarray, topology) -> np
 
 def place_replicas(manifest: Manifest, rf_per_file: np.ndarray,
                    topology: ClusterTopology | None = None, seed: int | None = 0,
-                   method: str = "rng") -> PlacementResult:
+                   size_bytes: np.ndarray | None = None, method: str = "rng",
+                   local_mask: np.ndarray | None = None) -> PlacementResult:
     """Place ``rf_per_file`` replicas of each file on the topology (see the
-    module docstring); deterministic for (manifest, rf, seed)."""
+    module docstring); deterministic for (manifest, rf, seed).
+    ``size_bytes`` (default: the manifest's sizes) fills the per-node byte
+    accounting; ``local_mask`` pins each marked file to its primary's
+    top-level domain on a geo hierarchy (its count clipped to that
+    domain's node count) and is ignored on other topologies."""
     if method == "hash":
         raise ValueError("placement method 'hash' is not ported yet (ROADMAP A8f, "
                          "functional placement)")
@@ -435,17 +442,26 @@ def place_replicas(manifest: Manifest, rf_per_file: np.ndarray,
     prio = np.random.default_rng(seed).random((n, n_nodes))
     if topology.n_levels > 0:
         # The hash chooser's hierarchical fill, fed rng-packed priorities.
-        from ..placement_fn.compute import PRIO_MAX, hierarchical_fill
+        from ..placement_fn.compute import PRIO_MAX, clip_shards_for_locality, \
+            hierarchical_fill
 
         if n_nodes > 63:
             raise ValueError(f"hierarchical placement supports up to 63 nodes "
                              f"(6-bit packed node ids), got {n_nodes}")
+        rf = clip_shards_for_locality(rf, primary, topology, local_mask)
+        max_rf = int(rf.max()) if n else 1
         packed = ((prio * (1 << 26)).astype(np.uint32) << np.uint32(6)) \
             | np.arange(n_nodes, dtype=np.uint32)[None, :]
         w = np.ascontiguousarray(packed.T)
         replica_map = np.empty((n, max_rf), dtype=np.int32)
         replica_map[:, 0] = primary
         w[primary, np.arange(n)] = PRIO_MAX
+        if local_mask is not None:
+            lc = np.asarray(local_mask, dtype=bool)
+            if lc.any():
+                # Nodes outside a local file's home region are never chosen.
+                dt = topology.top_domain_index()
+                w[(dt[:, None] != dt[primary][None, :]) & lc[None, :]] = PRIO_MAX
         if max_rf >= 2:
             hierarchical_fill(w, replica_map, primary, max_rf, topology)
         replica_map[np.arange(max_rf)[None, :] >= rf[:, None]] = -1
@@ -472,5 +488,19 @@ def place_replicas(manifest: Manifest, rf_per_file: np.ndarray,
         replica_map = order[:, :max_rf].copy()
         replica_map[np.arange(max_rf)[None, :] >= rf[:, None]] = -1
     result = PlacementResult(replica_map=replica_map, rf=rf, topology=topology)
-    result.compute_storage(manifest.size_bytes)
+    result.compute_storage(manifest.size_bytes if size_bytes is None else size_bytes)
     return result
+
+
+def place_stripes(manifest: Manifest, shards_per_file: np.ndarray,
+                  topology: ClusterTopology | None = None, seed: int | None = 0,
+                  shard_bytes: np.ndarray | None = None, method: str = "rng",
+                  local_mask: np.ndarray | None = None) -> PlacementResult:
+    """Stripe placement of storage strategies: the k + m shards of an EC
+    file want what replicas want (distinct nodes, spread across failure
+    domains), so this is ``place_replicas`` over the per-file shard count,
+    with a slot holding ``shard_bytes`` (about size / k) in the per-node
+    accounting.  A replicate-only config gives ``place_replicas``'s result
+    bit for bit."""
+    return place_replicas(manifest, shards_per_file, topology, seed, size_bytes=shard_bytes,
+                          method=method, local_mask=local_mask)

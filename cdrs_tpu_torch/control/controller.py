@@ -36,20 +36,33 @@ Per time window (``control/windows.py``):
    category over the applied one) and metered out by the
    ``MigrationScheduler`` with what repairs and scrub left of the budgets;
    on the fault path each admitted move applies through
-   ``ClusterState.apply_rf_target``.
+   ``ClusterState.apply_rf_target``.  With ``storage`` (a
+   ``storage.StorageConfig``) a category's target is its strategy's shard
+   count (rf, or k + m for an EC stripe), a move between strategy shapes is
+   a re-encode charged as the new shards written (cause ``conversion``) and
+   applied through ``ClusterState.apply_strategy_target``, which defers
+   while the file is unreadable; each window first retries the deferred
+   ones (``storage_conversions_retried``) and repairs them toward their
+   installed form.
 6. **evaluate** — the window's events replay against the placements before
    and after the window's moves (``cluster/evaluate``): the flat rng
    placement of the applied rf vector, or the reachable copies of the
    ``ClusterState``.  The fault path records the durability tiers, the
    reads refused (``unavailable_reads``) and, when corruption can happen
-   or is looked for, the ``integrity`` digest.
+   or is looked for, the ``integrity`` digest.  With ``storage`` the
+   record gains ``storage``: stored and raw bytes, overhead, cost units,
+   EC files, bytes per tier and per category, billed at the installed
+   encoding (``_installed_cat``).
 7. **serve** (with ``serve``) — after repairs, scrub and migrations the
    window's reads route through ``serve/router.ReadRouter`` against the
    live ``ClusterState`` or the static placement of the applied rf vector
    (less a seeded ``serve_shed`` fraction under the daemon's brownout);
    the record gains the latency percentiles, SLO burn and hotspot fields,
    and rotten copies the reads detect are quarantined and hinted to the
-   scrubber (``integrity.detected_read``).  Routing is host numpy.
+   scrubber (``integrity.detected_read``).  With ``storage`` a read pays
+   its tier's stretch, an EC read whose primary shard is down pays the
+   k-shard gather, and a stripe below k reachable shards serves nothing.
+   Routing is host numpy.
 
 Every window gives one record with the reference's keys (among them
 ``drift``, ``recluster_mode``, ``moves_applied``, ``fault_events``,
@@ -71,10 +84,10 @@ Departures from the reference:
   backend clusters in float64; the accumulators and the float64 table are
   the reference's bit for bit.
 * Not ported yet, each refused by ``ControllerConfig`` with a
-  ``ValueError`` naming its ROADMAP item: storage strategies (A8e),
-  functional placement and elasticity, which needs a hash placement mode
-  (A8f), and ``mesh_shape`` (A9).  Window telemetry (the reference's
-  ``_instrument_window`` and its ``serve.*`` events) waits for A10b.
+  ``ValueError`` naming its ROADMAP item: functional placement and
+  elasticity, which needs a hash placement mode (A8f), and ``mesh_shape``
+  (A9).  Window telemetry (the reference's ``_instrument_window`` with its
+  ``serve.*`` events and ``storage.*`` gauges) waits for A10b.
 """
 
 from __future__ import annotations
@@ -90,7 +103,7 @@ import numpy as np
 import torch
 
 from ..cluster.evaluate import _client_to_topology, evaluate_placement
-from ..cluster.placement import ClusterTopology, place_replicas
+from ..cluster.placement import ClusterTopology, place_replicas, place_stripes
 from ..cluster.plan import PlanEntry
 from ..config import CATEGORIES, KMeansConfig, ScoringConfig
 from ..device import deterministic, resolve_device
@@ -98,7 +111,7 @@ from ..faults import ClusterState, FaultSchedule, RepairScheduler, Scrubber
 from ..features.streaming import StreamFeatureState, stream_finalize, stream_init, stream_update
 from ..io.events import EventLog, Manifest
 from ..models.replication import ReplicationPolicyModel
-from ..obs.aggregate import integrity_digest, pacing_digest, serve_digest
+from ..obs.aggregate import integrity_digest, pacing_digest, serve_digest, storage_digest
 from ..obs.sink import JsonlSink
 from ..serve import HotspotDetector, ReadRouter, read_view
 from ..utils.checkpoint import CheckpointError, load_state, save_state
@@ -111,14 +124,14 @@ __all__ = ["ControllerConfig", "ControllerResult", "ReplicationController",
 
 #: Why an admitted migration happened: the code rides the per-file
 #: ``_move_cause`` vector from plan submission to admission (and the
-#: checkpoint); 0 is a backlog resumed from a snapshot without causes.
-MOVE_CAUSES = {0: "unknown", 1: "drift", 2: "hotspot"}
+#: checkpoint); 0 is a backlog resumed from a snapshot without causes, 3 a
+#: storage re-encode.
+MOVE_CAUSES = {0: "unknown", 1: "drift", 2: "hotspot", 3: "conversion"}
 
 #: Options of the reference's ControllerConfig that the port does not take
 #: yet: (value that leaves them off, ROADMAP item).
 _UNPORTED = {
     "elastic": (None, "A8f, elasticity, which needs a hash placement mode"),
-    "storage": (None, "A8e, storage strategies"),
     "placement_mode": ("materialized", "A8f, functional placement"),
     "mesh_shape": (None, "A9, multi-GPU"),
 }
@@ -174,6 +187,10 @@ class ControllerConfig:
     #: ``serve.ServeConfig``: route every window's reads and feed hotspots
     #: back into the re-cluster trigger (None = no read path).
     serve: object | None = None
+    #: ``storage.StorageConfig``: category -> replicate(rf) or ec(k, m) on a
+    #: tier; shard counts become the targets (None = the scoring rf table).
+    #: A replicate-only config gives the records of no storage bit for bit,
+    #: plus the ``storage`` record.
     storage: object | None = None
     elastic: object | None = None
     placement_mode: str = "materialized"
@@ -213,8 +230,8 @@ class ControllerResult:
     def summary(self) -> dict:
         """The reference's summary keys for a run without the unported
         subsystems: with a fault schedule a ``durability`` block, with
-        serving a ``serve`` block, and with corruption or a scrubber an
-        ``integrity`` block."""
+        serving a ``serve`` block, with storage a ``storage`` block, and
+        with corruption or a scrubber an ``integrity`` block."""
         recl = [r for r in self.records if r["recluster"]]
         out = {
             "windows": len(self.records),
@@ -243,6 +260,9 @@ class ControllerResult:
         serve = serve_digest(self.records)
         if serve is not None:
             out["serve"] = serve
+        storage = storage_digest(self.records)
+        if storage is not None:
+            out["storage"] = storage
         integrity = integrity_digest(self.records)
         if integrity is not None:
             out["integrity"] = integrity
@@ -354,8 +374,28 @@ class ReplicationController:
         #: The accepted decision not yet turned into the host model arrays.
         self._pending_accept = None
 
+        #: Strategy vectors of ``cfg.storage`` (None: the scoring rf table),
+        #: resolved here so a bad strategy fails at construction.
+        self._storage = None
+        if cfg.storage is not None:
+            self._storage = cfg.storage.vectors(CATEGORIES, cfg.scoring.replication_factors)
+            # Replicate rf caps at the node count; an EC stripe cannot (below
+            # k + m nodes it never reaches full strength).
+            n_nodes = len(cfg.topology.nodes) if cfg.topology is not None \
+                else len(manifest.nodes)
+            sv = self._storage
+            for i, c in enumerate(sv.categories):
+                if sv.ec_k[i] > 0 and int(sv.n_shards[i]) > n_nodes:
+                    raise ValueError(
+                        f"storage strategy for category {c!r} needs {int(sv.n_shards[i])} "
+                        f"distinct nodes for its EC stripe but the topology has {n_nodes}")
+
         self.current_rf = np.full(n, int(cfg.default_rf), dtype=np.int32)
         self.current_cat = np.full(n, -1, dtype=np.int32)
+        #: Category whose strategy is installed per file: a deferred
+        #: conversion keeps the old encoding, which byte billing and read
+        #: penalties follow until the re-encode lands.
+        self._installed_cat = self.current_cat.copy()
         #: ``MOVE_CAUSES`` code of each file's pending submitted move.
         self._move_cause = np.zeros(n, dtype=np.int8)
         self.scheduler = MigrationScheduler(
@@ -597,8 +637,18 @@ class ReplicationController:
         bytes_reserved = files_reserved = 0
         if cs is not None:
             t0 = time.perf_counter()
-            self._repairs.sync(cs, self.current_rf)
-            rr = self._repairs.schedule(w, cs, self.current_rf, self.current_cat,
+            repair_rf = self.current_rf
+            if self._storage is not None:
+                converted, deferred = self._reconcile_strategies()
+                rec["storage_conversions_retried"] = converted
+                if len(deferred):
+                    # A deferred file keeps its installed form, and repair
+                    # maintains that form, not the unapplied target.
+                    repair_rf = self.current_rf.copy()
+                    repair_rf[deferred] = np.maximum(cs.installed_shards[deferred],
+                                                     cs.min_live[deferred])
+            self._repairs.sync(cs, repair_rf)
+            rr = self._repairs.schedule(w, cs, repair_rf, self.current_cat,
                                         max_bytes=cfg.max_bytes_per_window,
                                         max_files=cfg.max_files_per_window)
             seconds["repair"] = time.perf_counter() - t0
@@ -660,10 +710,21 @@ class ReplicationController:
             fi = applied.file_index
             self.current_rf[fi] = applied.rf_new
             self.current_cat[fi] = applied.cat_new
-            if cs is not None:
+            if cs is None or self._storage is None:
                 # Placement mutates per file, in the admitted order.
-                for f, rf_new in zip(fi.tolist(), applied.rf_new.tolist()):
-                    cs.apply_rf_target(f, rf_new)
+                if cs is not None:
+                    for f, rf_new in zip(fi.tolist(), applied.rf_new.tolist()):
+                        cs.apply_rf_target(f, rf_new)
+                self._installed_cat[fi] = applied.cat_new
+            else:
+                for m in applied:
+                    # A strategy conversion re-encodes (or defers while the
+                    # file is unreadable; the reconcile pass retries).
+                    want = self._file_strategy(int(m.cat_new), m.file_index)
+                    cs.apply_strategy_target(m.file_index, want[0], want[1], want[2],
+                                             m.rf_new, want[3])
+                    if self._strategy_installed(m.file_index, want):
+                        self._installed_cat[m.file_index] = m.cat_new
         seconds["schedule"] = time.perf_counter() - t0
         plan_seconds += seconds["schedule"]
         if len(applied):
@@ -694,6 +755,11 @@ class ReplicationController:
             else:
                 rec["n_reads"] = 0
                 rec["unavailable_reads"] = 0
+
+        if self._storage is not None:
+            # Bytes and cost of the applied strategies after repairs and
+            # migrations.
+            rec["storage"] = self._storage_record()
 
         read_detect_copies = 0
         if ctx["reads"] is not None:
@@ -775,13 +841,21 @@ class ReplicationController:
                 # Without corruption in the schedule or a scrubber the
                 # router ignores rot bits a resumed snapshot may carry.
                 view.slot_corrupt = None
+            if self._storage is not None:
+                # A stripe below k reachable shards serves no read from any
+                # slot: the router counts it unavailable, as
+                # ``unavailable_reads`` does.
+                view.slot_ok = view.slot_ok & ~cs.unreadable_mask()[:, None]
         else:
             view = read_view(read_pid, placement=self._placement_for(self.current_rf))
+        extra_ms = None
+        if self._storage is not None:
+            extra_ms = self._serve_penalty_ms(view.slot_ok)[read_pid]
         res = self._router.route(
             view.replica_map, view.slot_ok, view.node_throughput, ts=read_ts, pid=view.pid,
             client=read_client, window_seconds=cfg.window_seconds,
-            rng=np.random.default_rng([int(cfg.serve.seed), int(w)]), edge_ms=self._edge_ms,
-            slot_corrupt=view.slot_corrupt)
+            rng=np.random.default_rng([int(cfg.serve.seed), int(w)]), extra_ms=extra_ms,
+            edge_ms=self._edge_ms, slot_corrupt=view.slot_corrupt)
         rec.update(res.record_fields())
         if self.serve_shed is not None:
             # Only brownout runs carry the key.
@@ -822,12 +896,17 @@ class ReplicationController:
     def _accept_plan(self, decision, trigger: str | None = None) -> None:
         """Diff the decision's plan against the applied plan and replace the
         backlog with it; the moves are tagged ``hotspot`` when ``trigger``
-        is, else ``drift`` (a cold start is the first drift decision)."""
+        is, else ``drift`` (a cold start is the first drift decision), and
+        storage re-encodes ``conversion``."""
         labels = np.asarray(decision.labels)
         new_cat = self._accepted_file_cat
         if new_cat is None:
             new_cat = np.asarray(decision.category_idx).astype(np.int64)[labels]
-        rf_vec = np.asarray(self.cfg.scoring.rf_vector(), dtype=np.int64)
+        # With storage the target "rf" is the strategy's shard count.
+        if self._storage is not None:
+            rf_vec = self._storage.n_shards.astype(np.int64)
+        else:
+            rf_vec = np.asarray(self.cfg.scoring.rf_vector(), dtype=np.int64)
         new_rf = rf_vec[new_cat]
         # Priority: the new category's score margin over the applied one
         # (unplanned files: over the cluster's worst category).
@@ -837,20 +916,149 @@ class ReplicationController:
         old_ref = np.where(old_cat >= 0, old_cat, 0)
         old_score = np.take_along_axis(file_scores, old_ref[:, None], axis=1)[:, 0]
         old_score = np.where(old_cat >= 0, old_score, file_scores.min(axis=1))
+        move_bytes = None
+        convert = None
+        if self._storage is not None:
+            # A re-encode (another min_live, shard size, k or locality)
+            # drops every old copy and writes rf_new new shards: charge
+            # those; a same-shape move pays shard_new per added shard.
+            sv = self._storage
+            old_cat = self.current_cat
+            shard_old = sv.file_shard_bytes(old_cat, self._sizes)
+            shard_new = sv.file_shard_bytes(new_cat, self._sizes)
+            convert = ((sv.file_min_live(old_cat) != sv.file_min_live(new_cat))
+                       | (shard_old != shard_new)
+                       | (sv.file_ec_k(old_cat) != sv.file_ec_k(new_cat))
+                       | (sv.file_region_local(old_cat) != sv.file_region_local(new_cat)))
+            move_bytes = np.where(convert, new_rf * shard_new,
+                                  shard_new * np.maximum(new_rf - self.current_rf, 0))
         moves = plan_diff(self.current_rf, new_rf, self.current_cat, new_cat, self._sizes,
-                          priority=new_score - old_score)
+                          priority=new_score - old_score, move_bytes=move_bytes)
         if len(moves):
-            self._move_cause[moves.file_index] = 2 if trigger == "hotspot" else 1
+            codes = np.full(len(moves), 2 if trigger == "hotspot" else 1, dtype=np.int8)
+            if convert is not None:
+                codes[convert[moves.file_index]] = 3
+            self._move_cause[moves.file_index] = codes
         self.scheduler.submit(moves)
+
+    # -- storage strategies ------------------------------------------------
+    def _file_strategy(self, cat: int, fid: int) -> tuple[int, int, int, bool]:
+        """(min_live, shard_bytes, ec_k, region_local) of one file under
+        ``cat``."""
+        sv = self._storage
+        if cat < 0:
+            return 1, int(self._sizes[fid]), 0, False
+        return (int(sv.min_live[cat]), -(-int(self._sizes[fid]) // int(sv.shard_div[cat])),
+                int(sv.ec_k[cat]), bool(sv.region_local[cat]))
+
+    def _strategy_installed(self, fid: int, want) -> bool:
+        """Whether ``fid``'s installed strategy is ``want`` (``_file_strategy``)."""
+        cs = self._cluster_state
+        return (int(cs.min_live[fid]) == int(want[0])
+                and int(cs.shard_bytes[fid]) == int(want[1])
+                and int(cs.ec_k[fid]) == int(want[2])
+                and bool(cs.region_local[fid]) == bool(want[3]))
+
+    def _reconcile_strategies(self) -> tuple[int, np.ndarray]:
+        """Retry the deferred conversions: once a file is readable again it
+        re-encodes to the strategy its applied category wants (the move
+        paid the budget when it was admitted).  Returns the number
+        converted and the file ids still deferred."""
+        cs = self._cluster_state
+        sv = self._storage
+        cat = self.current_cat
+        want = (sv.file_min_live(cat), sv.file_shard_bytes(cat, self._sizes),
+                sv.file_ec_k(cat), sv.file_region_local(cat))
+        converted = 0
+        still = []
+        for fid in cs.strategy_mismatch(*want[:3], region_local=want[3]):
+            f = int(fid)
+            wf = tuple(a[f] for a in want)
+            cs.apply_strategy_target(f, int(wf[0]), int(wf[1]), int(wf[2]),
+                                     int(self.current_rf[f]), bool(wf[3]))
+            # Success is the strategy matching (the shard-count delta can be
+            # 0, as in replicate(3) -> ec(2,1)).
+            if self._strategy_installed(f, wf):
+                converted += 1
+                self._installed_cat[f] = int(cat[f])
+            else:
+                still.append(f)
+        return converted, np.asarray(still, dtype=np.int64)
+
+    def _storage_record(self) -> dict:
+        """Bytes and cost of the applied strategies: the fault path counts
+        the assigned slots at the installed shard size, the plain path the
+        target shards capped at the node count; tier and byte cost follow
+        the installed category."""
+        sv = self._storage
+        cat = self.current_cat
+        planned = cat >= 0
+        icat = self._installed_cat
+        isafe = np.clip(icat, 0, None)
+        cs = self._cluster_state
+        if cs is not None:
+            counts = cs.assigned_counts()
+            shard_b = cs.shard_bytes
+            ec_files = int(((cs.ec_k > 0) & planned).sum())
+        else:
+            counts = np.minimum(self.current_rf, len(self.manifest.nodes))
+            shard_b = sv.file_shard_bytes(cat, self._sizes)
+            ec_files = int(((sv.file_ec_k(cat) > 0) & planned).sum())
+        stored = counts.astype(np.int64) * shard_b
+        raw = int(self._sizes.sum())
+        cost_file = np.where(icat >= 0, sv.byte_cost[isafe], sv.default_byte_cost)
+        tier_file = np.where(icat >= 0, sv.tier_idx[isafe], sv.default_tier_idx)
+        per_tier = np.bincount(tier_file, weights=stored, minlength=len(sv.tier_names))
+        names = list(sv.categories) + ["Unplanned"]
+        bucket = np.where(planned, cat, len(sv.categories))
+        per_cat = np.bincount(bucket, weights=stored, minlength=len(names))
+        total = int(stored.sum())
+        return {
+            "bytes_raw": raw,
+            "bytes_stored": total,
+            "overhead_ratio": round(total / raw, 6) if raw else 0.0,
+            "cost_units": round(float((stored * cost_file).sum()), 3),
+            "ec_files": ec_files,
+            "per_tier_bytes": {t: int(per_tier[i]) for i, t in enumerate(sv.tier_names)
+                               if per_tier[i]},
+            "per_category_bytes": {c: int(per_cat[i]) for i, c in enumerate(names)
+                                   if per_cat[i]},
+        }
+
+    def _serve_penalty_ms(self, slot_ok: np.ndarray) -> np.ndarray:
+        """(n_files,) read latency the storage layer adds: the tier's stretch
+        (``service_ms * (1 / throughput - 1)``) plus, for an EC file whose
+        primary shard is unreachable, the gather of k - 1 more shards at the
+        tier's speed; both follow the installed category."""
+        sv = self._storage
+        cat = self._installed_cat
+        safe = np.clip(cat, 0, None)
+        pen = np.where(cat >= 0, sv.read_penalty[safe], sv.default_read_penalty)
+        k_file = sv.file_ec_k(cat)
+        primary_down = ~slot_ok[:, 0] if slot_ok.shape[1] else \
+            np.ones(cat.shape[0], dtype=bool)
+        base = float(self.cfg.serve.service_ms)
+        return base * (pen - 1.0) + np.where((k_file > 0) & primary_down,
+                                             base * (k_file - 1) * pen, 0.0)
 
     def _placement_for(self, rf: np.ndarray):
         """The rng placement of an rf vector (seed 0) on the serve topology,
         flat without serving; cached on the vector, so move-free windows,
-        the before/after pair and the router reuse it."""
+        the before/after pair and the router reuse it.  With storage the
+        shards are placed by ``place_stripes`` at their shard size, region-
+        local categories pinned, and the category vector joins the key."""
         key = rf.tobytes()
+        if self._storage is not None:
+            key += self.current_cat.tobytes()
         if self._placement_key != key:
             topology = self._serve_topology or ClusterTopology(nodes=tuple(self.manifest.nodes))
-            self._placement = place_replicas(self.manifest, rf.copy(), topology, seed=0)
+            if self._storage is not None:
+                self._placement = place_stripes(
+                    self.manifest, rf.copy(), topology, seed=0,
+                    shard_bytes=self._storage.file_shard_bytes(self.current_cat, self._sizes),
+                    local_mask=self._storage.file_region_local(self.current_cat))
+            else:
+                self._placement = place_replicas(self.manifest, rf.copy(), topology, seed=0)
             self._placement_key = key
         return self._placement
 
@@ -869,6 +1077,7 @@ class ReplicationController:
             arrays.update({"dec_" + k: v for k, v in self.decayed_counters().items()})
         arrays["current_rf"] = self.current_rf
         arrays["current_cat"] = self.current_cat
+        arrays["installed_cat"] = self._installed_cat
         # Move causes, sparse over the backlog (the only moves still to be
         # admitted).
         bl_fids = self.scheduler.backlog.file_index
@@ -903,6 +1112,7 @@ class ReplicationController:
             "n_files": len(self.manifest),
             "faults": self._cluster_state is not None,
             "serve": self._router is not None,
+            "storage": self._storage is not None,
             "scrub": self._scrub is not None,
         }
         if extra_meta:
@@ -912,17 +1122,18 @@ class ReplicationController:
 
     def load_checkpoint(self, path: str) -> None:
         """Restore a snapshot of this controller; one taken under another
-        population size, k, backend, decay, window, fault, serve or scrub
-        mode raises ``ValueError``."""
+        population size, k, backend, decay, window, fault, serve, storage
+        or scrub mode raises ``ValueError``."""
         arrays, meta = load_state(path)
         for key, want in (("n_files", len(self.manifest)), ("k", int(self.cfg.kmeans.k)),
                           ("backend", "torch"), ("decay", self.cfg.decay),
                           ("window_seconds", self.cfg.window_seconds),
                           ("faults", self._cluster_state is not None),
                           ("serve", self._router is not None),
+                          ("storage", self._storage is not None),
                           ("scrub", self._scrub is not None)):
             got = meta.get(key)
-            if key in ("faults", "serve", "scrub"):
+            if key in ("faults", "serve", "storage", "scrub"):
                 got = bool(got)
             if got != want:
                 raise ValueError(
@@ -941,6 +1152,8 @@ class ReplicationController:
             self._dec_obs_end = meta.get("dec_obs_end")
         self.current_rf = arrays["current_rf"].astype(np.int32)
         self.current_cat = arrays["current_cat"].astype(np.int32)
+        self._installed_cat = (arrays["installed_cat"].astype(np.int32)
+                               if "installed_cat" in arrays else self.current_cat.copy())
         self._move_cause = np.zeros(len(self.manifest), dtype=np.int8)
         if "move_cause_fids" in arrays:
             self._move_cause[arrays["move_cause_fids"]] = \

@@ -17,8 +17,9 @@
   ``bytes_reserved``/``files_reserved`` pre-charge the window's budget with
   what the repair pass and the scrubber spent first (one churn allowance
   for all three); a nonzero byte reservation also takes the first-move
-  allowance.  (Storage-specific byte costs come with storage strategies,
-  ROADMAP A8e.)
+  allowance.  With storage strategies the controller passes each file's
+  cost as ``move_bytes``: a re-encode writes all its new shards
+  (``rf_new * shard_new``), any other move ``shard_new`` per added shard.
 
 The scheduler's state round-trips through ``state_arrays`` /
 ``load_state_arrays`` (the ``sched_*`` columns of the controller's
@@ -106,9 +107,11 @@ class MoveSet:
         return int(self.bytes_moved.sum())
 
 
-def plan_diff(rf_old, rf_new, cat_old, cat_new, size_bytes, priority=None) -> MoveSet:
+def plan_diff(rf_old, rf_new, cat_old, cat_new, size_bytes, priority=None,
+              move_bytes=None) -> MoveSet:
     """Moves for every file whose (rf, category) changed, in ascending file
-    order.  ``priority`` defaults to zero."""
+    order.  ``priority`` defaults to zero; ``move_bytes`` (n,) overrides
+    the byte cost of each file (a storage re-encode writes its new shards)."""
     rf_old = np.asarray(rf_old, dtype=np.int64)
     rf_new = np.asarray(rf_new, dtype=np.int64)
     cat_old = np.asarray(cat_old, dtype=np.int64)
@@ -121,7 +124,13 @@ def plan_diff(rf_old, rf_new, cat_old, cat_new, size_bytes, priority=None) -> Mo
             raise ValueError(f"{name} shape {a.shape} != ({n},)")
     prio = np.zeros(n) if priority is None else np.asarray(priority, dtype=np.float64)
     changed = np.flatnonzero((rf_new != rf_old) | (cat_new != cat_old))
-    bytes_moved = size_bytes[changed] * np.maximum(rf_new[changed] - rf_old[changed], 0)
+    if move_bytes is None:
+        bytes_moved = size_bytes[changed] * np.maximum(rf_new[changed] - rf_old[changed], 0)
+    else:
+        move_bytes = np.asarray(move_bytes, dtype=np.int64)
+        if move_bytes.shape != (n,):
+            raise ValueError(f"move_bytes shape {move_bytes.shape} != ({n},)")
+        bytes_moved = move_bytes[changed]
     return MoveSet(changed, rf_old[changed], rf_new[changed], cat_old[changed],
                    cat_new[changed], bytes_moved, prio[changed])
 

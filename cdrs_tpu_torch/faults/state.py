@@ -26,11 +26,16 @@ refreshed only for the rows a mutation touches.  ``state_arrays`` /
 ``placement_view`` renders the reachable replicas as a ``PlacementResult``
 for ``cluster/evaluate.py``.
 
-The storage-strategy fields (``min_live``, ``shard_bytes``, ``ec_k``,
-``region_local``, ``installed_shards``) stay at their replicate defaults
-here; re-encoding a file between strategies (``apply_strategy_target``)
-comes with storage (ROADMAP A8e), and the growing topology of elasticity
-and the functional and overlay states with A8f.
+Storage strategies: a slot of file i holds ``shard_bytes[i]`` bytes, the
+file is lost below ``min_live[i]`` live shards, ``ec_k[i] > 0`` marks an EC
+stripe whose repair reads k shards (``repair_read_bytes``, ``copy_charge``
+gated by the k-th fastest source), ``region_local[i]`` keeps its shards in
+one top-level domain, and ``installed_shards[i]`` is the shard count repair
+maintains.  The defaults are the replicate semantics.
+``apply_strategy_target`` re-encodes a file between strategies, deferring
+while it is unreadable (``strategy_mismatch`` lists the deferred ones).
+The growing topology of elasticity and the functional and overlay states
+come with ROADMAP A8f.
 """
 
 from __future__ import annotations
@@ -145,11 +150,115 @@ class ClusterState:
                 tspread += ((top == d) & rmask).any(axis=1)
             self._top_spread[fids] = tspread
 
+    def _refresh_one(self, fid: int) -> None:
+        """``_refresh_files`` of one row, in Python over its slots: the
+        per-copy mutations call it, where numpy's per-call overhead would
+        dominate."""
+        up = self.node_up.tolist()
+        reach = self.node_reachable().tolist()
+        dom = self.domain_index.tolist()
+        top = None if self._top_index is None else self._top_index.tolist()
+        live = n_reach = 0
+        doms, tops = set(), set()
+        for x in self.replica_map[fid].tolist():
+            if x < 0:
+                continue
+            live += up[x]
+            if reach[x]:
+                n_reach += 1
+                doms.add(dom[x])
+                if top is not None:
+                    tops.add(top[x])
+        self._live_counts[fid] = live
+        self._reach_counts[fid] = n_reach
+        self._dom_spread[fid] = len(doms)
+        if top is not None:
+            self._top_spread[fid] = len(tops)
+
     def _recompute_node_bytes(self) -> None:
         self.node_bytes = np.zeros(len(self.nodes), dtype=np.int64)
         assigned = self.replica_map >= 0
         np.add.at(self.node_bytes, self.replica_map[assigned],
                   np.broadcast_to(self.shard_bytes[:, None], self.replica_map.shape)[assigned])
+
+    # -- storage strategies --------------------------------------------------
+    def set_strategy_arrays(self, min_live: np.ndarray, shard_bytes: np.ndarray,
+                            ec_k: np.ndarray) -> None:
+        """Install per-file strategy arrays and re-derive the per-node bytes."""
+        n = self.replica_map.shape[0]
+        for name, a in (("min_live", min_live), ("shard_bytes", shard_bytes),
+                        ("ec_k", ec_k)):
+            if np.asarray(a).shape != (n,):
+                raise ValueError(f"{name} shape {np.asarray(a).shape} != ({n},)")
+        self.min_live = np.asarray(min_live, dtype=np.int32).copy()
+        self.shard_bytes = np.asarray(shard_bytes, dtype=np.int64).copy()
+        self.ec_k = np.asarray(ec_k, dtype=np.int32).copy()
+        self._recompute_node_bytes()
+        self.version += 1
+
+    def set_file_strategy(self, fid: int, min_live: int, shard_bytes: int, ec_k: int,
+                          region_local: bool = False) -> None:
+        """Re-strategize one file; its assigned slots re-account at the new
+        shard size."""
+        old = int(self.shard_bytes[fid])
+        new = int(shard_bytes)
+        if new != old:
+            row = self.replica_map[fid]
+            for node in row[row >= 0]:
+                self.node_bytes[int(node)] += new - old
+        self.min_live[fid] = int(min_live)
+        self.shard_bytes[fid] = new
+        self.ec_k[fid] = int(ec_k)
+        self.region_local[fid] = bool(region_local)
+        self.version += 1
+
+    def apply_strategy_target(self, fid: int, min_live: int, shard_bytes: int, ec_k: int,
+                              target: int, region_local: bool = False) -> int:
+        """Move ``fid`` to a storage strategy and toward ``target`` shards.
+
+        The same shape (min_live, shard_bytes, ec_k, region_local) is
+        ``apply_rf_target``.  A new shape is a re-encode: it needs
+        ``min_live`` reachable shards of the current form and ``min_live``
+        of the new one's reachable nodes, else it defers (the file keeps
+        its form; the controller retries each window).  A granted re-encode
+        drops every old slot, then places the new shards one by one with
+        ``pick_repair_target``.  Returns the shard-count delta."""
+        same = (int(self.min_live[fid]) == int(min_live)
+                and int(self.shard_bytes[fid]) == int(shard_bytes)
+                and int(self.ec_k[fid]) == int(ec_k)
+                and bool(self.region_local[fid]) == bool(region_local))
+        if same:
+            return self.apply_rf_target(fid, target)
+        if int(self._reach_counts[fid]) < int(self.min_live[fid]) \
+                or self.n_available < int(min_live):
+            return 0
+        row = self.replica_map[fid]
+        before = int((row >= 0).sum())
+        for node in [int(x) for x in row[row >= 0]]:
+            self.drop_replica(fid, node)
+        self.set_file_strategy(fid, min_live, shard_bytes, ec_k, region_local)
+        self.installed_shards[fid] = int(target)
+        placed = 0
+        goal = min(int(target), self.n_available)
+        while placed < goal:
+            node = self.pick_repair_target(fid)
+            if node < 0:  # pragma: no cover - goal <= n_available
+                break
+            self.add_replica(fid, node)
+            placed += 1
+        return placed - before
+
+    def strategy_mismatch(self, min_live: np.ndarray, shard_bytes: np.ndarray,
+                          ec_k: np.ndarray, region_local: np.ndarray | None = None
+                          ) -> np.ndarray:
+        """File ids whose installed strategy differs from the wanted arrays
+        (deferred conversions)."""
+        mism = ((self.min_live != np.asarray(min_live, np.int32))
+                | (self.shard_bytes != np.asarray(shard_bytes, np.int64))
+                | (self.ec_k != np.asarray(ec_k, np.int32)))
+        if region_local is not None:
+            mism |= self.region_local != np.asarray(region_local, bool)
+        return np.flatnonzero(mism)
 
     def repair_read_bytes(self, fid: int) -> int:
         """Bytes read to create one new copy of ``fid`` (k shards for an EC
@@ -245,16 +354,15 @@ class ClusterState:
         throughput divided by the edge's byte-cost multiplier (an EC
         rebuild is gated by its k-th best source)."""
         read_bytes = int(self.repair_read_bytes(fid))
-        node_reach = self.node_reachable()
-        row = self.replica_map[fid]
-        tgt = float(self.node_throughput[target])
+        node_reach = self.node_reachable().tolist()
+        thr = self.node_throughput.tolist()
+        tgt = thr[target]
         cost = self._byte_cost
         rates = []
-        for x in row[row >= 0]:
-            s = int(x)
-            if not node_reach[s]:
+        for s in self.replica_map[fid].tolist():
+            if s < 0 or not node_reach[s]:
                 continue
-            r = min(float(self.node_throughput[s]), tgt)
+            r = min(thr[s], tgt)
             if cost is not None:
                 r /= float(cost[s, target])
             rates.append(r)
@@ -473,11 +581,6 @@ class ClusterState:
         return self.reachable_counts() < self.min_live
 
     # -- mutation ------------------------------------------------------------
-    def _file_domains(self, fid: int) -> set:
-        """Domains holding an assigned copy of ``fid`` (down holders count)."""
-        row = self.replica_map[fid]
-        return {int(self.domain_index[x]) for x in row[row >= 0]}
-
     def pick_repair_target(self, fid: int, rotate: int = 0,
                            new_domain_only: bool = False) -> int:
         """Target of a new copy of ``fid``: a reachable node without a copy
@@ -486,35 +589,33 @@ class ClusterState:
         then node id; ``rotate`` steps through the candidates (a retry
         after a flaky failure), ``new_domain_only`` keeps unoccupied
         domains only (the spread rebalance).  -1 when there is none."""
-        row = self.replica_map[fid]
-        holding = set(int(x) for x in row[row >= 0])
-        have_domains = self._file_domains(fid)
-        reach = self.node_reachable()
-        n_levels = self.topology.n_levels
-        avail = [i for i in range(len(self.nodes)) if reach[i] and i not in holding]
-        if n_levels > 0:
-            top = self.topology.top_domain_index()
-            have_top = {int(top[x]) for x in holding}
+        # Python lists of the node arrays: a call touches a dozen nodes,
+        # where numpy's per-element indexing would dominate.
+        holding = {x for x in self.replica_map[fid].tolist() if x >= 0}
+        dom = self.domain_index.tolist()
+        have_domains = {dom[x] for x in holding}
+        reach = self.node_reachable().tolist()
+        nbytes = self.node_bytes.tolist()
+        avail = [i for i in range(len(reach)) if reach[i] and i not in holding]
+        if self._top_index is not None:
+            top = self._top_index.tolist()
+            have_top = {top[x] for x in holding}
             if self.region_local[fid] and have_top:
-                avail = [i for i in avail if int(top[i]) in have_top]
+                avail = [i for i in avail if top[i] in have_top]
         if new_domain_only:
-            avail = [i for i in avail if int(self.domain_index[i]) not in have_domains]
+            avail = [i for i in avail if dom[i] not in have_domains]
         if not avail:
             return -1
-        if n_levels > 0:
+        if self._top_index is not None:
             top_cnt: dict[int, int] = {}
             base_cnt: dict[int, int] = {}
             for x in holding:
-                t = int(top[x])
-                b = int(self.domain_index[x])
-                top_cnt[t] = top_cnt.get(t, 0) + 1
-                base_cnt[b] = base_cnt.get(b, 0) + 1
-            avail.sort(key=lambda i: (top_cnt.get(int(top[i]), 0),
-                                      base_cnt.get(int(self.domain_index[i]), 0),
-                                      int(self.node_bytes[i]), i))
+                top_cnt[top[x]] = top_cnt.get(top[x], 0) + 1
+                base_cnt[dom[x]] = base_cnt.get(dom[x], 0) + 1
+            avail.sort(key=lambda i: (top_cnt.get(top[i], 0), base_cnt.get(dom[i], 0),
+                                      nbytes[i], i))
         else:
-            avail.sort(key=lambda i: (int(self.domain_index[i]) in have_domains,
-                                      int(self.node_bytes[i]), i))
+            avail.sort(key=lambda i: (dom[i] in have_domains, nbytes[i], i))
         return avail[int(rotate) % len(avail)]
 
     def add_replica(self, fid: int, node: int) -> None:
@@ -527,7 +628,7 @@ class ClusterState:
             self.slot_corrupt[fid, free[0]] = False
             self._n_corrupt -= 1
         self.node_bytes[node] += self.shard_bytes[fid]
-        self._refresh_files(np.asarray([fid]))
+        self._refresh_one(fid)
         self.version += 1
 
     def drop_replica(self, fid: int, node: int) -> None:
@@ -539,7 +640,7 @@ class ClusterState:
                 self.slot_corrupt[fid, slots[0]] = False
                 self._n_corrupt -= 1
             self.node_bytes[node] -= self.shard_bytes[fid]
-            self._refresh_files(np.asarray([fid]))
+            self._refresh_one(fid)
             self.version += 1
 
     def _drop_order(self, fid: int, holders: list[int]) -> list[int]:

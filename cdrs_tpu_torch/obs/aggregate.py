@@ -1,6 +1,6 @@
 """Stream aggregation of ``cdrs_tpu/obs/aggregate.py``: the window-record
 digests (``pacing_digest`` with its ``percentile``, ``integrity_digest``,
-``serve_digest``), the stream folds the Prometheus renderer reads
+``serve_digest``, ``storage_digest``), the stream folds the Prometheus renderer reads
 (``final_counters``, ``merge_hist_buckets``, ``dedup_windows``) and the
 scenario cells' ``coverage_fingerprint``."""
 
@@ -9,7 +9,8 @@ from __future__ import annotations
 import hashlib
 
 __all__ = ["percentile", "pacing_digest", "integrity_digest", "serve_digest",
-           "merge_hist_buckets", "dedup_windows", "final_counters", "coverage_fingerprint"]
+           "storage_digest", "merge_hist_buckets", "dedup_windows", "final_counters",
+           "coverage_fingerprint"]
 
 
 def percentile(values: list[float], q: float) -> float:
@@ -152,4 +153,25 @@ def serve_digest(windows: list[dict]) -> dict | None:
         "locality_last": sw[-1].get("serve_locality"),
         "reads_corrupt_served": sum(int(w.get("reads_corrupt_served") or 0) for w in sw),
         "reads_corrupt_detected": sum(int(w.get("reads_corrupt_detected") or 0) for w in sw),
+    }
+
+
+def storage_digest(windows: list[dict]) -> dict | None:
+    """Byte and cost digest over the records carrying ``storage``; None when
+    there are none.  The final window is the headline; the maximum overhead
+    tracks the costliest window (a conversion can briefly hold both forms)."""
+    sw = [w for w in windows if w.get("storage")]
+    if not sw:
+        return None
+    last = sw[-1]["storage"]
+    return {
+        "windows": len(sw),
+        "bytes_raw": last.get("bytes_raw"),
+        "bytes_stored_final": last.get("bytes_stored"),
+        "overhead_ratio_final": last.get("overhead_ratio"),
+        "overhead_ratio_max": max(float(w["storage"].get("overhead_ratio", 0.0)) for w in sw),
+        "cost_units_final": last.get("cost_units"),
+        "ec_files_final": last.get("ec_files"),
+        "per_tier_bytes_final": dict(last.get("per_tier_bytes") or {}),
+        "per_category_bytes_final": dict(last.get("per_category_bytes") or {}),
     }

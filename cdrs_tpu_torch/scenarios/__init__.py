@@ -5,7 +5,7 @@ topology x storage x scale x serve config; one harness (harness.py) that
 runs any cell end to end and checks invariants (zero silent loss,
 churn-budget conservation, domain diversity, kill/resume bit-identity,
 positive engagement, alert expectations, the daemon's, the read path's
-SLO); the reference's presets and seeded random cells (presets.py), swept
+SLO, EC engagement); the reference's presets and seeded random cells (presets.py), swept
 by ``scenarios sweep`` (sweep.py).  Cells that need an axis the port does not run yet are
 refused by name with their ROADMAP item.  The reference's failure-space
 search (``scenarios search|triage``) is not ported yet (ROADMAP A12).

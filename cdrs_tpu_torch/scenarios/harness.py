@@ -21,6 +21,8 @@ read path — and checks invariants, not just metrics:
   corruption rotted or found: an axis that silently did nothing fails;
 * **alerting** — a cell's expected alerts (obs/alerts.py) fire and its
   forbidden ones stay silent;
+* **EC engagement** — a cell whose storage config erasure-codes a category
+  must install and account a stripe in some window (``ec_engaged``);
 * **the read path** (``spec.serve``) — reads were routed, and the last
   window in which reads happened has a finite p99 within the cell's bound,
   refused no read and, where the cell sets one, kept its SLO burn;
@@ -29,8 +31,8 @@ read path — and checks invariants, not just metrics:
   epoch frozen, stop/resume stitching exact, decision traces reconciled,
   and the live HTTP plane scraped over real HTTP.
 
-A cell that needs an axis the port does not run yet (elasticity, storage,
-a hash placement, a mesh) is refused before anything is built,
+A cell that needs an axis the port does not run yet (elasticity, a hash
+placement, a mesh) is refused before anything is built,
 with the ROADMAP item that brings it (:func:`unported_axes`).  A failing
 cell carries a one-line repro command (:func:`repro_line`).
 """
@@ -66,7 +68,6 @@ _DEFAULT_FLIP = {"hot": "archival", "archival": "hot"}
 #: present in the spec, the ControllerConfig option that refuses it).
 _UNPORTED_AXES = (
     ("elastic", lambda s: s.elastic is not None, "elastic"),
-    ("storage", lambda s: bool(s.storage), "storage"),
     ("placement", lambda s: s.placement != "materialized", "placement_mode"),
     ("mesh", lambda s: s.mesh is not None, "mesh_shape"),
 )
@@ -188,6 +189,14 @@ def _controller(spec: ScenarioSpec, manifest: Manifest, schedule: FaultSchedule 
         from ..faults import ScrubConfig
 
         scrub = ScrubConfig(bytes_per_window=int(spec.scrub))
+    scoring = _scoring(spec)
+    storage = None
+    if spec.storage:
+        # A preset name ("replicate", "ec_archival") or a config dict.
+        from ..storage import resolve_storage_config, storage_config_from_dict
+
+        storage = (storage_config_from_dict(spec.storage) if isinstance(spec.storage, dict)
+                   else resolve_storage_config(spec.storage, scoring))
     serve = None
     if spec.serve is not None:
         from ..serve import ServeConfig, SloSpec
@@ -214,9 +223,10 @@ def _controller(spec: ScenarioSpec, manifest: Manifest, schedule: FaultSchedule 
         decay=spec.decay,
         default_rf=spec.default_rf,
         kmeans=KMeansConfig(k=spec.k, seed=42),
-        scoring=_scoring(spec),
+        scoring=scoring,
         topology=topology,
         fault_schedule=None if schedule is None else FaultSchedule(schedule.events),
+        storage=storage,
         serve=serve,
         scrub=scrub,
         device=device,
@@ -239,7 +249,8 @@ def _served_windows(records: list[dict]) -> list[dict]:
 
 def _check_invariants(spec: ScenarioSpec, records: list[dict], max_bytes: int | None,
                       budget_slack: int, multi_domain: bool, has_corrupt: bool,
-                      schedule=None, alerts_fired: set | None = None) -> dict:
+                      has_ec: bool = False, schedule=None,
+                      alerts_fired: set | None = None) -> dict:
     """The reference's invariants for the axes the port runs, in its order
     (the keys name the coverage bits ``inv:<name>``)."""
     inv: dict[str, bool] = {}
@@ -280,6 +291,13 @@ def _check_invariants(spec: ScenarioSpec, records: list[dict], max_bytes: int | 
         detected = sum(int(r["integrity"].get(k, 0)) for r in integ
                        for k in ("detected_scrub", "detected_read", "detected_repair"))
         inv["corruption_engaged"] = rotted or detected > 0
+    if has_ec:
+        # Some window installed and accounted a stripe (a drift cell may
+        # legitimately end with none).
+        st = [r for r in records if r.get("storage")]
+        inv["ec_engaged"] = bool(st) and any(
+            r["storage"]["ec_files"] > 0
+            and r["storage"]["bytes_stored"] > r["storage"]["bytes_raw"] for r in st)
     if max_bytes is not None:
         slack = budget_slack if integ else 0
         inv["budget_conserved"] = all(
@@ -481,6 +499,7 @@ def run_cell(spec: ScenarioSpec, *, suite: str | None = None, suite_seed: int = 
     multi_domain = bool((spec.racks or spec.topology is not None) and ctl.cfg.topology
                         and len(set(ctl.cfg.topology.domains)) > 1)
     has_corrupt = schedule is not None and any(ev.kind == "corrupt" for ev in schedule)
+    has_ec = ctl._storage is not None and bool((np.asarray(ctl._storage.ec_k) > 0).any())
     # One verified boundary task's worst-case charge: every copy of the
     # largest file read through the slowest straggler the schedule installs.
     budget_slack = 0
@@ -491,7 +510,7 @@ def run_cell(spec: ScenarioSpec, *, suite: str | None = None, suite_seed: int = 
                            / min_factor)
     alerts_fired = {r["name"] for r in evaluate_records(records) if r["fired"]}
     inv = _check_invariants(spec, records, max_bytes, budget_slack, multi_domain,
-                            has_corrupt, schedule=schedule, alerts_fired=alerts_fired)
+                            has_corrupt, has_ec, schedule=schedule, alerts_fired=alerts_fired)
     if spec.daemon:
         inv.update(_daemon_invariants(spec, manifest, schedule, events, records, device))
     if spec.resume_window is not None:

@@ -11,9 +11,9 @@ The same presets, random cells and suites, in the same order, so that
 * **random cells** (``random_cell``) — seeded compositions over all axes,
   deterministic in (suite seed, index).
 
-Cells whose axes the port does not run yet (serving, elasticity, storage,
-hash placement, a mesh) stay in the suites; the harness and the sweep
-refuse them by name (scenarios/harness.unported_axis).
+Cells whose axes the port does not run yet (elasticity, hash placement,
+a mesh) stay in the suites; the harness and the sweep
+refuse them by name (scenarios/harness.unported_axes).
 """
 
 from __future__ import annotations

@@ -7,8 +7,8 @@ through ``to_dict``/``from_dict`` (a failing cell's repro line reruns
 exactly that cell).  Every field of the reference's spec is here, so any
 of its repro lines or corpus cells parses; the port's harness
 (scenarios/harness.py) refuses, before anything runs, a cell that needs
-an axis the port does not have yet (elastic, storage, a hash placement,
-a mesh).
+an axis the port does not have yet (elastic, a hash placement, a
+mesh).
 
 Axes
 ----

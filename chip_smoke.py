@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernel checks only (no ok line)
-    python3 chip_smoke.py --phase 10 # build, kernel checks and one phase (9 or
-                                     # 10) alone; no ok line
+    python3 chip_smoke.py --phase 10 # build, kernel checks and one phase (9,
+                                     # 10 or 11) alone; no ok line
 
 Phases, each of which exits non-zero when a check fails:
 
@@ -91,8 +91,8 @@ Phases, each of which exits non-zero when a check fails:
    whose float64 accumulators and plan hashes on the card equal the CPU's.
 9. The scenario matrix (``cdrs_tpu_torch.scenarios.run_cell``) on CUDA:
    (a) every cell of the ``full`` suite at suite seed 0 whose axes the port
-   runs (the sixteen ported ``ci-smoke`` cells, ``control-shift`` and the
-   serving ``random-s0-3``), each
+   runs (the seventeen ported ``ci-smoke`` cells, ``control-shift``, the
+   serving ``random-s0-3`` and the replicate-storage ``random-s0-2``), each
    ``ok`` from the card's own cold init (the rows its D² init picked are
    logged; a cell of ``SCENARIO_QUEUE_C`` must fail exactly its recorded
    invariants there), with B1 = sum(n_iter + 1) over the cell's
@@ -124,6 +124,22 @@ Phases, each of which exits non-zero when a check fails:
    serving and the brownout ladder forced to ``shed_reads`` (burn trip
    wire 0): reads shed in the shed windows and every record equal to a
    controller's fed the same windows under the same ``serve_shed``.
+11. Storage strategies, HDFS's RS-6-3-1024k policy (``ec_archival``:
+   EC(6,3) Archival on the cold tier) on 12 DataNodes in 4 racks of 3,
+   rack r1 crashed for good from window 3: (a) 2,500,000 files generated
+   on dn1..dn12 (seed 10, 60 s of traffic) with phase 8's settings (rf >=
+   2, 250,000 files a window): no file lost in any window, a ``storage``
+   record in each, B1 = sum(n_iter + 1) and B2 = 12 per re-cluster by the
+   counters, seconds a window by stage, the crash window's idle share, and
+   a kill after window 4 resumed to the same records and
+   ``state_arrays()``; (b) 20,000 files over 720 s (6 windows of 120 s)
+   with no storage, ``replicate`` and ``ec_archival`` on the card:
+   ``replicate`` equal to no storage in every record and in
+   ``state_arrays()``, EC losing no file with Archival stored at most half
+   replicate's bytes, the EC run equal to the CPU's from one init and to
+   its own kill/resume; with p2c serving, EC stripes whose primary shard
+   is down after the crash, and latencies above the same run's without
+   the storage penalty.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It imports nothing of the JAX
@@ -164,7 +180,7 @@ SCENARIO_CELLS = ("control-shift", "chaos-kill", "rack-kill", "rack-partition", 
                   "rolling-decommission", "integrity-scrub", "daemon-stream",
                   "adversarial-drift", "gradual-drift", "random-s0-0", "serve-chaos",
                   "flash-crowd", "slo-burn", "integrity-read", "diurnal", "random-s0-1",
-                  "random-s0-3")
+                  "random-s0-3", "storage-ec", "random-s0-2")
 SCENARIO_SCALE = {"n_files": MAIN_FILES, "duration": MAIN_DURATION, "alerts": None}  # 9b's cuts
 #: Cells red on the card's own cold init, with the reference red on that
 #: init too (ROADMAP Queue C): the entry and the invariants that fail.
@@ -182,6 +198,15 @@ SERVE_PROFILED_WINDOW = 3    # the window [30 s, 40 s) the burst lands in
 SERVE_RACKS = "r0=dn1,dn2;r1=dn3,dn4;r2=dn5,dn6"
 SERVE_STAGES = ("fold", "hotspot", "drift", "recluster", "plan", "schedule", "serve",
                 "evaluate", "total")
+#: Phase 11: HDFS's RS-6-3-1024k policy (EC(6,3) Archival, cold tier) on 12
+#: DataNodes in 4 racks of 3, rack r1 crashed for good from window 3.
+STORAGE_NODES = tuple(f"dn{i}" for i in range(1, 13))
+STORAGE_CRASH = "crash:rack:r1@3"
+STORAGE_KILL_AFTER = 4       # windows before the simulated kill
+#: 11b's span and windows: at phase 4's 60 s no cluster scores Archival, so
+#: the span is 720 s (6 windows of 120 s; the cold start sees 120 s).
+STORAGE_SPAN_B = 720.0
+STORAGE_WINDOW_B = 120.0
 
 
 def fail(msg: str) -> None:
@@ -1728,6 +1753,247 @@ def profile_phases(ctl, window, prof):
     ctl._window_phase_a, ctl._window_phase_b = profiled_a, profiled_b
 
 
+def storage_config(device: str, storage: str | None, window: float = CONTROL_WINDOW,
+                   **kw):
+    """Phase 8's settings on 12 nodes in 4 racks with rack r1 crashed from
+    window 3, and the storage config ``storage`` (None, "replicate" or
+    "ec_archival") resolved against phase 8's scoring."""
+    import dataclasses
+
+    from cdrs_tpu_torch.cluster.placement import ClusterTopology
+    from cdrs_tpu_torch.storage import resolve_storage_config
+
+    topo = ClusterTopology.from_rack_spec(STORAGE_NODES, CHAOS_RACKS)
+    cfg = chaos_config(device, [STORAGE_CRASH], topology=topo, **kw)
+    return dataclasses.replace(cfg, window_seconds=window,
+                               storage=resolve_storage_config(storage, cfg.scoring))
+
+
+STORAGE_RECORD_KEYS = ("bytes_stored", "bytes_raw", "overhead_ratio", "ec_files", "cost_units")
+
+
+def phase_storage():
+    """Phase 11: storage strategies, EC(6,3) Archival on 12 nodes in 4 racks
+    with a rack crashed for good, at the main path's scale (11a) and at
+    20,000 files against no storage, replicate and the CPU (11b).  Returns
+    the kernels' launches in 11a."""
+    import numpy as np
+
+    from cdrs_tpu_torch import GeneratorConfig, SimulatorConfig
+    from cdrs_tpu_torch.control.controller import ReplicationController
+    from cdrs_tpu_torch.device import deterministic
+    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
+    from cdrs_tpu_torch.ops.seg_count import label_threshold_count
+    from cdrs_tpu_torch.sim.access import simulate_access
+    from cdrs_tpu_torch.sim.generator import generate_population
+
+    t0 = time.perf_counter()
+    manifest = generate_population(GeneratorConfig(n_files=MAIN_FILES, seed=MAIN_SEED,
+                                                   nodes=STORAGE_NODES))
+    t_gen = time.perf_counter() - t0
+    events = simulate_access(manifest, SimulatorConfig(duration_seconds=MAIN_DURATION,
+                                                       seed=MAIN_SEED + 1))
+    log(f"storage workload: {len(manifest)} files on {len(STORAGE_NODES)} nodes, "
+        f"{len(events)} events over {MAIN_DURATION:g} s; gen {t_gen:.3f} s, simulate "
+        f"{time.perf_counter() - t0 - t_gen:.3f} s")
+
+    def config():
+        return storage_config("cuda", "ec_archival")
+
+    with tempfile.TemporaryDirectory() as tmp, deterministic():
+        ctl = ReplicationController(manifest, config())
+        seen = watch_reclusters(ctl)
+        prof: dict = {}
+        profile_phases(ctl, 3, prof)   # the crash window
+        ck = os.path.join(tmp, "killed.npz")
+        save = ctl.save_checkpoint
+
+        def save_and_keep(path, *args, **kw):
+            save(path, *args, **kw)
+            if ctl.window_index == STORAGE_KILL_AFTER + 1:
+                shutil.copyfile(path, ck)
+
+        ctl.save_checkpoint = save_and_keep
+        lloyd_assign_reduce.launches = 0
+        label_threshold_count.launches = 0
+        t0 = time.perf_counter()
+        full = ctl.run(events, checkpoint_path=os.path.join(tmp, "full.npz"))
+        wall = time.perf_counter() - t0
+        launches = {"lloyd": lloyd_assign_reduce.launches,
+                    "seg_count": label_threshold_count.launches}
+        recs = full.records
+        log(f"storage: ec_archival, {len(recs)} windows of {CONTROL_WINDOW:g} s, "
+            f"{STORAGE_CRASH}; wall {wall:.3f} s (checkpoints included), re-clusters "
+            f"{[r['recluster_mode'] for r in recs]}, Lloyd iterations "
+            f"{[c['n_iter'] for c in seen]}, launches {launches}")
+        for r in recs:
+            log("storage window " + json.dumps(
+                {"window": r["window"], "fault_events": r["fault_events"],
+                 "nodes_up": r["nodes_up"], "moves_applied": r["moves_applied"],
+                 "repair_moves": r["repair_moves"], "repair_bytes": r["repair_bytes"],
+                 "repair_backlog": r["repair_backlog"],
+                 "conversions_retried": r["storage_conversions_retried"],
+                 "lost": r["durability"]["lost"], "at_risk": r["durability"]["at_risk"],
+                 "under_replicated": r["durability"]["under_replicated"],
+                 "storage": {k: r["storage"][k] for k in STORAGE_RECORD_KEYS},
+                 "per_tier_bytes": r["storage"]["per_tier_bytes"],
+                 "causes": r.get("causes"), "seconds": r["seconds"]}))
+        per_stage = {st: sum(r["seconds"].get(st, 0.0) for r in recs) / len(recs)
+                     for st in CHAOS_STAGES}
+        log("storage stages mean seconds per window " + json.dumps(per_stage))
+        log("storage summary " + json.dumps(full.summary()))
+        log("storage profile " + json.dumps(prof))
+        want_lloyd = sum(c["n_iter"] + 1 for c in seen)
+        check(len(recs) == 6, f"storage ran {len(recs)} windows, wants 6")
+        check(len(seen) == len(recs), f"storage: {len(seen)} re-clusters for {len(recs)} "
+              f"windows")
+        check(launches["lloyd"] == want_lloyd, f"storage made {launches['lloyd']} Lloyd "
+              f"launches, expected {want_lloyd}")
+        check(launches["seg_count"] == 12 * len(seen), f"storage made "
+              f"{launches['seg_count']} threshold-count launches, expected {12 * len(seen)}")
+        check(recs[3]["fault_events"] == ["crash:dn4@3", "crash:dn5@3", "crash:dn6@3"],
+              f"window 3's fault events are {recs[3]['fault_events']}")
+        check(all(r["nodes_up"] == 9 and r["repair_moves"] > 0 for r in recs[3:]),
+              "storage: rack r1 not down, or no repair, from window 3")
+        check(all(r["durability"]["lost"] == 0 for r in recs), "storage lost files")
+        check(all(r["storage"]["bytes_raw"] == int(np.asarray(manifest.size_bytes).sum())
+                  and r["storage"]["bytes_stored"] > r["storage"]["bytes_raw"] for r in recs),
+              "storage records miss the stored bytes")
+        check(prof.get("window") == 3 and prof.get("lloyd_launches_seen", 0) > 0,
+              f"storage profile of the crash window: {prof}")
+
+        check(os.path.exists(ck), f"no snapshot after window {STORAGE_KILL_AFTER}")
+        rest_ctl = ReplicationController(manifest, config())
+        rest = rest_ctl.run(events, checkpoint_path=ck)
+        check(strip_seconds(rest.records) == strip_seconds(recs[STORAGE_KILL_AFTER + 1:]),
+              "storage kill/resume records differ from the uninterrupted run's")
+        got, want = rest_ctl._cluster_state.state_arrays(), ctl._cluster_state.state_arrays()
+        check(set(got) == set(want) and all(np.array_equal(got[k], want[k]) for k in want),
+              "storage kill/resume ClusterState.state_arrays() differ from the full run's")
+        check(np.array_equal(rest_ctl._installed_cat, ctl._installed_cat),
+              "storage kill/resume installed categories differ")
+        log(f"storage kill/resume: killed after window {STORAGE_KILL_AFTER}, resumed; records "
+            f"identical apart from seconds in windows {[r['window'] for r in rest.records]}, "
+            f"state_arrays identical")
+    del events
+    storage_small()
+    return launches
+
+
+def storage_small():
+    """11b: 20,000 files on the same 12 nodes and racks over 720 s, with no
+    storage, replicate and ec_archival on the card, the EC run on the CPU
+    from the same init, the EC run's kill and resume, and EC with serving."""
+    import numpy as np
+
+    from cdrs_tpu_torch import GeneratorConfig, SimulatorConfig
+    from cdrs_tpu_torch.control.controller import ReplicationController
+    from cdrs_tpu_torch.serve import ServeConfig
+    from cdrs_tpu_torch.sim.access import simulate_access
+    from cdrs_tpu_torch.sim.generator import generate_population
+
+    manifest = generate_population(GeneratorConfig(n_files=20_000, seed=MAIN_SEED,
+                                                   nodes=STORAGE_NODES))
+    events = simulate_access(manifest, SimulatorConfig(duration_seconds=STORAGE_SPAN_B,
+                                                       seed=MAIN_SEED + 1))
+    drop = ("seconds", "storage", "storage_conversions_retried")
+
+    def run(dev, storage, ck=None, **kw):
+        ctl = ReplicationController(manifest, storage_config(dev, storage, STORAGE_WINDOW_B,
+                                                             **kw))
+        watch_reclusters(ctl, cpu_init)
+        return ctl, ctl.run(events, checkpoint_path=ck)
+
+    def arrays_equal(a, b):
+        x, y = a._cluster_state.state_arrays(), b._cluster_state.state_arrays()
+        return set(x) == set(y) and all(np.array_equal(x[k], y[k]) for k in y)
+
+    runs = {name: run("cuda", name) for name in (None, "replicate")}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ec.npz")
+        ctl_ec, res_ec = run("cuda", "ec_archival", ck)
+        killed = os.path.join(tmp, "killed.npz")
+        ctl_a = ReplicationController(manifest, storage_config("cuda", "ec_archival",
+                                                               STORAGE_WINDOW_B))
+        watch_reclusters(ctl_a, cpu_init)
+        part = ctl_a.run(events, checkpoint_path=killed, max_windows=STORAGE_KILL_AFTER + 1)
+        ctl_b = ReplicationController(manifest, storage_config("cuda", "ec_archival",
+                                                               STORAGE_WINDOW_B))
+        watch_reclusters(ctl_b, cpu_init)
+        rest = ctl_b.run(events, checkpoint_path=killed)
+    runs["ec_archival"] = (ctl_ec, res_ec)
+    ctl_cpu, res_cpu = run("cpu", "ec_archival")
+    (ctl_n, res_n), (ctl_r, res_r) = runs[None], runs["replicate"]
+    for name, (_, res) in runs.items():
+        last = res.records[-1]
+        log(f"storage 20k {name}: plan hashes {[r['plan_hash'] for r in res.records]}, lost "
+            f"{[r['durability']['lost'] for r in res.records]}, repairs "
+            f"{[r['repair_moves'] for r in res.records]}, storage "
+            + json.dumps(last.get("storage")))
+    check(strip_seconds([{k: v for k, v in r.items() if k not in drop}
+                         for r in res_r.records]) == strip_seconds(res_n.records),
+          "11b: replicate's records differ from no storage's")
+    check(arrays_equal(ctl_r, ctl_n) and np.array_equal(res_r.rf, res_n.rf),
+          "11b: replicate's state_arrays or plan differ from no storage's")
+    check(all(r["durability"]["lost"] == 0 for r in res_ec.records), "11b: EC lost files")
+    st_ec, st_rep = res_ec.records[-1]["storage"], res_r.records[-1]["storage"]
+    arch_ec = st_ec["per_category_bytes"].get("Archival", 0)
+    arch_rep = st_rep["per_category_bytes"].get("Archival", 0)
+    check(st_ec["ec_files"] > 0 and arch_ec > 0 and arch_rep >= 2 * arch_ec,
+          f"11b: Archival bytes {arch_rep} under replicate vs {arch_ec} under EC "
+          f"({st_ec['ec_files']} EC files)")
+    log(f"storage 20k: replicate = no storage in every record and state_arrays; EC lost 0; "
+        f"Archival bytes replicate {arch_rep} / EC {arch_ec} = {arch_rep / arch_ec:.4f}; "
+        f"overhead {st_rep['overhead_ratio']} -> {st_ec['overhead_ratio']}, cost units "
+        f"{st_rep['cost_units']} -> {st_ec['cost_units']}")
+    _records_match(res_ec.records, res_cpu.records, "11b EC card vs cpu")
+    check(arrays_equal(ctl_ec, ctl_cpu), "11b EC state_arrays differ between the card and "
+          "the CPU")
+    check(strip_seconds(part.records + rest.records) == strip_seconds(res_ec.records)
+          and arrays_equal(ctl_b, ctl_ec), "11b EC kill/resume differs from the full run")
+    log(f"storage 20k EC card vs cpu: every record (drift within 1e-6) and state_arrays "
+        f"equal; kill after window {STORAGE_KILL_AFTER} and resume bit-identical")
+
+    # Serving: the penalties of each window (degraded EC files: a cold
+    # stripe whose primary shard is down gathers k shards), then the same
+    # run with the storage penalty removed, whose latencies must be lower.
+    serve = ServeConfig(policy="p2c")
+    ctl_s = ReplicationController(manifest, storage_config("cuda", "ec_archival",
+                                                           STORAGE_WINDOW_B, serve=serve))
+    watch_reclusters(ctl_s, cpu_init)
+    penalty = ctl_s._serve_penalty_ms
+    gather = serve.service_ms * 5 * 4.0     # (k - 1) shards at the cold tier's 1/0.25
+    degraded = []
+
+    def counted(slot_ok):
+        pen = penalty(slot_ok)
+        degraded.append(int((pen >= gather).sum()))
+        return pen
+
+    ctl_s._serve_penalty_ms = counted
+    res_s = ctl_s.run(events)
+    ctl_z = ReplicationController(manifest, storage_config("cuda", "ec_archival",
+                                                           STORAGE_WINDOW_B, serve=serve))
+    watch_reclusters(ctl_z, cpu_init)
+    ctl_z._serve_penalty_ms = lambda slot_ok: np.zeros(slot_ok.shape[0])
+    res_z = ctl_z.run(events)
+    for r, z, d in zip(res_s.records, res_z.records, degraded):
+        log("storage serve window " + json.dumps(
+            {"window": r["window"], "degraded_ec_files": d, "reads": r["n_reads"],
+             "reads_unavailable": r["reads_unavailable"],
+             "p50_ms": r["latency_p50_ms"], "p99_ms": r["latency_p99_ms"],
+             "p50_ms_without_penalty": z["latency_p50_ms"],
+             "p99_ms_without_penalty": z["latency_p99_ms"]}))
+    check(len(degraded) == len(res_s.records), "11b serve: a window routed no read")
+    check(all(d == 0 for d in degraded[:3]) and all(d > 0 for d in degraded[3:]),
+          f"11b serve: degraded EC files per window {degraded}, want 0 before the crash")
+    check(all(r["latency_p99_ms"] >= z["latency_p99_ms"] and r["latency_p50_ms"]
+              >= z["latency_p50_ms"] for r, z in zip(res_s.records, res_z.records))
+          and any(r["latency_p99_ms"] > z["latency_p99_ms"]
+                  for r, z in zip(res_s.records[3:], res_z.records[3:])),
+          "11b serve: the storage penalty does not show in the latency records")
+
+
 def phase_serve(manifest, work):
     """Phase 10: the serving controller at the main path's scale (10a), the
     ``serve`` command over its log (10b, in a child process from the
@@ -2013,7 +2279,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
                         help="build and check the kernels only; prints no ok line")
-    parser.add_argument("--phase", type=int, choices=(9, 10), default=None,
+    parser.add_argument("--phase", type=int, choices=(9, 10, 11), default=None,
                         help="build and check the kernels, then run this phase alone; prints "
                              "no ok line")
     args = parser.parse_args()
@@ -2038,6 +2304,8 @@ def main() -> int:
         try:
             if args.phase == 9:
                 log(f"phase 9 launches {phase_scenarios()}")
+            elif args.phase == 11:
+                log(f"phase 11 launches {phase_storage()}")
             else:
                 from cdrs_tpu_torch import GeneratorConfig
                 from cdrs_tpu_torch.sim.generator import generate_population
@@ -2072,6 +2340,10 @@ def main() -> int:
         t0 = time.perf_counter()
         serve_launches = phase_serve(manifest, work)
         log(f"phase 10 (serve): {time.perf_counter() - t0:.1f} s")
+        del manifest
+        t0 = time.perf_counter()
+        storage_launches = phase_storage()
+        log(f"phase 11 (storage): {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2083,7 +2355,8 @@ def main() -> int:
          "daemon_launches": daemon_launches["lloyd"],
          "chaos_launches": chaos_launches["lloyd"],
          "scenario_launches": scenario_launches["lloyd"],
-         "serve_launches": serve_launches["lloyd"], **rows["lloyd"], "library_ms": None},
+         "serve_launches": serve_launches["lloyd"],
+         "storage_launches": storage_launches["lloyd"], **rows["lloyd"], "library_ms": None},
         {"name": "label_threshold_count", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/seg_count.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:534",
@@ -2092,14 +2365,15 @@ def main() -> int:
          "daemon_launches": daemon_launches["seg_count"],
          "chaos_launches": chaos_launches["seg_count"],
          "scenario_launches": scenario_launches["seg_count"],
-         "serve_launches": serve_launches["seg_count"], **rows["seg_count"],
+         "serve_launches": serve_launches["seg_count"],
+         "storage_launches": storage_launches["seg_count"], **rows["seg_count"],
          "library_ms": None},
         {"name": "lloyd_assign_reduce (row-major, labels)", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:443",
          "launches": stream_launches, "control_launches": 0,
          "daemon_launches": daemon_launches["lloyd_rowmajor"], "chaos_launches": 0,
-         "scenario_launches": 0, "serve_launches": 0,
+         "scenario_launches": 0, "serve_launches": 0, "storage_launches": 0,
          **rows["lloyd_rowmajor"],
          "library_ms": None},
     ]

@@ -1,6 +1,6 @@
 """The port's scenario matrix (``cdrs_tpu_torch.scenarios``) on the CPU: the
 cases of the reference's ``tests/test_scenarios.py`` that need no serving,
-storage, mesh or functional placement, plus the port's own contracts —
+mesh or functional placement, plus the port's own contracts —
 the suites equal the reference's spec for spec, cells with an unported
 axis are refused before anything runs (naming the ROADMAP item), and the
 workload curves are bit-identical to the reference's."""
@@ -112,7 +112,7 @@ def test_suite_cells_equal_the_reference(suite, seed):
     ("placement", {"placement": "materialized_hash"}, "A8f"),
     ("elastic", {"serve": {"policy": "p2c"}, "placement": "functional",
                  "elastic": {"pool": ["sb1"]}}, "A8f"),
-    ("storage", {"storage": "ec_archival"}, "A8e"),
+    ("mesh", {"storage": "ec_archival", "mesh": {"data": 2}, "backend": "jax"}, "A9"),
     ("placement", {"placement": "functional"}, "A8f"),
     ("mesh", {"mesh": {"data": 2}, "backend": "jax"}, "A9"),
 ])
@@ -125,6 +125,7 @@ def test_unported_axis_is_refused_before_anything_runs(axis, kw, item, monkeypat
     monkeypatch.setattr(harness, "generate_population", built)
     spec = _tiny(name=f"needs-{axis}", **kw)
     assert axis in [a for a, _, _ in unported_axes(spec)]
+    assert "storage" not in [a for a, _, _ in unported_axes(spec)]
     with pytest.raises(ValueError, match=f"{axis}.*ROADMAP {item}|ROADMAP {item}"):
         _run(spec)
 
@@ -141,7 +142,7 @@ def test_sweep_lists_unported_cells_and_runs_the_rest():
     assert [c["cell"] for c in out["cells"]] == ["s1", "s2", "s3"]
     assert out["n_not_ported"] == 2
     assert out["not_ported"] == [
-        {"cell": "s4", "item": "A8e", "axes": ["storage (A8e)", "placement (A8f)"]},
+        {"cell": "s4", "item": "A8f", "axes": ["placement (A8f)"]},
         {"cell": "s5", "item": "A9", "axes": ["mesh (A9)"]}]
     assert out["invariants_checked"] == sum(len(c["invariants"]) for c in out["cells"])
     assert {r["metric"] for r in out["bench_records"]} == \
@@ -272,6 +273,7 @@ def test_cli_scenarios_list(capsys):
     lines = {ln.split()[0]: ln for ln in out.splitlines() if ln.startswith("  ")}
     assert "waits for A8f" in lines["black-friday"] and "waits for A9" in lines["scale-mesh"]
     assert "waits for" not in lines["chaos-kill"] and "waits for" not in lines["serve-chaos"]
+    assert "waits for" not in lines["storage-ec"] and "storage=ec_archival" in lines["storage-ec"]
     assert "serve=p2c" in lines["serve-chaos"]
 
 
@@ -288,10 +290,10 @@ def test_cli_scenarios_run_spec_and_errors(tmp_path, capsys):
                           "--device", "cpu"]) == 2
     capsys.readouterr()
     # An unported preset exits non-zero before anything runs, naming its item.
-    assert port_cli.main(["scenarios", "run", "--preset", "storage-ec", "--device",
+    assert port_cli.main(["scenarios", "run", "--preset", "region-loss", "--device",
                           "cpu"]) == 2
     captured = capsys.readouterr()
-    assert "A8e" in captured.err and captured.out == ""
+    assert "A8f" in captured.err and captured.out == ""
     for action in ("search", "triage"):
         assert port_cli.main(["scenarios", action]) == 2
         assert "A12" in capsys.readouterr().err
@@ -323,13 +325,13 @@ def test_cli_scenarios_sweep_extra_cells(tmp_path, capsys):
     assert rc == 0 and digest["ok"] and digest["n_failed"] == 0
     art = json.loads(out_path.read_text())
     ran = [c["cell"] for c in art["cells"]]
-    assert ran[-2:] == ["corpus-a", "corpus-b"] and digest["n_cells"] == len(ran) == 18
-    assert digest["n_not_ported"] == 6
+    assert ran[-2:] == ["corpus-a", "corpus-b"] and digest["n_cells"] == len(ran) == 19
+    assert "storage-ec" in ran
+    assert digest["n_not_ported"] == 5
     assert {e["cell"] for e in art["not_ported"]} == {
-        "storage-ec", "scale-mesh", "scale-placement", "region-loss", "wan-partition",
-        "black-friday"}
-    assert all(e["item"] in ("A8e", "A8f", "A9") for e in art["not_ported"])
-    assert captured.err.count("[skip]") == 6
+        "scale-mesh", "scale-placement", "region-loss", "wan-partition", "black-friday"}
+    assert all(e["item"] in ("A8f", "A9") for e in art["not_ported"])
+    assert captured.err.count("[skip]") == 5
     events = [json.loads(line) for line in metrics.read_text().splitlines()]
     assert [e["cell"] for e in events if e.get("kind") == "cell"] == ran
 
