@@ -15,13 +15,17 @@
   ``durability`` block;
 * ``control``, ``daemon`` and ``chaos`` take ``--serve``: every window's
   reads route through the read router and hotspots trigger re-clusters;
-  and ``--storage_config``: categories map to replicate or erasure-coded
-  strategies on storage tiers;
+  ``--storage_config``: categories map to replicate or erasure-coded
+  strategies on storage tiers; and ``--placement``: the rng chooser over a
+  dense map (``materialized``), the stateless hash chooser over the
+  overlay state with sparse checkpoints (``functional``), or the hash
+  chooser over a dense map (``materialized_hash``, its oracle);
 * ``storage show|estimate`` resolves a storage config per category, or
   estimates its bytes and cost over a manifest and a category table;
 * ``serve`` replays the log's reads against a static placement (or a
-  faulted cluster state) through the read router, on the host, and
-  prints the serving digest;
+  faulted cluster state; ``--placement functional`` resolves each
+  window's rows through the hash chooser) through the read router, on the
+  host, and prints the serving digest;
 * ``scenarios list|run|sweep`` runs cells of the scenario matrix, each
   gated on invariants (a failing cell prints its repro line).
 
@@ -178,7 +182,7 @@ def _controller_cfg(args, fault_schedule=None, topology=None):
         scoring=scoring, evaluate=not args.no_evaluate,
         overlap_windows=args.overlap, device=args.device, fault_schedule=fault_schedule,
         repair_seed=getattr(args, "repair_seed", 0), topology=topology, scrub=scrub,
-        serve=serve, storage=storage)
+        serve=serve, storage=storage, placement_mode=args.placement)
 
 
 def _cmd_control(args, manifest=None, cfg=None) -> int:
@@ -366,13 +370,15 @@ def _cmd_storage(args) -> int:
 
 def _cmd_serve(args) -> int:
     """Read-path SLO replay: the log's reads, window by window, through the
-    read router against the static rng placement of ``--default_rf`` (or,
-    with fault flags, a ``ClusterState`` they mutate), with hotspot
-    scoring; prints the serving digest.  Host numpy: no device, no kernel."""
+    read router against the static placement of ``--default_rf`` (the rng
+    or, with ``--placement``, the hash chooser; ``functional`` computes
+    only each window's files' rows) or, with fault flags, a
+    ``ClusterState`` they mutate, with hotspot scoring; prints the serving
+    digest.  Host numpy: no device, no kernel."""
     import numpy as np
 
     from .cluster.evaluate import _client_to_topology
-    from .cluster.placement import ClusterTopology, place_replicas
+    from .cluster.placement import ClusterTopology, place_replicas, primary_on_topology
     from .control.windows import iter_windows
     from .faults import ClusterState, FaultSchedule
     from .io.events import Manifest
@@ -380,10 +386,6 @@ def _cmd_serve(args) -> int:
     from .obs.sink import JsonlSink
     from .serve import HotspotDetector, ReadRouter, ServeConfig, SloSpec, read_view
 
-    if args.placement != "materialized":
-        print(f"error: --placement {args.placement} (the hash chooser) is not ported yet "
-              f"(ROADMAP A8f, functional placement)", file=sys.stderr)
-        return 2
     manifest = Manifest.read_csv(args.manifest)
     topology = ClusterTopology(nodes=tuple(manifest.nodes))
     if args.racks:
@@ -399,11 +401,23 @@ def _cmd_serve(args) -> int:
         for spec in flag or ():
             events.extend(FaultSchedule.from_specs([f"{kind}:{spec}"]))
     schedule = FaultSchedule(events) if events else None
-    placement = place_replicas(manifest, rf, topology, seed=0)
-    state = None
+    method = "rng" if args.placement == "materialized" else "hash"
+    placement = state = resolver = None
     if schedule is not None:
+        # Faults need the mutable state; the hash modes swap its chooser.
+        placement = place_replicas(manifest, rf, topology, seed=0, method=method)
         schedule.validate_nodes(topology.nodes)
         state = ClusterState(placement, np.asarray(manifest.size_bytes, dtype=np.int64))
+    elif args.placement == "functional":
+        # No map at all: each window resolves only its own files' rows.
+        from .placement_fn import compute_placement
+
+        primary = primary_on_topology(manifest.nodes, manifest.primary_node_id, topology)
+
+        def resolver(uniq):
+            return compute_placement(uniq, rf[uniq], primary[uniq], topology, 0)[0]
+    else:
+        placement = place_replicas(manifest, rf, topology, seed=0, method=method)
     router = ReadRouter(len(topology), serve_cfg)
     hotspot = HotspotDetector(len(manifest), alpha=serve_cfg.hotspot_alpha,
                               spike_factor=serve_cfg.hotspot_spike_factor,
@@ -426,7 +440,8 @@ def _cmd_serve(args) -> int:
                 is_read = np.asarray(ev.op)[keep] == 0
                 pid = ev.path_id[keep][is_read]
                 hs = hotspot.observe(np.bincount(pid, minlength=len(manifest)))
-                view = read_view(pid, state=state, placement=placement)
+                view = read_view(pid, state=state, resolver=resolver, placement=placement,
+                                 n_nodes=len(topology))
                 res = router.route(
                     view.replica_map, view.slot_ok, view.node_throughput,
                     ts=ev.ts[keep][is_read], pid=view.pid,
@@ -591,7 +606,7 @@ def _cmd_scenarios(args) -> int:
 
     if args.action in ("search", "triage"):
         print(f"error: scenarios {args.action} (the failure-space search) is not ported "
-              f"yet (ROADMAP A12, after A8f)", file=sys.stderr)
+              f"yet (ROADMAP A12)", file=sys.stderr)
         return 2
     if args.round_no is not None or args.history:
         print("error: --round/--history (the bench history append) belong to the "
@@ -614,6 +629,10 @@ def _cmd_scenarios(args) -> int:
                 axes.append(f"serve={sp.serve.get('policy', 'p2c')}")
             if sp.scrub:
                 axes.append("scrub")
+            if sp.placement != "materialized":
+                axes.append(f"placement={sp.placement}")
+            if sp.elastic:
+                axes.append("elastic")
             if sp.resume_window is not None:
                 axes.append("resume-check")
             missing = sorted({item for _, item, _ in unported_axes(sp)})
@@ -756,6 +775,14 @@ def _add_control_args(p: argparse.ArgumentParser) -> None:
                         "'replicate' for the explicit degenerate config, or 'ec_archival' "
                         "for the built-in EC(6,3)-cold Archival preset; window records "
                         "gain a 'storage' record; see 'storage show'")
+    p.add_argument("--placement", choices=["materialized", "functional", "materialized_hash"],
+                   default="materialized",
+                   help="placement representation: 'materialized' = the rng chooser and a "
+                        "dense replica map; 'functional' = the stateless hash chooser: "
+                        "checkpoints store only the rows that differ from the computed "
+                        "base and reads resolve their rows on the fly; "
+                        "'materialized_hash' = the hash chooser over the dense map (the "
+                        "functional mode's oracle)")
     _add_scoring_args(p)
     _add_init_method_arg(p)
     _add_device_arg(p)
@@ -954,8 +981,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "replicas across racks")
     p.add_argument("--placement", choices=["materialized", "functional", "materialized_hash"],
                    default="materialized",
-                   help="placement source; only 'materialized' (the rng chooser) is "
-                        "ported, the hash chooser comes with ROADMAP A8f")
+                   help="placement source: 'functional' resolves each window's rows on the "
+                        "fly through the stateless hash chooser (no map; memory in the "
+                        "window's unique files); 'materialized_hash' materializes the same "
+                        "chooser (the oracle); default: the rng chooser")
     p.add_argument("--kill", action="append", metavar="NODE@W[-W2]",
                    help="crash NODE over windows W..W2; repeatable")
     p.add_argument("--partition", action="append", metavar="NODES@W[-W2]",

@@ -19,8 +19,10 @@ of storage strategies the same way, accounting a slot at its shard size.
 ``ClusterTopology`` parses the CLI's rack spec (``from_rack_spec``) and
 the ``--topology`` JSON hierarchy (``from_hierarchy``, with optional
 ``edge_bytes``/``edge_latency`` multipliers per boundary class), and
-renders it back (``to_hierarchy_dict``).  The stateless hash chooser
-(``method="hash"``) is not ported yet (ROADMAP A8f) and raises.
+renders it back (``to_hierarchy_dict``).  ``method="hash"`` draws the same
+policy's priorities from the stateless per-(file, node name) hash of
+``placement_fn.compute.compute_placement`` instead of a seeded rng matrix:
+the materialized twin of the functional chooser.
 """
 
 from __future__ import annotations
@@ -417,12 +419,9 @@ def place_replicas(manifest: Manifest, rf_per_file: np.ndarray,
     ``size_bytes`` (default: the manifest's sizes) fills the per-node byte
     accounting; ``local_mask`` pins each marked file to its primary's
     top-level domain on a geo hierarchy (its count clipped to that
-    domain's node count) and is ignored on other topologies."""
-    if method == "hash":
-        raise ValueError("placement method 'hash' is not ported yet (ROADMAP A8f, "
-                         "functional placement)")
-    if method != "rng":
-        raise ValueError(f"unknown placement method {method!r} (want 'rng')")
+    domain's node count) and is ignored on other topologies.  ``method``
+    is "rng" (a seeded priority matrix over the whole population) or
+    "hash" (``compute_placement``'s stateless priorities)."""
     topology = topology or ClusterTopology()
     n = len(manifest)
     n_nodes = len(topology)
@@ -438,6 +437,18 @@ def place_replicas(manifest: Manifest, rf_per_file: np.ndarray,
             f"topology places 3")
     rf = np.maximum(np.minimum(rf_want, n_nodes), 1)
     max_rf = int(rf.max())
+
+    if method == "hash":
+        from ..placement_fn.compute import compute_placement
+
+        replica_map, rf = compute_placement(np.arange(n, dtype=np.int64), rf, primary,
+                                            topology, 0 if seed is None else int(seed),
+                                            local_mask=local_mask)
+        result = PlacementResult(replica_map=replica_map, rf=rf, topology=topology)
+        result.compute_storage(manifest.size_bytes if size_bytes is None else size_bytes)
+        return result
+    if method != "rng":
+        raise ValueError(f"unknown placement method {method!r} (want 'rng' or 'hash')")
 
     prio = np.random.default_rng(seed).random((n, n_nodes))
     if topology.n_levels > 0:

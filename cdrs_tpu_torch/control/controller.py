@@ -64,6 +64,25 @@ Per time window (``control/windows.py``):
    k-shard gather, and a stripe below k reachable shards serves nothing.
    Routing is host numpy.
 
+**Placement modes** (``placement_mode``): ``"materialized"`` places by the
+seeded rng chooser over a dense ``ClusterState``; ``"functional"`` by the
+stateless hash chooser (``placement_fn.compute``) over the
+``OverlayClusterState``, which holds no ``(n_files, n_nodes)`` map: its
+checkpoint stores the rows that differ from the computed base, and
+without faults each window's reads resolve only their own files' rows
+(``_fn_static_rows``); ``"materialized_hash"`` is the same chooser and
+retarget policy over a dense state and dense snapshots, the oracle a
+functional run must equal.  Hash modes stamp each record's ``placement``
+(mode, epoch, and in functional mode the exception count).
+
+**Elasticity** (``elastic``, an ``ElasticPolicy``; needs ``serve`` and a
+hash mode, and turns the fault path on with an empty schedule): each
+window's scale step reads the last window's SLO burn and utilization;
+sustained heat activates the standby pool (the topology grows, and the
+addition-pruned epoch diff becomes a rebalance queue that drains after
+repairs on the same churn budget), sustained cool decommissions the added
+nodes one by one, and repairs carry their data back.
+
 Every window gives one record with the reference's keys (among them
 ``drift``, ``recluster_mode``, ``moves_applied``, ``fault_events``,
 ``repair_moves``, ``durability``, ``scrub``, ``integrity``, the serving
@@ -83,11 +102,10 @@ Departures from the reference:
 * Decayed runs cluster the float32 snapshot, where the reference's numpy
   backend clusters in float64; the accumulators and the float64 table are
   the reference's bit for bit.
-* Not ported yet, each refused by ``ControllerConfig`` with a
-  ``ValueError`` naming its ROADMAP item: functional placement and
-  elasticity, which needs a hash placement mode (A8f), and ``mesh_shape``
-  (A9).  Window telemetry (the reference's ``_instrument_window`` with its
-  ``serve.*`` events and ``storage.*`` gauges) waits for A10b.
+* Not ported yet, refused by ``ControllerConfig`` with a ``ValueError``
+  naming its ROADMAP item: ``mesh_shape`` (A9).  Window telemetry (the
+  reference's ``_instrument_window`` with its ``serve.*`` events and
+  ``storage.*`` gauges) waits for A10b.
 """
 
 from __future__ import annotations
@@ -103,7 +121,8 @@ import numpy as np
 import torch
 
 from ..cluster.evaluate import _client_to_topology, evaluate_placement
-from ..cluster.placement import ClusterTopology, place_replicas, place_stripes
+from ..cluster.placement import ClusterTopology, place_replicas, place_stripes, \
+    primary_on_topology
 from ..cluster.plan import PlanEntry
 from ..config import CATEGORIES, KMeansConfig, ScoringConfig
 from ..device import deterministic, resolve_device
@@ -113,9 +132,13 @@ from ..io.events import EventLog, Manifest
 from ..models.replication import ReplicationPolicyModel
 from ..obs.aggregate import integrity_digest, pacing_digest, serve_digest, storage_digest
 from ..obs.sink import JsonlSink
+from ..placement_fn.compute import compute_placement
+from ..placement_fn.epoch import addition_moved
+from ..placement_fn.state import FunctionalClusterState, OverlayClusterState
 from ..serve import HotspotDetector, ReadRouter, read_view
 from ..utils.checkpoint import CheckpointError, load_state, save_state
 from .drift import detect_drift
+from .elastic import _ElasticRuntime
 from .migrate import MigrationScheduler, plan_diff
 from .windows import _slice, iter_windows
 
@@ -125,14 +148,13 @@ __all__ = ["ControllerConfig", "ControllerResult", "ReplicationController",
 #: Why an admitted migration happened: the code rides the per-file
 #: ``_move_cause`` vector from plan submission to admission (and the
 #: checkpoint); 0 is a backlog resumed from a snapshot without causes, 3 a
-#: storage re-encode.
+#: storage re-encode.  Repairs, spread rebalances, the epoch diff and the
+#: elastic rebalance are tagged where they run.
 MOVE_CAUSES = {0: "unknown", 1: "drift", 2: "hotspot", 3: "conversion"}
 
 #: Options of the reference's ControllerConfig that the port does not take
 #: yet: (value that leaves them off, ROADMAP item).
 _UNPORTED = {
-    "elastic": (None, "A8f, elasticity, which needs a hash placement mode"),
-    "placement_mode": ("materialized", "A8f, functional placement"),
     "mesh_shape": (None, "A9, multi-GPU"),
 }
 
@@ -192,7 +214,13 @@ class ControllerConfig:
     #: A replicate-only config gives the records of no storage bit for bit,
     #: plus the ``storage`` record.
     storage: object | None = None
+    #: ``control.elastic.ElasticPolicy``: scale out on sustained SLO burn or
+    #: utilization, drain back on sustained cool (needs ``serve`` and a hash
+    #: placement mode; implies the fault path).
     elastic: object | None = None
+    #: "materialized" (rng chooser, dense state), "functional" (hash
+    #: chooser, overlay state, sparse checkpoints) or "materialized_hash"
+    #: (hash chooser, dense state: the functional mode's oracle).
     placement_mode: str = "materialized"
     mesh_shape: dict | None = None
 
@@ -206,6 +234,18 @@ class ControllerConfig:
         if self.scrub is not None and self.fault_schedule is None:
             raise ValueError("scrub requires a fault_schedule (the scrubber verifies the "
                              "mutable ClusterState the fault path maintains)")
+        if self.placement_mode not in ("materialized", "functional", "materialized_hash"):
+            raise ValueError(f"unknown placement_mode {self.placement_mode!r} (want "
+                             f"'materialized', 'functional' or 'materialized_hash')")
+        if self.elastic is not None:
+            if self.serve is None:
+                raise ValueError("elastic requires serve (the SLO-burn/utilization "
+                                 "telemetry that drives the scale decisions)")
+            if self.placement_mode == "materialized":
+                raise ValueError("elastic scale-out requires a hash placement mode "
+                                 "('functional' or 'materialized_hash'): the rebalance plan "
+                                 "is the addition-pruned epoch diff, which only the "
+                                 "stateless chooser can answer")
         for name, (off, item) in _UNPORTED.items():
             if getattr(self, name) != off:
                 raise ValueError(f"ControllerConfig.{name} is not ported yet (ROADMAP {item})")
@@ -404,24 +444,44 @@ class ReplicationController:
             hysteresis_windows=cfg.hysteresis_windows)
         self._placement_key: bytes | None = None
         self._placement = None
-        #: The fault path: the schedule with its domain scopes resolved, the
+        #: The hash modes share the stateless chooser.
+        self._hash_placement = cfg.placement_mode != "materialized"
+        self._placement_method = "hash" if self._hash_placement else "rng"
+        #: The fault path (a schedule, or elasticity, which drains and grows
+        #: through it): the schedule with its domain scopes resolved, the
         #: mutable cluster state placed from the default rf, the repair
         #: planner and the scrubber.
         self._fault_schedule: FaultSchedule | None = None
         self._cluster_state: ClusterState | None = None
         self._repairs: RepairScheduler | None = None
-        if cfg.fault_schedule is not None:
+        self._elastic: _ElasticRuntime | None = None
+        if cfg.fault_schedule is not None or cfg.elastic is not None:
             topology = cfg.topology or ClusterTopology(nodes=tuple(manifest.nodes))
             if set(topology.nodes) != set(manifest.nodes):
                 raise ValueError(
                     f"topology nodes {tuple(topology.nodes)} != manifest nodes "
                     f"{tuple(manifest.nodes)}: the failure-domain topology must cover "
                     "exactly the manifest's node set")
-            schedule = cfg.fault_schedule.expand_domains(topology)
+            schedule = cfg.fault_schedule if cfg.fault_schedule is not None \
+                else FaultSchedule(())
+            schedule = schedule.expand_domains(topology)
             schedule.validate_nodes(topology.nodes)
             self._fault_schedule = schedule
-            self._cluster_state = ClusterState(
-                place_replicas(manifest, self.current_rf, topology, seed=0), self._sizes)
+            if cfg.elastic is not None:
+                cfg.elastic.validate_against(topology)
+                self._elastic = _ElasticRuntime(cfg.elastic)
+            primary = primary_on_topology(manifest.nodes, manifest.primary_node_id, topology)
+            if cfg.placement_mode == "functional":
+                self._cluster_state = OverlayClusterState.from_base(
+                    topology, self._sizes, n_shards=self.current_rf, primary=primary, seed=0)
+            elif self._hash_placement:
+                self._cluster_state = FunctionalClusterState(
+                    place_replicas(manifest, self.current_rf, topology, seed=0,
+                                   method="hash"),
+                    self._sizes, primary=primary, seed=0, sparse_checkpoint=False)
+            else:
+                self._cluster_state = ClusterState(
+                    place_replicas(manifest, self.current_rf, topology, seed=0), self._sizes)
             self._repairs = RepairScheduler(seed=cfg.repair_seed)
         self._scrub = Scrubber(n, cfg.scrub) if cfg.scrub is not None else None
         #: Integrity records only when corruption can happen or is looked for.
@@ -444,6 +504,8 @@ class ReplicationController:
             self._hotspot = HotspotDetector(
                 n, alpha=cfg.serve.hotspot_alpha, spike_factor=cfg.serve.hotspot_spike_factor,
                 min_reads=cfg.serve.hotspot_min_reads, top_k=cfg.serve.hotspot_top_k)
+        #: Primaries on the serve topology, for the functional static resolver.
+        self._fn_static_primary: np.ndarray | None = None
         #: One window's (cause, file ids, bytes) batches: the record's ``causes``.
         self._lineage: list[tuple[str, np.ndarray, int]] = []
         #: One {window, bytes, seconds} per checkpoint save.
@@ -618,7 +680,11 @@ class ReplicationController:
 
         if cs is not None:
             t0 = time.perf_counter()
-            fault_events = self._fault_schedule.for_window(w)
+            fault_events = list(self._fault_schedule.for_window(w))
+            if self._elastic is not None:
+                # The scale step reads the last window's serving; the drain
+                # decommissions due now join the window's fault events.
+                fault_events += self._elastic_step(w, rec)
             for ev in fault_events:
                 cs.apply_event(ev)
             rec["fault_events"] = [ev.spec() for ev in fault_events]
@@ -681,6 +747,19 @@ class ReplicationController:
                                           np.asarray(sorted(rb), dtype=np.int64),
                                           int(rr.rebalanced_bytes)))
 
+        # The elastic rebalance drains the epoch diff's moved set on what
+        # the repairs left of the budget, before scrub and migrations.
+        if self._elastic is not None and self._elastic.queue.size:
+            t0 = time.perf_counter()
+            rb_bytes, rb_files = self._elastic_rebalance(bytes_reserved)
+            seconds["rebalance"] = time.perf_counter() - t0
+            plan_seconds += seconds["rebalance"]
+            rec["elastic"]["rebalanced"] = rb_files
+            rec["elastic"]["rebalance_bytes"] = rb_bytes
+            rec["elastic"]["queue"] = int(self._elastic.queue.size)
+            bytes_reserved += rb_bytes
+            files_reserved += rb_files
+
         # Scrub after repairs, on what is left of the byte budget; its
         # quarantines reach the next window's repair sync.
         if self._scrub is not None:
@@ -710,6 +789,8 @@ class ReplicationController:
             fi = applied.file_index
             self.current_rf[fi] = applied.rf_new
             self.current_cat[fi] = applied.cat_new
+            if cs is not None:
+                cs.prefetch_rows(fi)
             if cs is None or self._storage is None:
                 # Placement mutates per file, in the admitted order.
                 if cs is not None:
@@ -766,6 +847,10 @@ class ReplicationController:
             t0 = time.perf_counter()
             read_detect_copies = self._serve_window(w, rec, *ctx["reads"])
             seconds["serve"] = time.perf_counter() - t0
+            if self._elastic is not None:
+                # The next window's scale step reads these.
+                self._elastic.last_burn = float(rec.get("slo_burn", 0.0))
+                self._elastic.last_util = float(rec.get("utilization_max", 0.0))
 
         if self._integrity_on:
             # Ground truth after the window's detections (scrub, repairs,
@@ -803,6 +888,16 @@ class ReplicationController:
                     rec["locality_after"] = rec["locality_before"]
                     rec["balance_after"] = rec["balance_before"]
         seconds["evaluate"] = time.perf_counter() - t0
+
+        if self._hash_placement:
+            # The placement axis's stamp; ``exceptions`` counts the rows that
+            # differ from the computed base (exact across kill and resume).
+            pl: dict = {"mode": cfg.placement_mode, "epoch": 0}
+            if cs is not None:
+                pl["epoch"] = int(cs._fn_epoch)
+                if cfg.placement_mode == "functional":
+                    pl["exceptions"] = int(cs.exception_fids().size)
+            rec["placement"] = pl
 
         if self._lineage:
             causes: dict[str, dict] = {}
@@ -845,12 +940,22 @@ class ReplicationController:
                 # A stripe below k reachable shards serves no read from any
                 # slot: the router counts it unavailable, as
                 # ``unavailable_reads`` does.
-                view.slot_ok = view.slot_ok & ~cs.unreadable_mask()[:, None]
+                readable = ~cs.unreadable_mask()
+                if view.file_ids is not None:
+                    readable = readable[view.file_ids]
+                view.slot_ok = view.slot_ok & readable[:, None]
+        elif self.cfg.placement_mode == "functional" and self._storage is None:
+            # Only this window's files are resolved, through the chooser.
+            view = read_view(read_pid, resolver=self._fn_static_rows,
+                             n_nodes=len(self._serve_topology.nodes))
         else:
             view = read_view(read_pid, placement=self._placement_for(self.current_rf))
         extra_ms = None
         if self._storage is not None:
-            extra_ms = self._serve_penalty_ms(view.slot_ok)[read_pid]
+            if view.file_ids is not None:
+                extra_ms = self._serve_penalty_ms(view.slot_ok, fids=view.file_ids)[view.pid]
+            else:
+                extra_ms = self._serve_penalty_ms(view.slot_ok)[read_pid]
         res = self._router.route(
             view.replica_map, view.slot_ok, view.node_throughput, ts=read_ts, pid=view.pid,
             client=read_client, window_seconds=cfg.window_seconds,
@@ -862,10 +967,14 @@ class ReplicationController:
             rec["reads_shed"] = reads_shed
         if res.corrupt_pairs is None or not len(res.corrupt_pairs):
             return 0
-        for fid, node in res.corrupt_pairs:
+        # A compacted view's pairs carry row ids.
+        pair_fids = res.corrupt_pairs[:, 0]
+        if view.file_ids is not None:
+            pair_fids = view.file_ids[pair_fids]
+        for fid, node in zip(pair_fids, res.corrupt_pairs[:, 1]):
             cs.quarantine(int(fid), int(node))
         if self._scrub is not None:
-            self._scrub.add_hints(res.corrupt_pairs[:, 0])
+            self._scrub.add_hints(pair_fids)
         return len(res.corrupt_pairs)
 
     def _edge_latency_ms(self, topology) -> np.ndarray | None:
@@ -1025,13 +1134,15 @@ class ReplicationController:
                                    if per_cat[i]},
         }
 
-    def _serve_penalty_ms(self, slot_ok: np.ndarray) -> np.ndarray:
+    def _serve_penalty_ms(self, slot_ok: np.ndarray,
+                          fids: np.ndarray | None = None) -> np.ndarray:
         """(n_files,) read latency the storage layer adds: the tier's stretch
         (``service_ms * (1 / throughput - 1)``) plus, for an EC file whose
         primary shard is unreachable, the gather of k - 1 more shards at the
-        tier's speed; both follow the installed category."""
+        tier's speed; both follow the installed category.  With ``fids``
+        (a compacted view's files) one value per row of ``slot_ok``."""
         sv = self._storage
-        cat = self._installed_cat
+        cat = self._installed_cat if fids is None else self._installed_cat[fids]
         safe = np.clip(cat, 0, None)
         pen = np.where(cat >= 0, sv.read_penalty[safe], sv.default_read_penalty)
         k_file = sv.file_ec_k(cat)
@@ -1041,9 +1152,127 @@ class ReplicationController:
         return base * (pen - 1.0) + np.where((k_file > 0) & primary_down,
                                              base * (k_file - 1) * pen, 0.0)
 
+    # -- elastic capacity --------------------------------------------------
+    def _elastic_step(self, w: int, rec: dict) -> list:
+        """One window's scale decision on the last window's serving: update
+        the hot and cool streaks, scale out (grow, epoch diff into the
+        rebalance queue) or lay down the rolling drain; returns the drain
+        decommissions due now and stamps the ``elastic`` record."""
+        from ..faults.schedule import FaultEvent
+
+        es = self._elastic
+        pol = es.policy
+        info: dict = {"active": len(es.active), "queue": int(es.queue.size)}
+        if es.last_burn is not None:
+            hot = es.last_burn > pol.burn_hot or es.last_util > pol.util_hot
+            cool = es.last_burn <= pol.burn_hot and es.last_util < pol.util_cool
+            es.hot = es.hot + 1 if hot else 0
+            es.cool = es.cool + 1 if cool else 0
+        info["hot_streak"] = es.hot
+        info["cool_streak"] = es.cool
+        if not es.scaled and es.hot >= pol.hot_windows:
+            names = pol.next_activation(es.active)
+            if not names:
+                # Drained nodes are never reused: a later crowd finds the
+                # pool spent, and says so.
+                info["pool_exhausted"] = True
+            else:
+                moved = self._elastic_grow(names)
+                es.active = es.active + tuple(names)
+                es.scaled = True
+                es.hot = 0
+                es.cool = 0
+                es.moved_total += int(moved.size)
+                info["added"] = list(names)
+                info["moved"] = int(moved.size)
+                info["active"] = len(es.active)
+                info["queue"] = int(es.queue.size)
+        elif (es.scaled and not es.drains and es.queue.size == 0
+                and es.cool >= pol.cool_windows and es.active):
+            es.drains = [(w + 1 + i * pol.drain_spacing, nm) for i, nm in enumerate(es.active)]
+            info["drains_scheduled"] = [[int(a), b] for a, b in es.drains]
+            es.scaled = False
+            es.cool = 0
+        due: list = []
+        still: list = []
+        for dw, nm in es.drains:
+            if dw <= w:
+                due.append(FaultEvent(w, "decommission", nm))
+            else:
+                still.append((dw, nm))
+        es.drains = still
+        if due:
+            info["drained"] = [e.node for e in due]
+        rec["elastic"] = info
+        return due
+
+    def _elastic_grow(self, names) -> np.ndarray:
+        """Activate standby nodes: pin the moved rows, grow the state,
+        rebuild the serve plane on the wider topology; returns the
+        addition-pruned epoch diff (queued for the rebalance)."""
+        cs = self._cluster_state
+        topo_old = cs.topology
+        topo_new = self._elastic.policy.grown_topology(topo_old, names)
+        local = cs.region_local if topo_old.n_levels > 0 and cs.region_local.any() else None
+        moved = addition_moved(topo_old, topo_new, cs.installed_shards, cs._fn_primary,
+                               cs._fn_seed, local_mask=local)
+        cs.pin_rows(moved)
+        cs.grow(topo_new)
+        es = self._elastic
+        es.queue = np.concatenate([es.queue, moved]) if es.queue.size else moved
+        if moved.size:
+            # Traffic is billed when the queue drains (elastic_rebalance).
+            self._lineage.append(("epoch_diff", moved.copy(), 0))
+        self._grow_serve_plane(topo_new)
+        return moved
+
+    def _grow_serve_plane(self, topology) -> None:
+        self._serve_topology = topology
+        self._router = ReadRouter(len(topology.nodes), self.cfg.serve)
+        self._edge_ms = self._edge_latency_ms(topology)
+        self._fn_static_primary = None
+
+    def _elastic_rebalance(self, bytes_reserved: int) -> tuple[int, int]:
+        """Drain the rebalance queue within the budget left: each file moves
+        to its new computed row, charged one shard per newly holding node.
+        When nothing else moved bytes this window, the head is admitted
+        regardless (the repair pass's rule)."""
+        cs = self._cluster_state
+        es = self._elastic
+        q = es.queue
+        max_bytes = self.cfg.max_bytes_per_window
+        used = done = 0
+        for i in range(q.size):
+            fid = int(q[i])
+            new_row = cs._fn_base_row(fid)
+            cur = cs.row(fid)
+            new_only = ({int(x) for x in new_row[new_row >= 0]}
+                        - {int(x) for x in cur[cur >= 0]})
+            charge = int(cs.shard_bytes[fid]) * len(new_only)
+            if max_bytes is not None and bytes_reserved + used + charge > max_bytes \
+                    and bytes_reserved + used > 0:
+                break
+            used += cs.retarget_row(fid, new_row)
+            done += 1
+        es.queue = q[done:]
+        if done:
+            self._lineage.append(("elastic_rebalance", q[:done].copy(), int(used)))
+        return used, done
+
+    def _fn_static_rows(self, uniq: np.ndarray) -> np.ndarray:
+        """(k, R) computed rows of a file subset at the current rf: the
+        functional read path's resolver when there is no fault state."""
+        topology = self._serve_topology
+        if self._fn_static_primary is None:
+            self._fn_static_primary = primary_on_topology(
+                self.manifest.nodes, self.manifest.primary_node_id, topology)
+        slots, _ = compute_placement(uniq, self.current_rf[uniq],
+                                     self._fn_static_primary[uniq], topology, 0)
+        return slots
+
     def _placement_for(self, rf: np.ndarray):
-        """The rng placement of an rf vector (seed 0) on the serve topology,
-        flat without serving; cached on the vector, so move-free windows,
+        """The placement of an rf vector (seed 0, the mode's chooser) on the
+        serve topology, flat without serving; cached on the vector, so move-free windows,
         the before/after pair and the router reuse it.  With storage the
         shards are placed by ``place_stripes`` at their shard size, region-
         local categories pinned, and the category vector joins the key."""
@@ -1056,9 +1285,11 @@ class ReplicationController:
                 self._placement = place_stripes(
                     self.manifest, rf.copy(), topology, seed=0,
                     shard_bytes=self._storage.file_shard_bytes(self.current_cat, self._sizes),
+                    method=self._placement_method,
                     local_mask=self._storage.file_region_local(self.current_cat))
             else:
-                self._placement = place_replicas(self.manifest, rf.copy(), topology, seed=0)
+                self._placement = place_replicas(self.manifest, rf.copy(), topology, seed=0,
+                                                 method=self._placement_method)
             self._placement_key = key
         return self._placement
 
@@ -1089,12 +1320,18 @@ class ReplicationController:
             arrays["accepted_fractions"] = self._accepted_fractions
         arrays.update(self.scheduler.state_arrays())
         if self._cluster_state is not None:
-            arrays.update(self._cluster_state.state_arrays())
+            if self.cfg.placement_mode == "functional":
+                # Exceptions over the base, intents anchored at current_rf.
+                arrays.update(self._cluster_state.state_arrays(rf_hint=self.current_rf))
+            else:
+                arrays.update(self._cluster_state.state_arrays())
             arrays.update(self._repairs.state_arrays())
         if self._hotspot is not None:
             arrays.update(self._hotspot.state_arrays())
         if self._scrub is not None:
             arrays.update(self._scrub.state_arrays())
+        if self._elastic is not None:
+            arrays["elastic_queue"] = self._elastic.queue.copy()
         meta = {
             "window_index": self.window_index,
             "last_window_events": self._last_window_events,
@@ -1114,7 +1351,15 @@ class ReplicationController:
             "serve": self._router is not None,
             "storage": self._storage is not None,
             "scrub": self._scrub is not None,
+            "placement": self.cfg.placement_mode,
         }
+        if self._elastic is not None:
+            es = self._elastic
+            meta["elastic"] = {"hot": es.hot, "cool": es.cool, "active": list(es.active),
+                               "moved_total": es.moved_total,
+                               "drains": [[int(a), str(b)] for a, b in es.drains],
+                               "scaled": bool(es.scaled), "last_burn": es.last_burn,
+                               "last_util": es.last_util}
         if extra_meta:
             meta.update(extra_meta)
         stats = save_state(path, arrays, meta=meta)
@@ -1122,8 +1367,8 @@ class ReplicationController:
 
     def load_checkpoint(self, path: str) -> None:
         """Restore a snapshot of this controller; one taken under another
-        population size, k, backend, decay, window, fault, serve, storage
-        or scrub mode raises ``ValueError``."""
+        population size, k, backend, decay, window, fault, serve, storage,
+        scrub or placement mode raises ``ValueError``."""
         arrays, meta = load_state(path)
         for key, want in (("n_files", len(self.manifest)), ("k", int(self.cfg.kmeans.k)),
                           ("backend", "torch"), ("decay", self.cfg.decay),
@@ -1131,10 +1376,13 @@ class ReplicationController:
                           ("faults", self._cluster_state is not None),
                           ("serve", self._router is not None),
                           ("storage", self._storage is not None),
-                          ("scrub", self._scrub is not None)):
+                          ("scrub", self._scrub is not None),
+                          ("placement", self.cfg.placement_mode)):
             got = meta.get(key)
             if key in ("faults", "serve", "storage", "scrub"):
                 got = bool(got)
+            elif key == "placement":
+                got = got or "materialized"
             if got != want:
                 raise ValueError(
                     f"checkpoint {path!r} has {key}={got!r} but the controller "
@@ -1165,6 +1413,23 @@ class ReplicationController:
         # Recomputed at the next acceptance; never carried over a load.
         self._accepted_file_cat = None
         self.scheduler.load_state_arrays(arrays)
+        if self._elastic is not None and meta.get("elastic"):
+            # Replay the growth before the state arrays load: a snapshot
+            # after a scale-out is sized for the grown topology.
+            em = meta["elastic"]
+            es = self._elastic
+            es.hot, es.cool = int(em["hot"]), int(em["cool"])
+            es.active = tuple(em["active"])
+            es.moved_total = int(em["moved_total"])
+            es.drains = [(int(a), str(b)) for a, b in em["drains"]]
+            es.scaled = bool(em["scaled"])
+            es.last_burn, es.last_util = em["last_burn"], em["last_util"]
+            es.queue = np.asarray(arrays.get("elastic_queue", np.zeros(0, np.int64)),
+                                  dtype=np.int64).copy()
+            if es.active:
+                topo_new = es.policy.grown_topology(self._cluster_state.topology, es.active)
+                self._cluster_state.grow(topo_new)
+                self._grow_serve_plane(topo_new)
         if self._cluster_state is not None:
             self._cluster_state.load_state_arrays(arrays)
             self._repairs.load_state_arrays(arrays)

@@ -42,6 +42,8 @@ __all__ = ["RepairTask", "RepairReport", "RepairBacklog", "RepairScheduler"]
 
 #: Backoff cap in windows.
 _MAX_BACKOFF = 64
+#: Tasks whose rows a functional state computes in one pass.
+_PREFETCH = 8192
 
 
 @dataclass
@@ -268,6 +270,8 @@ class RepairScheduler:
         else:
             chunk_size = min(m, max(2048, 2 * (max_files or 0)))
 
+        # A functional state computes the rows of the tasks ahead in one
+        # pass instead of one file at a time.
         touched = 0
         healed: list[int] = []
         done = 0
@@ -279,6 +283,8 @@ class RepairScheduler:
             c_charge = min_charge[chunk]
             sfx = np.minimum.accumulate(c_charge[::-1])[::-1]
             for j in range(chunk.shape[0]):
+                if j % _PREFETCH == 0:
+                    state.prefetch_rows(af[chunk[j:j + _PREFETCH]])
                 if max_files is not None and touched >= max_files:
                     rep.deferred_budget += m - done
                     stop = True

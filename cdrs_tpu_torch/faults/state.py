@@ -34,8 +34,13 @@ one top-level domain, and ``installed_shards[i]`` is the shard count repair
 maintains.  The defaults are the replicate semantics.
 ``apply_strategy_target`` re-encodes a file between strategies, deferring
 while it is unreadable (``strategy_mismatch`` lists the deferred ones).
-The growing topology of elasticity and the functional and overlay states
-come with ROADMAP A8f.
+
+Every policy method reads a file's slots through ``row``/``rows``, never
+the dense map, so that ``placement_fn.state``'s overlay state (which holds
+no dense map) shares them; ``grow`` appends elastic nodes (``_grow_common``
+is its per-node half), ``retarget_row`` installs a whole computed row, ``pin_rows`` is the hook a
+functional state pins rows in before its base moves, and ``prefetch_rows``
+the one it computes a batch of rows in ahead of a per-file loop.
 """
 
 from __future__ import annotations
@@ -64,43 +69,14 @@ class ClusterState:
     """One controlled cluster's mutable placement and node status."""
 
     def __init__(self, placement: PlacementResult, size_bytes: np.ndarray):
-        self.topology: ClusterTopology = placement.topology
-        self.nodes: tuple[str, ...] = tuple(placement.topology.nodes)
-        n_nodes = len(self.nodes)
-        n = placement.replica_map.shape[0]
-        self._node_idx = {nm: i for i, nm in enumerate(self.nodes)}
-        self.domain_index = self.topology.domain_index()
-        self.n_domains = self.topology.n_domains
-        #: Top-level domain per node, None for one-level topologies.
-        self._top_index = (self.topology.top_domain_index()
-                           if self.topology.n_levels > 0 else None)
-        self._n_top = (self.topology.n_domains_at(self.topology.n_levels)
-                       if self._top_index is not None else 0)
-        self.sizes = np.asarray(size_bytes, dtype=np.int64)
-        if self.sizes.shape != (n,):
-            raise ValueError(f"size_bytes shape {self.sizes.shape} != ({n},)")
+        self._init_files(placement.topology, size_bytes, placement.rf)
+        n, n_nodes = self.sizes.shape[0], len(self.nodes)
         rm = np.full((n, n_nodes), -1, dtype=np.int32)
         w = min(placement.replica_map.shape[1], n_nodes)
         rm[:, :w] = placement.replica_map[:, :w]
         self.replica_map = rm
-        # Storage-strategy fields at the replicate defaults: a slot holds the
-        # whole file, one live copy keeps it, no EC stripe, no region pin.
-        self.min_live = np.ones(n, dtype=np.int32)
-        self.shard_bytes = self.sizes.copy()
-        self.ec_k = np.zeros(n, dtype=np.int32)
-        self.region_local = np.zeros(n, dtype=bool)
-        #: Per-copy byte-cost multipliers of the hierarchy's edges (None: flat).
-        self._byte_cost = self.topology.byte_cost_matrix() if self.topology.edge_bytes \
-            else None
-        #: Shard-count intent repair maintains for each file.
-        self.installed_shards = placement.rf.astype(np.int32).copy()
         self.slot_corrupt = np.zeros((n, n_nodes), dtype=bool)
         self._n_corrupt = 0
-        self.node_up = np.ones(n_nodes, dtype=bool)
-        self.node_decommissioned = np.zeros(n_nodes, dtype=bool)
-        self.node_partitioned = np.zeros(n_nodes, dtype=bool)
-        self.node_fail_prob = np.zeros(n_nodes, dtype=np.float64)
-        self.node_throughput = np.ones(n_nodes, dtype=np.float64)
         #: Bytes assigned per node (down replicas still occupy disk): the
         #: least-loaded preference of repair targets.
         self.node_bytes = np.zeros(n_nodes, dtype=np.int64)
@@ -108,6 +84,42 @@ class ClusterState:
         #: Bumped on every mutation.
         self.version = 0
         self._refresh_all()
+
+    def _set_topology(self, topology: ClusterTopology) -> None:
+        """Install ``topology`` and the per-node lookups derived from it."""
+        self.topology = topology
+        self.nodes: tuple[str, ...] = tuple(topology.nodes)
+        self._node_idx = {nm: i for i, nm in enumerate(self.nodes)}
+        self.domain_index = topology.domain_index()
+        self.n_domains = topology.n_domains
+        #: Top-level domain per node, None for one-level topologies.
+        self._top_index = topology.top_domain_index() if topology.n_levels > 0 else None
+        self._n_top = topology.n_domains_at(topology.n_levels) \
+            if self._top_index is not None else 0
+        #: Per-copy byte-cost multipliers of the hierarchy's edges (None: flat).
+        self._byte_cost = topology.byte_cost_matrix() if topology.edge_bytes else None
+
+    def _init_files(self, topology: ClusterTopology, size_bytes: np.ndarray, rf) -> None:
+        """Everything but the per-file-by-node arrays: the topology, every
+        node up and nominal, each file's strategy at the replicate defaults
+        (a slot holds the whole file, one live copy keeps it, no EC stripe,
+        no region pin) and its shard-count intent ``rf``."""
+        self._set_topology(topology)
+        n, n_nodes = np.asarray(rf).shape[0], len(self.nodes)
+        self.sizes = np.asarray(size_bytes, dtype=np.int64)
+        if self.sizes.shape != (n,):
+            raise ValueError(f"size_bytes shape {self.sizes.shape} != ({n},)")
+        self.min_live = np.ones(n, dtype=np.int32)
+        self.shard_bytes = self.sizes.copy()
+        self.ec_k = np.zeros(n, dtype=np.int32)
+        self.region_local = np.zeros(n, dtype=bool)
+        #: Shard-count intent repair maintains for each file.
+        self.installed_shards = np.asarray(rf).astype(np.int32).copy()
+        self.node_up = np.ones(n_nodes, dtype=bool)
+        self.node_decommissioned = np.zeros(n_nodes, dtype=bool)
+        self.node_partitioned = np.zeros(n_nodes, dtype=bool)
+        self.node_fail_prob = np.zeros(n_nodes, dtype=np.float64)
+        self.node_throughput = np.ones(n_nodes, dtype=np.float64)
 
     # -- cached per-file counts ----------------------------------------------
     def _refresh_all(self) -> None:
@@ -132,7 +144,7 @@ class ClusterState:
         fids = np.asarray(fids, dtype=np.int64)
         if fids.size == 0:
             return
-        rows = self.replica_map[fids]
+        rows = self.rows(fids)
         safe = np.clip(rows, 0, None)
         assigned = rows >= 0
         self._live_counts[fids] = (assigned & self.node_up[safe]).sum(axis=1)
@@ -160,7 +172,7 @@ class ClusterState:
         top = None if self._top_index is None else self._top_index.tolist()
         live = n_reach = 0
         doms, tops = set(), set()
-        for x in self.replica_map[fid].tolist():
+        for x in self.row(fid).tolist():
             if x < 0:
                 continue
             live += up[x]
@@ -203,7 +215,7 @@ class ClusterState:
         old = int(self.shard_bytes[fid])
         new = int(shard_bytes)
         if new != old:
-            row = self.replica_map[fid]
+            row = self.row(fid)
             for node in row[row >= 0]:
                 self.node_bytes[int(node)] += new - old
         self.min_live[fid] = int(min_live)
@@ -232,7 +244,7 @@ class ClusterState:
         if int(self._reach_counts[fid]) < int(self.min_live[fid]) \
                 or self.n_available < int(min_live):
             return 0
-        row = self.replica_map[fid]
+        row = self.row(fid)
         before = int((row >= 0).sum())
         for node in [int(x) for x in row[row >= 0]]:
             self.drop_replica(fid, node)
@@ -294,7 +306,7 @@ class ClusterState:
         read per rotten copy at its holder's throughput."""
         if not self._n_corrupt:
             return 0, 0
-        row = self.replica_map[fid]
+        row = self.row(fid)
         corr = self.slot_corrupt[fid]
         reach = self.node_reachable()
         found = 0
@@ -359,7 +371,7 @@ class ClusterState:
         tgt = thr[target]
         cost = self._byte_cost
         rates = []
-        for s in self.replica_map[fid].tolist():
+        for s in self.row(fid).tolist():
             if s < 0 or not node_reach[s]:
                 continue
             r = min(thr[s], tgt)
@@ -373,6 +385,76 @@ class ClusterState:
         else:
             rate = max(rates, default=min(1.0, tgt))
         return int(np.ceil(read_bytes / max(rate, 1e-9)))
+
+    # -- elastic capacity ----------------------------------------------------
+    def _grow_common(self, topology) -> int:
+        """The half of ``grow`` that holds no per-file array: check that the
+        current nodes are a strict prefix of ``topology``, install it and
+        extend every per-node array.  Returns the number of nodes added."""
+        old_n = len(self.nodes)
+        if tuple(topology.nodes[:old_n]) != self.nodes or len(topology.nodes) <= old_n:
+            raise ValueError(f"grow needs the current node set as a strict prefix of the "
+                             f"new topology (have {self.nodes}, got {tuple(topology.nodes)})")
+        add = len(topology.nodes) - old_n
+        self._set_topology(topology)
+        self.node_up = np.concatenate([self.node_up, np.ones(add, bool)])
+        self.node_decommissioned = np.concatenate([self.node_decommissioned,
+                                                   np.zeros(add, bool)])
+        self.node_partitioned = np.concatenate([self.node_partitioned, np.zeros(add, bool)])
+        self.node_fail_prob = np.concatenate([self.node_fail_prob, np.zeros(add)])
+        self.node_throughput = np.concatenate([self.node_throughput, np.ones(add)])
+        self.node_bytes = np.concatenate([self.node_bytes, np.zeros(add, dtype=np.int64)])
+        self.version += 1
+        return add
+
+    def grow(self, topology) -> None:
+        """Install a grown topology (the current one with nodes appended):
+        the map gains empty columns; every file's slots, counts and domain
+        ids stay as they were."""
+        add = self._grow_common(topology)
+        n = self.replica_map.shape[0]
+        self.replica_map = np.concatenate(
+            [self.replica_map, np.full((n, add), -1, dtype=np.int32)], axis=1)
+        self.slot_corrupt = np.concatenate([self.slot_corrupt, np.zeros((n, add), dtype=bool)],
+                                           axis=1)
+
+    def pin_rows(self, fids) -> None:
+        """Hook before a change that moves a functional state's computed
+        base: the dense state holds every row already."""
+
+    def prefetch_rows(self, fids) -> None:
+        """Hook before a per-file loop over ``fids`` (repairs, admitted
+        moves): the dense state holds every row already."""
+
+    def retarget_row(self, fid: int, new_row: np.ndarray) -> int:
+        """Install a whole slot row for one file (an elastic rebalance
+        move): node bytes follow the node-set delta, rot bits follow their
+        surviving nodes.  Returns the bytes written (one shard per newly
+        holding node)."""
+        new_row = np.asarray(new_row, dtype=np.int32)
+        old_row = self.row(fid).copy()
+        old_nodes = {int(x) for x in old_row[old_row >= 0]}
+        new_nodes = {int(x) for x in new_row[new_row >= 0]}
+        sb = int(self.shard_bytes[fid])
+        for v in old_nodes - new_nodes:
+            self.node_bytes[v] -= sb
+        for v in new_nodes - old_nodes:
+            self.node_bytes[v] += sb
+        corr = self.slot_corrupt[fid]
+        if corr.any():
+            new_corr = np.zeros_like(corr)
+            slot_of = {int(v): int(s) for s, v in enumerate(new_row) if v >= 0}
+            for s in np.flatnonzero(corr):
+                v = int(old_row[s])
+                if v in slot_of:
+                    new_corr[slot_of[v]] = True
+                else:
+                    self._n_corrupt -= 1
+            self.slot_corrupt[fid] = new_corr
+        self.replica_map[fid] = new_row
+        self._refresh_files(np.asarray([fid]))
+        self.version += 1
+        return sb * len(new_nodes - old_nodes)
 
     # -- node status ---------------------------------------------------------
     def _nid(self, node: str) -> int:
@@ -466,7 +548,7 @@ class ClusterState:
         out = np.zeros(n, dtype=np.int32)
         for lo in range(0, n, int(chunk)):
             hi = min(lo + int(chunk), n)
-            rows = self.replica_map[lo:hi]
+            rows = self.rows(np.arange(lo, hi, dtype=np.int64))
             safe = np.clip(rows, 0, None)
             rmask = (rows >= 0) & node_reach[safe]
             dom = idx[safe]
@@ -581,6 +663,12 @@ class ClusterState:
         return self.reachable_counts() < self.min_live
 
     # -- mutation ------------------------------------------------------------
+    def _file_domains(self, fid: int) -> set:
+        """Base domains holding an assigned copy of ``fid`` (down holders
+        count: their copy returns on recovery)."""
+        dom = self.domain_index.tolist()
+        return {dom[x] for x in self.row(fid).tolist() if x >= 0}
+
     def pick_repair_target(self, fid: int, rotate: int = 0,
                            new_domain_only: bool = False) -> int:
         """Target of a new copy of ``fid``: a reachable node without a copy
@@ -591,9 +679,9 @@ class ClusterState:
         domains only (the spread rebalance).  -1 when there is none."""
         # Python lists of the node arrays: a call touches a dozen nodes,
         # where numpy's per-element indexing would dominate.
-        holding = {x for x in self.replica_map[fid].tolist() if x >= 0}
+        holding = {x for x in self.row(fid).tolist() if x >= 0}
         dom = self.domain_index.tolist()
-        have_domains = {dom[x] for x in holding}
+        have_domains = self._file_domains(fid)
         reach = self.node_reachable().tolist()
         nbytes = self.node_bytes.tolist()
         avail = [i for i in range(len(reach)) if reach[i] and i not in holding]
@@ -664,7 +752,7 @@ class ClusterState:
     def drop_crowded(self, fid: int) -> int:
         """Drop one reachable copy from the file's most crowded domain; the
         node dropped, or -1 with fewer than two reachable copies."""
-        row = self.replica_map[fid]
+        row = self.row(fid)
         reach = self.node_reachable()
         holders = [int(x) for x in row[row >= 0] if reach[int(x)]]
         if len(holders) < 2:
@@ -695,12 +783,12 @@ class ClusterState:
             live += 1
             delta += 1
         if live > target:
-            row = self.replica_map[fid]
+            row = self.row(fid)
             for node in [int(x) for x in row[row >= 0] if not self.node_up[int(x)]]:
                 self.drop_replica(fid, node)
         reach = self.node_reachable()
         while live > target:
-            row = self.replica_map[fid]
+            row = self.row(fid)
             holders = [int(x) for x in row[row >= 0] if reach[int(x)]]
             if not holders:  # pragma: no cover - live > target implies holders
                 break
@@ -723,8 +811,9 @@ class ClusterState:
     def placement_view(self) -> PlacementResult:
         """The reachable copies as a ``PlacementResult`` (reachable ids lead
         each row); files with none get rf 0."""
-        reach = self.reachable_mask()
-        masked = np.where(reach, self.replica_map, -1).astype(np.int32)
+        rm = self.replica_map
+        reach = (rm >= 0) & self.node_reachable()[np.clip(rm, 0, None)]
+        masked = np.where(reach, rm, -1).astype(np.int32)
         order = np.argsort(~reach, axis=1, kind="stable")
         compact = np.take_along_axis(masked, order, axis=1)
         view = PlacementResult(replica_map=compact, rf=reach.sum(axis=1).astype(np.int32),

@@ -160,8 +160,8 @@ def hierarchical_fill(w: np.ndarray, out: np.ndarray, prim: np.ndarray, max_rf: 
 
 
 def compute_placement(file_ids: np.ndarray, n_shards: np.ndarray, primary: np.ndarray,
-                      topology, seed: int = 0, *, out_width: int | None = None,
-                      chunk: int = 1 << 17,
+                      topology, seed: int = 0, *, salts: np.ndarray | None = None,
+                      out_width: int | None = None, chunk: int = 1 << 17,
                       local_mask: np.ndarray | None = None) -> tuple[np.ndarray, np.ndarray]:
     """Hash placement of an arbitrary subset of files.
 
@@ -169,15 +169,18 @@ def compute_placement(file_ids: np.ndarray, n_shards: np.ndarray, primary: np.nd
     each row's rf; ``rf`` (m,) int32 = ``clip(n_shards, 1, n_nodes)``
     (clipped to the region for region-local files).  ``primary`` is
     already mapped onto ``topology``
-    (``cluster.placement.primary_on_topology``).  Row i depends only on
-    (seed, file_ids[i], n_shards[i], primary[i], topology), and the slots
-    nest in rf.  Files go in chunks of ``chunk`` with one reused priority
-    block.
+    (``cluster.placement.primary_on_topology``); ``salts`` are
+    ``node_salts(topology.nodes, seed)``, computed when None.  Row i
+    depends only on (seed, file_ids[i], n_shards[i], primary[i], topology),
+    and the slots nest in rf: a row at rf r + 1 is the row at rf r with one
+    node appended.  Files go in chunks of ``chunk`` with one reused
+    priority block.
     """
     fids = np.asarray(file_ids)
     m_total = fids.shape[0]
     n_nodes = len(topology)
-    salts = node_salts(topology.nodes, seed)
+    if salts is None:
+        salts = node_salts(topology.nodes, seed)
     rf = np.asarray(n_shards)
     if rf.dtype != np.int32:
         rf = rf.astype(np.int32)

@@ -23,6 +23,13 @@ read path — and checks invariants, not just metrics:
   forbidden ones stay silent;
 * **EC engagement** — a cell whose storage config erasure-codes a category
   must install and account a stripe in some window (``ec_engaged``);
+* **elasticity** (``spec.elastic``) — a scale-out fired, the rebalance moved
+  exactly the epoch diff's files and drained its queue
+  (``elastic_engaged``), and the added nodes drained back to the baseline
+  (``elastic_drained``); the rebalance bytes count against the churn budget;
+* **the placement axis** (``spec.placement`` other than "materialized") —
+  every record carries the mode's stamp, and a functional fault run its
+  exception count (``functional_engaged``);
 * **the read path** (``spec.serve``) — reads were routed, and the last
   window in which reads happened has a finite p99 within the cell's bound,
   refused no read and, where the cell sets one, kept its SLO burn;
@@ -31,9 +38,9 @@ read path — and checks invariants, not just metrics:
   epoch frozen, stop/resume stitching exact, decision traces reconciled,
   and the live HTTP plane scraped over real HTTP.
 
-A cell that needs an axis the port does not run yet (elasticity, a hash
-placement, a mesh) is refused before anything is built,
-with the ROADMAP item that brings it (:func:`unported_axes`).  A failing
+A cell that needs an axis the port does not run yet (a mesh) is refused
+before anything is built, with the ROADMAP item that brings it
+(:func:`unported_axes`).  A failing
 cell carries a one-line repro command (:func:`repro_line`).
 """
 
@@ -67,8 +74,6 @@ _DEFAULT_FLIP = {"hot": "archival", "archival": "hot"}
 #: Axes of the reference's matrix that the port does not run yet: (axis,
 #: present in the spec, the ControllerConfig option that refuses it).
 _UNPORTED_AXES = (
-    ("elastic", lambda s: s.elastic is not None, "elastic"),
-    ("placement", lambda s: s.placement != "materialized", "placement_mode"),
     ("mesh", lambda s: s.mesh is not None, "mesh_shape"),
 )
 
@@ -209,6 +214,11 @@ def _controller(spec: ScenarioSpec, manifest: Manifest, schedule: FaultSchedule 
                         availability=float(sv.get("availability", 0.999))),
             recluster_on_hotspot=bool(sv.get("recluster_on_hotspot", True)),
             verify_reads=bool(sv.get("verify_reads", True)))
+    elastic = None
+    if spec.elastic is not None:
+        from ..control.elastic import ElasticPolicy
+
+        elastic = ElasticPolicy.from_dict(spec.elastic)
     max_bytes = None
     if spec.budget_frac is not None:
         sizes = np.asarray(manifest.size_bytes, dtype=np.int64)
@@ -229,6 +239,8 @@ def _controller(spec: ScenarioSpec, manifest: Manifest, schedule: FaultSchedule 
         storage=storage,
         serve=serve,
         scrub=scrub,
+        elastic=elastic,
+        placement_mode=spec.placement,
         device=device,
     )
     return ReplicationController(manifest, cfg)
@@ -276,11 +288,30 @@ def _check_invariants(spec: ScenarioSpec, records: list[dict], max_bytes: int | 
         inv["heal_converged"] = (
             last.get("unreachable", 0) == 0 and last["under_replicated"] == 0
             and all(v == 0 for v in last.get("correlated_risk_levels", {}).values()))
+    if spec.elastic is not None:
+        el = [r.get("elastic") or {} for r in records]
+        drained = [n for e in el for n in e.get("drained", ())]
+        # Scale-out fired, its traffic was the epoch diff, the queue drained.
+        inv["elastic_engaged"] = bool(
+            any("added" in e for e in el)
+            and sum(e.get("moved", 0) for e in el) == sum(e.get("rebalanced", 0) for e in el)
+            and el[-1].get("queue", 0) == 0)
+        # Capacity back to the baseline.
+        inv["elastic_drained"] = bool(drained and dur
+                                      and dur[-1]["durability"]["nodes_up"] == len(spec.nodes))
     if spec.faults is not None:
         inv["faults_engaged"] = any(r.get("fault_events") for r in records)
     if spec.drift is not None:
         # The cold start is one re-cluster; the drift must trigger another.
         inv["drift_engaged"] = sum(1 for r in records if r.get("recluster")) >= 2
+    if spec.placement != "materialized":
+        # Every record carries the mode's stamp, a functional fault run its
+        # exception count: a placement that fell back fails here.
+        inv["functional_engaged"] = bool(
+            records
+            and all((r.get("placement") or {}).get("mode") == spec.placement for r in records)
+            and (spec.faults is None or spec.placement != "functional"
+                 or all("exceptions" in (r.get("placement") or {}) for r in records)))
     integ = [r for r in records if r.get("integrity")]
     if integ:
         inv["zero_silent_loss"] = integ[-1]["integrity"]["true_lost"] == 0
@@ -302,7 +333,8 @@ def _check_invariants(spec: ScenarioSpec, records: list[dict], max_bytes: int | 
         slack = budget_slack if integ else 0
         inv["budget_conserved"] = all(
             r.get("repair_bytes", 0) + r["bytes_migrated"]
-            + (r.get("scrub") or {}).get("bytes", 0) <= max_bytes + slack
+            + (r.get("scrub") or {}).get("bytes", 0)
+            + (r.get("elastic") or {}).get("rebalance_bytes", 0) <= max_bytes + slack
             for r in records)
     if multi_domain and dur:
         inv["domain_diversity"] = dur[-1]["durability"].get("correlated_risk", 0) == 0

@@ -4,7 +4,9 @@
 
 * ``state=`` — the fault path: the live ``ClusterState``'s dense map,
   ``slot_ok`` from reachability, the straggler factors and, when rot
-  exists, the corruption mask;
+  exists, the corruption mask; a state with ``read_rows`` (the overlay
+  state of ``placement_fn``, which holds no dense map) gives only the
+  batch's unique files' rows, and the read ids are remapped onto them;
 * ``resolver=`` — maps the batch's unique file ids to their slot rows (the
   hash placement of a pinned epoch), so the view holds O(unique files)
   rows and the read ids are remapped onto them; a router that indexes
@@ -42,6 +44,12 @@ def read_view(pid: np.ndarray, *, state=None, placement=None, resolver=None,
     wins, then ``resolver(unique_ids) -> (k, R) int32 rows`` (which needs
     ``n_nodes``), then the static ``placement``."""
     if state is not None:
+        if getattr(state, "read_rows", None) is not None:
+            uniq, inv = np.unique(pid, return_inverse=True)
+            rows, ok, corrupt = state.read_rows(uniq)
+            return ReadView(rows, ok, state.node_throughput, corrupt,
+                            inv.astype(pid.dtype if pid.dtype.kind == "i" else np.int64),
+                            file_ids=uniq)
         corrupt = state.slot_corrupt if state.has_corruption else None
         return ReadView(state.replica_map, state.reachable_mask(), state.node_throughput,
                         corrupt, pid)

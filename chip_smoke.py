@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernel checks only (no ok line)
     python3 chip_smoke.py --phase 10 # build, kernel checks and one phase (9,
-                                     # 10 or 11) alone; no ok line
+                                     # 10, 11 or 12) alone; no ok line
 
 Phases, each of which exits non-zero when a check fails:
 
@@ -91,17 +91,16 @@ Phases, each of which exits non-zero when a check fails:
    whose float64 accumulators and plan hashes on the card equal the CPU's.
 9. The scenario matrix (``cdrs_tpu_torch.scenarios.run_cell``) on CUDA:
    (a) every cell of the ``full`` suite at suite seed 0 whose axes the port
-   runs (the seventeen ported ``ci-smoke`` cells, ``control-shift``, the
+   runs (the twenty-one ported ``ci-smoke`` cells, ``control-shift``, the
    serving ``random-s0-3`` and the replicate-storage ``random-s0-2``), each
    ``ok`` from the card's own cold init (the rows its D² init picked are
    logged; a cell of ``SCENARIO_QUEUE_C`` must fail exactly its recorded
    invariants there), with B1 = sum(n_iter + 1) over the cell's
-   re-clusters and no B2 launch (300-400 files sort their medians); the
-   ported cells at suite seeds 1 and 2, each ``ok`` on the card's own init;
-   then each cell on the card and on the CPU from cold inits computed on
+   re-clusters and no B2 launch (300-400 files sort their medians); then
+   each cell on the card and on the CPU from cold inits computed on
    the CPU, whose invariants, metrics and coverage bits must be equal;
-   (b) ``gradual-drift`` at 2,500,000 files over 60 s (cuts: files, span,
-   no alert gating), ``ok`` to its end, with B1 = sum(n_iter + 1) and B2 =
+   (b) ``gradual-drift`` at 2,500,000 files in 10 windows over 30 s (cuts:
+   files, windows and span, no alert gating), ``ok`` to its end, with B1 = sum(n_iter + 1) and B2 =
    12 per re-cluster (2.5M rows resolve to bisection), its mean seconds a
    window by stage and the idle share of one profiled window.
 10. The read path: (a) the serving controller (``ServeConfig(policy=
@@ -126,13 +125,14 @@ Phases, each of which exits non-zero when a check fails:
    controller's fed the same windows under the same ``serve_shed``.
 11. Storage strategies, HDFS's RS-6-3-1024k policy (``ec_archival``:
    EC(6,3) Archival on the cold tier) on 12 DataNodes in 4 racks of 3,
-   rack r1 crashed for good from window 3: (a) 2,500,000 files generated
-   on dn1..dn12 (seed 10, 60 s of traffic) with phase 8's settings (rf >=
-   2, 250,000 files a window): no file lost in any window, a ``storage``
-   record in each, B1 = sum(n_iter + 1) and B2 = 12 per re-cluster by the
-   counters, seconds a window by stage, the crash window's idle share, and
-   a kill after window 4 resumed to the same records and
-   ``state_arrays()``; (b) 20,000 files over 720 s (6 windows of 120 s)
+   rack r1 crashed for good: (a) 2,500,000 files generated on dn1..dn12
+   (seed 10, 40 s of traffic, 4 windows of 10 s, the crash from window 2)
+   with phase 8's settings (rf >= 2, 250,000 files a window): no file lost
+   in any window, a ``storage`` record in each, B1 = sum(n_iter + 1) and
+   B2 = 12 per re-cluster by the counters, seconds a window by stage, the
+   crash window's idle share, and a kill after window 2 resumed to the same
+   records and ``state_arrays()``; (b) 20,000 files over 720 s (6 windows
+   of 120 s, the crash from window 3)
    with no storage, ``replicate`` and ``ec_archival`` on the card:
    ``replicate`` equal to no storage in every record and in
    ``state_arrays()``, EC losing no file with Archival stored at most half
@@ -140,6 +140,35 @@ Phases, each of which exits non-zero when a check fails:
    its own kill/resume; with p2c serving, EC stripes whose primary shard
    is down after the crash, and latencies above the same run's without
    the storage penalty.
+12. Functional placement, the reference's ``region-loss`` preset (3
+   regions x 2 racks x 2 nodes with priced WAN edges, ``placement_mode=
+   "functional"``, ``ec_archival``, p2c serving) with region eu crashed for
+   good from window 2: (a) 10,000,000 files generated on dn1..dn12 (seed
+   10) over 20 s of traffic, 4 windows of 5 s, phase 8's settings (rf >= 2,
+   250,000 files a window, drift threshold 0) and a checkpoint every
+   window: first B1 (with and without labels), B2 and one bisection
+   against their plain versions on a 10,000,000 x 5, k = 8 table, the
+   re-clusters' shape; then the run: the state holds no array of n_files
+   x n_nodes elements, no file is lost in any window, B1 = sum(n_iter + 1)
+   and B2 = 12 per re-cluster by the counters, seconds a window by stage,
+   exceptions and the sparse checkpoint's bytes against the dense map's,
+   the peak host RSS, the crash window's idle share, and a kill after
+   window 2 resumed to the same records and sparse ``state_arrays()``; (b)
+   phase 4's workload on
+   the same topology and settings: functional equal to its oracle
+   (``materialized_hash``) in every record and in the sparse
+   ``state_arrays()``, and the card equal to the CPU from one init; (c)
+   ``EpochMap.diff`` over 12a's population: the same epoch moves nothing,
+   dn5's removal pruned equals the full compare, and appending a standby
+   node to each region moves exactly what the full compare finds
+   (``addition_moved``), with the host seconds of each.  12a and 12c run in
+   a child process (about one core of the host and 13 GiB of its memory,
+   almost none of the card) started before phase 3, beside phases 3-11 and
+   12b: run in turn they would take the whole smoke past its time limit.
+   ``--phase 12`` starts the same child beside 12b alone, after (d): 12a's
+   run at 5,000 files with the functional state's single-row memo on and
+   off (``placement_fn.state._MEMO_MAX = 0``), the same records either way,
+   and the host seconds of the repair and schedule stages.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It imports nothing of the JAX
@@ -180,14 +209,16 @@ SCENARIO_CELLS = ("control-shift", "chaos-kill", "rack-kill", "rack-partition", 
                   "rolling-decommission", "integrity-scrub", "daemon-stream",
                   "adversarial-drift", "gradual-drift", "random-s0-0", "serve-chaos",
                   "flash-crowd", "slo-burn", "integrity-read", "diurnal", "random-s0-1",
-                  "random-s0-3", "storage-ec", "random-s0-2")
-SCENARIO_SCALE = {"n_files": MAIN_FILES, "duration": MAIN_DURATION, "alerts": None}  # 9b's cuts
+                  "random-s0-3", "storage-ec", "random-s0-2", "scale-placement",
+                  "region-loss", "wan-partition", "black-friday")
+#: 9b's cuts: 2.5M files, 10 windows of 3 s (a 30 s span), no alert gating.
+SCENARIO_SCALE = {"n_files": MAIN_FILES, "duration": 30.0, "n_windows": 10, "alerts": None}
 #: Cells red on the card's own cold init, with the reference red on that
 #: init too (ROADMAP Queue C): the entry and the invariants that fail.
 #: 9a judges them from the CPU-computed init.
 SCENARIO_QUEUE_C = {"rack-kill": ("ROADMAP Queue C2 (repair_backlog holds 2 windows, its "
                                   "rule needs 3)", ["alerts_expected"])}
-SCENARIO_PROFILED_WINDOW = 10
+SCENARIO_PROFILED_WINDOW = 5
 SERVE_COHORT_FRAC = 0.01     # 10a: flash-crowd cohort, a share of all files (hot ones)
 SERVE_BURST = (30.0, 6.0)    # 10a: burst start and length in seconds of the span
 SERVE_BOOST = 40.0
@@ -199,14 +230,35 @@ SERVE_RACKS = "r0=dn1,dn2;r1=dn3,dn4;r2=dn5,dn6"
 SERVE_STAGES = ("fold", "hotspot", "drift", "recluster", "plan", "schedule", "serve",
                 "evaluate", "total")
 #: Phase 11: HDFS's RS-6-3-1024k policy (EC(6,3) Archival, cold tier) on 12
-#: DataNodes in 4 racks of 3, rack r1 crashed for good from window 3.
+#: DataNodes in 4 racks of 3, rack r1 crashed for good (11b: from window 3).
 STORAGE_NODES = tuple(f"dn{i}" for i in range(1, 13))
 STORAGE_CRASH = "crash:rack:r1@3"
-STORAGE_KILL_AFTER = 4       # windows before the simulated kill
+STORAGE_KILL_AFTER = 4       # windows before the simulated kill (11b)
+#: 11a: 4 windows of 10 s, rack r1 crashed from window 2, a kill after window 2.
+STORAGE_SPAN_A = 40.0
+STORAGE_CRASH_A = "crash:rack:r1@2"
+STORAGE_KILL_AFTER_A = 2
 #: 11b's span and windows: at phase 4's 60 s no cluster scores Archival, so
 #: the span is 720 s (6 windows of 120 s; the cold start sees 120 s).
 STORAGE_SPAN_B = 720.0
 STORAGE_WINDOW_B = 120.0
+#: Phase 12: the reference's region-loss preset (geo topology of 3 regions x
+#: 2 racks x 2 nodes, functional placement, ec_archival, p2c serving) at
+#: 10,000,000 files, region eu crashed for good from window 2.
+PLACEMENT_FILES = 10_000_000
+PLACEMENT_SPAN = 20.0
+PLACEMENT_WINDOW = 5.0
+PLACEMENT_CRASH = "crash:region:eu@2"
+PLACEMENT_KILL_AFTER = 2     # windows before the simulated kill
+PLACEMENT_PROFILED_WINDOW = 2   # the crash window
+PLACEMENT_MEMO_FILES = 5_000    # 12d: 12a's run with the memo on and off
+PLACEMENT_REMOVED = "dn5"       # 12c: the node an epoch removes
+#: 12c: the standby nodes an epoch appends, one per region.
+PLACEMENT_POOL = ({"name": "sb1", "domains": ("rs0", "eu")},
+                  {"name": "sb2", "domains": ("rs1", "us")},
+                  {"name": "sb3", "domains": ("rs2", "ap")})
+PLACEMENT_STAGES = ("fold", "hotspot", "drift", "recluster", "faults", "repair", "plan",
+                    "schedule", "serve", "evaluate", "total")
 
 
 def fail(msg: str) -> None:
@@ -451,27 +503,37 @@ def check_seg(name, n, d, k, reps, gen, with_global=True):
             "bound_by": b_by, "max_abs_err": max_abs}
 
 
-def check_bisect(n, d, k, gen):
+def check_bisect(n, d, k, gen, plain_on="cpu"):
     """One bisection as the main path makes it (one fused count of the
     per-cluster and global ranks per iteration) on the card against the
-    same bisection on the CPU, where every count comes from the plain
-    version.  The thresholds are halvings of exact min/max values and the
-    counts are integers, so the medians must agree bit for bit."""
+    same bisection where every count comes from the plain version: on the
+    CPU, or on the card with ``plain_on="cuda"``.  The thresholds are
+    halvings of exact min/max values and the counts are integers, so the
+    medians must agree bit for bit."""
     import torch
 
-    from cdrs_tpu_torch.ops.scoring import bisect_medians
+    from cdrs_tpu_torch.ops import scoring
+    from cdrs_tpu_torch.ops.seg_count import label_threshold_count_plain
 
     x = torch.rand((n, d), generator=gen, device="cuda")
     labels = torch.randint(0, k, (n,), generator=gen, device="cuda", dtype=torch.int32)
     before = label_launches()
-    med, gm = bisect_medians(x, labels, k, 2048, True)
+    med, gm = scoring.bisect_medians(x, labels, k, 2048, True)
     launched = label_launches() - before
-    med_p, gm_p = bisect_medians(x.cpu(), labels.cpu(), k, 2048, True)
+    if plain_on == "cpu":
+        med_p, gm_p = scoring.bisect_medians(x.cpu(), labels.cpu(), k, 2048, True)
+    else:
+        kernel = scoring.label_threshold_count
+        scoring.label_threshold_count = label_threshold_count_plain
+        try:
+            med_p, gm_p = (t.cpu() for t in scoring.bisect_medians(x, labels, k, 2048, True))
+        finally:
+            scoring.label_threshold_count = kernel
     check(launched == 12, f"bisect: {launched} kernel launches, expected 12")
     check(torch.equal(med.cpu(), med_p) and torch.equal(gm.cpu(), gm_p),
           "bisect: card medians differ from the plain version's")
     log(f"bisect n={n} d={d} k={k}: {launched} launches (per-cluster and global fused), "
-        f"medians identical to the plain version's")
+        f"medians identical to the plain version's on the {plain_on}")
     del x, labels
     torch.cuda.empty_cache()
 
@@ -1582,14 +1644,6 @@ def phase_scenarios():
             check(got["seg_count"] == 0, f"scenario {spec.name}: {got['seg_count']} "
                   f"threshold-count launches at {spec.n_files} files")
         kmeans_mod._d2_init = d2
-        for seed in (1, 2):
-            shifted = [c for c in suite_cells("full", seed) if not unported_axes(c)]
-            for spec in shifted:
-                cell = run_cell(spec, suite="full", suite_seed=seed, device="cuda")
-                check(cell["ok"], f"scenario {spec.name} at suite seed {seed} is red on the "
-                      f"card's own init: {cell['invariants']}")
-            log(f"scenario suite seed {seed}: all {len(shifted)} ported cells ok on the card's "
-                f"own init")
         # The card against the CPU, both from cold inits computed on the CPU.
         hooks["init_fn"] = cpu_model_init
         for spec in cells:
@@ -1754,7 +1808,7 @@ def profile_phases(ctl, window, prof):
 
 
 def storage_config(device: str, storage: str | None, window: float = CONTROL_WINDOW,
-                   **kw):
+                   crash: str = STORAGE_CRASH, **kw):
     """Phase 8's settings on 12 nodes in 4 racks with rack r1 crashed from
     window 3, and the storage config ``storage`` (None, "replicate" or
     "ec_archival") resolved against phase 8's scoring."""
@@ -1764,7 +1818,7 @@ def storage_config(device: str, storage: str | None, window: float = CONTROL_WIN
     from cdrs_tpu_torch.storage import resolve_storage_config
 
     topo = ClusterTopology.from_rack_spec(STORAGE_NODES, CHAOS_RACKS)
-    cfg = chaos_config(device, [STORAGE_CRASH], topology=topo, **kw)
+    cfg = chaos_config(device, [crash], topology=topo, **kw)
     return dataclasses.replace(cfg, window_seconds=window,
                                storage=resolve_storage_config(storage, cfg.scoring))
 
@@ -1791,26 +1845,26 @@ def phase_storage():
     manifest = generate_population(GeneratorConfig(n_files=MAIN_FILES, seed=MAIN_SEED,
                                                    nodes=STORAGE_NODES))
     t_gen = time.perf_counter() - t0
-    events = simulate_access(manifest, SimulatorConfig(duration_seconds=MAIN_DURATION,
+    events = simulate_access(manifest, SimulatorConfig(duration_seconds=STORAGE_SPAN_A,
                                                        seed=MAIN_SEED + 1))
     log(f"storage workload: {len(manifest)} files on {len(STORAGE_NODES)} nodes, "
-        f"{len(events)} events over {MAIN_DURATION:g} s; gen {t_gen:.3f} s, simulate "
+        f"{len(events)} events over {STORAGE_SPAN_A:g} s; gen {t_gen:.3f} s, simulate "
         f"{time.perf_counter() - t0 - t_gen:.3f} s")
 
     def config():
-        return storage_config("cuda", "ec_archival")
+        return storage_config("cuda", "ec_archival", crash=STORAGE_CRASH_A)
 
     with tempfile.TemporaryDirectory() as tmp, deterministic():
         ctl = ReplicationController(manifest, config())
         seen = watch_reclusters(ctl)
         prof: dict = {}
-        profile_phases(ctl, 3, prof)   # the crash window
+        profile_phases(ctl, 2, prof)   # the crash window
         ck = os.path.join(tmp, "killed.npz")
         save = ctl.save_checkpoint
 
         def save_and_keep(path, *args, **kw):
             save(path, *args, **kw)
-            if ctl.window_index == STORAGE_KILL_AFTER + 1:
+            if ctl.window_index == STORAGE_KILL_AFTER_A + 1:
                 shutil.copyfile(path, ck)
 
         ctl.save_checkpoint = save_and_keep
@@ -1823,7 +1877,7 @@ def phase_storage():
                     "seg_count": label_threshold_count.launches}
         recs = full.records
         log(f"storage: ec_archival, {len(recs)} windows of {CONTROL_WINDOW:g} s, "
-            f"{STORAGE_CRASH}; wall {wall:.3f} s (checkpoints included), re-clusters "
+            f"{STORAGE_CRASH_A}; wall {wall:.3f} s (checkpoints included), re-clusters "
             f"{[r['recluster_mode'] for r in recs]}, Lloyd iterations "
             f"{[c['n_iter'] for c in seen]}, launches {launches}")
         for r in recs:
@@ -1844,35 +1898,35 @@ def phase_storage():
         log("storage summary " + json.dumps(full.summary()))
         log("storage profile " + json.dumps(prof))
         want_lloyd = sum(c["n_iter"] + 1 for c in seen)
-        check(len(recs) == 6, f"storage ran {len(recs)} windows, wants 6")
+        check(len(recs) == 4, f"storage ran {len(recs)} windows, wants 4")
         check(len(seen) == len(recs), f"storage: {len(seen)} re-clusters for {len(recs)} "
               f"windows")
         check(launches["lloyd"] == want_lloyd, f"storage made {launches['lloyd']} Lloyd "
               f"launches, expected {want_lloyd}")
         check(launches["seg_count"] == 12 * len(seen), f"storage made "
               f"{launches['seg_count']} threshold-count launches, expected {12 * len(seen)}")
-        check(recs[3]["fault_events"] == ["crash:dn4@3", "crash:dn5@3", "crash:dn6@3"],
-              f"window 3's fault events are {recs[3]['fault_events']}")
-        check(all(r["nodes_up"] == 9 and r["repair_moves"] > 0 for r in recs[3:]),
-              "storage: rack r1 not down, or no repair, from window 3")
+        check(recs[2]["fault_events"] == ["crash:dn4@2", "crash:dn5@2", "crash:dn6@2"],
+              f"window 2's fault events are {recs[2]['fault_events']}")
+        check(all(r["nodes_up"] == 9 and r["repair_moves"] > 0 for r in recs[2:]),
+              "storage: rack r1 not down, or no repair, from window 2")
         check(all(r["durability"]["lost"] == 0 for r in recs), "storage lost files")
         check(all(r["storage"]["bytes_raw"] == int(np.asarray(manifest.size_bytes).sum())
                   and r["storage"]["bytes_stored"] > r["storage"]["bytes_raw"] for r in recs),
               "storage records miss the stored bytes")
-        check(prof.get("window") == 3 and prof.get("lloyd_launches_seen", 0) > 0,
+        check(prof.get("window") == 2 and prof.get("lloyd_launches_seen", 0) > 0,
               f"storage profile of the crash window: {prof}")
 
-        check(os.path.exists(ck), f"no snapshot after window {STORAGE_KILL_AFTER}")
+        check(os.path.exists(ck), f"no snapshot after window {STORAGE_KILL_AFTER_A}")
         rest_ctl = ReplicationController(manifest, config())
         rest = rest_ctl.run(events, checkpoint_path=ck)
-        check(strip_seconds(rest.records) == strip_seconds(recs[STORAGE_KILL_AFTER + 1:]),
+        check(strip_seconds(rest.records) == strip_seconds(recs[STORAGE_KILL_AFTER_A + 1:]),
               "storage kill/resume records differ from the uninterrupted run's")
         got, want = rest_ctl._cluster_state.state_arrays(), ctl._cluster_state.state_arrays()
         check(set(got) == set(want) and all(np.array_equal(got[k], want[k]) for k in want),
               "storage kill/resume ClusterState.state_arrays() differ from the full run's")
         check(np.array_equal(rest_ctl._installed_cat, ctl._installed_cat),
               "storage kill/resume installed categories differ")
-        log(f"storage kill/resume: killed after window {STORAGE_KILL_AFTER}, resumed; records "
+        log(f"storage kill/resume: killed after window {STORAGE_KILL_AFTER_A}, resumed; records "
             f"identical apart from seconds in windows {[r['window'] for r in rest.records]}, "
             f"state_arrays identical")
     del events
@@ -2275,11 +2329,406 @@ def daemon_shed():
         f"{len(calls)} windows under the same serve_shed")
 
 
+def placement_config(device: str, mode: str = "functional", window: float = PLACEMENT_WINDOW):
+    """Phase 8's settings (rf >= 2, 250,000 files a window, drift threshold
+    0) on the region-loss preset's geo topology, its storage
+    (``ec_archival``) and p2c serving, with placement ``mode`` and region eu
+    crashed from window 2."""
+    import dataclasses
+
+    from cdrs_tpu_torch.cluster.placement import ClusterTopology
+    from cdrs_tpu_torch.scenarios import preset
+    from cdrs_tpu_torch.serve import ServeConfig
+    from cdrs_tpu_torch.storage import resolve_storage_config
+
+    spec = preset("region-loss")
+    cfg = chaos_config(device, [PLACEMENT_CRASH],
+                       topology=ClusterTopology.from_hierarchy(spec.topology),
+                       placement_mode=mode, serve=ServeConfig(policy="p2c"),
+                       window_seconds=window)
+    return dataclasses.replace(cfg, storage=resolve_storage_config(spec.storage, cfg.scoring))
+
+
+def rss_gib() -> float:
+    """This process's resident set (VmRSS) in GiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
+class PeakRss:
+    """The largest VmRSS sampled every ``interval`` seconds by a thread while
+    the ``with`` block runs (``peak``, GiB)."""
+
+    def __init__(self, interval: float = 0.25):
+        import threading
+
+        self.interval = interval
+        self.peak = rss_gib()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+
+    def _sample(self):
+        while not self._stop.wait(self.interval):
+            self.peak = max(self.peak, rss_gib())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_gib())
+
+
+def dense_arrays(state, n_files: int) -> list:
+    """Attributes of ``state`` holding n_files x n_nodes elements or more."""
+    import numpy as np
+
+    big = n_files * len(state.nodes)
+    return [k for k, v in vars(state).items() if isinstance(v, np.ndarray) and v.size >= big]
+
+
+def start_placement_child(work):
+    """Start 12a and 12c (``placement_at_scale``) in a child process, one
+    thread per math library so that it shares the host with this one.
+    Returns the child, its log's path and its start time."""
+    threads = {k: "1" for k in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")}
+    child_log = os.path.join(work, "placement_child.log")
+    with open(child_log, "w") as out:
+        child = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+             f"sys.exit(chip_smoke.placement_child({work!r}))"],
+            cwd=work, env=dict(os.environ, PYTHONPATH=ROOT, **threads), stdout=out,
+            stderr=subprocess.STDOUT, start_new_session=True)
+    return child, child_log, time.perf_counter()
+
+
+def stop_child(child) -> None:
+    """Kill the child's process group if it still runs."""
+    if child is not None and child.poll() is None:
+        os.killpg(child.pid, signal.SIGKILL)
+        child.wait()
+
+
+def placement_child(work) -> int:
+    """The child's body: 12a and 12c, whose result goes to
+    ``placement.json`` in ``work``."""
+    result = placement_at_scale()
+    with open(os.path.join(work, "placement.json"), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def join_placement_child(child, child_log, t_child, work):
+    """Wait for the child, relay its log and return its result (the
+    kernels' launches in 12a and their errors at its shape)."""
+    rc = child.wait(timeout=1200)
+    with open(child_log) as f:
+        child_text = f.read()
+    for line in child_text.splitlines():
+        log(line)
+    check(rc == 0, f"phase 12a/12c's child exited {rc}: {child_text[-3000:]}")
+    with open(os.path.join(work, "placement.json")) as f:
+        result = json.load(f)
+    log(f"phase 12a and 12c: {time.perf_counter() - t_child:.1f} s in the child")
+    return result
+
+
+def placement_kernels():
+    """B1 (as the Lloyd loop and the label pass call it), B2 and one whole
+    bisection against their plain versions at 12a's re-cluster shape: a
+    10,000,000 x 5 table, k = 8, every row valid.  Returns the largest
+    error of each kernel."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    n = PLACEMENT_FILES
+    lloyd = [check_lloyd(name, n, 5, K, torch.float32, n, 3, gen, with_labels=labels)
+             for name, labels in (("placement", False), ("placement-labels", True))]
+    seg = check_seg("placement", n, 5, K, 3, gen)
+    # The child runs one thread a math library: the plain counts run on the card.
+    check_bisect(n, 5, K, gen, plain_on="cuda")
+    return {"lloyd": max(r["max_abs_err"] for r in lloyd), "seg_count": seg["max_abs_err"]}
+
+
+def placement_at_scale():
+    """Phase 12a, functional placement at 10,000,000 files, then 12c, the
+    epoch diff over its population.  Returns the kernels' launches in 12a
+    and their errors at its shape."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from cdrs_tpu_torch import GeneratorConfig, SimulatorConfig
+    from cdrs_tpu_torch.control.controller import ReplicationController
+    from cdrs_tpu_torch.device import deterministic
+    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
+    from cdrs_tpu_torch.ops.seg_count import label_threshold_count
+    from cdrs_tpu_torch.sim.access import simulate_access
+    from cdrs_tpu_torch.sim.generator import generate_population
+
+    errors = placement_kernels()
+    t0 = time.perf_counter()
+    manifest = generate_population(GeneratorConfig(n_files=PLACEMENT_FILES, seed=MAIN_SEED,
+                                                   nodes=STORAGE_NODES))
+    t_gen = time.perf_counter() - t0
+    events = simulate_access(manifest, SimulatorConfig(duration_seconds=PLACEMENT_SPAN,
+                                                       seed=MAIN_SEED + 1))
+    n = len(manifest)
+    log(f"placement workload: {n} files on {len(STORAGE_NODES)} nodes in 3 regions, "
+        f"{len(events)} events over {PLACEMENT_SPAN:g} s; gen {t_gen:.3f} s, simulate "
+        f"{time.perf_counter() - t0 - t_gen:.3f} s; host RSS {rss_gib():.3f} GiB")
+
+    with tempfile.TemporaryDirectory() as tmp, deterministic(), PeakRss() as rss:
+        t0 = time.perf_counter()
+        ctl = ReplicationController(manifest, placement_config("cuda"))
+        t_build = time.perf_counter() - t0
+        cs = ctl._cluster_state
+        n_nodes = len(cs.nodes)
+        check(type(cs).__name__ == "OverlayClusterState" and not dense_arrays(cs, n)
+              and "replica_map" not in vars(cs),
+              f"12a: the functional state holds a dense array: {dense_arrays(cs, n)}")
+        seen = watch_reclusters(ctl)
+        prof: dict = {}
+        profile_phases(ctl, PLACEMENT_PROFILED_WINDOW, prof)
+        ck = os.path.join(tmp, "killed.npz")
+        save = ctl.save_checkpoint
+
+        def save_and_keep(path, *args, **kw):
+            save(path, *args, **kw)
+            if ctl.window_index == PLACEMENT_KILL_AFTER + 1:
+                shutil.copyfile(path, ck)
+
+        ctl.save_checkpoint = save_and_keep
+        lloyd_assign_reduce.launches = 0
+        label_threshold_count.launches = 0
+        t0 = time.perf_counter()
+        full = ctl.run(events, checkpoint_path=os.path.join(tmp, "full.npz"))
+        wall = time.perf_counter() - t0
+        launches = {"lloyd": lloyd_assign_reduce.launches,
+                    "seg_count": label_threshold_count.launches}
+        peak = rss.peak
+        recs = full.records
+        log(f"placement: functional, ec_archival, p2c, {len(recs)} windows of "
+            f"{PLACEMENT_WINDOW:g} s, {PLACEMENT_CRASH}; state built in {t_build:.3f} s; wall "
+            f"{wall:.3f} s (checkpoints included), re-clusters "
+            f"{[r['recluster_mode'] for r in recs]}, Lloyd iterations "
+            f"{[c['n_iter'] for c in seen]}, launches {launches}")
+        for r in recs:
+            log("placement window " + json.dumps(
+                {"window": r["window"], "fault_events": r["fault_events"],
+                 "nodes_up": r["nodes_up"], "moves_applied": r["moves_applied"],
+                 "repair_moves": r["repair_moves"], "repair_backlog": r["repair_backlog"],
+                 "lost": r["durability"]["lost"], "at_risk": r["durability"]["at_risk"],
+                 "under_replicated": r["durability"]["under_replicated"],
+                 "regions_reachable": r["durability"]["regions_reachable"],
+                 "placement": r["placement"], "ec_files": r["storage"]["ec_files"],
+                 "reads": r.get("reads_routed"), "p99_ms": r.get("latency_p99_ms"),
+                 "seconds": r["seconds"]}))
+        per_stage = {st: sum(r["seconds"].get(st, 0.0) for r in recs) / len(recs)
+                     for st in PLACEMENT_STAGES}
+        log("placement stages mean seconds per window " + json.dumps(per_stage))
+        dense_bytes = n * n_nodes * 5
+        ckpts = [{"window": c["window"], "bytes": int(c["bytes"]),
+                  "seconds": round(float(c["seconds"]), 3)} for c in ctl.checkpoint_log]
+        exc = [r["placement"]["exceptions"] for r in recs]
+        sparse = cs.state_arrays(rf_hint=ctl.current_rf)
+        fn_bytes = sum(int(v.nbytes) for k, v in sparse.items() if k.startswith("fault_fn"))
+        log("placement checkpoint " + json.dumps(
+            {"exceptions": exc, "checkpoints": ckpts, "sparse_placement_bytes": fn_bytes,
+             "dense_map_and_rot_bytes": dense_bytes,
+             "peak_host_rss_gib_sampled": round(peak, 3)}))
+        log("placement summary " + json.dumps(full.summary()))
+        log("placement profile " + json.dumps(prof))
+        want_lloyd = sum(c["n_iter"] + 1 for c in seen)
+        check(len(recs) == int(PLACEMENT_SPAN / PLACEMENT_WINDOW),
+              f"12a ran {len(recs)} windows")
+        check(len(seen) == len(recs), f"12a: {len(seen)} re-clusters for {len(recs)} windows")
+        check(launches["lloyd"] == want_lloyd,
+              f"12a made {launches['lloyd']} Lloyd launches, expected {want_lloyd}")
+        check(launches["seg_count"] == 12 * len(seen),
+              f"12a made {launches['seg_count']} threshold-count launches, expected "
+              f"{12 * len(seen)}")
+        check(recs[2]["fault_events"] == [f"crash:dn{i}@2" for i in range(1, 5)],
+              f"window 2's fault events are {recs[2]['fault_events']}")
+        check(all(r["nodes_up"] == 8 and r["repair_moves"] > 0 for r in recs[2:]),
+              "12a: region eu not down, or no repair, from window 2")
+        check(all(r["durability"]["lost"] == 0 for r in recs), "12a lost files")
+        check(all(r["placement"]["mode"] == "functional" for r in recs) and exc[-1] > 0,
+              f"12a placement stamps {[r['placement'] for r in recs]}")
+        check(fn_bytes < dense_bytes and not dense_arrays(cs, n),
+              f"12a: sparse placement {fn_bytes} bytes against the dense {dense_bytes}, "
+              f"dense arrays {dense_arrays(cs, n)}")
+        check(prof.get("window") == PLACEMENT_PROFILED_WINDOW
+              and prof.get("lloyd_launches_seen", 0) > 0, f"12a profile: {prof}")
+
+        check(os.path.exists(ck), f"no snapshot after window {PLACEMENT_KILL_AFTER}")
+        # The full run's controller goes before the resume builds another.
+        shards = cs.installed_shards.copy()
+        del ctl, cs, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rest_ctl = ReplicationController(manifest, placement_config("cuda"))
+        rest = rest_ctl.run(events, checkpoint_path=ck)
+        t_resume = time.perf_counter() - t0
+        check(strip_seconds(rest.records) == strip_seconds(recs[PLACEMENT_KILL_AFTER + 1:]),
+              "12a kill/resume records differ from the uninterrupted run's")
+        got = rest_ctl._cluster_state.state_arrays(rf_hint=rest_ctl.current_rf)
+        check(set(got) == set(sparse) and all(np.array_equal(got[k], sparse[k]) for k in sparse),
+              "12a kill/resume sparse state_arrays() differ from the full run's")
+        check(np.array_equal(rest.rf, full.rf) and np.array_equal(rest.category_idx,
+                                                                  full.category_idx),
+              "12a kill/resume final plan differs")
+        log(f"placement kill/resume: killed after window {PLACEMENT_KILL_AFTER}, resumed in "
+            f"{t_resume:.3f} s (state built, snapshot loaded, the rest run); records (plan "
+            f"hashes included) identical apart from seconds in windows "
+            f"{[r['window'] for r in rest.records]}; sparse state_arrays identical")
+    del events, rest_ctl
+    placement_epoch_diff(manifest, shards)
+    return {"launches": launches, "max_abs_err": errors}
+
+
+def placement_epoch_diff(manifest, shards):
+    """12c: ``EpochMap.diff`` at 10,000,000 files: a removal pruned against
+    the full compare, the same epoch, and an addition of the standby pool
+    against the full compare."""
+    import numpy as np
+
+    from cdrs_tpu_torch.cluster.placement import ClusterTopology, primary_on_topology
+    from cdrs_tpu_torch.control.elastic import ElasticPolicy
+    from cdrs_tpu_torch.placement_fn.epoch import EpochMap, addition_moved
+    from cdrs_tpu_torch.scenarios import preset
+
+    spec = preset("region-loss").topology
+    topo = ClusterTopology.from_hierarchy(spec)
+    cut = {**spec, "nodes": [x for x in spec["nodes"] if x != PLACEMENT_REMOVED],
+           "rack": {r: [x for x in m if x != PLACEMENT_REMOVED] for r, m in spec["rack"].items()}}
+    pol = ElasticPolicy(pool=PLACEMENT_POOL)
+    grown = pol.grown_topology(topo, pol.next_activation(()))
+    emap = EpochMap(manifest.nodes, topo, seed=0)
+    emap.advance(ClusterTopology.from_hierarchy(cut))
+    emap.advance(grown)
+    pid = manifest.primary_node_id
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    same = timed("same_epoch", lambda: emap.diff(0, 0, shards, pid))
+    pruned = timed("removal_pruned", lambda: emap.diff(0, 1, shards, pid))
+    full = timed("removal_full", lambda: emap.diff(0, 1, shards, pid, prune=False))
+    prim = primary_on_topology(manifest.nodes, pid, topo)
+    added = timed("addition_moved", lambda: addition_moved(topo, grown, shards, prim, 0))
+    add_full = timed("addition_full", lambda: emap.diff(0, 2, shards, pid, prune=False))
+    log("placement epoch diff " + json.dumps(
+        {"files": len(manifest), "same_epoch_moves": len(same),
+         "removed": PLACEMENT_REMOVED, "removal_moves": len(pruned),
+         "removal_checked_pruned": pruned.n_checked, "removal_checked_full": full.n_checked,
+         "added": [e["name"] for e in PLACEMENT_POOL], "addition_moves": int(added.size),
+         "host_seconds": secs}))
+    check(len(same) == 0, "12c: the same epoch moves files")
+    check(pruned.pruned and not full.pruned and len(pruned) > 0
+          and np.array_equal(np.sort(pruned.moved), np.sort(full.moved))
+          and pruned.n_checked < full.n_checked,
+          "12c: the pruned removal diff differs from the full compare")
+    check(added.size > 0 and np.array_equal(added, add_full.moved),
+          "12c: addition_moved differs from the full compare")
+
+
+def placement_small():
+    """12b: phase 4's workload on the same topology and settings: functional
+    against its oracle (materialized_hash) on the card, and the card against
+    the CPU, from one carried init."""
+    import numpy as np
+
+    from cdrs_tpu_torch.control.controller import ReplicationController
+
+    manifest, events = _phase4_workload(STORAGE_NODES)
+    runs = {}
+    for dev, mode in (("cuda", "functional"), ("cuda", "materialized_hash"),
+                      ("cpu", "functional")):
+        ctl = ReplicationController(manifest, placement_config(dev, mode))
+        watch_reclusters(ctl, cpu_init)
+        runs[dev, mode] = (ctl, ctl.run(events))
+    (fn_ctl, fn), (orc_ctl, orc), (cpu_ctl, cpu) = runs.values()
+    drop = ("seconds", "placement")
+    check([{k: v for k, v in r.items() if k not in drop} for r in fn.records]
+          == [{k: v for k, v in r.items() if k not in drop} for r in orc.records],
+          "12b: functional records differ from the materialized_hash oracle's")
+    # The oracle's rows as the sparse snapshot the functional state writes.
+    orc_cs = orc_ctl._cluster_state
+    orc_cs._fn_sparse = True
+    want = orc_cs.state_arrays(rf_hint=orc_ctl.current_rf)
+    got = fn_ctl._cluster_state.state_arrays(rf_hint=fn_ctl.current_rf)
+    check(set(got) == set(want) and all(np.array_equal(got[k], want[k]) for k in want),
+          "12b: functional state_arrays differ from the oracle's")
+    _records_match(fn.records, cpu.records, "12b functional card vs cpu")
+    got_cpu = cpu_ctl._cluster_state.state_arrays(rf_hint=cpu_ctl.current_rf)
+    check(all(np.array_equal(got[k], got_cpu[k]) for k in got),
+          "12b: state_arrays differ between the card and the CPU")
+    check(all(r["durability"]["lost"] == 0 for r in fn.records) and
+          fn.records[-1]["placement"]["exceptions"] > 0, "12b: files lost, or no exception")
+    log(f"placement 20k: functional = materialized_hash in every record and in the sparse "
+        f"state_arrays; card = CPU (drift within 1e-6); plan hashes "
+        f"{[r['plan_hash'] for r in fn.records]}; exceptions "
+        f"{[r['placement']['exceptions'] for r in fn.records]}")
+
+
+def placement_memo():
+    """12d: 12a at 5,000 files (the same settings, 4 windows of 5 s, the
+    crash from window 2) with the functional state's single-row memo on and
+    off: the same records either way, and the host seconds of the stages
+    that loop over files one at a time."""
+    from cdrs_tpu_torch import GeneratorConfig, SimulatorConfig
+    from cdrs_tpu_torch.control.controller import ReplicationController
+    from cdrs_tpu_torch.placement_fn import state as fn_state
+    from cdrs_tpu_torch.sim.access import simulate_access
+    from cdrs_tpu_torch.sim.generator import generate_population
+
+    manifest = generate_population(GeneratorConfig(n_files=PLACEMENT_MEMO_FILES,
+                                                   seed=MAIN_SEED, nodes=STORAGE_NODES))
+    events = simulate_access(manifest, SimulatorConfig(duration_seconds=PLACEMENT_SPAN,
+                                                       seed=MAIN_SEED + 1))
+    runs = {}
+    memo_max = fn_state._MEMO_MAX
+    try:
+        for label, limit in (("on", memo_max), ("off", 0)):
+            fn_state._MEMO_MAX = limit
+            ctl = ReplicationController(manifest, placement_config("cuda"))
+            watch_reclusters(ctl, cpu_init)
+            t0 = time.perf_counter()
+            res = ctl.run(events)
+            runs[label] = (res.records, time.perf_counter() - t0)
+    finally:
+        fn_state._MEMO_MAX = memo_max
+    check(strip_seconds(runs["on"][0]) == strip_seconds(runs["off"][0]),
+          "12d: the records differ with the memo off")
+    out = {"files": len(manifest), "windows": len(runs["on"][0]),
+           "moves_applied": sum(r["moves_applied"] for r in runs["on"][0]),
+           "repair_moves": sum(r["repair_moves"] for r in runs["on"][0])}
+    for label, (recs, wall) in runs.items():
+        out[label] = {"wall": round(wall, 3), **{
+            st: round(sum(r["seconds"].get(st, 0.0) for r in recs), 3)
+            for st in ("repair", "schedule", "total")}}
+    log("placement memo " + json.dumps(out))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
                         help="build and check the kernels only; prints no ok line")
-    parser.add_argument("--phase", type=int, choices=(9, 10, 11), default=None,
+    parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12), default=None,
                         help="build and check the kernels, then run this phase alone; prints "
                              "no ok line")
     args = parser.parse_args()
@@ -2300,12 +2749,18 @@ def main() -> int:
         log(f"quick run done in {time.perf_counter() - t_start:.1f} s; main path skipped")
         return 0
     work = tempfile.mkdtemp(prefix="chip_smoke_")
+    child = None
     if args.phase is not None:
         try:
             if args.phase == 9:
                 log(f"phase 9 launches {phase_scenarios()}")
             elif args.phase == 11:
                 log(f"phase 11 launches {phase_storage()}")
+            elif args.phase == 12:
+                placement_memo()
+                child, child_log, t_child = start_placement_child(work)
+                placement_small()
+                log(f"phase 12 launches {join_placement_child(child, child_log, t_child, work)}")
             else:
                 from cdrs_tpu_torch import GeneratorConfig
                 from cdrs_tpu_torch.sim.generator import generate_population
@@ -2314,10 +2769,13 @@ def main() -> int:
                                                                seed=MAIN_SEED))
                 log(f"phase 10 launches {phase_serve(manifest, work)}")
         finally:
+            stop_child(child)
             shutil.rmtree(work, ignore_errors=True)
         log(f"phase {args.phase} run done in {time.perf_counter() - t_start:.1f} s")
         return 0
     try:
+        # 12a and 12c (host-bound, one core) run in a child beside 3-11.
+        child, child_log, t_child = start_placement_child(work)
         launches, cfg, main_result = phase_main_path()
         norm_20k, init_20k = phase_card_vs_cpu()
         stream_launches, stream_times, manifest, events, log_path = phase_stream_path(
@@ -2344,7 +2802,16 @@ def main() -> int:
         t0 = time.perf_counter()
         storage_launches = phase_storage()
         log(f"phase 11 (storage): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        placement_small()
+        log(f"phase 12b: {time.perf_counter() - t0:.1f} s")
+        placement = join_placement_child(child, child_log, t_child, work)
+        log(f"phase 12 (placement): {time.perf_counter() - t0:.1f} s after phase 11")
+        for name in ("lloyd", "seg_count"):
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                            placement["max_abs_err"][name])
     finally:
+        stop_child(child)
         shutil.rmtree(work, ignore_errors=True)
 
     kernels = [
@@ -2356,7 +2823,8 @@ def main() -> int:
          "chaos_launches": chaos_launches["lloyd"],
          "scenario_launches": scenario_launches["lloyd"],
          "serve_launches": serve_launches["lloyd"],
-         "storage_launches": storage_launches["lloyd"], **rows["lloyd"], "library_ms": None},
+         "storage_launches": storage_launches["lloyd"],
+         "placement_launches": placement["launches"]["lloyd"], **rows["lloyd"], "library_ms": None},
         {"name": "label_threshold_count", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/seg_count.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:534",
@@ -2366,7 +2834,8 @@ def main() -> int:
          "chaos_launches": chaos_launches["seg_count"],
          "scenario_launches": scenario_launches["seg_count"],
          "serve_launches": serve_launches["seg_count"],
-         "storage_launches": storage_launches["seg_count"], **rows["seg_count"],
+         "storage_launches": storage_launches["seg_count"],
+         "placement_launches": placement["launches"]["seg_count"], **rows["seg_count"],
          "library_ms": None},
         {"name": "lloyd_assign_reduce (row-major, labels)", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
@@ -2374,7 +2843,7 @@ def main() -> int:
          "launches": stream_launches, "control_launches": 0,
          "daemon_launches": daemon_launches["lloyd_rowmajor"], "chaos_launches": 0,
          "scenario_launches": 0, "serve_launches": 0, "storage_launches": 0,
-         **rows["lloyd_rowmajor"],
+         "placement_launches": 0, **rows["lloyd_rowmajor"],
          "library_ms": None},
     ]
     for row in kernels:

@@ -198,8 +198,12 @@ def test_place_replicas_bit_equal_to_reference(workloads, seed, nodes):
 def test_placement_refuses_what_is_not_ported(workloads):
     manifest = workloads[0]
     rf = np.ones(N_FILES, dtype=np.int32)
-    with pytest.raises(ValueError, match="A8f"):
-        place_replicas(manifest, rf, method="hash")
+    # The hash chooser is ported (ROADMAP A8f): the reference's placement.
+    got = place_replicas(manifest, rf, method="hash")
+    want = ref_place(workloads[2], rf, method="hash")
+    np.testing.assert_array_equal(got.replica_map, want.replica_map)
+    with pytest.raises(ValueError, match="unknown placement method"):
+        place_replicas(manifest, rf, method="crush")
     # A rack topology is ported: the domain-aware fill places as the reference does.
     nodes = tuple(manifest.nodes)
     domains = tuple(f"r{i // 2}" for i in range(len(nodes)))

@@ -277,14 +277,32 @@ def test_budgets_are_respected(workload):
 
 
 @pytest.mark.parametrize("option,value,match", [
-    ("placement_mode", "materialized_hash", "A8f"), ("elastic", object(), "A8f"),
-    ("mesh_shape", {"data": 4}, "A9"), ("placement_mode", "functional", "A8f"),
-    ("mesh_shape", {"data": 2}, "A9"), ("decay", 0.0, "decay"),
-    ("decay", 1.5, "decay"), ("window_seconds", 0.0, "window_seconds"),
+    ("mesh_shape", {"data": 4}, "A9"), ("mesh_shape", {"data": 2}, "A9"),
+    ("decay", 0.0, "decay"), ("decay", 1.5, "decay"),
+    ("window_seconds", 0.0, "window_seconds"),
 ])
 def test_unported_options_raise(option, value, match):
     with pytest.raises(ValueError, match=match):
         _cfg(**{option: value})
+
+
+@pytest.mark.parametrize("option", ["materialized_hash", "elastic", "functional"])
+def test_placement_and_elastic_options_are_accepted_and_run(option, workload):
+    """The hash placement modes and elasticity (ROADMAP A8f) build and run,
+    each record stamped with its placement mode."""
+    from cdrs_tpu_torch.control.elastic import ElasticPolicy
+    from cdrs_tpu_torch.serve import ServeConfig
+
+    manifest, events = workload
+    kw = {"placement_mode": option}
+    if option == "elastic":
+        kw = {"placement_mode": "functional", "serve": ServeConfig(),
+              "elastic": ElasticPolicy(pool=("sb1",))}
+    res = ReplicationController(manifest, _cfg(**kw)).run(events, max_windows=2)
+    assert len(res.records) == 2
+    assert all(r["placement"]["mode"] == kw["placement_mode"] for r in res.records)
+    if option == "elastic":
+        assert all("elastic" in r and "durability" in r for r in res.records)
 
 
 @pytest.mark.parametrize("option", ["fault_schedule", "topology", "scrub", "decay"])

@@ -2,10 +2,11 @@
 every cell whose axes are ported must hold its invariants (the
 multi-seed "not a single-seed accident" dimension of the matrix).
 
-``rack-kill`` at suite seed 2 is red on the port's own init, and the
-reference goes red too when that init is carried into it (ROADMAP Queue
-C2; ``test_torch_scenario_parity.py`` shows the reference side): the cell
-is sensitive to its init, and the port is not at fault.
+``rack-kill`` at suite seed 2 and ``wan-partition`` at suite seed 1 are red
+on the port's own init, and the reference goes red too when that init is
+carried into it (ROADMAP Queue C2 and C5; ``test_torch_scenario_parity_3.py``
+and ``_6.py`` show the reference side): the cells are sensitive to their
+init, and the port is not at fault.
 """
 
 import pytest
@@ -16,7 +17,9 @@ from cdrs_tpu_torch.scenarios import run_cell, suite_cells, unported_axes  # noq
 
 #: (suite seed, cell) pairs that the protocol of ROADMAP Queue C records.
 QUEUE_C = {(2, "rack-kill"): "ROADMAP Queue C2: repair_backlog fires for 2 windows, not 3, "
-                             "on the port's init; the reference on that init is red too"}
+                             "on the port's init; the reference on that init is red too",
+           (1, "wan-partition"): "ROADMAP Queue C5: the SLO burn alerts stay silent on the "
+                                 "port's init; the reference on that init is red too"}
 
 
 def _cases():

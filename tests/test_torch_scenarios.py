@@ -109,11 +109,7 @@ def test_suite_cells_equal_the_reference(suite, seed):
 # -- unported axes ------------------------------------------------------------------
 
 @pytest.mark.parametrize("axis,kw,item", [
-    ("placement", {"placement": "materialized_hash"}, "A8f"),
-    ("elastic", {"serve": {"policy": "p2c"}, "placement": "functional",
-                 "elastic": {"pool": ["sb1"]}}, "A8f"),
     ("mesh", {"storage": "ec_archival", "mesh": {"data": 2}, "backend": "jax"}, "A9"),
-    ("placement", {"placement": "functional"}, "A8f"),
     ("mesh", {"mesh": {"data": 2}, "backend": "jax"}, "A9"),
 ])
 def test_unported_axis_is_refused_before_anything_runs(axis, kw, item, monkeypatch):
@@ -130,6 +126,22 @@ def test_unported_axis_is_refused_before_anything_runs(axis, kw, item, monkeypat
         _run(spec)
 
 
+@pytest.mark.parametrize("axis,kw", [
+    ("placement", {"placement": "materialized_hash"}),
+    ("elastic", {"serve": {"policy": "p2c"}, "placement": "functional",
+                 "elastic": {"pool": ["sb1"]}}),
+    ("placement", {"placement": "functional", "faults": {"specs": ["crash:dn2@2-4"]}}),
+])
+def test_placement_and_elastic_axes_run(axis, kw):
+    """The placement and elastic axes (ROADMAP A8f) are ported: the cell runs
+    and its placement stamp engages."""
+    spec = _tiny(name=f"runs-{axis}", **kw)
+    assert unported_axes(spec) == []
+    cell = _run(spec)
+    assert cell["invariants"]["functional_engaged"]
+    assert ("elastic_engaged" in cell["invariants"]) == (axis == "elastic")
+
+
 def test_sweep_lists_unported_cells_and_runs_the_rest():
     cells = [_tiny(name="s1", faults={"specs": ["crash:dn2@2-4"]}),
              _tiny(name="s2", seed=SEED + 1),
@@ -138,17 +150,16 @@ def test_sweep_lists_unported_cells_and_runs_the_rest():
              _tiny(name="s5", mesh={"data": 2}, backend="jax")]
     lines = []
     out = run_cells(cells, device="cpu", progress=lines.append)
-    assert out["ok"] and out["n_cells"] == 3 and out["n_failed"] == 0
-    assert [c["cell"] for c in out["cells"]] == ["s1", "s2", "s3"]
-    assert out["n_not_ported"] == 2
-    assert out["not_ported"] == [
-        {"cell": "s4", "item": "A8f", "axes": ["placement (A8f)"]},
-        {"cell": "s5", "item": "A9", "axes": ["mesh (A9)"]}]
+    assert out["ok"] and out["n_cells"] == 4 and out["n_failed"] == 0
+    assert [c["cell"] for c in out["cells"]] == ["s1", "s2", "s3", "s4"]
+    assert out["cells"][3]["invariants"]["functional_engaged"]
+    assert out["n_not_ported"] == 1
+    assert out["not_ported"] == [{"cell": "s5", "item": "A9", "axes": ["mesh (A9)"]}]
     assert out["invariants_checked"] == sum(len(c["invariants"]) for c in out["cells"])
     assert {r["metric"] for r in out["bench_records"]} == \
         {"scenario_s1_churn_bytes", "scenario_s2_churn_bytes", "scenario_s3_churn_bytes",
-         "scenario_s3_p99_ms"}
-    assert sum("[skip]" in line for line in lines) == 2
+         "scenario_s3_p99_ms", "scenario_s4_churn_bytes"}
+    assert sum("[skip]" in line for line in lines) == 1
 
 
 # -- fault templates ----------------------------------------------------------------
@@ -271,7 +282,8 @@ def test_cli_scenarios_list(capsys):
     assert "control-shift" in out and "ci-smoke" in out
     assert all(name in out for name in PRESETS)
     lines = {ln.split()[0]: ln for ln in out.splitlines() if ln.startswith("  ")}
-    assert "waits for A8f" in lines["black-friday"] and "waits for A9" in lines["scale-mesh"]
+    assert "waits for" not in lines["black-friday"] and "waits for A9" in lines["scale-mesh"]
+    assert "elastic" in lines["black-friday"] and "placement=functional" in lines["region-loss"]
     assert "waits for" not in lines["chaos-kill"] and "waits for" not in lines["serve-chaos"]
     assert "waits for" not in lines["storage-ec"] and "storage=ec_archival" in lines["storage-ec"]
     assert "serve=p2c" in lines["serve-chaos"]
@@ -290,10 +302,10 @@ def test_cli_scenarios_run_spec_and_errors(tmp_path, capsys):
                           "--device", "cpu"]) == 2
     capsys.readouterr()
     # An unported preset exits non-zero before anything runs, naming its item.
-    assert port_cli.main(["scenarios", "run", "--preset", "region-loss", "--device",
+    assert port_cli.main(["scenarios", "run", "--preset", "scale-mesh", "--device",
                           "cpu"]) == 2
     captured = capsys.readouterr()
-    assert "A8f" in captured.err and captured.out == ""
+    assert "A9" in captured.err and captured.out == ""
     for action in ("search", "triage"):
         assert port_cli.main(["scenarios", action]) == 2
         assert "A12" in capsys.readouterr().err
@@ -325,13 +337,12 @@ def test_cli_scenarios_sweep_extra_cells(tmp_path, capsys):
     assert rc == 0 and digest["ok"] and digest["n_failed"] == 0
     art = json.loads(out_path.read_text())
     ran = [c["cell"] for c in art["cells"]]
-    assert ran[-2:] == ["corpus-a", "corpus-b"] and digest["n_cells"] == len(ran) == 19
-    assert "storage-ec" in ran
-    assert digest["n_not_ported"] == 5
-    assert {e["cell"] for e in art["not_ported"]} == {
-        "scale-mesh", "scale-placement", "region-loss", "wan-partition", "black-friday"}
-    assert all(e["item"] in ("A8f", "A9") for e in art["not_ported"])
-    assert captured.err.count("[skip]") == 5
+    assert ran[-2:] == ["corpus-a", "corpus-b"] and digest["n_cells"] == len(ran) == 23
+    assert {"storage-ec", "scale-placement", "region-loss", "wan-partition",
+            "black-friday"} <= set(ran)
+    assert digest["n_not_ported"] == 1
+    assert art["not_ported"] == [{"cell": "scale-mesh", "item": "A9", "axes": ["mesh (A9)"]}]
+    assert captured.err.count("[skip]") == 1
     events = [json.loads(line) for line in metrics.read_text().splitlines()]
     assert [e["cell"] for e in events if e.get("kind") == "cell"] == ran
 

@@ -320,12 +320,24 @@ def test_serve_cli_prints_the_reference_digest(cli_inputs, capsys, extra):
         assert got["reads_corrupt_served"] == 0 and got["reads_corrupt_detected"] > 0
 
 
-def test_serve_cli_refuses_the_hash_placement(cli_inputs, capsys):
+@pytest.mark.parametrize("extra", [[], ["--kill", "dn3@1-2"]], ids=["static", "faults"])
+@pytest.mark.parametrize("mode", ["functional", "materialized_hash"])
+def test_serve_cli_hash_placement_prints_the_reference_digest(cli_inputs, capsys, mode,
+                                                              extra):
+    """``serve --placement`` (ROADMAP A8f): the hash chooser's digest is the
+    reference's, with the window's rows resolved on the fly (functional,
+    no faults) or materialized."""
     _, man, log = cli_inputs
-    for mode in ("functional", "materialized_hash"):
-        assert port_cli.main(["serve", "--manifest", man, "--access_log", log,
-                              "--placement", mode]) == 2
-        assert "A8f" in capsys.readouterr().err
+    base = ["serve", "--manifest", man, "--access_log", log, "--window_seconds", "60",
+            "--placement", mode] + extra
+    assert port_cli.main(base) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert ref_cli.main(base) == 0
+    want = json.loads(capsys.readouterr().out)
+    timing = ("seconds", "routed_reads_per_sec")
+    assert {k: v for k, v in got.items() if k not in timing} == \
+        {k: v for k, v in want.items() if k not in timing}
+    assert got["reads_routed"] > 0
 
 
 def test_control_and_chaos_cli_take_the_serve_flags(cli_inputs, capsys):
