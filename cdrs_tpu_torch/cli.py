@@ -2,7 +2,13 @@
 
 * ``gen`` and ``simulate`` make a manifest and an access log on the host
   (``simulate --out x.cdrsb`` writes the binary columnar log);
-* ``pipeline`` runs generator to decision in one process;
+* ``features``, ``cluster`` and ``evaluate`` are the staged batch path:
+  manifest and log to the features CSV (on the device), features CSV to
+  ``final_categories.csv`` and the per-file assignments (KMeans and
+  scoring on the device), assignments to the policy-vs-baselines replay
+  (host) with the exportable plan and ``hdfs dfs -setrep`` script;
+* ``pipeline`` runs generator to decision in one process (``--evaluate``
+  adds the replay);
 * ``stream`` folds an access log in batches, then clusters (full-batch, or
   mini-batch with ``--kmeans_batch``);
 * ``control`` runs the online replication controller over an access log
@@ -27,10 +33,15 @@
   window's rows through the hash chooser) through the read router, on the
   host, and prints the serving digest;
 * ``scenarios list|run|sweep`` runs cells of the scenario matrix, each
-  gated on invariants (a failing cell prints its repro line).
+  gated on invariants (a failing cell prints its repro line);
+  ``scenarios search`` grows the matrix by coverage-guided mutation and
+  banks new cells and shrunk violations in a corpus, and ``scenarios
+  triage`` reruns the banked violations as regression-locked cells.
 
 The flags are those of ``cdrs_tpu``'s subcommands of the same names that
-this port supports, plus ``--device`` (CUDA unless "cpu" is asked for).
+this port supports, plus ``--device`` (CUDA unless "cpu" is asked for).  Flags of theirs that
+belong to modules not ported yet (``--mesh``, ``--metrics``, ``--profile``)
+are refused with exit code 2 and the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -52,25 +63,52 @@ __all__ = ["main", "build_parser"]
 def _load_scoring(args) -> ScoringConfig:
     """--scoring_config ("validated" or a JSON path) with --medians_from_data
     applied on top."""
+    medians_from_data = getattr(args, "medians_from_data", False)
     if args.scoring_config:
         cfg = (validated_scoring_config() if args.scoring_config == "validated"
                else load_scoring_config(args.scoring_config))
-        if args.medians_from_data:
+        if medians_from_data:
             cfg = dataclasses.replace(cfg, compute_global_medians_from_data=True)
         return cfg
-    return ScoringConfig(compute_global_medians_from_data=args.medians_from_data)
+    return ScoringConfig(compute_global_medians_from_data=medians_from_data)
+
+
+#: Flags of the reference's batch commands whose modules are not ported
+#: yet: (attribute, flag, what it brings, ROADMAP item).
+_UNPORTED_FLAGS = (
+    ("mesh", "--mesh", "the multi-GPU mesh", "A9"),
+    ("metrics", "--metrics", "the telemetry stream", "A10b"),
+    ("profile", "--profile", "the profiler trace", "A10b"),
+)
+
+
+def _refuse_unported(args) -> int | None:
+    """2, with an error naming the ROADMAP item, when a flag of
+    ``_UNPORTED_FLAGS`` was given; None otherwise."""
+    for attr, flag, what, item in _UNPORTED_FLAGS:
+        if getattr(args, attr, None) is not None:
+            print(f"error: {flag} ({what}) is not ported yet (ROADMAP {item})",
+                  file=sys.stderr)
+            return 2
+    return None
 
 
 def _cmd_pipeline(args) -> int:
     from .pipeline import run_pipeline
 
+    refused = _refuse_unported(args)
+    if refused is not None:
+        return refused
     cfg = PipelineConfig(
         device=args.device,
+        dtype="float64" if args.dtype == "float64" else "float32",
         generator=GeneratorConfig(n_files=args.n, seed=args.seed),
         simulator=SimulatorConfig(duration_seconds=args.duration_seconds,
                                   seed=None if args.seed is None else args.seed + 1),
-        kmeans=KMeansConfig(k=args.k, seed=args.seed, init_method=args.init_method),
+        kmeans=KMeansConfig(k=args.k, seed=args.seed, init_method=args.init_method,
+                            dtype=args.dtype),
         scoring=_load_scoring(args),
+        evaluate=args.evaluate,
     )
     result = run_pipeline(cfg, outdir=args.outdir)
     print(json.dumps(result.summary(), indent=2))
@@ -108,6 +146,107 @@ def _cmd_simulate(args) -> int:
     else:
         events.write_csv(args.out, manifest)
     print(f"Wrote {args.out} with {len(events)} entries in {time.perf_counter() - t0:.2f}s")
+    return 0
+
+
+def _cmd_features(args) -> int:
+    """Manifest + access log (CSV or ``.cdrsb``) -> the features CSV; the
+    features are computed on the device.  An ``--out`` that is a directory
+    (or ends in a separator) gets ``part-00000-features.csv``."""
+    from .device import deterministic
+    from .features.batch import compute_features_torch
+    from .io.events import EventLog, Manifest
+
+    refused = _refuse_unported(args)
+    if refused is not None:
+        return refused
+    t0 = time.perf_counter()
+    manifest = Manifest.read_csv(args.manifest)
+    events = EventLog.read_csv(args.access_log, manifest)
+    with deterministic():
+        table = compute_features_torch(manifest, events, device=args.device)
+    out = args.out
+    if os.path.isdir(out) or out.endswith(os.sep):
+        os.makedirs(out, exist_ok=True)
+        out = os.path.join(out, "part-00000-features.csv")
+    else:
+        parent = os.path.dirname(out)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+    table.write_csv(out)
+    print(f"Wrote features to {out} in {time.perf_counter() - t0:.2f}s")
+    return 0
+
+
+def _cmd_cluster(args) -> int:
+    """Features CSV -> KMeans++ and scoring on the device ->
+    ``final_categories.csv`` (and the per-file ``--assignments_csv``)."""
+    import torch
+
+    from .device import deterministic, resolve_device
+    from .io.features import load_feature_matrix
+    from .models.replication import ReplicationPolicyModel
+
+    refused = _refuse_unported(args)
+    if refused is not None:
+        return refused
+    dev = resolve_device(args.device)
+    model = ReplicationPolicyModel(
+        kmeans_cfg=KMeansConfig(k=args.k, seed=args.seed, init_method=args.init_method,
+                                dtype=args.dtype),
+        scoring_cfg=_load_scoring(args))
+    t0 = time.perf_counter()
+    X, paths = load_feature_matrix(args.input_path)
+    # The features' float32 table, as the pipeline hands it to clustering;
+    # float64 keeps the CSV's values unrounded.
+    dtype = torch.float64 if args.dtype == "float64" else torch.float32
+    with deterministic():
+        decision = model.run(torch.as_tensor(X, dtype=dtype).to(dev))
+    decision.write_csv(args.output_csv)
+    if args.assignments_csv:
+        decision.write_assignments_csv(args.assignments_csv, paths)
+    print(f"Cluster centroid assignments ({args.k} clusters) saved to: "
+          f"{args.output_csv} in {time.perf_counter() - t0:.2f}s")
+    return 0
+
+
+def _cmd_evaluate(args) -> int:
+    """Place the decided rf of an assignments table on the simulated
+    cluster and replay the log against it and against uniform baselines
+    (host numpy); optionally export the plan and its setrep script."""
+    import numpy as np
+
+    from .cluster.evaluate import compare_policies
+    from .cluster.placement import ClusterTopology
+    from .io.events import EventLog, Manifest
+
+    manifest = Manifest.read_csv(args.manifest)
+    events = EventLog.read_csv(args.access_log, manifest)
+    # The scoring config the assignments were made with: its rf table.
+    scoring = _load_scoring(args)
+    rf = np.full(len(manifest), args.default_rf, dtype=np.int32)
+    want_plan = bool(args.emit_plan or args.emit_setrep)
+    plan_rows: list[tuple[str, str]] = []
+    pairs = _read_assignments(manifest, args.assignments_csv, scoring.replication_factors)
+    if pairs is None:
+        return 1
+    for i, c in pairs:
+        rf[i] = scoring.replication_factors[c]
+        if want_plan:
+            plan_rows.append((manifest.paths[i], c))
+    if want_plan:
+        from .cluster.plan import build_plan, write_plan_csv, write_setrep_script
+
+        entries = build_plan([p for p, _ in plan_rows], [c for _, c in plan_rows], scoring)
+        if args.emit_plan:
+            write_plan_csv(args.emit_plan, entries)
+            print(f"plan: {len(entries)} files -> {args.emit_plan}", file=sys.stderr)
+        if args.emit_setrep:
+            n = write_setrep_script(args.emit_setrep, entries)
+            print(f"setrep script: {n} commands -> {args.emit_setrep}", file=sys.stderr)
+    nodes = tuple(args.nodes.split(",")) if args.nodes else tuple(manifest.nodes)
+    out = compare_policies(manifest, events, rf, topology=ClusterTopology(nodes=nodes))
+    print(json.dumps(out, indent=2))
     return 0
 
 
@@ -596,22 +735,92 @@ def _scenario_spec(args):
     return None, "scenarios run needs --preset NAME, --cell NAME (with --suite), or --spec JSON|FILE"
 
 
+def _write_json(path: str, doc: dict, **kw) -> None:
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(doc, f, indent=2, **kw)
+        f.write("\n")
+
+
+def _cmd_search(args) -> int:
+    """``scenarios search``: the coverage-guided search over the corpus.
+    Violations are banked findings (with shrunk repro lines), not
+    regressions: the search exits 0 so a long soak keeps growing the
+    corpus."""
+    from .scenarios.search import SEARCH_BASE, distill_corpus, load_corpus, run_search
+
+    base = tuple(s for s in (args.base or "").split(",") if s) or SEARCH_BASE
+    try:
+        out = run_search(seed=args.seed, budget_cells=args.budget_cells,
+                         budget_seconds=args.budget_seconds, corpus_dir=args.corpus,
+                         base=base, device=args.device,
+                         progress=lambda line: print(line, file=sys.stderr, flush=True))
+    except (KeyError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.distill:
+        d = distill_corpus(load_corpus(args.corpus))
+        os.makedirs(args.corpus, exist_ok=True)
+        path = os.path.join(args.corpus, "distilled.json")
+        _write_json(path, d, sort_keys=True)
+        out["distilled"] = {"path": path, "names": d["names"],
+                            "coverage_bits": d["coverage_bits"], "fingerprint": d["fingerprint"]}
+    if args.out:
+        _write_json(args.out, out)
+    digest = {k: out[k] for k in ("seed", "budget_cells", "iterations", "cells_run",
+                                  "baseline_bits", "coverage_bits", "new_coverage_cells",
+                                  "fingerprint", "seconds")}
+    digest["violations"] = len(out["violations"])
+    if "distilled" in out:
+        digest["distilled"] = out["distilled"]
+    print(json.dumps(digest, indent=2))
+    for v in out["violations"]:
+        sh = v.get("shrunk") or {}
+        print(f"finding: {','.join(v.get('failed') or ()) or v.get('error')}"
+              f" — repro: {sh.get('repro') or v['repro']}", file=sys.stderr)
+    return 0
+
+
+def _cmd_triage(args) -> int:
+    """``scenarios triage``: rerun every banked violation under a
+    ``triage-*`` name; non-zero while any still reproduces."""
+    from .scenarios.search import triage_corpus
+
+    out = triage_corpus(args.corpus, device=args.device,
+                        progress=lambda line: print(line, file=sys.stderr, flush=True))
+    if args.out:
+        _write_json(args.out, out, sort_keys=True)
+    print(json.dumps({k: out[k] for k in ("names", "n_violations", "ok", "seconds")},
+                     indent=2))
+    if not out["ok"]:
+        # A violation that still reproduces is a bug not fixed yet.
+        for r in out["results"]:
+            if not r["ok"]:
+                print(f"STILL RED: {r['name']} ({','.join(r['failed'])})\n"
+                      f"  repro: {r['repro']}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def _cmd_scenarios(args) -> int:
-    """The scenario matrix: list the presets and suites, run one cell, or
-    sweep a suite; every cell runs the controller end to end and is gated
-    on invariants.  Cells with an axis the port does not run yet are
-    refused by name with their ROADMAP item."""
+    """The scenario matrix: list the presets and suites, run one cell,
+    sweep a suite, search the failure space or triage its banked
+    violations; every cell runs the controller end to end and is gated on
+    invariants.  Cells with an axis the port does not run yet are refused
+    by name with their ROADMAP item."""
     from .scenarios import PRESETS, SUITES, run_cell, unported_axes
     from .scenarios.harness import check_ported
 
-    if args.action in ("search", "triage"):
-        print(f"error: scenarios {args.action} (the failure-space search) is not ported "
-              f"yet (ROADMAP A12)", file=sys.stderr)
-        return 2
     if args.round_no is not None or args.history:
         print("error: --round/--history (the bench history append) belong to the "
               "port's benchmark, not ported yet (ROADMAP A10a)", file=sys.stderr)
         return 2
+    if args.action == "search":
+        return _cmd_search(args)
+    if args.action == "triage":
+        return _cmd_triage(args)
     if args.action == "list":
         print("presets:")
         for name in sorted(PRESETS):
@@ -681,12 +890,7 @@ def _cmd_scenarios(args) -> int:
         finally:
             sink.close()
     if args.out:
-        parent = os.path.dirname(args.out)
-        if parent:
-            os.makedirs(parent, exist_ok=True)
-        with open(args.out, "w", encoding="utf-8") as f:
-            json.dump(out, f, indent=2)
-            f.write("\n")
+        _write_json(args.out, out)
     print(json.dumps({k: out[k] for k in ("suite", "seed", "n_cells", "n_failed",
                                           "n_not_ported", "invariants_checked", "ok",
                                           "seconds")}, indent=2))
@@ -711,6 +915,22 @@ def _add_init_method_arg(p: argparse.ArgumentParser) -> None:
 
 def _add_device_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default=None, help="torch device: cuda (default) or cpu")
+
+
+def _add_dtype_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--dtype", choices=["float32", "bfloat16", "float64"], default=None,
+                   help="clustering points dtype (default: the feature table's float32); "
+                        "bfloat16 halves the Lloyd kernel's reads, centroids and stats stay "
+                        "float32; float64 runs on the CPU only")
+
+
+def _add_unported_args(p: argparse.ArgumentParser, *flags: str) -> None:
+    """The reference's flags whose modules are not ported yet: accepted by
+    the parser, refused by the command (``_refuse_unported``)."""
+    for attr, flag, what, item in _UNPORTED_FLAGS:
+        if flag in flags:
+            p.add_argument(flag, default=None, metavar="ARG",
+                           help=f"{what}: not ported yet (ROADMAP {item}); refused")
 
 
 def _add_control_args(p: argparse.ArgumentParser) -> None:
@@ -800,9 +1020,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--k", type=int, default=4)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--outdir", default="output")
+    p.add_argument("--evaluate", action="store_true",
+                   help="apply the decided rf on the simulated cluster and report "
+                        "locality/load/storage against uniform baselines")
     _add_scoring_args(p)
     _add_init_method_arg(p)
+    _add_dtype_arg(p)
     _add_device_arg(p)
+    _add_unported_args(p, "--mesh", "--metrics", "--profile")
     p.set_defaults(fn=_cmd_pipeline)
 
     p = sub.add_parser("gen", help="generate a synthetic file population")
@@ -827,6 +1052,53 @@ def build_parser() -> argparse.ArgumentParser:
                         "(every reader detects it); 'auto' = binary when --out "
                         "ends in .cdrsb")
     p.set_defaults(fn=_cmd_simulate)
+
+    p = sub.add_parser("features", help="extract the 5 per-file features (on the device)")
+    p.add_argument("--manifest", required=True)
+    p.add_argument("--access_log", required=True, help="CSV access.log or .cdrsb")
+    p.add_argument("--out", default="features_out/",
+                   help="a CSV path, or a directory that gets part-00000-features.csv")
+    _add_device_arg(p)
+    _add_unported_args(p, "--mesh")
+    p.set_defaults(fn=_cmd_features)
+
+    p = sub.add_parser("cluster", help="KMeans++ clustering + category scoring of a "
+                       "features CSV (on the device)")
+    p.add_argument("--input_path", required=True,
+                   help="features CSV, a glob, or a directory holding part-00000*.csv")
+    p.add_argument("--k", type=int, default=4)
+    p.add_argument("--output_csv", default="final_categories.csv")
+    p.add_argument("--assignments_csv", default=None,
+                   help="also write the per-file path,cluster,category table")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--medians_from_data", action="store_true")
+    p.add_argument("--scoring_config", default=None, metavar="JSON|validated",
+                   help="weights/directions/medians/rf config file, or 'validated' for "
+                        "the built-in workload-tuned tables")
+    _add_init_method_arg(p)
+    _add_dtype_arg(p)
+    _add_device_arg(p)
+    _add_unported_args(p, "--mesh", "--metrics")
+    p.set_defaults(fn=_cmd_cluster)
+
+    p = sub.add_parser("evaluate", help="apply replication factors on the simulated "
+                       "cluster; report locality/load/storage against uniform baselines "
+                       "(host only, takes no --device)")
+    p.add_argument("--manifest", required=True)
+    p.add_argument("--access_log", required=True, help="CSV access.log or .cdrsb")
+    p.add_argument("--assignments_csv", required=True,
+                   help="per-file path,cluster,category table (cluster --assignments_csv)")
+    p.add_argument("--nodes", default=None, help="datanode names (default: manifest nodes)")
+    p.add_argument("--default_rf", type=int, default=1)
+    p.add_argument("--scoring_config", default=None, metavar="JSON|validated",
+                   help="scoring config the assignments were made with (its category -> "
+                        "replication-factor table)")
+    p.add_argument("--emit_plan", default=None, metavar="CSV",
+                   help="write the per-file target-rf plan (path,category,rf)")
+    p.add_argument("--emit_setrep", default=None, metavar="SH",
+                   help="write an 'hdfs dfs -setrep' script applying the plan on a live "
+                        "HDFS")
+    p.set_defaults(fn=_cmd_evaluate)
 
     p = sub.add_parser("stream", help="fold the access log in batches, then cluster")
     p.add_argument("--manifest", required=True)
@@ -1028,8 +1300,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("action", choices=["list", "run", "sweep", "search", "triage"],
                    help="list = presets and suites; run = one cell (--preset, "
                         "--suite + --cell, or --spec); sweep = every ported cell of "
-                        "--suite, non-zero exit on any invariant failure; search and "
-                        "triage are not ported yet")
+                        "--suite, non-zero exit on any invariant failure; search = "
+                        "coverage-guided mutation of the corpus (violations banked with "
+                        "shrunk repros, exit 0); triage = rerun the banked violations as "
+                        "triage-* cells (non-zero exit while any still reproduces)")
     p.add_argument("--suite", default="ci-smoke", help="cell suite (default ci-smoke)")
     p.add_argument("--seed", type=int, default=0,
                    help="suite seed: shifts every preset's workload seed and draws the "
@@ -1040,7 +1314,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spec", default=None, metavar="JSON|FILE",
                    help="(run) an inline spec JSON object or a path to one")
     p.add_argument("--out", default=None, metavar="JSON",
-                   help="(sweep) write the full artifact here")
+                   help="(sweep/search/triage) write the full artifact here (triage: the "
+                        "promoted cell file for --extra_cells)")
     p.add_argument("--extra_cells", action="append", default=None, metavar="JSON",
                    help="(sweep) corpus cell files riding along with the suite "
                         "({'cells': [...], 'names': [...]}); never seed-shifted")
@@ -1051,15 +1326,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics", default=None, metavar="JSONL",
                    help="(sweep) emit the per-cell records as 'cell' events here")
     p.add_argument("--budget-cells", type=int, default=50, dest="budget_cells",
-                   help="(search) mutation iterations")
+                   help="(search) mutation iterations to attempt (deterministic in --seed)")
     p.add_argument("--budget-seconds", type=float, default=None, dest="budget_seconds",
-                   help="(search) wall-clock cap")
+                   help="(search) wall-clock cap: truncates the same seeded sequence")
     p.add_argument("--corpus", default="data/search_corpus", metavar="DIR",
-                   help="(search/triage) corpus directory")
+                   help="(search/triage) corpus directory: banked cells seed the next "
+                        "run's frontier; violations land under violations/ with shrunk "
+                        "repro lines")
     p.add_argument("--base", default=None, metavar="P1,P2,...",
-                   help="(search) presets seeding the corpus")
+                   help="(search) comma-separated presets seeding the corpus (default: "
+                        "the cheap cross-domain SEARCH_BASE set)")
     p.add_argument("--distill", action="store_true",
-                   help="(search) distill the corpus after the run")
+                   help="(search) after the run, distill the banked corpus to a small cell "
+                        "set covering its frontier (<corpus>/distilled.json)")
     _add_device_arg(p)
     p.set_defaults(fn=_cmd_scenarios)
     return parser

@@ -1,5 +1,6 @@
-"""Policy evaluation: the port of ``evaluate_placement`` of
-``cdrs_tpu/cluster/evaluate.py``, host numpy, identical to it.
+"""Policy evaluation: the port of ``evaluate_placement`` and
+``compare_policies`` of ``cdrs_tpu/cluster/evaluate.py``, host numpy,
+identical to them.
 
 Replays an event log against a placement:
 
@@ -8,6 +9,10 @@ Replays an event log against a placement:
   read by the client, a remote read by a seeded-random replica holder, a
   write by every replica (the HDFS write pipeline);
 * **storage** — bytes per node, replicas included.
+
+``compare_policies`` puts a decided per-file rf beside uniform baselines
+(rf 1, the reference cluster's dfs.replication, and rf 3, the HDFS
+default).
 """
 
 from __future__ import annotations
@@ -17,9 +22,9 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..io.events import EventLog, Manifest
-from .placement import ClusterTopology, PlacementResult
+from .placement import ClusterTopology, PlacementResult, place_replicas
 
-__all__ = ["PolicyMetrics", "evaluate_placement"]
+__all__ = ["PolicyMetrics", "evaluate_placement", "compare_policies"]
 
 
 @dataclass
@@ -32,6 +37,18 @@ class PolicyMetrics:
     total_storage: int
     n_reads: int
     n_writes: int
+
+    def summary(self) -> dict:
+        return {
+            "read_locality": self.read_locality,
+            "load_balance": self.load_balance,
+            "total_storage_bytes": int(self.total_storage),
+            "reads_per_node": self.reads_per_node.tolist(),
+            "writes_per_node": self.writes_per_node.tolist(),
+            "storage_per_node": self.storage_per_node.tolist(),
+            "n_reads": self.n_reads,
+            "n_writes": self.n_writes,
+        }
 
 
 def _client_to_topology(events: EventLog, topology: ClusterTopology) -> np.ndarray:
@@ -77,3 +94,21 @@ def evaluate_placement(manifest: Manifest, events: EventLog, placement: Placemen
         load_balance=float(total_ops.max() / max(mean_ops, 1e-12)),
         storage_per_node=storage, total_storage=int(storage.sum()),
         n_reads=n_reads, n_writes=n_writes)
+
+
+def compare_policies(manifest: Manifest, events: EventLog, policy_rf: np.ndarray,
+                     topology: ClusterTopology | None = None,
+                     baselines: dict[str, int] | None = None, seed: int | None = 0) -> dict:
+    """``{baseline name: summary, ..., "policy": summary}``: the decided
+    ``policy_rf`` against uniform baselines (default ``uniform_1`` and
+    ``uniform_3``), each placed and replayed with ``seed``."""
+    topology = topology or ClusterTopology()
+    baselines = baselines if baselines is not None else {"uniform_1": 1, "uniform_3": 3}
+    out = {}
+    for name, rf in baselines.items():
+        placement = place_replicas(manifest, np.full(len(manifest), rf, dtype=np.int32),
+                                   topology, seed)
+        out[name] = evaluate_placement(manifest, events, placement, seed).summary()
+    placement = place_replicas(manifest, policy_rf, topology, seed)
+    out["policy"] = evaluate_placement(manifest, events, placement, seed).summary()
+    return out

@@ -316,7 +316,9 @@ class PipelineConfig:
 
     ``device`` None means CUDA (device.resolve_device); ``dtype`` is the
     feature table's float type — "float64" runs on the CPU only, where it
-    matches the JAX package under ``JAX_ENABLE_X64``.
+    matches the JAX package under ``JAX_ENABLE_X64``.  ``evaluate`` adds
+    the evaluate stage: the decided rf placed on the simulated cluster and
+    replayed against uniform baselines (``cluster.evaluate.compare_policies``).
     """
 
     device: str | None = None
@@ -325,6 +327,7 @@ class PipelineConfig:
     simulator: SimulatorConfig = field(default_factory=SimulatorConfig)
     kmeans: KMeansConfig = field(default_factory=KMeansConfig)
     scoring: ScoringConfig = field(default_factory=ScoringConfig)
+    evaluate: bool = False
 
     def __post_init__(self):
         if self.dtype not in ("float32", "float64"):

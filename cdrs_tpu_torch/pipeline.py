@@ -1,10 +1,13 @@
 """End-to-end pipeline: generator -> simulator -> features -> cluster ->
-scoring, the port of ``cdrs_tpu/pipeline.py`` (``backend="jax"``).
+scoring (-> evaluate), the port of ``cdrs_tpu/pipeline.py``
+(``backend="jax"``).
 
 The generator and simulator run on the host (numpy); features, KMeans and
 scoring run on ``cfg.device`` (CUDA unless "cpu" is asked for), handing the
 feature table to clustering without a host round trip.  With ``outdir``
-the five stage files are written as the JAX package writes them.
+the five stage files are written as the JAX package writes them.  With
+``cfg.evaluate`` the decided rf is placed and replayed against uniform
+baselines on the host (``PipelineResult.evaluation``).
 """
 
 from __future__ import annotations
@@ -34,9 +37,10 @@ class PipelineResult:
     planted_accuracy: float | None
     device: str
     table: FeatureTable
+    evaluation: dict | None = None
 
     def summary(self) -> dict:
-        return {
+        out = {
             "n_files": self.n_files,
             "n_events": self.n_events,
             "device": self.device,
@@ -44,6 +48,9 @@ class PipelineResult:
             "planted_accuracy": self.planted_accuracy,
             **self.metrics.records,
         }
+        if self.evaluation is not None:
+            out["evaluation"] = self.evaluation
+        return out
 
 
 def recovery_accuracy(decision: ClusterDecision, planted: list[str]) -> float | None:
@@ -79,6 +86,16 @@ def run_pipeline(cfg: PipelineConfig, outdir: str | None = None,
         accuracy = recovery_accuracy(decision, manifest.category)
     metrics.record("planted_accuracy", accuracy)
 
+    evaluation = None
+    if cfg.evaluate:
+        from .cluster.evaluate import compare_policies
+        from .cluster.placement import ClusterTopology
+
+        with metrics.timer("evaluate"):
+            rf = decision.replication_factor_per_file(cfg.scoring)
+            evaluation = compare_policies(manifest, events, rf,
+                                          topology=ClusterTopology(nodes=tuple(manifest.nodes)))
+
     if outdir:
         os.makedirs(outdir, exist_ok=True)
         with metrics.timer("io"):
@@ -92,4 +109,4 @@ def run_pipeline(cfg: PipelineConfig, outdir: str | None = None,
     return PipelineResult(
         decision=decision, metrics=metrics, n_files=len(manifest),
         n_events=len(events), planted_accuracy=accuracy, device=str(dev),
-        table=table)
+        table=table, evaluation=evaluation)

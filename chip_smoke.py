@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernel checks only (no ok line)
     python3 chip_smoke.py --phase 10 # build, kernel checks and one phase (9,
-                                     # 10, 11 or 12) alone; no ok line
+                                     # 10, 11, 12 or 13) alone; no ok line
 
 Phases, each of which exits non-zero when a check fails:
 
@@ -169,6 +169,32 @@ Phases, each of which exits non-zero when a check fails:
    run at 5,000 files with the functional state's single-row memo on and
    off (``placement_fn.state._MEMO_MAX = 0``), the same records either way,
    and the host seconds of the repair and schedule stages.
+13. The staged batch commands, the checkpointed Lloyd loop and the
+   failure-space search, each through ``cdrs_tpu_torch.cli.main`` in
+   process on the card: (a) over phase 5's manifest, written as CSV before
+   phase 6, and its ``.cdrsb`` log: ``features``, ``cluster --k 8 --seed 10
+   --medians_from_data --scoring_config validated --assignments_csv`` and
+   ``evaluate --emit_plan --emit_setrep``, each stage's seconds; B1 =
+   n_iter + 1 and B2 = 12 in ``cluster``, whose categories and per-file
+   categories equal ``ReplicationPolicyModel.run``'s on the matrix
+   ``load_feature_matrix`` returns, and ``evaluate``'s JSON equal to
+   ``compare_policies`` in process; ``pipeline --evaluate`` at 20,000 files
+   giving the same evaluation on the card and on the CPU from one init;
+   (b) ``kmeans_checkpointed`` on (a)'s 2,500,000 x 5 matrix, k = 8, blocks
+   of 5 iterations, killed after two blocks and resumed, equal bit for bit
+   to one uninterrupted ``kmeans_full`` under both label modes, B1 = the
+   iterations + one per block (+ 1 for the final labels), and the same on
+   three distinct rows whose empty clusters reseed in every iteration,
+   across both block edges; (c) ``scenarios search --seed 0
+   --budget-cells 8`` over a copy of ``data/search_corpus`` (exit 0 with
+   findings banked), then ``scenarios triage`` over the copy: each
+   committed violation green (or one of ``SEARCH_QUEUE_C``), each of this
+   run's findings still red, the exit code 1 exactly when a cell is red,
+   the committed corpus untouched, B1 = sum(n_iter + 1) over the cells'
+   re-clusters and no B2 (their medians sort).  In the whole smoke phase 13
+   runs in a child process started after phase 5, beside phases 6-12:
+   its CSV stages are host-bound.  ``--phase 13`` runs it alone, in
+   process, after making phase 5's workload.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It imports nothing of the JAX
@@ -178,6 +204,7 @@ package.
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import math
 import os
@@ -259,6 +286,15 @@ PLACEMENT_POOL = ({"name": "sb1", "domains": ("rs0", "eu")},
                   {"name": "sb3", "domains": ("rs2", "ap")})
 PLACEMENT_STAGES = ("fold", "hotspot", "drift", "recluster", "faults", "repair", "plan",
                     "schedule", "serve", "evaluate", "total")
+#: Phase 13: 13b's Lloyd blocks and the blocks written before the kill; 13a's
+#: card-against-CPU pipeline size; 13c's search budget (seed 0).
+BATCH_BLOCK_ITERS = 5
+BATCH_KILL_BLOCKS = 2
+BATCH_EVAL_FILES = 20_000
+SEARCH_BUDGET_CELLS = 8
+#: Banked violations of the committed corpus that reproduce on the card's
+#: own init, with the ROADMAP Queue C entry that says why (none so far).
+SEARCH_QUEUE_C: dict[str, str] = {}
 
 
 def fail(msg: str) -> None:
@@ -2392,17 +2428,17 @@ def dense_arrays(state, n_files: int) -> list:
     return [k for k, v in vars(state).items() if isinstance(v, np.ndarray) and v.size >= big]
 
 
-def start_placement_child(work):
-    """Start 12a and 12c (``placement_at_scale``) in a child process, one
+def start_child(work, name: str):
+    """Start ``chip_smoke.<name>_child(work)`` in a child process, one
     thread per math library so that it shares the host with this one.
     Returns the child, its log's path and its start time."""
     threads = {k: "1" for k in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")}
-    child_log = os.path.join(work, "placement_child.log")
+    child_log = os.path.join(work, f"{name}_child.log")
     with open(child_log, "w") as out:
         child = subprocess.Popen(
             [sys.executable, "-c",
              f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
-             f"sys.exit(chip_smoke.placement_child({work!r}))"],
+             f"sys.exit(chip_smoke.{name}_child({work!r}))"],
             cwd=work, env=dict(os.environ, PYTHONPATH=ROOT, **threads), stdout=out,
             stderr=subprocess.STDOUT, start_new_session=True)
     return child, child_log, time.perf_counter()
@@ -2424,18 +2460,18 @@ def placement_child(work) -> int:
     return 0
 
 
-def join_placement_child(child, child_log, t_child, work):
-    """Wait for the child, relay its log and return its result (the
-    kernels' launches in 12a and their errors at its shape)."""
+def join_child(child, child_log, t_child, work, name: str, phases: str):
+    """Wait for the child, relay its log and return its result (the JSON it
+    wrote to ``<name>.json`` in ``work``)."""
     rc = child.wait(timeout=1200)
     with open(child_log) as f:
         child_text = f.read()
     for line in child_text.splitlines():
         log(line)
-    check(rc == 0, f"phase 12a/12c's child exited {rc}: {child_text[-3000:]}")
-    with open(os.path.join(work, "placement.json")) as f:
+    check(rc == 0, f"phase {phases}'s child exited {rc}: {child_text[-3000:]}")
+    with open(os.path.join(work, f"{name}.json")) as f:
         result = json.load(f)
-    log(f"phase 12a and 12c: {time.perf_counter() - t_child:.1f} s in the child")
+    log(f"phase {phases}: {time.perf_counter() - t_child:.1f} s in the child")
     return result
 
 
@@ -2724,11 +2760,393 @@ def placement_memo():
     log("placement memo " + json.dumps(out))
 
 
+def run_cli(argv):
+    """``cdrs_tpu_torch.cli.main(argv)`` in this process; returns (exit code,
+    its standard output, host seconds)."""
+    import contextlib
+    import io
+
+    from cdrs_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(list(argv))
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def reset_launches() -> None:
+    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
+    from cdrs_tpu_torch.ops.seg_count import label_threshold_count
+
+    lloyd_assign_reduce.launches = 0
+    label_threshold_count.launches = 0
+
+
+def read_launches() -> dict:
+    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
+    from cdrs_tpu_torch.ops.seg_count import label_threshold_count
+
+    return {"lloyd": lloyd_assign_reduce.launches, "seg_count": label_threshold_count.launches}
+
+
+def device_args(device: str) -> list:
+    """No ``--device`` on the card: the commands' default is CUDA."""
+    return [] if device == "cuda" else ["--device", device]
+
+
+def batch_manifest_csv(manifest, work) -> str:
+    """13a's first stage: phase 5's manifest written as ``metadata.csv`` in
+    ``work``, which 13a's commands read.  Returns its path."""
+    m_csv = os.path.join(work, "metadata.csv")
+    t0 = time.perf_counter()
+    manifest.write_csv(m_csv)
+    log(f"batch manifest csv: {len(manifest)} files in {time.perf_counter() - t0:.3f} s")
+    return m_csv
+
+
+def batch_staged(m_csv, log_path, work, device="cuda"):
+    """13a: ``features``, ``cluster`` and ``evaluate`` through ``cli.main``
+    over the manifest CSV and the ``.cdrsb`` log.  Returns the kernels'
+    launches in ``cluster`` and the feature matrix it read."""
+    import numpy as np
+    import torch
+
+    from cdrs_tpu_torch import KMeansConfig, validated_scoring_config
+    from cdrs_tpu_torch.cluster.evaluate import compare_policies
+    from cdrs_tpu_torch.cluster.placement import ClusterTopology
+    from cdrs_tpu_torch.config import CATEGORIES
+    from cdrs_tpu_torch.device import deterministic
+    from cdrs_tpu_torch.io.events import EventLog, Manifest
+    from cdrs_tpu_torch.io.features import load_feature_matrix
+    from cdrs_tpu_torch.models.replication import ReplicationPolicyModel
+
+    d = os.path.join(work, "batch")
+    os.makedirs(d, exist_ok=True)
+    feats = os.path.join(d, "features_out") + os.sep
+    cats, assign = os.path.join(d, "final_categories.csv"), os.path.join(d, "assignments.csv")
+    plan, setrep = os.path.join(d, "plan.csv"), os.path.join(d, "apply.sh")
+    secs = {}
+    # The manifest as the commands read it: its node vocabulary is in order
+    # of first appearance, which sets evaluate's topology.
+    t0 = time.perf_counter()
+    manifest = Manifest.read_csv(m_csv)
+    secs["manifest_read"] = time.perf_counter() - t0
+    n = len(manifest)
+    rc, _, secs["features"] = run_cli(["features", "--manifest", m_csv, "--access_log", log_path,
+                                       "--out", feats, *device_args(device)])
+    check(rc == 0, f"13a: features exited {rc}")
+    seen, _, restore = model_runs()
+    reset_launches()
+    try:
+        rc, _, secs["cluster"] = run_cli([
+            "cluster", "--input_path", feats, "--k", str(K), "--seed", str(MAIN_SEED),
+            "--medians_from_data", "--scoring_config", "validated", "--output_csv", cats,
+            "--assignments_csv", assign, *device_args(device)])
+    finally:
+        restore()
+    launches = read_launches()
+    check(rc == 0, f"13a: cluster exited {rc}")
+    if device == "cuda":
+        check(launches["lloyd"] >= 1 and launches["seg_count"] >= 1,
+              f"13a: cluster launched B1 {launches['lloyd']} and B2 {launches['seg_count']} times")
+        check(launches["lloyd"] == seen[0] + 1 and launches["seg_count"] == 12,
+              f"13a: cluster made {launches}, expected {seen[0]} + 1 Lloyd and 12 counts")
+    # The model on the matrix that load_feature_matrix gives, in this process.
+    t0 = time.perf_counter()
+    X, paths = load_feature_matrix(feats)
+    secs["load_matrix"] = time.perf_counter() - t0
+    check(X.shape == (n, 5) and paths == manifest.paths, f"13a: feature matrix {X.shape}")
+    scoring = validated_scoring_config()
+    model = ReplicationPolicyModel(KMeansConfig(k=K, seed=MAIN_SEED), scoring)
+    with deterministic():
+        dec = model.run(torch.as_tensor(X, dtype=torch.float32).to(device))
+    with open(assign, newline="") as f:
+        rows = list(csv.reader(f))[1:]
+    got_cat = np.asarray([r[2] for r in rows])
+    want_cat = np.asarray(CATEGORIES)[dec.category_idx[dec.labels]]
+    check(len(rows) == n and bool((got_cat == want_cat).all()),
+          "13a: cluster's per-file categories differ from ReplicationPolicyModel.run's")
+    with open(cats, newline="") as f:
+        check([r[1] for r in list(csv.reader(f))[1:]] == dec.categories,
+              "13a: final_categories.csv differs from ReplicationPolicyModel.run's")
+    rf = dec.replication_factor_per_file(scoring)
+    rc, out, secs["evaluate"] = run_cli([
+        "evaluate", "--manifest", m_csv, "--access_log", log_path, "--assignments_csv", assign,
+        "--scoring_config", "validated", "--emit_plan", plan, "--emit_setrep", setrep])
+    check(rc == 0, f"13a: evaluate exited {rc}")
+    t0 = time.perf_counter()
+    events = EventLog.read_csv(log_path, manifest)
+    want = compare_policies(manifest, events, rf,
+                            topology=ClusterTopology(nodes=tuple(manifest.nodes)))
+    secs["compare_in_process"] = time.perf_counter() - t0
+    check(json.loads(out) == json.loads(json.dumps(want)),
+          "13a: evaluate's JSON differs from compare_policies in process")
+    with open(plan) as f:
+        plan_rows = sum(1 for _ in f) - 1
+    with open(setrep) as f:
+        setrep_cmds = sum(1 for line in f if line.startswith("hdfs dfs -setrep"))
+    check(plan_rows == n, f"13a: the plan has {plan_rows} rows for {n} files")
+    log("batch staged " + json.dumps({
+        "files": n, "events": len(events), "seconds": {k: round(v, 3) for k, v in secs.items()},
+        "b1_launches": launches["lloyd"], "b2_launches": launches["seg_count"],
+        "n_iter": seen[0], "categories": dec.categories, "plan_rows": plan_rows,
+        "setrep_commands": setrep_cmds, "nodes": manifest.nodes,
+        "read_locality": {k: round(v["read_locality"], 6) for k, v in want.items()},
+        "feature_csv_bytes": os.path.getsize(os.path.join(feats, "part-00000-features.csv"))}))
+    return launches, X
+
+
+def batch_pipeline_card_cpu(work):
+    """13a: ``pipeline --evaluate`` at 20,000 files on the card and on the
+    CPU, both from the cold init computed on the CPU: the same evaluation."""
+    outs = {}
+    _, hooks, restore = model_runs()
+    hooks["init_fn"] = cpu_model_init
+    try:
+        for dev in ("cuda", "cpu"):
+            rc, out, sec = run_cli([
+                "pipeline", "--n", str(BATCH_EVAL_FILES), "--k", str(K), "--seed",
+                str(MAIN_SEED), "--duration_seconds", str(MAIN_DURATION), "--scoring_config",
+                "validated", "--evaluate", "--outdir", os.path.join(work, f"pipeline_{dev}"),
+                *device_args(dev)])
+            check(rc == 0, f"13a: pipeline --evaluate on {dev} exited {rc}")
+            outs[dev] = (json.loads(out), sec)
+    finally:
+        restore()
+    (card, t_card), (cpu, t_cpu) = outs["cuda"], outs["cpu"]
+    check(card["evaluation"] == cpu["evaluation"],
+          "13a: pipeline --evaluate's evaluation differs between the card and the CPU")
+    log(f"batch pipeline --evaluate at {BATCH_EVAL_FILES} files: card = CPU evaluation "
+        f"(policy read locality {card['evaluation']['policy']['read_locality']:.6f}, "
+        f"load balance {card['evaluation']['policy']['load_balance']:.6f}); seconds card "
+        f"{t_card:.3f}, cpu {t_cpu:.3f}, evaluate stage card "
+        f"{card['evaluate.seconds']:.3f}")
+
+
+class Killed(RuntimeError):
+    """Raised by a wrapped ``save_state``: a process killed after a snapshot."""
+
+
+def checkpointed_run(x, path, kill_blocks, **kw):
+    """``kmeans_checkpointed`` killed after ``kill_blocks`` snapshots, then
+    resumed; returns (the resumed result, B1 launches of both runs, host
+    seconds of both runs)."""
+    import cdrs_tpu_torch.utils.checkpoint as ckpt
+
+    save, written = ckpt.save_state, []
+
+    def dying(p, arrays, meta=None):
+        out = save(p, arrays, meta)
+        written.append(meta["iters_done"])
+        if len(written) == kill_blocks:
+            raise Killed(f"killed after block {kill_blocks}")
+        return out
+
+    reset_launches()
+    t0 = time.perf_counter()
+    ckpt.save_state = dying
+    try:
+        ckpt.kmeans_checkpointed(x, K, path, **kw)
+        fail("13b: the checkpointed run was not killed")
+    except Killed:
+        pass
+    finally:
+        ckpt.save_state = save
+    res = ckpt.kmeans_checkpointed(x, K, path, **kw)
+    return res, read_launches()["lloyd"], time.perf_counter() - t0
+
+
+def batch_checkpointed(X, work, device="cuda"):
+    """13b: the Lloyd loop in blocks of ``BATCH_BLOCK_ITERS`` over 13a's
+    matrix, killed after two blocks and resumed, against one uninterrupted
+    ``kmeans_full`` under both label modes; then a shape whose reseeds fire
+    in every iteration, across both block edges.  Returns B1's launches."""
+    import torch
+
+    from cdrs_tpu_torch.config import default_max_iter
+    from cdrs_tpu_torch.ops.kmeans import kmeans_full
+    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
+
+    x = torch.as_tensor(X, dtype=torch.float32).to(device)
+    n = x.shape[0]
+    total = 0
+
+    def hold(name, x, want, it_want, **kw):
+        nonlocal total
+        path = os.path.join(work, f"lloyd_{name}.npz")
+        for labels in ("final", "parity"):
+            if os.path.exists(path):
+                os.unlink(path)
+            (c, lab, it), launches, sec = checkpointed_run(
+                x, path, BATCH_KILL_BLOCKS, block_iters=BATCH_BLOCK_ITERS, labels=labels, **kw)
+            total += launches
+            blocks = -(-it // BATCH_BLOCK_ITERS)
+            check(it == it_want and torch.equal(c, want[0])
+                  and torch.equal(lab, want[1] if labels == "parity" else want[2]),
+                  f"13b {name}: the resumed run ({labels} labels) differs from the "
+                  f"uninterrupted one")
+            if device == "cuda":
+                check(launches == it + blocks + (labels == "final"),
+                      f"13b {name}: {launches} Lloyd launches for {it} iterations in "
+                      f"{blocks} blocks")
+            log("batch checkpointed " + json.dumps({
+                "case": name, "labels": labels, "rows": n, "iterations": it, "blocks": blocks,
+                "killed_after_blocks": BATCH_KILL_BLOCKS, "b1_launches": launches,
+                "seconds": round(sec, 3), "bit_identical": True}))
+
+    max_iter = default_max_iter(n)
+    c, lab, it, _ = kmeans_full(x, K, seed=MAIN_SEED, max_iter=max_iter)
+    final = lloyd_assign_reduce(x, c, n, with_labels=True)[0]
+    hold("main", x, (c, lab, final), it, seed=MAIN_SEED, max_iter=max_iter)
+    # Three distinct rows and five centroids far outside them: every
+    # iteration leaves at least five clusters empty, and reseeds them.
+    few = x[:3][torch.arange(n, device=x.device) % 3].contiguous()
+    init = torch.cat([x[:3].float(), 10.0 + torch.arange(5, device=x.device,
+                                                          dtype=torch.float32)[:, None]
+                      .expand(5, x.shape[1])])
+    kw = dict(seed=MAIN_SEED, max_iter=12, tol=0.0, init_centroids=init)
+    c, lab, it, _ = kmeans_full(few, K, **kw)
+    final, _, counts = lloyd_assign_reduce(few, c, n, with_labels=True)
+    check(int((counts == 0).sum()) >= 5, "13b: the reseed shape left fewer than 5 clusters empty")
+    hold("reseed", few, (c, lab, final), it, **kw)
+    return total
+
+
+def batch_search(work, device="cuda"):
+    """13c: ``scenarios search`` and ``scenarios triage`` over a copy of the
+    committed corpus.  Returns the kernels' launches."""
+    import cdrs_tpu_torch.scenarios.search as search_mod
+
+    committed = os.path.join(ROOT, "data", "search_corpus")
+
+    def listing(root):
+        return sorted((os.path.relpath(os.path.join(dp, f), root),
+                       os.path.getsize(os.path.join(dp, f)),
+                       os.path.getmtime(os.path.join(dp, f)))
+                      for dp, _, fs in os.walk(root) for f in fs)
+
+    before = listing(committed)
+    corpus = os.path.join(work, "search_corpus")
+    shutil.copytree(committed, corpus)
+    seen, _, restore = model_runs()
+    run_cell, cells = search_mod.run_cell, []
+
+    def counted(spec, **kw):
+        cells.append(spec.name)
+        return run_cell(spec, **kw)
+
+    search_mod.run_cell = counted
+    reset_launches()
+    try:
+        rc, out, sec = run_cli(["scenarios", "search", "--seed", "0", "--budget-cells",
+                                str(SEARCH_BUDGET_CELLS), "--corpus", corpus, "--out",
+                                os.path.join(work, "search.json"), *device_args(device)])
+        search_launches = read_launches()
+        search_cells, search_runs = len(cells), list(seen)
+        check(rc == 0, f"13c: search exited {rc}; it exits 0 with violations banked")
+        with open(os.path.join(work, "search.json"), encoding="utf-8") as f:
+            doc = json.load(f)
+        reset_launches()
+        seen.clear()
+        rc, _, tsec = run_cli(["scenarios", "triage", "--corpus", corpus, "--out",
+                               os.path.join(work, "triage.json"), *device_args(device)])
+        triage_launches = read_launches()
+        triage_runs = list(seen)
+    finally:
+        search_mod.run_cell = run_cell
+        restore()
+    with open(os.path.join(work, "triage.json"), encoding="utf-8") as f:
+        tri = json.load(f)
+    with open(os.path.join(committed, "triage.json"), encoding="utf-8") as f:
+        pinned = set(json.load(f)["names"])
+    found = {"triage-" + v["name"][len("search-"):] for v in doc["violations"]}
+    for r in tri["results"]:
+        if r["name"] in pinned:
+            check(r["ok"] or r["name"] in SEARCH_QUEUE_C,
+                  f"13c: banked violation {r['name']} reproduces: {r['failed']}")
+        else:
+            check(r["name"] in found and not r["ok"],
+                  f"13c: triage cell {r['name']} is neither banked nor this run's finding")
+    check(rc == (0 if tri["ok"] else 1), f"13c: triage exited {rc} with ok {tri['ok']}")
+    check(listing(committed) == before, "13c: the committed corpus changed")
+    if device == "cuda":
+        for name, got, runs in (("search", search_launches, search_runs),
+                                ("triage", triage_launches, triage_runs)):
+            check(got["lloyd"] == sum(n + 1 for n in runs) and got["lloyd"] >= 1,
+                  f"13c {name}: {got['lloyd']} Lloyd launches for {len(runs)} re-clusters")
+            check(got["seg_count"] == 0, f"13c {name}: {got['seg_count']} threshold counts")
+    log("batch search " + json.dumps({
+        "seed": 0, "budget_cells": SEARCH_BUDGET_CELLS, "cells_run": doc["cells_run"],
+        "cells_with_base_and_shrink": search_cells, "seconds": round(sec, 3),
+        "cells_per_second": round(search_cells / sec, 3), "kept": len(doc["kept"]),
+        "kept_names": [e["name"] for e in doc["kept"]], "baseline_bits": doc["baseline_bits"],
+        "coverage_bits": doc["coverage_bits"], "violations": [
+            {"name": v["name"], "failed": v.get("failed") or v.get("error"),
+             "shrunk_events": (v.get("shrunk") or {}).get("events")} for v in doc["violations"]],
+        "re_clusters": len(search_runs), "b1_launches": search_launches["lloyd"],
+        "b2_launches": search_launches["seg_count"]}))
+    log("batch triage " + json.dumps({
+        "cells": len(tri["results"]), "ok": tri["ok"], "seconds": round(tsec, 3),
+        "cells_per_second": round(len(tri["results"]) / tsec, 3),
+        "red": {r["name"]: r["failed"] for r in tri["results"] if not r["ok"]},
+        "b1_launches": triage_launches["lloyd"], "b2_launches": triage_launches["seg_count"]}))
+    return {k: search_launches[k] + triage_launches[k] for k in search_launches}
+
+
+def main_workload(work):
+    """Phase 5's population and its ``.cdrsb`` log in ``work``, made anew
+    (``--phase 13`` alone)."""
+    from cdrs_tpu_torch import GeneratorConfig, SimulatorConfig
+    from cdrs_tpu_torch.sim.access import simulate_access
+    from cdrs_tpu_torch.sim.generator import generate_population
+
+    t0 = time.perf_counter()
+    manifest = generate_population(GeneratorConfig(n_files=MAIN_FILES, seed=MAIN_SEED))
+    events = simulate_access(manifest, SimulatorConfig(duration_seconds=MAIN_DURATION,
+                                                       seed=MAIN_SEED + 1))
+    log_path = os.path.join(work, "access.cdrsb")
+    events.write_binary(log_path, manifest)
+    log(f"phase 13 workload: {len(manifest)} files, {len(events)} events in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return batch_manifest_csv(manifest, work), log_path
+
+
+def batch_child(work) -> int:
+    """The phase-13 child's body: phase 5's manifest CSV and ``.cdrsb`` log
+    in ``work``, both written by the parent; the launches go to
+    ``batch.json``."""
+    launches = phase_batch(os.path.join(work, "metadata.csv"),
+                           os.path.join(work, "access.cdrsb"), work)
+    with open(os.path.join(work, "batch.json"), "w") as f:
+        json.dump(launches, f)
+    return 0
+
+
+def phase_batch(m_csv, log_path, work, device="cuda"):
+    """Phase 13: the staged batch commands (13a), the checkpointed Lloyd
+    loop (13b) and the failure-space search (13c).  Returns the kernels'
+    launches in 13a's ``cluster``, 13b and 13c."""
+    t0 = time.perf_counter()
+    launches, X = batch_staged(m_csv, log_path, work, device)
+    if device == "cuda":
+        batch_pipeline_card_cpu(work)
+    log(f"phase 13a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["lloyd"] += batch_checkpointed(X, work, device)
+    del X
+    log(f"phase 13b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    found = batch_search(work, device)
+    log(f"phase 13c: {time.perf_counter() - t0:.1f} s")
+    return {k: launches[k] + found[k] for k in launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
                         help="build and check the kernels only; prints no ok line")
-    parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12), default=None,
+    parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12, 13), default=None,
                         help="build and check the kernels, then run this phase alone; prints "
                              "no ok line")
     args = parser.parse_args()
@@ -2749,7 +3167,7 @@ def main() -> int:
         log(f"quick run done in {time.perf_counter() - t_start:.1f} s; main path skipped")
         return 0
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    child = None
+    child = batch = None
     if args.phase is not None:
         try:
             if args.phase == 9:
@@ -2758,9 +3176,12 @@ def main() -> int:
                 log(f"phase 11 launches {phase_storage()}")
             elif args.phase == 12:
                 placement_memo()
-                child, child_log, t_child = start_placement_child(work)
+                child, child_log, t_child = start_child(work, "placement")
                 placement_small()
-                log(f"phase 12 launches {join_placement_child(child, child_log, t_child, work)}")
+                placement = join_child(child, child_log, t_child, work, "placement", "12a/12c")
+                log(f"phase 12 launches {placement}")
+            elif args.phase == 13:
+                log(f"phase 13 launches {phase_batch(*main_workload(work), work)}")
             else:
                 from cdrs_tpu_torch import GeneratorConfig
                 from cdrs_tpu_torch.sim.generator import generate_population
@@ -2775,11 +3196,15 @@ def main() -> int:
         return 0
     try:
         # 12a and 12c (host-bound, one core) run in a child beside 3-11.
-        child, child_log, t_child = start_placement_child(work)
+        child, child_log, t_child = start_child(work, "placement")
         launches, cfg, main_result = phase_main_path()
         norm_20k, init_20k = phase_card_vs_cpu()
         stream_launches, stream_times, manifest, events, log_path = phase_stream_path(
             cfg, main_result, work)
+        # Phase 13 (host-bound CSV stages) runs in a child beside 6-12 from
+        # here, on phase 5's manifest written as CSV and its log.
+        batch_manifest_csv(manifest, work)
+        batch, batch_log, t_batch = start_child(work, "batch")
         phase_minibatch_card_vs_cpu(norm_20k, init_20k)
         log("stream path times " + json.dumps(stream_times))
         t0 = time.perf_counter()
@@ -2805,13 +3230,15 @@ def main() -> int:
         t0 = time.perf_counter()
         placement_small()
         log(f"phase 12b: {time.perf_counter() - t0:.1f} s")
-        placement = join_placement_child(child, child_log, t_child, work)
+        batch_launches = join_child(batch, batch_log, t_batch, work, "batch", "13")
+        placement = join_child(child, child_log, t_child, work, "placement", "12a/12c")
         log(f"phase 12 (placement): {time.perf_counter() - t0:.1f} s after phase 11")
         for name in ("lloyd", "seg_count"):
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                             placement["max_abs_err"][name])
     finally:
         stop_child(child)
+        stop_child(batch)
         shutil.rmtree(work, ignore_errors=True)
 
     kernels = [
@@ -2824,7 +3251,8 @@ def main() -> int:
          "scenario_launches": scenario_launches["lloyd"],
          "serve_launches": serve_launches["lloyd"],
          "storage_launches": storage_launches["lloyd"],
-         "placement_launches": placement["launches"]["lloyd"], **rows["lloyd"], "library_ms": None},
+         "placement_launches": placement["launches"]["lloyd"],
+         "batch_launches": batch_launches["lloyd"], **rows["lloyd"], "library_ms": None},
         {"name": "label_threshold_count", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/seg_count.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:534",
@@ -2835,7 +3263,8 @@ def main() -> int:
          "scenario_launches": scenario_launches["seg_count"],
          "serve_launches": serve_launches["seg_count"],
          "storage_launches": storage_launches["seg_count"],
-         "placement_launches": placement["launches"]["seg_count"], **rows["seg_count"],
+         "placement_launches": placement["launches"]["seg_count"],
+         "batch_launches": batch_launches["seg_count"], **rows["seg_count"],
          "library_ms": None},
         {"name": "lloyd_assign_reduce (row-major, labels)", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
@@ -2843,7 +3272,7 @@ def main() -> int:
          "launches": stream_launches, "control_launches": 0,
          "daemon_launches": daemon_launches["lloyd_rowmajor"], "chaos_launches": 0,
          "scenario_launches": 0, "serve_launches": 0, "storage_launches": 0,
-         "placement_launches": 0, **rows["lloyd_rowmajor"],
+         "placement_launches": 0, "batch_launches": 0, **rows["lloyd_rowmajor"],
          "library_ms": None},
     ]
     for row in kernels:

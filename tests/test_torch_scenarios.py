@@ -6,6 +6,7 @@ axis are refused before anything runs (naming the ROADMAP item), and the
 workload curves are bit-identical to the reference's."""
 
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -306,9 +307,25 @@ def test_cli_scenarios_run_spec_and_errors(tmp_path, capsys):
                           "cpu"]) == 2
     captured = capsys.readouterr()
     assert "A9" in captured.err and captured.out == ""
-    for action in ("search", "triage"):
-        assert port_cli.main(["scenarios", action]) == 2
-        assert "A12" in capsys.readouterr().err
+    # search and triage run on a tiny budget over a temporary corpus.
+    corpus = tmp_path / "corpus"
+    (corpus / "violations").mkdir(parents=True)
+    banked = json.loads((Path(__file__).resolve().parent.parent / "data" / "search_corpus"
+                         / "violations" / "search-s0-11fcf7ee-bad.json").read_text())
+    (corpus / "violations" / "search-s0-11fcf7ee-bad.json").write_text(json.dumps(banked))
+    assert port_cli.main(["scenarios", "search", "--seed", "0", "--budget-cells", "1",
+                          "--base", "cascade", "--corpus", str(corpus), "--device",
+                          "cpu"]) == 0
+    digest = json.loads(capsys.readouterr().out)
+    assert {"seed", "budget_cells", "iterations", "cells_run", "baseline_bits",
+            "coverage_bits", "new_coverage_cells", "fingerprint", "seconds",
+            "violations"} == set(digest)
+    assert digest["iterations"] == 1 and digest["baseline_bits"] > 0
+    assert port_cli.main(["scenarios", "triage", "--corpus", str(corpus), "--device",
+                          "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert set(out) == {"names", "n_violations", "ok", "seconds"}
+    assert out["names"] == ["triage-s0-11fcf7ee-bad"] and out["ok"]
     assert port_cli.main(["scenarios", "sweep", "--round", "3", "--device", "cpu"]) == 2
     assert "A10a" in capsys.readouterr().err
 
