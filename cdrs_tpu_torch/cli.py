@@ -39,9 +39,12 @@
   triage`` reruns the banked violations as regression-locked cells.
 
 The flags are those of ``cdrs_tpu``'s subcommands of the same names that
-this port supports, plus ``--device`` (CUDA unless "cpu" is asked for).  Flags of theirs that
-belong to modules not ported yet (``--mesh``, ``--metrics``, ``--profile``)
-are refused with exit code 2 and the ROADMAP item.
+this port supports, plus ``--device`` (CUDA unless "cpu" is asked for).
+``--mesh`` ('8' or 'data=4,model=2') runs ``features``, ``cluster``,
+``pipeline``, ``stream`` and the controller family on a mesh of shards
+(``parallel/mesh.py``).  Flags of theirs that belong to modules not ported
+yet (``--metrics``, ``--profile``) are refused with exit code 2 and the
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -76,7 +79,6 @@ def _load_scoring(args) -> ScoringConfig:
 #: Flags of the reference's batch commands whose modules are not ported
 #: yet: (attribute, flag, what it brings, ROADMAP item).
 _UNPORTED_FLAGS = (
-    ("mesh", "--mesh", "the multi-GPU mesh", "A9"),
     ("metrics", "--metrics", "the telemetry stream", "A10b"),
     ("profile", "--profile", "the profiler trace", "A10b"),
 )
@@ -91,6 +93,21 @@ def _refuse_unported(args) -> int | None:
                   file=sys.stderr)
             return 2
     return None
+
+
+def _parse_mesh(spec: str) -> dict[str, int]:
+    """``--mesh``'s type: '8' (the data axis) or 'data=4,model=2', checked
+    by ``validate_mesh_shape``; a bad value is a usage error (exit 2)."""
+    from .parallel.mesh import validate_mesh_shape
+
+    try:
+        if "=" not in spec:
+            return validate_mesh_shape({"data": int(spec)})
+        return validate_mesh_shape({k.strip(): int(v) for k, v in
+                                    (part.split("=") for part in spec.split(","))})
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(
+            f"{e} (--mesh takes '8' or 'data=4,model=2')") from None
 
 
 def _cmd_pipeline(args) -> int:
@@ -109,6 +126,7 @@ def _cmd_pipeline(args) -> int:
                             dtype=args.dtype),
         scoring=_load_scoring(args),
         evaluate=args.evaluate,
+        mesh_shape=args.mesh,
     )
     result = run_pipeline(cfg, outdir=args.outdir)
     print(json.dumps(result.summary(), indent=2))
@@ -157,14 +175,12 @@ def _cmd_features(args) -> int:
     from .features.batch import compute_features_torch
     from .io.events import EventLog, Manifest
 
-    refused = _refuse_unported(args)
-    if refused is not None:
-        return refused
     t0 = time.perf_counter()
     manifest = Manifest.read_csv(args.manifest)
     events = EventLog.read_csv(args.access_log, manifest)
     with deterministic():
-        table = compute_features_torch(manifest, events, device=args.device)
+        table = compute_features_torch(manifest, events, device=args.device,
+                                       mesh_shape=args.mesh)
     out = args.out
     if os.path.isdir(out) or out.endswith(os.sep):
         os.makedirs(out, exist_ok=True)
@@ -194,7 +210,7 @@ def _cmd_cluster(args) -> int:
     model = ReplicationPolicyModel(
         kmeans_cfg=KMeansConfig(k=args.k, seed=args.seed, init_method=args.init_method,
                                 dtype=args.dtype),
-        scoring_cfg=_load_scoring(args))
+        scoring_cfg=_load_scoring(args), mesh_shape=args.mesh)
     t0 = time.perf_counter()
     X, paths = load_feature_matrix(args.input_path)
     # The features' float32 table, as the pipeline hands it to clustering;
@@ -262,10 +278,11 @@ def _cmd_stream(args) -> int:
         print(f"error: --kmeans_batch must be >= 1, got {args.kmeans_batch}",
               file=sys.stderr)
         return 1
+    mesh_shape = args.mesh
     model = ReplicationPolicyModel(
         kmeans_cfg=KMeansConfig(k=args.k, seed=args.seed, batch_size=args.kmeans_batch,
                                 init_method=args.init_method),
-        scoring_cfg=_load_scoring(args))
+        scoring_cfg=_load_scoring(args), mesh_shape=mesh_shape)
     stats: dict = {}
     with deterministic():
         t0 = time.perf_counter()
@@ -273,7 +290,7 @@ def _cmd_stream(args) -> int:
         state = fold_stream(args.access_log, manifest, device=args.device,
                             batch_size=args.batch_size, stats=stats,
                             checkpoint_path=args.checkpoint,
-                            checkpoint_every=args.checkpoint_every)
+                            checkpoint_every=args.checkpoint_every, mesh_shape=mesh_shape)
         table = stream_finalize(state, manifest)
         if args.checkpoint and stats["resumed_from_offset"]:
             print(f"Resumed from checkpoint at byte {stats['resumed_from_offset']}")
@@ -321,7 +338,8 @@ def _controller_cfg(args, fault_schedule=None, topology=None):
         scoring=scoring, evaluate=not args.no_evaluate,
         overlap_windows=args.overlap, device=args.device, fault_schedule=fault_schedule,
         repair_seed=getattr(args, "repair_seed", 0), topology=topology, scrub=scrub,
-        serve=serve, storage=storage, placement_mode=args.placement)
+        serve=serve, storage=storage, placement_mode=args.placement,
+        mesh_shape=args.mesh)
 
 
 def _cmd_control(args, manifest=None, cfg=None) -> int:
@@ -808,10 +826,8 @@ def _cmd_scenarios(args) -> int:
     """The scenario matrix: list the presets and suites, run one cell,
     sweep a suite, search the failure space or triage its banked
     violations; every cell runs the controller end to end and is gated on
-    invariants.  Cells with an axis the port does not run yet are refused
-    by name with their ROADMAP item."""
-    from .scenarios import PRESETS, SUITES, run_cell, unported_axes
-    from .scenarios.harness import check_ported
+    invariants."""
+    from .scenarios import PRESETS, SUITES, run_cell
 
     if args.round_no is not None or args.history:
         print("error: --round/--history (the bench history append) belong to the "
@@ -842,11 +858,10 @@ def _cmd_scenarios(args) -> int:
                 axes.append(f"placement={sp.placement}")
             if sp.elastic:
                 axes.append("elastic")
+            if sp.mesh:
+                axes.append("mesh")
             if sp.resume_window is not None:
                 axes.append("resume-check")
-            missing = sorted({item for _, item, _ in unported_axes(sp)})
-            if missing:
-                axes.append(f"[waits for {', '.join(missing)}]")
             print(f"  {name:<22} n={sp.n_files:<5} windows={sp.n_windows:<3} "
                   f"seed={sp.seed:<3} " + " ".join(axes))
         print("suites:")
@@ -855,11 +870,6 @@ def _cmd_scenarios(args) -> int:
         return 0
     if args.action == "run":
         spec, err = _scenario_spec(args)
-        if err is None:
-            try:
-                check_ported(spec)
-            except ValueError as e:
-                err = str(e)
         if err is not None:
             print(f"error: {err}", file=sys.stderr)
             return 2
@@ -892,8 +902,7 @@ def _cmd_scenarios(args) -> int:
     if args.out:
         _write_json(args.out, out)
     print(json.dumps({k: out[k] for k in ("suite", "seed", "n_cells", "n_failed",
-                                          "n_not_ported", "invariants_checked", "ok",
-                                          "seconds")}, indent=2))
+                                          "invariants_checked", "ok", "seconds")}, indent=2))
     if not out["ok"]:
         for c in out["cells"]:
             if not c["ok"]:
@@ -922,6 +931,12 @@ def _add_dtype_arg(p: argparse.ArgumentParser) -> None:
                    help="clustering points dtype (default: the feature table's float32); "
                         "bfloat16 halves the Lloyd kernel's reads, centroids and stats stay "
                         "float32; float64 runs on the CPU only")
+
+
+def _add_mesh_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--mesh", type=_parse_mesh, default=None, metavar="SPEC",
+                   help="mesh of shards: '8' or 'data=4,model=2' (shard s on card "
+                        "s mod the card count; the CPU with --device cpu)")
 
 
 def _add_unported_args(p: argparse.ArgumentParser, *flags: str) -> None:
@@ -1006,6 +1021,7 @@ def _add_control_args(p: argparse.ArgumentParser) -> None:
     _add_scoring_args(p)
     _add_init_method_arg(p)
     _add_device_arg(p)
+    _add_mesh_arg(p)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1027,7 +1043,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_init_method_arg(p)
     _add_dtype_arg(p)
     _add_device_arg(p)
-    _add_unported_args(p, "--mesh", "--metrics", "--profile")
+    _add_mesh_arg(p)
+    _add_unported_args(p, "--metrics", "--profile")
     p.set_defaults(fn=_cmd_pipeline)
 
     p = sub.add_parser("gen", help="generate a synthetic file population")
@@ -1059,7 +1076,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default="features_out/",
                    help="a CSV path, or a directory that gets part-00000-features.csv")
     _add_device_arg(p)
-    _add_unported_args(p, "--mesh")
+    _add_mesh_arg(p)
     p.set_defaults(fn=_cmd_features)
 
     p = sub.add_parser("cluster", help="KMeans++ clustering + category scoring of a "
@@ -1078,7 +1095,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_init_method_arg(p)
     _add_dtype_arg(p)
     _add_device_arg(p)
-    _add_unported_args(p, "--mesh", "--metrics")
+    _add_mesh_arg(p)
+    _add_unported_args(p, "--metrics")
     p.set_defaults(fn=_cmd_cluster)
 
     p = sub.add_parser("evaluate", help="apply replication factors on the simulated "
@@ -1118,6 +1136,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_scoring_args(p)
     _add_init_method_arg(p)
     _add_device_arg(p)
+    _add_mesh_arg(p)
     p.set_defaults(fn=_cmd_stream)
 
     p = sub.add_parser("control", help="online replication controller: windowed drift "

@@ -4,7 +4,7 @@ batch pipeline needs, copied so the port never imports the JAX package.
 Defaults, validation and field meanings match the JAX package's
 (``cdrs_tpu/config.py``); the difference is the one the port's scope
 forces: ``PipelineConfig`` names a torch ``device`` and the feature
-``dtype`` in place of ``backend`` and ``mesh_shape``.
+``dtype`` in place of ``backend``.
 """
 
 from __future__ import annotations
@@ -319,6 +319,8 @@ class PipelineConfig:
     matches the JAX package under ``JAX_ENABLE_X64``.  ``evaluate`` adds
     the evaluate stage: the decided rf placed on the simulated cluster and
     replayed against uniform baselines (``cluster.evaluate.compare_policies``).
+    ``mesh_shape`` (``{"data": N, "model": M}``) shards the features (data
+    axis), clustering and the median stage over a mesh of shards.
     """
 
     device: str | None = None
@@ -328,11 +330,16 @@ class PipelineConfig:
     kmeans: KMeansConfig = field(default_factory=KMeansConfig)
     scoring: ScoringConfig = field(default_factory=ScoringConfig)
     evaluate: bool = False
+    mesh_shape: dict[str, int] | None = None
 
     def __post_init__(self):
         if self.dtype not in ("float32", "float64"):
             raise ValueError(
                 f"feature dtype must be float32 or float64; got {self.dtype!r}")
+        if self.mesh_shape is not None:
+            from .parallel.mesh import validate_mesh_shape
+
+            self.mesh_shape = validate_mesh_shape(self.mesh_shape)
 
 
 class _StageTimer:

@@ -16,7 +16,10 @@ Per time window (``control/windows.py``):
    host copy of the float32 feature snapshot against the last accepted
    model; below ``drift_threshold`` nothing else runs.  The decayed
    snapshot is finalized on the host in float64 with the reference's
-   ``finalize_counters`` formula, then cast to float32.
+   ``finalize_counters`` formula, then cast to float32.  On a mesh
+   (``mesh_shape``) drift runs on the device instead, one Lloyd-kernel
+   launch a data shard (``detect_drift_torch(mesh_shape=)``), as the
+   reference's mesh runs use ``detect_drift_jax``.
 3. **re-cluster** — the cold start, or on drift a warm re-cluster (the
    accepted centroids as init, ``warm_max_iter`` Lloyd iterations) or,
    from ``full_recluster_drift`` on, a full one with a fresh init:
@@ -102,8 +105,12 @@ Departures from the reference:
 * Decayed runs cluster the float32 snapshot, where the reference's numpy
   backend clusters in float64; the accumulators and the float64 table are
   the reference's bit for bit.
-* Not ported yet, refused by ``ControllerConfig`` with a ``ValueError``
-  naming its ROADMAP item: ``mesh_shape`` (A9).  Window telemetry (the
+* ``mesh_shape`` runs the fold, drift and the re-cluster on a mesh of
+  shards (``parallel/mesh.py``), and every window record carries the
+  reference's ``mesh`` stamp (shard count, collective bytes an
+  iteration).  A mesh needs decay 1 (the reference's mesh runs are its jax
+  backend, whose fold has no decayed counterpart).  Mesh shape is a
+  runtime choice, not checkpoint state.  Window telemetry (the
   reference's ``_instrument_window`` with its ``serve.*`` events and
   ``storage.*`` gauges) waits for A10b.
 """
@@ -132,12 +139,13 @@ from ..io.events import EventLog, Manifest
 from ..models.replication import ReplicationPolicyModel
 from ..obs.aggregate import integrity_digest, pacing_digest, serve_digest, storage_digest
 from ..obs.sink import JsonlSink
+from ..parallel.mesh import collective_bytes_estimate, validate_mesh_shape
 from ..placement_fn.compute import compute_placement
 from ..placement_fn.epoch import addition_moved
 from ..placement_fn.state import FunctionalClusterState, OverlayClusterState
 from ..serve import HotspotDetector, ReadRouter, read_view
 from ..utils.checkpoint import CheckpointError, load_state, save_state
-from .drift import detect_drift
+from .drift import detect_drift, detect_drift_torch
 from .elastic import _ElasticRuntime
 from .migrate import MigrationScheduler, plan_diff
 from .windows import _slice, iter_windows
@@ -151,12 +159,6 @@ __all__ = ["ControllerConfig", "ControllerResult", "ReplicationController",
 #: storage re-encode.  Repairs, spread rebalances, the epoch diff and the
 #: elastic rebalance are tagged where they run.
 MOVE_CAUSES = {0: "unknown", 1: "drift", 2: "hotspot", 3: "conversion"}
-
-#: Options of the reference's ControllerConfig that the port does not take
-#: yet: (value that leaves them off, ROADMAP item).
-_UNPORTED = {
-    "mesh_shape": (None, "A9, multi-GPU"),
-}
 
 #: The decayed counters, in the reference's order.
 _DEC_KEYS = ("access_freq", "writes", "local_acc", "conc_max")
@@ -246,9 +248,15 @@ class ControllerConfig:
                                  "('functional' or 'materialized_hash'): the rebalance plan "
                                  "is the addition-pruned epoch diff, which only the "
                                  "stateless chooser can answer")
-        for name, (off, item) in _UNPORTED.items():
-            if getattr(self, name) != off:
-                raise ValueError(f"ControllerConfig.{name} is not ported yet (ROADMAP {item})")
+        if self.mesh_shape is not None:
+            # The decay check first: a decayed mesh config must fail with
+            # the real reason before the axes are looked at.
+            if self.decay < 1.0:
+                raise ValueError(
+                    "mesh_shape requires decay 1.0 (the reference's mesh runs its jax "
+                    "backend, whose fold has no decayed counters; drop mesh_shape or "
+                    "the decay)")
+            self.mesh_shape = validate_mesh_shape(self.mesh_shape)
 
 
 @dataclass
@@ -404,6 +412,16 @@ class ReplicationController:
         self._events_total = 0
         self._model_full = self._make_model(warm=False)
         self._model_warm = self._make_model(warm=True)
+        #: The mesh stamp of every window record (mesh runs only): shard
+        #: count and the estimated bytes of one psum of the float32
+        #: (k, d + 1) Lloyd statistics over the data axis.
+        self._mesh_rec = None
+        if cfg.mesh_shape is not None:
+            payload = int(cfg.kmeans.k) * (len(cfg.scoring.features) + 1) * 4
+            self._mesh_rec = {
+                "devices": int(np.prod(list(cfg.mesh_shape.values()))),
+                "collective_bytes_per_iter": collective_bytes_estimate(
+                    payload, int(cfg.mesh_shape.get("data", 1)))}
 
         self._accepted_centroids: np.ndarray | None = None
         self._accepted_category_idx: np.ndarray | None = None
@@ -531,7 +549,8 @@ class ReplicationController:
         cfg = self.cfg
         km = dataclasses.replace(cfg.kmeans, max_iter=cfg.warm_max_iter) if warm \
             else cfg.kmeans
-        return ReplicationPolicyModel(kmeans_cfg=km, scoring_cfg=cfg.scoring)
+        return ReplicationPolicyModel(kmeans_cfg=km, scoring_cfg=cfg.scoring,
+                                      mesh_shape=cfg.mesh_shape)
 
     # -- feature fold ------------------------------------------------------
     def _fold_window(self, events: EventLog, new_window: bool = True) -> None:
@@ -539,7 +558,8 @@ class ReplicationController:
         late tail of an already processed window, which the decayed fold
         merges without decaying again."""
         if self._dec is None:
-            self._state = stream_update(self._state, events, self.manifest)
+            self._state = stream_update(self._state, events, self.manifest,
+                                        mesh_shape=self.cfg.mesh_shape)
             self._events_total = self._state.n_events
             return
         ws = stream_update(stream_init(len(self.manifest), self.device), events,
@@ -585,6 +605,8 @@ class ReplicationController:
         seconds: dict[str, float] = {}
         t_start = time.perf_counter()
         rec: dict = {"window": int(w), "n_events": int(len(events))}
+        if self._mesh_rec is not None:
+            rec["mesh"] = dict(self._mesh_rec)
 
         t0 = time.perf_counter()
         if len(events):
@@ -620,9 +642,15 @@ class ReplicationController:
         self._ensure_accepted()
         if self._accepted_centroids is not None and len(events):
             X = self._feature_snapshot()
-            drift = detect_drift(X.cpu().numpy(), self._accepted_centroids,
-                                 self._accepted_category_idx, self._accepted_fractions,
-                                 len(CATEGORIES))
+            if self._mesh_rec is not None:
+                drift = detect_drift_torch(X, self._accepted_centroids,
+                                           self._accepted_category_idx,
+                                           self._accepted_fractions, len(CATEGORIES),
+                                           mesh_shape=cfg.mesh_shape)
+            else:
+                drift = detect_drift(X.cpu().numpy(), self._accepted_centroids,
+                                     self._accepted_category_idx, self._accepted_fractions,
+                                     len(CATEGORIES))
         seconds["drift"] = time.perf_counter() - t0
         rec["drift"] = None if drift is None else drift.score
         rec["centroid_shift"] = None if drift is None else drift.centroid_shift

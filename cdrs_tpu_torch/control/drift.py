@@ -21,7 +21,9 @@ recorded at acceptance):
   row-major ``lloyd_assign_reduce_pallas``), then k-sized tensor work.
   The category fractions come from the per-cluster counts, which are
   exact integers, so they equal the oracle's whenever the labels agree.
-  Float32 points and sums, as the JAX version.
+  Float32 points and sums, as the JAX version.  ``mesh_shape`` shards
+  the rows: one launch a shard and one shard-ordered psum of the (k, d + 1)
+  statistics (``detect_drift_jax(mesh_shape=)``; only the data axis).
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.lloyd import lloyd_assign_reduce
+from ..ops.lloyd import lloyd_assign_reduce, sharded_assign_reduce
+from ..parallel.mesh import data_mesh
 
 __all__ = ["DriftReport", "assign_labels", "detect_drift", "detect_drift_torch"]
 
@@ -85,8 +88,9 @@ def detect_drift(X: np.ndarray, centroids: np.ndarray, category_idx: np.ndarray,
 
 
 def detect_drift_torch(X, centroids, category_idx, accepted_fractions,
-                       n_categories: int, device=None) -> DriftReport:
-    """:func:`detect_drift` on one device with one fused Lloyd launch.
+                       n_categories: int, device=None, mesh_shape=None) -> DriftReport:
+    """:func:`detect_drift` on one device with one fused Lloyd launch, or
+    on a mesh with one launch a data shard.
 
     ``X`` is an (n, d) tensor (it stays on its device unless ``device`` is
     given) or an array (moved to ``device``: CUDA unless "cpu")."""
@@ -98,7 +102,12 @@ def detect_drift_torch(X, centroids, category_idx, accepted_fractions,
     x = X.to(device=dev, dtype=torch.float32).contiguous()
     c = torch.as_tensor(np.asarray(centroids, dtype=np.float32), device=dev)
     n = x.shape[0]
-    _, sums, counts = lloyd_assign_reduce(x, c, n, with_labels=False)
+    mesh = data_mesh(mesh_shape, dev)
+    if mesh is None:
+        _, sums, counts = lloyd_assign_reduce(x, c, n, with_labels=False)
+    else:
+        n_loc, shards = mesh.split(x)
+        _, sums, counts = sharded_assign_reduce(mesh, shards, n_loc, c, n)
     means = torch.where(counts[:, None] > 0, sums / torch.clamp(counts, min=1.0)[:, None], c)
     shift = float(torch.sqrt(((means - c) ** 2).sum(dim=1).mean()))
     # Category fractions from the exact integer counts: a (k, C) one-hot

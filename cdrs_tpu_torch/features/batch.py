@@ -1,5 +1,6 @@
 """Batch feature extraction on tensors: the port of
-``cdrs_tpu/features/jax_backend.py:compute_features_jax`` (single device).
+``cdrs_tpu/features/jax_backend.py:compute_features_jax`` (one device or
+a mesh).
 
 * ``access_freq``/``writes``/``reads``/locality matches — integer
   ``bincount``s keyed by path id: exact at any event count, and
@@ -17,6 +18,15 @@
   counters; a constant column normalises to 0.  Events with ``pid = -1``
   (path not in the manifest) count toward ``observation_end`` only.
 
+**Mesh** (``mesh_shape={"data": N}``; the model axis is ignored): the
+time-sorted event log splits into N contiguous, hence time-contiguous,
+shards.  The counters are psums of each shard's ``bincount``s and the
+concurrency a pmax of each shard's.  A (path, second) bucket can be cut
+only at a shard edge, so the <= 2N edge seconds (each shard's first and
+last) are recounted exactly with one psum each, the reference's
+edge-second correction.  The counters are integers, so the table is
+bit-identical to one device.  An unsorted log is refused.
+
 The JAX package has no Pallas kernel in this stage; these torch ops are
 its port.
 """
@@ -30,9 +40,11 @@ import torch
 
 from ..device import resolve_device, torch_dtype
 from ..io.events import EventLog, Manifest
+from ..parallel.mesh import data_mesh
 from .table import FeatureTable
 
-__all__ = ["compute_features_torch", "features_from_counters", "second_runs"]
+__all__ = ["compute_features_torch", "features_from_counters", "second_runs",
+           "edge_seconds", "require_sorted"]
 
 
 def _minmax(raw: torch.Tensor) -> torch.Tensor:
@@ -67,6 +79,23 @@ def _concurrency(pid: torch.Tensor, sec: torch.Tensor, n: int) -> torch.Tensor:
     run_pid, _, run_len = second_runs(pid, sec)
     conc = torch.zeros(n, dtype=torch.int64, device=pid.device)
     return conc.scatter_reduce_(0, run_pid, run_len, "amax")
+
+
+def require_sorted(ts, what: str) -> None:
+    """Sharded folds need time-contiguous shards: refuse an unsorted log."""
+    if len(ts) > 1 and not bool(np.all(np.diff(ts) >= 0)):
+        raise ValueError(
+            f"sharded {what} requires a time-sorted event log (shards must be "
+            "time-contiguous for exact concurrency); sort the log")
+
+
+def edge_seconds(mesh, secs) -> list[int]:
+    """The distinct first and last seconds of every data shard's valid
+    events (``secs`` holds this process's shards'), in all processes."""
+    big = torch.iinfo(torch.int64).max
+    ends = [torch.stack([s.min(), s.max()]).long() if s.numel()
+            else torch.tensor([big, big], device=s.device) for s in secs]
+    return sorted({int(b) for b in mesh.all_gather(ends).flatten().tolist() if b != big})
 
 
 def features_from_counters(manifest: Manifest, access_i: torch.Tensor,
@@ -113,15 +142,20 @@ def compute_features_torch(
     observation_end: float | None = None,
     device=None,
     dtype="float32",
+    mesh_shape: dict[str, int] | None = None,
 ) -> FeatureTable:
     """(n, 5) raw and normalised features on ``device`` (CUDA by default).
 
     ``dtype`` is the table's float type: float32, or float64 on the CPU
-    (the JAX package's x64 mode, for parity tests).
+    (the JAX package's x64 mode, for parity tests).  ``mesh_shape`` shards
+    the (time-sorted) events over the mesh's data axis.
     """
     dev = resolve_device(device)
     ftype = check_feature_dtype(dtype, dev)
     n = len(manifest)
+    mesh = data_mesh(mesh_shape, dev)
+    if mesh is not None:
+        require_sorted(events.ts, "feature extraction")
     if observation_end is None and len(events):
         observation_end = float(events.ts.max())
     if len(events) == 0 or n == 0:
@@ -137,12 +171,38 @@ def compute_features_torch(
     primary = torch.as_tensor(np.asarray(manifest.primary_node_id, dtype=np.int32),
                               device=dev)
 
+    if mesh is None:
+        counters = _counters(pid, sec, op, client, primary, n)
+    else:
+        counters = _counters_mesh(mesh, pid, sec, op, client, primary, n)
+    return features_from_counters(manifest, *counters, observation_end, ftype)
+
+
+def _valid_events(pid, sec, op, client, primary, n):
+    """(path ids, seconds, is-write, is-local) of the events on a path."""
     valid = (pid >= 0) & (pid < n)
     pid_v = pid[valid].long()
-    op_v = op[valid]
-    access_i = torch.bincount(pid_v, minlength=n)
-    writes_i = torch.bincount(pid_v[op_v == 1], minlength=n)
-    local_i = torch.bincount(pid_v[client[valid] == primary[pid_v]], minlength=n)
-    conc_i = _concurrency(pid_v, sec[valid], n)
-    return features_from_counters(manifest, access_i, writes_i, local_i, conc_i,
-                                  observation_end, ftype)
+    return pid_v, sec[valid], op[valid] == 1, client[valid] == primary[pid_v]
+
+
+def _counters(pid, sec, op, client, primary, n):
+    """(access, writes, local, concurrency) per file, int64."""
+    pid_v, sec_v, is_w, is_l = _valid_events(pid, sec, op, client, primary, n)
+    return (torch.bincount(pid_v, minlength=n), torch.bincount(pid_v[is_w], minlength=n),
+            torch.bincount(pid_v[is_l], minlength=n), _concurrency(pid_v, sec_v, n))
+
+
+def _counters_mesh(mesh, pid, sec, op, client, primary, n):
+    """``_counters`` over the mesh's event shards: psums of the shards'
+    counters, the pmax of their concurrency, and the edge seconds'
+    exact counts."""
+    cols = [mesh.split(c, fill)[1] for c, fill in ((pid, -1), (sec, 0), (op, 0), (client, 0))]
+    shards = [_valid_events(p, s, o, c, primary.to(p.device), n) for p, s, o, c in zip(*cols)]
+    access = mesh.psum([torch.bincount(p, minlength=n) for p, _, _, _ in shards])
+    writes = mesh.psum([torch.bincount(p[w], minlength=n) for p, _, w, _ in shards])
+    local = mesh.psum([torch.bincount(p[lc], minlength=n) for p, _, _, lc in shards])
+    conc = mesh.pmax([_concurrency(p, s, n) for p, s, _, _ in shards])
+    for b in edge_seconds(mesh, [s for _, s, _, _ in shards]):
+        conc = torch.maximum(conc, mesh.psum([torch.bincount(p[s == b], minlength=n)
+                                              for p, s, _, _ in shards]))
+    return access, writes, local, conc

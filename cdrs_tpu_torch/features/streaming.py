@@ -1,5 +1,6 @@
 """Streaming feature fold: per-file integer counters folded one event batch
-at a time, the port of ``cdrs_tpu/features/streaming.py`` (one device).
+at a time, the port of ``cdrs_tpu/features/streaming.py`` (one device or a
+mesh).
 
 * ``access_freq``, ``writes``, ``local_acc`` — ``bincount``s over the
   batch's valid path ids added to int32 counters: exact, and deterministic
@@ -23,6 +24,16 @@ device.  Host-to-device copies are plain synchronous copies from pageable
 memory.  Batches pad to the largest seen so far (``pad_events``, kept so
 snapshots carry the JAX package's meta); padded rows have no valid path id
 and are masked.
+
+**Mesh** (``mesh_shape={"data": N}``): each batch (globally time-sorted,
+padded to a multiple of N) splits into N time-contiguous shards; the
+counter deltas are psums of the shards' ``bincount``s, each file's first
+and last second of the batch a pmin/pmax, and the concurrency the
+reference's sharded fold: the pmax of the shards' runs, the exact psum'd
+count at each file's first second (plus the carry) and at the <= 2N shard
+edge seconds, and the last second's exact total as the next carry.  All
+integers, so the state is bit-identical to one device and a snapshot
+resumes on any mesh.
 """
 
 from __future__ import annotations
@@ -39,7 +50,9 @@ import torch
 from ..device import resolve_device
 from ..io.events import EventLog, Manifest
 from ..utils.checkpoint import load_state, save_state
-from .batch import check_feature_dtype, features_from_counters, second_runs
+from ..parallel.mesh import data_mesh
+from .batch import (check_feature_dtype, edge_seconds, features_from_counters,
+                    require_sorted, second_runs)
 from .table import FeatureTable
 
 __all__ = ["StreamFeatureState", "stream_init", "stream_update", "stream_finalize",
@@ -111,14 +124,18 @@ class _PreppedBatch:
     sec_base: float
     wire: str = "cols"
     sec0: int = 0
+    ndata: int = 1       # data shards the batch folds over (its rows divide by it)
 
 
 def _prep_batch(events: EventLog, manifest: Manifest, *, sec_base: float | None,
-                pad_target: int) -> _PreppedBatch | None:
-    """numpy-only preparation of one batch; None for an empty batch."""
+                pad_target: int, ndata: int = 1) -> _PreppedBatch | None:
+    """numpy-only preparation of one batch, padded to a multiple of
+    ``ndata`` rows; None for an empty batch."""
     e = len(events)
     if e == 0:
         return None
+    if ndata > 1:
+        require_sorted(events.ts, "stream_update")
     if sec_base is None:
         sec_base = float(np.floor(events.ts.min()))
     sec = (np.floor(events.ts) - sec_base).astype(np.int32)
@@ -134,7 +151,8 @@ def _prep_batch(events: EventLog, manifest: Manifest, *, sec_base: float | None,
     packable = (len(manifest) < _PACK_PID_LIMIT
                 and int(pid.max(initial=0)) < _PACK_PID_LIMIT
                 and (e == 1 or (dsec.min() >= 0 and dsec.max() <= 255)))
-    pad = max(e, int(pad_target)) - e
+    want = max(e, int(pad_target))
+    pad = want + (-want) % ndata - e
 
     def padded(a, fill):
         return np.concatenate([a, np.full(pad, fill, a.dtype)]) if pad else a
@@ -147,10 +165,11 @@ def _prep_batch(events: EventLog, manifest: Manifest, *, sec_base: float | None,
         d8[1:] = dsec
         return _PreppedBatch(pid=padded(pidf, _PACK_PID_LIMIT), sec=padded(d8, 0),
                              flags=None, n_events=e, batch_max=float(events.ts.max()),
-                             sec_base=sec_base, wire="packed", sec0=int(sec[0]))
+                             sec_base=sec_base, wire="packed", sec0=int(sec[0]),
+                             ndata=ndata)
     return _PreppedBatch(pid=padded(pid, -1), sec=padded(sec, sec[-1]),
                          flags=padded(flags, 0), n_events=e,
-                         batch_max=float(events.ts.max()), sec_base=sec_base)
+                         batch_max=float(events.ts.max()), sec_base=sec_base, ndata=ndata)
 
 
 def _to_device(pb: _PreppedBatch, dev: torch.device):
@@ -166,9 +185,13 @@ def _to_device(pb: _PreppedBatch, dev: torch.device):
 
 
 def _fold_prepped(state: StreamFeatureState, pb: _PreppedBatch) -> StreamFeatureState:
-    """Device half: fold one prepped batch into a new state."""
+    """Device half: fold one prepped batch into a new state (over
+    ``pb.ndata`` event shards)."""
     n = state.access_freq.shape[0]
     pid, sec, flags = _to_device(pb, state.device)
+    if pb.ndata > 1:
+        mesh = data_mesh({"data": pb.ndata}, state.device)
+        return _advance(state, pb, *_fold_mesh(state, mesh, pid, sec, flags))
     valid = pid >= 0
     pv = pid[valid].long()
     sv = sec[valid]
@@ -203,6 +226,11 @@ def _fold_prepped(state: StreamFeatureState, pb: _PreppedBatch) -> StreamFeature
         last_sec[lp] = run_sec[last].to(torch.int32)
         last_count[lp] = run_len[last].to(torch.int32)
 
+    return _advance(state, pb, access, writes, local, conc, last_sec, last_count)
+
+
+def _advance(state, pb, access, writes, local, conc, last_sec, last_count):
+    """The state after ``pb``: its new counters and the host scalars."""
     obs = pb.batch_max if state.observation_end is None else max(state.observation_end,
                                                                  pb.batch_max)
     return replace(state, access_freq=access, writes=writes, local_acc=local,
@@ -212,11 +240,67 @@ def _fold_prepped(state: StreamFeatureState, pb: _PreppedBatch) -> StreamFeature
                    pad_events=max(state.pad_events, len(pb.pid)))
 
 
+def _fold_mesh(state, mesh, pid, sec, flags):
+    """The counters after one batch folded over the mesh's event shards
+    (the reference's sharded fold, ``cdrs_tpu/features/streaming.py``)."""
+    n = state.access_freq.shape[0]
+    imax = torch.iinfo(torch.int32).max
+    shards = []
+    for p, s_, f in zip(*(mesh.split(c, fill)[1] for c, fill in ((pid, -1), (sec, 0),
+                                                                 (flags, 0)))):
+        valid = p >= 0
+        shards.append((p[valid].long(), s_[valid], f[valid]))
+
+    def count(rows):
+        return torch.bincount(rows, minlength=n).to(torch.int32)
+
+    def per_file(fn):
+        return [fn(p, s_, f) for p, s_, f in shards]
+
+    batch_access = mesh.psum(per_file(lambda p, s_, f: count(p)))
+    access = state.access_freq + batch_access
+    writes = state.writes + mesh.psum(per_file(lambda p, s_, f: count(p[(f & 1) == 1])))
+    local = state.local_acc + mesh.psum(per_file(lambda p, s_, f: count(p[(f & 2) == 2])))
+    present = batch_access > 0
+
+    def runs_max(p, s_, f):
+        run_pid, _, run_len = second_runs(p, s_)
+        return torch.zeros(n, dtype=torch.int64, device=p.device).scatter_reduce_(
+            0, run_pid, run_len, "amax").to(torch.int32)
+
+    def extreme(p, s_, f, init, how):
+        return torch.full((n,), init, dtype=torch.int32, device=p.device).scatter_reduce_(
+            0, p, s_.to(torch.int32), how)
+
+    conc = torch.maximum(state.conc_max, mesh.pmax(per_file(runs_max)))
+    s_first = mesh.pmin(per_file(lambda p, s_, f: extreme(p, s_, f, imax, "amin")))
+    s_last = mesh.pmax(per_file(lambda p, s_, f: extreme(p, s_, f, -1, "amax")))
+    carry = torch.where(present & (state.last_sec == s_first), state.last_count, 0)
+
+    def at(sec_of_file):
+        """Exact per-file count of events in the second ``sec_of_file[pid]``."""
+        return mesh.psum(per_file(
+            lambda p, s_, f: count(p[s_ == sec_of_file.to(p.device)[p]])))
+
+    conc = torch.maximum(conc, torch.where(present, at(s_first) + carry, 0))
+    for b in edge_seconds(mesh, [s_ for _, s_, _ in shards]):
+        cnt = mesh.psum(per_file(lambda p, s_, f: count(p[s_ == b])))
+        cnt = cnt + torch.where(s_first == b, carry, 0)
+        conc = torch.maximum(conc, torch.where(present, cnt, 0))
+    total_last = at(s_last) + torch.where(s_last == s_first, carry, 0)
+    last_sec = torch.where(present, s_last, state.last_sec)
+    last_count = torch.where(present, total_last, state.last_count)
+    return access, writes, local, conc, last_sec, last_count
+
+
 def stream_update(state: StreamFeatureState, events: EventLog,
-                  manifest: Manifest) -> StreamFeatureState:
-    """Fold one event batch into the state (batches time-ordered per file)."""
+                  manifest: Manifest, mesh_shape: dict[str, int] | None = None
+                  ) -> StreamFeatureState:
+    """Fold one event batch into the state (batches time-ordered per file;
+    with a ``mesh_shape`` each batch globally time-sorted)."""
+    mesh = data_mesh(mesh_shape, state.device)
     pb = _prep_batch(events, manifest, sec_base=state.sec_base,
-                     pad_target=state.pad_events)
+                     pad_target=state.pad_events, ndata=1 if mesh is None else mesh.n_data)
     return state if pb is None else _fold_prepped(state, pb)
 
 
@@ -252,7 +336,8 @@ _QUEUE_DEPTH = 2
 
 def fold_stream(source, manifest: Manifest, *, device=None, batch_size: int = 4_000_000,
                 checkpoint_path: str | None = None, checkpoint_every: int = 25,
-                stats: dict | None = None) -> StreamFeatureState:
+                stats: dict | None = None,
+                mesh_shape: dict[str, int] | None = None) -> StreamFeatureState:
     """Fold a whole log, parsing and preparing batches on a producer thread
     while the calling thread folds them on ``device`` (CUDA unless "cpu").
 
@@ -265,7 +350,8 @@ def fold_stream(source, manifest: Manifest, *, device=None, batch_size: int = 4_
     none).  The checkpoint is deleted when the fold completes.  ``stats``
     receives ``parse_seconds``, ``prep_seconds`` (the producer's),
     ``fold_seconds`` (copy and fold, synchronised on the card), ``batches``
-    and ``resumed_from_offset``.
+    and ``resumed_from_offset``.  ``mesh_shape`` folds each batch over the
+    mesh's event shards; a snapshot resumes on any mesh shape.
     """
     is_path = isinstance(source, (str, bytes, os.PathLike))
     start_offset = 0
@@ -292,6 +378,8 @@ def fold_stream(source, manifest: Manifest, *, device=None, batch_size: int = 4_
     if state is None:
         state = stream_init(len(manifest), device)
     dev = state.device
+    mesh = data_mesh(mesh_shape, dev)
+    ndata = 1 if mesh is None else mesh.n_data
 
     if is_path:
         batches = EventLog.read_csv_batches(source, manifest, batch_size=batch_size,
@@ -317,7 +405,7 @@ def fold_stream(source, manifest: Manifest, *, device=None, batch_size: int = 4_
                 meta["parse"] += time.perf_counter() - t0
                 t0 = time.perf_counter()
                 pb = _prep_batch(ev, manifest, sec_base=meta["sec_base"],
-                                 pad_target=meta["pad_target"])
+                                 pad_target=meta["pad_target"], ndata=ndata)
                 meta["prep"] += time.perf_counter() - t0
                 if pb is None:
                     continue

@@ -6,6 +6,9 @@ of the last fit and the scoring tables (W, D, rf, is_moderate, band,
 global_medians; ``ops/scoring.scoring_tables``), so ``state_dict`` /
 ``load_state_dict`` carry a decision policy between processes and
 ``convert.params_from_reference`` builds one from the JAX package's state.
+``mesh_shape`` (``{"data": N, "model": M}``) runs clustering and the
+median stage on a mesh of shards (``parallel/mesh.py``); it is a runtime
+choice, not state.
 """
 
 from __future__ import annotations
@@ -77,8 +80,10 @@ class ReplicationPolicyModel(nn.Module):
     """KMeans++ clustering + directional-deviation scoring."""
 
     def __init__(self, kmeans_cfg: KMeansConfig | None = None,
-                 scoring_cfg: ScoringConfig | None = None):
+                 scoring_cfg: ScoringConfig | None = None,
+                 mesh_shape: dict[str, int] | None = None):
         super().__init__()
+        self.mesh_shape = mesh_shape
         self.kmeans_cfg = kmeans_cfg or KMeansConfig()
         self.scoring_cfg = scoring_cfg or ScoringConfig()
         validate_replication_factors(self.scoring_cfg)
@@ -108,7 +113,7 @@ class ReplicationPolicyModel(nn.Module):
             centroids, labels, self.n_iter, _ = kmeans_full(
                 X, cfg.k, tol=cfg.tol, seed=cfg.seed, max_iter=cfg.resolve_max_iter(n),
                 init_centroids=init_centroids, init_method=cfg.init_method,
-                dtype=cfg.dtype)
+                dtype=cfg.dtype, mesh_shape=self.mesh_shape)
         self.centroids = centroids
         return centroids, labels
 
@@ -130,7 +135,8 @@ class ReplicationPolicyModel(nn.Module):
             raise ValueError(
                 f"batch_size={bs} must be >= k={cfg.k} (the first mini-batch seeds the "
                 f"centroid init; pass init_centroids to warm-start with smaller batches)")
-        mb = MiniBatchKMeans(k=cfg.k, seed=cfg.seed, device=X.device)
+        mb = MiniBatchKMeans(k=cfg.k, seed=cfg.seed, device=X.device,
+                             mesh_shape=self.mesh_shape)
         if init_centroids is not None:
             if not torch.is_tensor(init_centroids):
                 init_centroids = torch.from_numpy(np.asarray(init_centroids, np.float64))
@@ -152,7 +158,7 @@ class ReplicationPolicyModel(nn.Module):
     def score(self, X: torch.Tensor, labels: torch.Tensor):
         """(category_idx (k,), scores (k, C), cluster_medians (k, d))."""
         return classify(X, labels, self.kmeans_cfg.k, self.scoring_cfg,
-                        tables=self.tables())
+                        tables=self.tables(), mesh_shape=self.mesh_shape)
 
     def run(self, X: torch.Tensor, feature_names: tuple[str, ...] | None = None,
             init_centroids=None, metrics: MetricsLog | None = None) -> ClusterDecision:

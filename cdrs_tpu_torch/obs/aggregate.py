@@ -88,6 +88,12 @@ def pacing_digest(windows: list[dict]) -> dict | None:
         plan_total = sum(s["total"] for s in secs if "plan" in s)
         out["plan_p50_seconds"] = percentile(plan, 0.5)
         out["plan_seconds_fraction"] = sum(plan) / plan_total if plan_total > 0 else 0.0
+    # Mesh runs stamp the shard count and the collective bytes an iteration,
+    # so windows/sec reads against mesh size; other streams carry no key.
+    mesh = [w["mesh"] for w in windows if isinstance(w.get("mesh"), dict)]
+    if mesh:
+        out["devices"] = int(mesh[-1].get("devices", 1))
+        out["collective_bytes_per_iter"] = int(mesh[-1].get("collective_bytes_per_iter", 0))
     return out
 
 

@@ -50,9 +50,11 @@ import ctypes
 import torch
 
 from ..device import sm_count, stat_dtype, unfilled
+from ..parallel.mesh import shard_valid
 from . import _build
 
-__all__ = ["lloyd_assign_reduce", "lloyd_assign_reduce_plain", "centroid_operands"]
+__all__ = ["lloyd_assign_reduce", "lloyd_assign_reduce_plain", "centroid_operands",
+           "sharded_assign_reduce"]
 
 _KERNEL_DTYPES = {torch.float32: "cdrs_lloyd_f32", torch.bfloat16: "cdrs_lloyd_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
@@ -142,6 +144,28 @@ def lloyd_assign_reduce(x: torch.Tensor, c: torch.Tensor, n_valid: int | None = 
                            f"(n={n}, d={d}, k={k}, dtype={x.dtype})")
     lloyd_assign_reduce.launches += 1
     return labels, sums, counts
+
+
+def sharded_assign_reduce(mesh, shards, n_loc: int, c: torch.Tensor, n_valid: int,
+                          with_labels: bool = False, step=None):
+    """The Lloyd step over the data shards of a mesh (``parallel/mesh.py``):
+    one ``lloyd_assign_reduce`` a local data shard (``shards``, ``n_loc``
+    rows each, the valid rows a global prefix of ``n_valid``), then one
+    shard-ordered psum of the (k, d + 1) statistics.  Returns (labels
+    (n_valid,) gathered in shard order, or None; sums; counts).
+    ``step(shard, x, c, n_valid, with_labels)`` takes the kernel's place
+    where the caller computes the step another way (the model axis)."""
+    if step is None:
+        def step(_, x, c, nv, wl):
+            return lloyd_assign_reduce(x, c, nv, with_labels=wl)
+    out = [step(s, x, c.to(x.device), shard_valid(n_valid, n_loc, s), with_labels)
+           for s, x in zip(mesh.local, shards)]
+    d = c.shape[1]
+    stats = mesh.psum([torch.cat([sums, counts[:, None]], dim=1) for _, sums, counts in out])
+    labels = None
+    if with_labels:
+        labels = mesh.all_gather([lab for lab, _, _ in out]).reshape(-1)[:n_valid]
+    return labels, stats[:, :d], stats[:, d]
 
 
 def _make_scratch(dev, nb: int, k: int, d: int):

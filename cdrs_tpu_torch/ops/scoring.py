@@ -18,6 +18,14 @@
 * **Score table** and the replication-factor tie-break ``_pick_winner``.
 
 Empty clusters get NaN medians, which score 0 everywhere.
+
+**Mesh** (``classify(mesh_shape=)``): rows and labels split into the
+mesh's contiguous data shards (padding rows get label -1, no cluster).
+Histogram medians add the shards' integer (k, bins) histograms; bisection
+runs the counting kernel once a shard an iteration and adds the int32
+(k, 2d) and (2, d) tables; ranges and counts are exact pmin/pmax/psums.
+Both are therefore bit-identical to one device.  The exact sort is
+one-device only, as in the reference.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from ..config import ScoringConfig
+from ..parallel.mesh import data_mesh
 from .seg_count import label_threshold_count
 
 __all__ = ["HIST_MEDIAN_THRESHOLD", "resolve_median_method", "scoring_tables",
@@ -36,11 +45,17 @@ __all__ = ["HIST_MEDIAN_THRESHOLD", "resolve_median_method", "scoring_tables",
 HIST_MEDIAN_THRESHOLD = 2_000_000
 
 
-def resolve_median_method(method: str, n_rows: int, device) -> str:
-    """"auto": exact sort up to ``HIST_MEDIAN_THRESHOLD`` rows; past it,
-    bisection on CUDA (its counting kernel) and histograms on the CPU."""
+def resolve_median_method(method: str, n_rows: int, device, ndata: int = 1) -> str:
+    """"auto": exact sort up to ``HIST_MEDIAN_THRESHOLD`` rows on one
+    device; past it, or on a sharded mesh, bisection on CUDA (its counting
+    kernel) and histograms on the CPU.  "sort" raises on a sharded mesh."""
+    if ndata > 1 and method == "sort":
+        raise ValueError(
+            "median_method='sort' is single-device; sharded scoring "
+            "(mesh_shape data > 1) uses histogram or bisection medians "
+            "— pass median_method='hist', 'bisect', or 'auto'")
     if method == "auto":
-        if n_rows <= HIST_MEDIAN_THRESHOLD:
+        if ndata == 1 and n_rows <= HIST_MEDIAN_THRESHOLD:
             return "sort"
         return "bisect" if torch.device(device).type == "cuda" else "hist"
     if method not in ("sort", "hist", "bisect"):
@@ -109,23 +124,51 @@ def _medians_from_hist(H, counts, lo_f, w_f, bins, ftype):
     return torch.where(counts > 0, med, torch.nan)
 
 
+def _row_shards(mesh, x: torch.Tensor, labels: torch.Tensor):
+    """[(rows, labels)] of each local data shard (padding labelled -1), and
+    the sum/min/max reductions over the shards; one shard without a mesh."""
+    if mesh is None:
+        def one(parts):
+            return parts[0]
+
+        return [(x, labels)], one, one, one
+    _, xs = mesh.split(x)
+    _, ls = mesh.split(labels, fill=-1)
+    return list(zip(xs, ls)), mesh.psum, mesh.pmin, mesh.pmax
+
+
+def _label_counts_and_range(shards, k, psum, pmin, pmax):
+    """(k,) counts of rows with a label in [0, k), and the per-feature min
+    and max over those rows."""
+    counts = psum([torch.bincount(lab[lab >= 0].long(), minlength=k) for _, lab in shards])
+    lo = pmin([torch.where((lab >= 0)[:, None], xs, torch.inf).min(dim=0).values
+               for xs, lab in shards])
+    hi = pmax([torch.where((lab >= 0)[:, None], xs, -torch.inf).max(dim=0).values
+               for xs, lab in shards])
+    return counts, lo, hi
+
+
 def hist_medians(x: torch.Tensor, labels: torch.Tensor, k: int, bins: int,
-                 with_global: bool):
+                 with_global: bool, mesh=None):
     """Per-cluster (k, d) and optionally global (d,) medians from fixed-bin
-    histograms; error <= feature range / bins, constant columns exact."""
-    n, d = x.shape
+    histograms; error <= feature range / bins, constant columns exact.
+    Labels < 0 mark rows of no cluster."""
+    d = x.shape[1]
     ftype = x.dtype
-    lab = labels.long()
-    counts = torch.bincount(lab, minlength=k)
-    n_total = counts.new_tensor([n])
-    lo = x.min(dim=0).values
-    hi = x.max(dim=0).values
+    shards, psum, pmin, pmax = _row_shards(mesh, x, labels.long())
+    counts, lo, hi = _label_counts_and_range(shards, k, psum, pmin, pmax)
+    n_total = counts.sum().reshape(1)
     meds, gmeds = [], []
     for f in range(d):
         lo_f, hi_f = lo[f], hi[f]
         w_f = torch.where(hi_f > lo_f, hi_f - lo_f, 1.0)
-        b = torch.clamp(((x[:, f] - lo_f) / w_f * bins).to(torch.int32), 0, bins - 1)
-        H = torch.bincount(lab * bins + b, minlength=k * bins).reshape(k, bins)
+        parts = []
+        for xs, lab in shards:
+            valid = lab >= 0
+            b = torch.clamp(((xs[valid, f] - lo_f.to(xs.device)) / w_f.to(xs.device)
+                             * bins).to(torch.int32), 0, bins - 1)
+            parts.append(torch.bincount(lab[valid] * bins + b, minlength=k * bins))
+        H = psum(parts).reshape(k, bins)
         const = hi_f <= lo_f
         meds.append(torch.where(const, lo_f,
                                 _medians_from_hist(H, counts, lo_f, w_f, bins, ftype)))
@@ -137,19 +180,17 @@ def hist_medians(x: torch.Tensor, labels: torch.Tensor, k: int, bins: int,
 
 
 def bisect_medians(x: torch.Tensor, labels: torch.Tensor, k: int, bins: int,
-                   with_global: bool):
+                   with_global: bool, mesh=None):
     """Per-cluster (k, d) and optionally global (d,) medians by rank
-    bisection on the threshold-counting kernel.  Labels < 0 mark rows of no
-    cluster.  Error <= feature range / 2^iters; constant columns exact."""
-    n, d = x.shape
+    bisection on the threshold-counting kernel (one launch a shard an
+    iteration).  Labels < 0 mark rows of no cluster.  Error <= feature
+    range / 2^iters; constant columns exact."""
+    d = x.shape[1]
     ftype = x.dtype
     iters = max(8, int(np.ceil(np.log2(max(bins, 2)))) + 1)
-    lab = labels.to(torch.int32).contiguous()
-    valid = lab >= 0
-    counts = torch.bincount(lab[valid].long(), minlength=k)
+    shards, psum, pmin, pmax = _row_shards(mesh, x, labels.to(torch.int32).contiguous())
+    counts, lo_f, hi_f = _label_counts_and_range(shards, k, psum, pmin, pmax)
     n_total = counts.sum()
-    lo_f = torch.where(valid[:, None], x, torch.inf).min(dim=0).values
-    hi_f = torch.where(valid[:, None], x, -torch.inf).max(dim=0).values
 
     # The value at 0-indexed rank r is the smallest v with count(x <= v) >= r+1.
     targets = torch.stack([(counts - 1) // 2 + 1, counts // 2 + 1])        # (2, k)
@@ -160,15 +201,21 @@ def bisect_medians(x: torch.Tensor, labels: torch.Tensor, k: int, bins: int,
     ghi = hi_f.float().expand(2, d).clone()
     for _ in range(iters):
         thr = (0.5 * (lo + hi)).contiguous()
-        # One counting call per iteration: the global ranks ride along.
+        # One counting call a shard per iteration: the global ranks ride along.
         gthr = (0.5 * (glo + ghi)).contiguous() if with_global else None
-        got = label_threshold_count(x, lab, thr, gthr)
-        cb, gcb = got if with_global else (got, None)
+        parts = []
+        for xs, lab in shards:
+            got = label_threshold_count(xs, lab, thr.to(xs.device),
+                                        None if gthr is None else gthr.to(xs.device))
+            parts.append(torch.cat([got[0].flatten(), got[1].flatten()]) if with_global
+                         else got.flatten())
+        tables = psum(parts)
+        cb = tables[:k * 2 * d].view(k, 2 * d)
         ge = cb.view(k, 2, d).permute(1, 0, 2) >= targets[:, :, None]
         lo = torch.where(ge, lo, thr)
         hi = torch.where(ge, thr, hi)
         if with_global:
-            gge = gcb >= g_targets[:, None]
+            gge = tables[k * 2 * d:].view(2, d) >= g_targets[:, None]
             glo = torch.where(gge, glo, gthr)
             ghi = torch.where(gge, gthr, ghi)
 
@@ -210,24 +257,27 @@ def pick_winner(scores: torch.Tensor, rf: torch.Tensor) -> torch.Tensor:
 
 def classify(x: torch.Tensor, labels: torch.Tensor, k: int,
              cfg: ScoringConfig | None = None, global_medians=None,
-             tables: dict[str, torch.Tensor] | None = None):
+             tables: dict[str, torch.Tensor] | None = None, mesh_shape=None):
     """Medians -> scores -> categories.  Returns (category_idx (k,),
     scores (k, C), cluster_medians (k, d)) on ``x``'s device.
 
     ``tables`` (``scoring_tables(cfg)``, e.g. a model's buffers) default to
     ``cfg``'s; ``cfg`` still names the median method and whether the global
-    medians come from the data.
+    medians come from the data.  ``mesh_shape`` shards the median stage
+    over the mesh's data axis.
     """
     cfg = cfg or ScoringConfig()
     tables = scoring_tables(cfg) if tables is None else tables
     dev, ftype = x.device, x.dtype
-    method = resolve_median_method(cfg.median_method, x.shape[0], dev)
+    mesh = data_mesh(mesh_shape, dev)
+    method = resolve_median_method(cfg.median_method, x.shape[0], dev,
+                                   1 if mesh is None else mesh.n_data)
     bins = int(cfg.median_bins)
     want_global = global_medians is None and cfg.compute_global_medians_from_data
     if method == "bisect":
-        medians, gm = bisect_medians(x, labels, k, bins, want_global)
+        medians, gm = bisect_medians(x, labels, k, bins, want_global, mesh)
     elif method == "hist":
-        medians, gm = hist_medians(x, labels, k, bins, want_global)
+        medians, gm = hist_medians(x, labels, k, bins, want_global, mesh)
     else:
         medians = cluster_medians_sort(x, labels, k)
         gm = global_medians_sort(x) if want_global else None

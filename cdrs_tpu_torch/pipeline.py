@@ -5,7 +5,8 @@ scoring (-> evaluate), the port of ``cdrs_tpu/pipeline.py``
 The generator and simulator run on the host (numpy); features, KMeans and
 scoring run on ``cfg.device`` (CUDA unless "cpu" is asked for), handing the
 feature table to clustering without a host round trip.  With ``outdir``
-the five stage files are written as the JAX package writes them.  With
+the five stage files are written as the JAX package writes them.
+``cfg.mesh_shape`` runs features, clustering and scoring on a mesh.  With
 ``cfg.evaluate`` the decided rf is placed and replayed against uniform
 baselines on the host (``PipelineResult.evaluation``).
 """
@@ -76,8 +77,10 @@ def run_pipeline(cfg: PipelineConfig, outdir: str | None = None,
             events = simulate_access(manifest, cfg.simulator)
         metrics.record("n_events", len(events))
         with metrics.timer("features", dev):
-            table = compute_features_torch(manifest, events, device=dev, dtype=cfg.dtype)
-        model = ReplicationPolicyModel(kmeans_cfg=cfg.kmeans, scoring_cfg=cfg.scoring)
+            table = compute_features_torch(manifest, events, device=dev, dtype=cfg.dtype,
+                                           mesh_shape=cfg.mesh_shape)
+        model = ReplicationPolicyModel(kmeans_cfg=cfg.kmeans, scoring_cfg=cfg.scoring,
+                                       mesh_shape=cfg.mesh_shape)
         with metrics.timer("cluster", dev):
             decision = model.run(table.norm, init_centroids=init_centroids,
                                  metrics=metrics)

@@ -14,7 +14,7 @@ invariant violation to a minimal-event repro, and the triage of banked
 violations (``scenarios triage``).
 """
 
-from .harness import coverage_bits, run_cell, unported_axes
+from .harness import coverage_bits, run_cell
 from .presets import PRESETS, SUITES, preset, random_cell, suite_cells
 from .search import distill_corpus, mutate_spec, run_search, shrink_cell
 from .spec import ScenarioSpec
@@ -22,4 +22,4 @@ from .sweep import run_cells, run_sweep
 
 __all__ = ["PRESETS", "SUITES", "ScenarioSpec", "coverage_bits", "distill_corpus",
            "mutate_spec", "preset", "random_cell", "run_cell", "run_cells", "run_search",
-           "run_sweep", "shrink_cell", "suite_cells", "unported_axes"]
+           "run_sweep", "shrink_cell", "suite_cells"]

@@ -38,10 +38,12 @@ read path — and checks invariants, not just metrics:
   epoch frozen, stop/resume stitching exact, decision traces reconciled,
   and the live HTTP plane scraped over real HTTP.
 
-A cell that needs an axis the port does not run yet (a mesh) is refused
-before anything is built, with the ROADMAP item that brings it
-(:func:`unported_axes`).  A failing
-cell carries a one-line repro command (:func:`repro_line`).
+* **the mesh** (``spec.mesh``) — every record carries the mesh stamp at
+  the requested shard count and at least one re-cluster ran on it
+  (``mesh_engaged``).
+
+Every axis of the reference's matrix runs on the port.  A failing cell
+carries a one-line repro command (:func:`repro_line`).
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ import numpy as np
 
 from ..config import GeneratorConfig, KMeansConfig, ScoringConfig, SimulatorConfig, \
     validated_scoring_config
-from ..control.controller import _UNPORTED, ControllerConfig, ReplicationController
+from ..control.controller import ControllerConfig, ReplicationController
 from ..faults import FaultSchedule
 from ..io.events import EventLog, Manifest
 from ..obs.aggregate import coverage_fingerprint
@@ -66,28 +68,9 @@ from ..sim.access import simulate_access, simulate_access_phased, simulate_diurn
 from ..sim.generator import generate_population
 from .spec import ScenarioSpec
 
-__all__ = ["build_events", "build_schedule", "coverage_bits", "run_cell", "repro_line",
-           "unported_axes"]
+__all__ = ["build_events", "build_schedule", "coverage_bits", "run_cell", "repro_line"]
 
 _DEFAULT_FLIP = {"hot": "archival", "archival": "hot"}
-
-#: Axes of the reference's matrix that the port does not run yet: (axis,
-#: present in the spec, the ControllerConfig option that refuses it).
-_UNPORTED_AXES = (
-    ("mesh", lambda s: s.mesh is not None, "mesh_shape"),
-)
-
-
-def unported_axes(spec: ScenarioSpec) -> list[tuple[str, str, str]]:
-    """``(axis, ROADMAP item, what it brings)`` of each axis of ``spec`` that
-    the port does not run yet, in ROADMAP order; empty = the cell runs."""
-    out = []
-    for axis, present, option in _UNPORTED_AXES:
-        if present(spec):
-            item, what = _UNPORTED[option][1].split(", ", 1)
-            out.append((axis, item, what))
-    return out
-
 
 def _scoring(spec: ScenarioSpec) -> ScoringConfig:
     """The cell's scoring table; ``min_rf2`` is the validated table with
@@ -182,7 +165,7 @@ def build_schedule(spec: ScenarioSpec) -> FaultSchedule | None:
 
 def _controller(spec: ScenarioSpec, manifest: Manifest, schedule: FaultSchedule | None,
                 device) -> ReplicationController:
-    """The port's controller for the cell (its unported axes were refused)."""
+    """The port's controller for the cell."""
     topology = None
     if spec.topology is not None or spec.racks:
         from ..cluster.placement import ClusterTopology
@@ -241,6 +224,7 @@ def _controller(spec: ScenarioSpec, manifest: Manifest, schedule: FaultSchedule 
         scrub=scrub,
         elastic=elastic,
         placement_mode=spec.placement,
+        mesh_shape=dict(spec.mesh) if spec.mesh else None,
         device=device,
     )
     return ReplicationController(manifest, cfg)
@@ -304,6 +288,15 @@ def _check_invariants(spec: ScenarioSpec, records: list[dict], max_bytes: int | 
     if spec.drift is not None:
         # The cold start is one re-cluster; the drift must trigger another.
         inv["drift_engaged"] = sum(1 for r in records if r.get("recluster")) >= 2
+    if spec.mesh is not None:
+        # Every record carries the mesh stamp at the requested shard count
+        # and a re-cluster ran on it: a mesh that fell back to one device
+        # fails here instead of passing its other checks vacuously.
+        ndev = int(np.prod([int(v) for v in spec.mesh.values()]))
+        inv["mesh_engaged"] = bool(
+            records
+            and all((r.get("mesh") or {}).get("devices") == ndev for r in records)
+            and any(r.get("recluster") for r in records))
     if spec.placement != "materialized":
         # Every record carries the mode's stamp, a functional fault run its
         # exception count: a placement that fell back fails here.
@@ -501,23 +494,11 @@ def repro_line(spec: ScenarioSpec, suite: str | None = None, suite_seed: int = 0
     return f"{head} --spec '" + json.dumps(spec.to_dict()) + "'"
 
 
-def check_ported(spec: ScenarioSpec) -> None:
-    """Raise ``ValueError`` naming the first axis of ``spec`` that the port
-    does not run yet and its ROADMAP item."""
-    missing = unported_axes(spec)
-    if missing:
-        axis, item, what = missing[0]
-        raise ValueError(f"cell {spec.name!r}: the {axis} axis is not ported yet "
-                         f"(ROADMAP {item}, {what})")
-
-
 def run_cell(spec: ScenarioSpec, *, suite: str | None = None, suite_seed: int = 0,
              device=None) -> dict:
     """Run one cell end to end on ``device``; returns the cell record
     (invariants, headline metrics, coverage bits and their fingerprint,
-    bench records, repro line).  A cell with an unported axis raises
-    ``ValueError`` before anything runs."""
-    check_ported(spec)
+    bench records, repro line)."""
     t0 = time.perf_counter()
     manifest = generate_population(GeneratorConfig(n_files=spec.n_files, seed=spec.seed,
                                                    nodes=spec.nodes))

@@ -11,9 +11,8 @@ The same presets, random cells and suites, in the same order, so that
 * **random cells** (``random_cell``) — seeded compositions over all axes,
   deterministic in (suite seed, index).
 
-Cells whose axes the port does not run yet (elasticity, hash placement,
-a mesh) stay in the suites; the harness and the sweep
-refuse them by name (scenarios/harness.unported_axes).
+Every cell runs on the port (the mesh cell ``scale-mesh`` since ROADMAP
+A9).
 """
 
 from __future__ import annotations
@@ -162,8 +161,8 @@ def _presets() -> dict[str, ScenarioSpec]:
     # medians, feature fold, drift one-Lloyd-step) data-parallel over an
     # 8-device mesh, with a mid-cell kill/resume (mesh shape is a runtime
     # choice, not checkpoint state) and the mesh_engaged positive check.
-    # On CPU this needs XLA_FLAGS=--xla_force_host_platform_device_count=8
-    # (tests/conftest.py and the CI sweep step set it).
+    # On the port the eight shards share the one device a run is given
+    # (parallel/mesh.py's placement rule).
     p["scale-mesh"] = ScenarioSpec(
         name="scale-mesh", n_files=300, seed=8, duration=1800.0,
         n_windows=12, k=12, backend="jax", mesh={"data": 8},

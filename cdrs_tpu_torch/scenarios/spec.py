@@ -5,9 +5,8 @@ curve x drift pattern x fault schedule x topology x storage strategy x
 scale x serve config — as plain JSON-able fields, so a spec round-trips
 through ``to_dict``/``from_dict`` (a failing cell's repro line reruns
 exactly that cell).  Every field of the reference's spec is here, so any
-of its repro lines or corpus cells parses; the port's harness
-(scenarios/harness.py) refuses, before anything runs, a cell that needs
-an axis the port does not have yet (a mesh).
+of its repro lines or corpus cells parses and runs on the port's harness
+(scenarios/harness.py).
 
 Axes
 ----
@@ -33,7 +32,9 @@ Axes
 
 Controller knobs (budget fraction, scoring table, decay, thresholds) ride
 along.  ``backend`` rides along too and validates as in the reference (a
-mesh requires "jax"); the port's harness always runs its own controller.
+mesh requires "jax", which on the port means decay 1: the port's
+controller refuses a decayed mesh); the port's harness always runs its own
+controller.
 """
 
 from __future__ import annotations
@@ -212,8 +213,7 @@ class ScenarioSpec:
                     f"cell {self.name!r}: unknown alert names {bad} "
                     f"(known: {sorted(DEFAULT_RULE_NAMES)})")
         if self.mesh is not None:
-            # The reference's checks; the port's harness refuses a mesh
-            # cell before it runs (ROADMAP A9).
+            # The reference's checks.
             unknown = set(self.mesh) - {"data", "model"}
             if unknown:
                 raise ValueError(

@@ -2,10 +2,8 @@
 
 ``run_sweep`` runs a suite's cells and returns the sweep artifact: the
 per-cell verdicts and headline metrics, the flattened ``bench_records``,
-and ``ok``, which the CLI turns into the exit code.  A suite cell with an
-axis the port does not run yet is not run: it is listed under
-``not_ported`` with the ROADMAP item that brings it, and ``ok`` covers the
-cells that ran.  Failing cells carry their one-line repro.
+and ``ok``, which the CLI turns into the exit code.  Failing cells carry
+their one-line repro.
 
 The reference's history append (``--round``/``--history``, its
 ``benchmarks/regress``) belongs to the port's benchmark, ROADMAP A10a.
@@ -16,7 +14,7 @@ from __future__ import annotations
 import json
 import time
 
-from .harness import run_cell, unported_axes
+from .harness import run_cell
 from .presets import suite_cells
 from .spec import ScenarioSpec
 
@@ -32,12 +30,6 @@ def format_cell_line(cell: dict) -> str:
     failed = sorted(k for k, v in inv.items() if not v)
     return (f"  [FAIL] {cell['cell']:<22} {','.join(failed)}\n"
             f"         repro: {cell['repro']}")
-
-
-def format_not_ported_line(entry: dict) -> str:
-    """One human line per cell left out: its name, item and axes."""
-    return (f"  [skip] {entry['cell']:<22} not ported yet: ROADMAP {entry['item']} "
-            f"({', '.join(entry['axes'])})")
 
 
 def load_extra_cells(paths) -> list[ScenarioSpec]:
@@ -65,7 +57,7 @@ def load_extra_cells(paths) -> list[ScenarioSpec]:
 
 def run_sweep(suite: str, *, seed: int = 0, extra=None, progress=None,
               device=None) -> dict:
-    """Run every ported cell of ``suite`` (and of the ``extra`` corpus cell
+    """Run every cell of ``suite`` (and of the ``extra`` corpus cell
     files, never seed-shifted) on ``device``; returns the sweep artifact."""
     cells = list(suite_cells(suite, seed))
     if extra:
@@ -77,16 +69,7 @@ def run_cells(cells: list[ScenarioSpec], *, suite: str | None = None, seed: int 
               progress=None, device=None) -> dict:
     t0 = time.perf_counter()
     results = []
-    not_ported = []
     for spec in cells:
-        missing = unported_axes(spec)
-        if missing:
-            entry = {"cell": spec.name, "item": missing[0][1],
-                     "axes": [f"{axis} ({item})" for axis, item, _ in missing]}
-            not_ported.append(entry)
-            if progress is not None:
-                progress(format_not_ported_line(entry))
-            continue
         cell = run_cell(spec, suite=suite, suite_seed=seed, device=device)
         results.append(cell)
         if progress is not None:
@@ -97,8 +80,6 @@ def run_cells(cells: list[ScenarioSpec], *, suite: str | None = None, seed: int 
         "cells": results,
         "n_cells": len(results),
         "n_failed": sum(1 for c in results if not c["ok"]),
-        "n_not_ported": len(not_ported),
-        "not_ported": not_ported,
         "invariants_checked": sum(len(c["invariants"]) for c in results),
         "ok": all(c["ok"] for c in results),
         "seconds": round(time.perf_counter() - t0, 3),

@@ -113,17 +113,17 @@ def kmeans_checkpointed(X, k: int, checkpoint_path: str, tol: float = 1e-4,
     its device unless ``device`` is given) or an array (moved to
     ``device``: CUDA unless "cpu" is asked for); ``kwargs`` go to
     ``kmeans_full`` (``dtype``, ``n_valid``, ``init_method``, ...).
-    ``mesh_shape`` is refused: the multi-GPU mesh is ROADMAP A9.
+    ``mesh_shape`` runs every block on a mesh; a snapshot holds no mesh
+    state, so a run resumes on another shape (a smaller mesh after losing
+    cards) and continues the same trajectory.
     """
     import torch
 
     from ..device import resolve_device, stat_dtype, torch_dtype
-    from ..ops.kmeans import kmeans_full
+    from ..ops.kmeans import kmeans_full, labels_mesh
     from ..ops.lloyd import lloyd_assign_reduce
+    from ..parallel.mesh import resolve_mesh
 
-    if mesh_shape is not None:
-        raise ValueError("kmeans_checkpointed: mesh_shape is not ported yet "
-                         "(ROADMAP A9, multi-GPU)")
     if labels not in ("final", "parity"):
         raise ValueError(f"labels must be 'final' or 'parity', got {labels!r}")
     if torch.is_tensor(X):
@@ -155,7 +155,7 @@ def kmeans_checkpointed(X, k: int, checkpoint_path: str, tol: float = 1e-4,
         block = min(block_iters, max_iter - iters_done)
         centroids, labels_out, it, shift = kmeans_full(
             xp, k, tol=tol, seed=base_seed, max_iter=block, init_centroids=centroids,
-            iter_offset=iters_done, **kwargs)
+            iter_offset=iters_done, mesh_shape=mesh_shape, **kwargs)
         iters_done += it
         converged = shift < tol
         done = converged or iters_done >= max_iter
@@ -176,5 +176,9 @@ def kmeans_checkpointed(X, k: int, checkpoint_path: str, tol: float = 1e-4,
             raise ValueError("checkpoint predates labels='parity' (no stored labels); "
                              "re-run with resume=False or use labels='final'")
         return centroids, torch.as_tensor(parity_labels).to(dev), iters_done
+    mesh = resolve_mesh(mesh_shape, dev)
+    if mesh is not None:
+        n_loc, shards = mesh.split(xp)
+        return centroids, labels_mesh(mesh, shards, n_loc, centroids, n_valid), iters_done
     final_labels, _, _ = lloyd_assign_reduce(xp, centroids, n_valid, with_labels=True)
     return centroids, final_labels[:n_valid], iters_done

@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernel checks only (no ok line)
     python3 chip_smoke.py --phase 10 # build, kernel checks and one phase (9,
-                                     # 10, 11, 12 or 13) alone; no ok line
+                                     # 10, 11, 12, 13 or 14) alone; no ok line
 
 Phases, each of which exits non-zero when a check fails:
 
@@ -90,9 +90,9 @@ Phases, each of which exits non-zero when a check fails:
    equal the CPU's from one init; (c) phase 4's workload with decay 0.7,
    whose float64 accumulators and plan hashes on the card equal the CPU's.
 9. The scenario matrix (``cdrs_tpu_torch.scenarios.run_cell``) on CUDA:
-   (a) every cell of the ``full`` suite at suite seed 0 whose axes the port
-   runs (the twenty-one ported ``ci-smoke`` cells, ``control-shift``, the
-   serving ``random-s0-3`` and the replicate-storage ``random-s0-2``), each
+   (a) every cell of the ``full`` suite at suite seed 0 but the mesh cell
+   (phase 14c): the twenty-one other ``ci-smoke`` cells, ``control-shift``,
+   the serving ``random-s0-3`` and the replicate-storage ``random-s0-2``, each
    ``ok`` from the card's own cold init (the rows its D² init picked are
    logged; a cell of ``SCENARIO_QUEUE_C`` must fail exactly its recorded
    invariants there), with B1 = sum(n_iter + 1) over the cell's
@@ -196,6 +196,30 @@ Phases, each of which exits non-zero when a check fails:
    its CSV stages are host-bound.  ``--phase 13`` runs it alone, in
    process, after making phase 5's workload.
 
+14. The mesh (``parallel/mesh.py``; shards share card 0 by the placement
+   rule), run after phase 8 on phase 5's workload: (a) ``run_pipeline`` at
+   ``{"data": 4}``, whose features equal phase 3's bit for bit, whose
+   categories equal phase 3's, whose labels and per-file rf agree with
+   phase 3's on >= ``MESH_AGREE`` of the files and whose centroids lie
+   within ``MESH_TOL`` of phase 3's, with B1 = 4 x (n_iter + 1) and
+   B2 = 4 x 12; the cold D²
+   init at data = 1, 2 and 4 bit-identical; features and clustering
+   seconds at data = 1, 2, 4, 4, 2, 1 (each run's table and labels held
+   against phase 3's); mini-batch KMeans (4 updates) and drift at data = 4
+   against one device (labels exact, centroids within ``MESH_TOL``, B3 one
+   launch a shard); (b) ``{"data": 2, "model": 2}`` from phase 3's cold
+   init: phase 3's categories, labels on >= ``MESH_AGREE``, centroids
+   within ``MESH_TOL``, no Lloyd-kernel launch, B2 = 2 x 12; (c) the
+   ``scale-mesh`` cell on the card and on the CPU from the CPU-computed
+   cold init: green, ``mesh_engaged``, invariants, metrics and coverage
+   equal, B1 = 8 x (sum(n_iter + 1) + drift calls), B2 = 8 x 12 a
+   re-cluster; (d) beside (c), child processes on card 0: NCCL at world
+   size 1 running a data = 2 mesh and gloo with 2 ranks of one shard each,
+   each ``kmeans_full`` on phase 3's feature table bit-identical to the
+   in-process data = 2 mesh.  No speedup is claimed: the shards share one
+   card.  ``--phase 14`` runs phase 3's pipeline and makes phase 5's
+   workload first.
+
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It imports nothing of the JAX
 package.
@@ -295,6 +319,21 @@ SEARCH_BUDGET_CELLS = 8
 #: Banked violations of the committed corpus that reproduce on the card's
 #: own init, with the ROADMAP Queue C entry that says why (none so far).
 SEARCH_QUEUE_C: dict[str, str] = {}
+#: Phase 14: the main path's mesh (14a), the shard counts of its stage
+#: seconds, the model-axis mesh (14b), the share of labels that must agree
+#: with one device (phase 4's rule: float32 sums added in another order
+#: move centroids by ULPs, which can flip near-tied points and part the
+#: runs), the largest centroid difference from one device (measured on an
+#: H100: 2.62e-6 at data = 4, 2.74e-6 on the model axis, 6.0e-8 for the
+#: mini-batch; a shard's statistics lost from a psum moves a centroid by
+#: about 1e-3), and 14d's Lloyd budget and child time limit.
+MESH_MAIN = {"data": 4}
+MESH_DATA = (1, 2, 4)
+MESH_MODEL = {"data": 2, "model": 2}
+MESH_AGREE = 0.999
+MESH_TOL = 1e-4
+MESH_CHILD_ITERS = 100
+MESH_CHILD_TIMEOUT = 300
 
 
 def fail(msg: str) -> None:
@@ -622,21 +661,28 @@ def phase_kernels(reps):
     return rows
 
 
-def phase_main_path():
-    import torch
-
+def main_config():
+    """Phase 3's pipeline configuration."""
     from cdrs_tpu_torch import (GeneratorConfig, KMeansConfig, PipelineConfig,
-                                SimulatorConfig, run_pipeline, validated_scoring_config)
-    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
-    from cdrs_tpu_torch.ops.seg_count import label_threshold_count
+                                SimulatorConfig, validated_scoring_config)
 
-    cfg = PipelineConfig(
+    return PipelineConfig(
         device="cuda",
         generator=GeneratorConfig(n_files=MAIN_FILES, seed=MAIN_SEED),
         simulator=SimulatorConfig(duration_seconds=MAIN_DURATION, seed=MAIN_SEED + 1),
         kmeans=KMeansConfig(k=K, seed=MAIN_SEED),
         scoring=validated_scoring_config(),
     )
+
+
+def phase_main_path():
+    import torch
+
+    from cdrs_tpu_torch import run_pipeline
+    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
+    from cdrs_tpu_torch.ops.seg_count import label_threshold_count
+
+    cfg = main_config()
     torch.cuda.reset_peak_memory_stats()
     lloyd_assign_reduce.launches = 0
     label_threshold_count.launches = 0
@@ -1627,9 +1673,10 @@ def phase_scenarios():
     import cdrs_tpu_torch.ops.kmeans as kmeans_mod
     from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
     from cdrs_tpu_torch.ops.seg_count import label_threshold_count
-    from cdrs_tpu_torch.scenarios import run_cell, suite_cells, unported_axes
+    from cdrs_tpu_torch.scenarios import run_cell, suite_cells
 
-    cells = [c for c in suite_cells("full", 0) if not unported_axes(c)]
+    # The mesh cell, scale-mesh, runs in phase 14c.
+    cells = [c for c in suite_cells("full", 0) if c.mesh is None]
     check(sorted(c.name for c in cells) == sorted(SCENARIO_CELLS),
           f"the ported cells at suite seed 0 are {[c.name for c in cells]}")
     seen, hooks, restore = model_runs()
@@ -3142,11 +3189,376 @@ def phase_batch(m_csv, log_path, work, device="cuda"):
     return {k: launches[k] + found[k] for k in launches}
 
 
+# -- phase 14: the mesh ------------------------------------------------------------
+
+#: Phase 14's failed checks: each is logged when it fails and the phase
+#: fails at its end, so one run reports every part.
+MESH_FAILED: list = []
+
+
+def expect(cond: bool, msg: str) -> None:
+    if not cond:
+        MESH_FAILED.append(msg)
+        log(f"mesh check failed: {msg}")
+
+
+def agreement(a, b) -> float:
+    import numpy as np
+
+    return float((np.asarray(a) == np.asarray(b)).mean())
+
+
+def mesh_label_trace(norm, init, mesh_shape):
+    """Labels and centroids of the first iterations at ``mesh_shape``
+    against one device from ``init``: where the runs part."""
+    from cdrs_tpu_torch.device import deterministic
+    from cdrs_tpu_torch.ops.kmeans import kmeans_full
+
+    trace = {}
+    with deterministic():
+        for t in (1, 2, 3, 5, 10, 20, 40):
+            a = kmeans_full(norm, K, init_centroids=init, max_iter=t, tol=0.0)
+            b = kmeans_full(norm, K, init_centroids=init, max_iter=t, tol=0.0,
+                            mesh_shape=mesh_shape)
+            trace[t] = {"labels_differ": int((a[1] != b[1]).sum()),
+                        "centroid_err": float((a[0] - b[0]).abs().max())}
+    log(f"mesh label trace {mesh_shape} " + json.dumps(trace))
+
+
+def mesh_stage_seconds(cfg, manifest, events, ref, mesh_shape):
+    """Features and clustering of phase 5's workload on one mesh shape:
+    (stage seconds, launches), the table and decision held against phase
+    3's (``ref``)."""
+    import torch
+
+    from cdrs_tpu_torch.config import MetricsLog
+    from cdrs_tpu_torch.device import deterministic
+    from cdrs_tpu_torch.features.batch import compute_features_torch
+    from cdrs_tpu_torch.models.replication import ReplicationPolicyModel
+
+    metrics = MetricsLog()
+    dev = torch.device("cuda", 0)
+    reset_launches()
+    with deterministic():
+        with metrics.timer("features", dev):
+            table = compute_features_torch(manifest, events, device=dev,
+                                           mesh_shape=mesh_shape)
+        model = ReplicationPolicyModel(cfg.kmeans, cfg.scoring, mesh_shape=mesh_shape)
+        with metrics.timer("cluster", dev):
+            dec = model.run(table.norm, metrics=metrics)
+    launches = read_launches()
+    what = f"14a {mesh_shape}"
+    expect(torch.equal(table.raw, ref.table.raw) and torch.equal(table.norm, ref.table.norm),
+          f"{what}: the features differ from one device's")
+    agree = agreement(dec.labels, ref.decision.labels)
+    expect(agree >= MESH_AGREE, f"{what}: labels agree on {agree:.7f}")
+    secs = {k: round(float(metrics.records[f"{k}.seconds"]), 6)
+            for k in ("features", "cluster", "kmeans", "score")}
+    return secs, launches
+
+
+def mesh_minibatch_drift(norm, ref):
+    """14a's B3 paths on a mesh: mini-batch KMeans and drift at data = 4
+    against one device.  Returns the launches on the mesh."""
+    import numpy as np
+    import torch
+
+    from cdrs_tpu_torch.control.drift import detect_drift_torch
+    from cdrs_tpu_torch.device import deterministic
+    from cdrs_tpu_torch.ops.kmeans_stream import MiniBatchKMeans
+
+    batches = [norm[i * MB_BATCH:(i + 1) * MB_BATCH] for i in range(4)]
+    out = {}
+    with deterministic():
+        for shape in (None, MESH_MAIN):
+            mb = MiniBatchKMeans(K, seed=MAIN_SEED, device="cuda", mesh_shape=shape)
+            reset_launches()
+            labels = [mb.partial_fit(b) for b in batches]
+            cat = np.asarray(ref.decision.category_idx)
+            frac = np.bincount(cat[np.asarray(ref.decision.labels)], minlength=4) / len(norm)
+            drift = detect_drift_torch(norm[:len(norm) // 2], ref.decision.centroids, cat,
+                                       frac, 4, mesh_shape=shape)
+            out[shape is None] = (mb.centroids, labels, drift, read_launches()["lloyd"])
+    (c4, l4, d4, n4), (c1, l1, d1, _) = out[False], out[True]
+    agree = agreement(torch.cat(l4).cpu(), torch.cat(l1).cpu())
+    expect(agree == 1.0, f"14a mini-batch labels agree on {agree:.7f}, not all")
+    err = float((c4 - c1).abs().max())
+    expect(err <= MESH_TOL, f"14a mini-batch centroids differ by {err:.3e} > {MESH_TOL}")
+    expect(abs(d4.centroid_shift - d1.centroid_shift) <= 1e-6
+          and np.array_equal(d4.fractions, d1.fractions), f"14a drift {d4} vs {d1}")
+    want = 4 * (len(batches) + 1)
+    expect(n4 == want, f"14a mini-batch + drift made {n4} launches on the mesh, expected {want}")
+    log("mesh minibatch/drift " + json.dumps(
+        {"label_agreement": agree, "centroid_err": err,
+         "drift_shift": [d1.centroid_shift, d4.centroid_shift],
+         "launches": n4}))
+    return n4
+
+
+def mesh_main(cfg, main_result, manifest, events):
+    """14a: ``run_pipeline`` at data = 4 (the main path on the mesh),
+    cold inits at data = 1, 2, 4, stage seconds by shard count and the B3
+    paths; 14b: the model axis.  Returns the launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cdrs_tpu_torch import run_pipeline
+    from cdrs_tpu_torch.device import deterministic
+    from cdrs_tpu_torch.models.replication import ReplicationPolicyModel
+    from cdrs_tpu_torch.ops.kmeans import kmeans_full
+
+    ref = main_result
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_pipeline(dataclasses.replace(cfg, mesh_shape=MESH_MAIN))
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_iter = int(res.summary()["kmeans.n_iter"])
+    log(f"mesh 14a main path at {MESH_MAIN}: wall {wall:.3f} s, launches {launches}")
+    log("mesh 14a stages " + json.dumps(res.summary()))
+    expect(launches["lloyd"] == 4 * (n_iter + 1),
+          f"14a made {launches['lloyd']} Lloyd launches, expected 4 x ({n_iter} + 1)")
+    expect(launches["seg_count"] == 4 * 12,
+          f"14a made {launches['seg_count']} threshold-count launches, expected 4 x 12")
+    expect(torch.equal(res.table.raw, ref.table.raw) and torch.equal(res.table.norm,
+                                                                   ref.table.norm),
+          "14a features differ from one device's")
+    d4, d1 = res.decision, ref.decision
+    agree = agreement(d4.labels, d1.labels)
+    rf_agree = agreement(d4.replication_factor_per_file(cfg.scoring),
+                         d1.replication_factor_per_file(cfg.scoring))
+    err = float(np.abs(d4.centroids - d1.centroids).max())
+    log("mesh 14a decisions " + json.dumps(
+        {"n_iter": [int(ref.summary()["kmeans.n_iter"]), n_iter], "label_agreement": agree,
+         "rf_agreement": rf_agree, "centroid_err": err,
+         "categories": [d1.categories, d4.categories]}))
+    expect(agree >= MESH_AGREE, f"14a labels agree with one device's on {agree:.7f}")
+    expect(err <= MESH_TOL, f"14a centroids differ from one device's by {err:.3e}")
+    expect(rf_agree >= MESH_AGREE, f"14a per-file rf agree on {rf_agree:.7f}")
+    expect(np.array_equal(d4.category_idx, d1.category_idx), "14a categories differ")
+    norm = ref.table.norm
+    inits = {}
+    with deterministic():
+        for nd in MESH_DATA:
+            inits[nd] = kmeans_full(norm, K, seed=MAIN_SEED, max_iter=0, tol=0.0,
+                                    init_method=cfg.kmeans.init_method,
+                                    mesh_shape={"data": nd})[0]
+    expect(all(torch.equal(inits[nd], inits[1]) for nd in MESH_DATA),
+          "14a cold D² inits differ across shard counts")
+    log("mesh 14a cold inits equal at " + json.dumps(list(MESH_DATA)))
+    mesh_label_trace(norm, inits[1], MESH_MAIN)
+    # Stage seconds by shard count, in turns (1, 2, 4, 4, 2, 1) in one call.
+    stages = {}
+    for nd in MESH_DATA + MESH_DATA[::-1]:
+        secs, got = mesh_stage_seconds(cfg, manifest, events, ref, {"data": nd})
+        stages.setdefault(nd, []).append(secs)
+        for key in launches:
+            launches[key] += got[key]
+    log("mesh stage seconds " + json.dumps(stages))
+    rowmajor = mesh_minibatch_drift(norm, ref)
+    # 14b: the model axis, from the same init: no Lloyd-kernel launch.
+    reset_launches()
+    with deterministic():
+        dec = ReplicationPolicyModel(cfg.kmeans, cfg.scoring, mesh_shape=MESH_MODEL).run(
+            norm, init_centroids=inits[1])
+    got = read_launches()
+    expect(got["lloyd"] == 0, f"14b launched the Lloyd kernel {got['lloyd']} times")
+    expect(got["seg_count"] == MESH_MODEL["data"] * 12,
+          f"14b made {got['seg_count']} threshold-count launches")
+    err_b = float(np.abs(dec.centroids - d1.centroids).max())
+    agree_b = agreement(dec.labels, d1.labels)
+    log("mesh 14b " + json.dumps({"mesh": MESH_MODEL, "launches": got, "label_agreement": agree_b,
+                                  "centroid_err": err_b, "categories": dec.categories}))
+    expect(agree_b >= MESH_AGREE, f"14b labels agree with one device's on {agree_b:.7f}")
+    expect(err_b <= MESH_TOL, f"14b centroids differ from one device's by {err_b:.3e}")
+    expect(np.array_equal(dec.category_idx, d1.category_idx), "14b categories differ")
+    mesh_label_trace(norm, inits[1], MESH_MODEL)
+    launches["seg_count"] += got["seg_count"]
+    launches["lloyd_rowmajor"] = rowmajor
+    return launches
+
+
+def mesh_cell():
+    """14c: ``scale-mesh`` on the card against the CPU shards, both from the
+    CPU-computed cold init.  Returns the card's launches."""
+    import cdrs_tpu_torch.control.controller as ctl_mod
+    from cdrs_tpu_torch.scenarios import preset, run_cell
+
+    spec = preset("scale-mesh")
+    ndata = spec.mesh["data"]
+    seen, hooks, restore = model_runs()
+    hooks["init_fn"] = cpu_model_init
+    drift_calls, drift = [], ctl_mod.detect_drift_torch
+
+    def counted_drift(*a, **kw):
+        drift_calls.append(1)
+        return drift(*a, **kw)
+
+    ctl_mod.detect_drift_torch = counted_drift
+    try:
+        reset_launches()
+        card = run_cell(spec, device="cuda")
+        got = read_launches()
+        n_runs, n_drift = list(seen), len(drift_calls)
+        cpu = run_cell(spec, device="cpu")
+    finally:
+        ctl_mod.detect_drift_torch = drift
+        restore()
+    log("mesh 14c " + json.dumps({"cell": spec.name, "ok": card["ok"],
+                                  "invariants": card["invariants"],
+                                  "seconds": card["seconds"], "cpu_seconds": cpu["seconds"],
+                                  "model_runs": len(n_runs), "drift_calls": n_drift,
+                                  "launches": got}))
+    expect(card["ok"] and card["invariants"].get("mesh_engaged"),
+          f"scale-mesh is red on the card: {card['invariants']}")
+    for key in ("invariants", "metrics", "coverage", "fingerprint"):
+        expect(card[key] == cpu[key], f"scale-mesh: {key} differ between the card and the "
+              f"CPU: {card[key]} vs {cpu[key]}")
+    want = ndata * (sum(n + 1 for n in n_runs) + n_drift)
+    expect(got["lloyd"] == want, f"14c made {got['lloyd']} Lloyd launches, expected {want}")
+    expect(got["seg_count"] == ndata * 12 * len(n_runs),
+          f"14c made {got['seg_count']} threshold-count launches")
+    return got
+
+
+def mesh_points(work) -> str:
+    """14d's points, phase 3's feature table, saved for the children."""
+    return os.path.join(work, "mesh_points.npy")
+
+
+def mesh_child(work, backend: str, world: int, rank: int, port: int) -> int:
+    """14d's child: join a ``world``-process group over ``backend`` and run
+    ``kmeans_full`` on 14d's points at ``{"data": 2}`` on the card; the
+    result goes to ``mesh_<backend>_<rank>.npz`` in ``work``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cdrs_tpu_torch.device import deterministic
+    from cdrs_tpu_torch.ops.kmeans import kmeans_full
+    from cdrs_tpu_torch.parallel.distributed import init_distributed
+
+    init_distributed(f"tcp://localhost:{port}", num_processes=world, process_id=rank,
+                     backend=backend, device="cuda")
+    x = torch.from_numpy(np.load(mesh_points(work))).cuda()
+    reset_launches()
+    with deterministic():
+        c, lab, it, shift = kmeans_full(x, K, seed=MAIN_SEED, max_iter=MESH_CHILD_ITERS,
+                                        mesh_shape={"data": 2})
+    np.savez(os.path.join(work, f"mesh_{backend}_{rank}.npz"), centroids=c.cpu().numpy(),
+             labels=lab.cpu().numpy(), it=it, lloyd=read_launches()["lloyd"])
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_mesh_children(work, norm):
+    """14d: NCCL at world size 1 (one rank, both shards) and gloo with two
+    ranks (one shard each), all on card 0; started at once."""
+    import numpy as np
+
+    np.save(mesh_points(work), norm.cpu().numpy())
+    threads = {k: "1" for k in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")}
+    children = []
+    for backend, world in (("nccl", 1), ("gloo", 2)):
+        port = free_port()
+        for rank in range(world):
+            child_log = os.path.join(work, f"mesh_{backend}_{rank}.log")
+            with open(child_log, "w") as out:
+                child = subprocess.Popen(
+                    [sys.executable, "-c",
+                     f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+                     f"sys.exit(chip_smoke.mesh_child({work!r}, {backend!r}, {world}, "
+                     f"{rank}, {port}))"],
+                    cwd=work, env=dict(os.environ, PYTHONPATH=ROOT, **threads), stdout=out,
+                    stderr=subprocess.STDOUT, start_new_session=True)
+            children.append((backend, rank, child, child_log))
+    return children, time.perf_counter()
+
+
+def join_mesh_children(children, t_start, work, norm):
+    """Wait for 14d's children and hold each against the in-process
+    ``{"data": 2}`` mesh: centroids and labels bit for bit."""
+    import numpy as np
+    import torch
+
+    from cdrs_tpu_torch.device import deterministic
+    from cdrs_tpu_torch.ops.kmeans import kmeans_full
+
+    for backend, rank, child, child_log in children:
+        try:
+            rc = child.wait(timeout=MESH_CHILD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            stop_child(child)
+            rc = "timeout"
+        with open(child_log) as f:
+            text = f.read()
+        expect(rc == 0, f"14d {backend} rank {rank} exited {rc}: {text[-3000:]}")
+    log(f"phase 14d: children done {time.perf_counter() - t_start:.1f} s after their start")
+    with deterministic():
+        c, lab, it, _ = kmeans_full(norm, K, seed=MAIN_SEED, max_iter=MESH_CHILD_ITERS,
+                                    mesh_shape={"data": 2})
+    c, lab = c.cpu().numpy(), lab.cpu().numpy()
+    out = {}
+    for backend, rank, _, _ in children:
+        got = np.load(os.path.join(work, f"mesh_{backend}_{rank}.npz"))
+        same = (np.array_equal(got["centroids"], c) and np.array_equal(got["labels"], lab)
+                and int(got["it"]) == it)
+        expect(same, f"14d {backend} rank {rank} differs from the in-process data = 2 mesh")
+        out[f"{backend}_{rank}"] = {"iterations": int(got["it"]), "lloyd": int(got["lloyd"])}
+    log("mesh 14d " + json.dumps(out))
+    expect(torch.isfinite(torch.from_numpy(c)).all().item(), "14d centroids not finite")
+
+
+def mesh_alone(work):
+    """``--phase 14``: phase 3's pipeline on one device and phase 5's
+    workload made anew, then phase 14."""
+    from cdrs_tpu_torch import run_pipeline
+    from cdrs_tpu_torch.sim.access import simulate_access
+    from cdrs_tpu_torch.sim.generator import generate_population
+
+    cfg = main_config()
+    main_result = run_pipeline(cfg)
+    manifest = generate_population(cfg.generator)
+    events = simulate_access(manifest, cfg.simulator)
+    return phase_mesh(cfg, main_result, manifest, events, work)
+
+
+def phase_mesh(cfg, main_result, manifest, events, work):
+    """Phase 14: 14a and 14b (``mesh_main``), 14c (``mesh_cell``) with 14d's
+    children running beside it.  Returns the launches of 14a-c."""
+    t0 = time.perf_counter()
+    launches = mesh_main(cfg, main_result, manifest, events)
+    log(f"phase 14a/14b: {time.perf_counter() - t0:.1f} s")
+    children, t_children = start_mesh_children(work, main_result.table.norm)
+    try:
+        t0 = time.perf_counter()
+        cell = mesh_cell()
+        log(f"phase 14c: {time.perf_counter() - t0:.1f} s")
+        join_mesh_children(children, t_children, work, main_result.table.norm)
+    finally:
+        for child in children:
+            stop_child(child[2])
+    for key in ("lloyd", "seg_count"):
+        launches[key] += cell[key]
+    check(not MESH_FAILED, f"phase 14 failed {len(MESH_FAILED)} checks: {MESH_FAILED}")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
                         help="build and check the kernels only; prints no ok line")
-    parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12, 13), default=None,
+    parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12, 13, 14), default=None,
                         help="build and check the kernels, then run this phase alone; prints "
                              "no ok line")
     args = parser.parse_args()
@@ -3182,6 +3594,8 @@ def main() -> int:
                 log(f"phase 12 launches {placement}")
             elif args.phase == 13:
                 log(f"phase 13 launches {phase_batch(*main_workload(work), work)}")
+            elif args.phase == 14:
+                log(f"phase 14 launches {mesh_alone(work)}")
             else:
                 from cdrs_tpu_torch import GeneratorConfig
                 from cdrs_tpu_torch.sim.generator import generate_population
@@ -3216,6 +3630,9 @@ def main() -> int:
         t0 = time.perf_counter()
         chaos_launches = phase_chaos(manifest, events)
         log(f"phase 8 (chaos): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mesh_launches = phase_mesh(cfg, main_result, manifest, events, work)
+        log(f"phase 14 (mesh): {time.perf_counter() - t0:.1f} s")
         del events
         t0 = time.perf_counter()
         scenario_launches = phase_scenarios()
@@ -3252,7 +3669,8 @@ def main() -> int:
          "serve_launches": serve_launches["lloyd"],
          "storage_launches": storage_launches["lloyd"],
          "placement_launches": placement["launches"]["lloyd"],
-         "batch_launches": batch_launches["lloyd"], **rows["lloyd"], "library_ms": None},
+         "batch_launches": batch_launches["lloyd"], "mesh_launches": mesh_launches["lloyd"],
+         **rows["lloyd"], "library_ms": None},
         {"name": "label_threshold_count", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/seg_count.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:534",
@@ -3264,7 +3682,8 @@ def main() -> int:
          "serve_launches": serve_launches["seg_count"],
          "storage_launches": storage_launches["seg_count"],
          "placement_launches": placement["launches"]["seg_count"],
-         "batch_launches": batch_launches["seg_count"], **rows["seg_count"],
+         "batch_launches": batch_launches["seg_count"],
+         "mesh_launches": mesh_launches["seg_count"], **rows["seg_count"],
          "library_ms": None},
         {"name": "lloyd_assign_reduce (row-major, labels)", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
@@ -3272,7 +3691,8 @@ def main() -> int:
          "launches": stream_launches, "control_launches": 0,
          "daemon_launches": daemon_launches["lloyd_rowmajor"], "chaos_launches": 0,
          "scenario_launches": 0, "serve_launches": 0, "storage_launches": 0,
-         "placement_launches": 0, "batch_launches": 0, **rows["lloyd_rowmajor"],
+         "placement_launches": 0, "batch_launches": 0,
+         "mesh_launches": mesh_launches["lloyd_rowmajor"], **rows["lloyd_rowmajor"],
          "library_ms": None},
     ]
     for row in kernels:

@@ -277,7 +277,7 @@ def test_budgets_are_respected(workload):
 
 
 @pytest.mark.parametrize("option,value,match", [
-    ("mesh_shape", {"data": 4}, "A9"), ("mesh_shape", {"data": 2}, "A9"),
+    ("mesh_shape", {"rows": 4}, "unknown mesh axis"), ("mesh_shape", {"data": 0}, ">= 1"),
     ("decay", 0.0, "decay"), ("decay", 1.5, "decay"),
     ("window_seconds", 0.0, "window_seconds"),
 ])
@@ -286,21 +286,26 @@ def test_unported_options_raise(option, value, match):
         _cfg(**{option: value})
 
 
-@pytest.mark.parametrize("option", ["materialized_hash", "elastic", "functional"])
+@pytest.mark.parametrize("option", ["materialized_hash", "elastic", "functional",
+                                    "mesh_shape"])
 def test_placement_and_elastic_options_are_accepted_and_run(option, workload):
     """The hash placement modes and elasticity (ROADMAP A8f) build and run,
-    each record stamped with its placement mode."""
+    each record stamped with its placement mode; so does a mesh (ROADMAP
+    A9), each record stamped with its shard count."""
     from cdrs_tpu_torch.control.elastic import ElasticPolicy
     from cdrs_tpu_torch.serve import ServeConfig
 
     manifest, events = workload
     kw = {"placement_mode": option}
+    if option == "mesh_shape":
+        kw = {"placement_mode": "materialized_hash", "mesh_shape": {"data": 4}}
     if option == "elastic":
         kw = {"placement_mode": "functional", "serve": ServeConfig(),
               "elastic": ElasticPolicy(pool=("sb1",))}
     res = ReplicationController(manifest, _cfg(**kw)).run(events, max_windows=2)
     assert len(res.records) == 2
     assert all(r["placement"]["mode"] == kw["placement_mode"] for r in res.records)
+    assert all(("mesh" in r) == (option == "mesh_shape") for r in res.records)
     if option == "elastic":
         assert all("elastic" in r and "durability" in r for r in res.records)
 

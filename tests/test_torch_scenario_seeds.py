@@ -13,7 +13,7 @@ import pytest
 
 pytest.importorskip("torch")
 
-from cdrs_tpu_torch.scenarios import run_cell, suite_cells, unported_axes  # noqa: E402
+from cdrs_tpu_torch.scenarios import run_cell, suite_cells  # noqa: E402
 
 #: (suite seed, cell) pairs that the protocol of ROADMAP Queue C records.
 QUEUE_C = {(2, "rack-kill"): "ROADMAP Queue C2: repair_backlog fires for 2 windows, not 3, "
@@ -25,8 +25,6 @@ QUEUE_C = {(2, "rack-kill"): "ROADMAP Queue C2: repair_backlog fires for 2 windo
 def _cases():
     for seed in (1, 2):
         for spec in suite_cells("full", seed):
-            if unported_axes(spec):
-                continue
             marks = ([pytest.mark.xfail(strict=True, reason=QUEUE_C[(seed, spec.name)])]
                      if (seed, spec.name) in QUEUE_C else [])
             yield pytest.param(seed, spec.name, marks=marks, id=f"s{seed}-{spec.name}")

@@ -1,9 +1,9 @@
 """The port's scenario matrix (``cdrs_tpu_torch.scenarios``) on the CPU: the
 cases of the reference's ``tests/test_scenarios.py`` that need no serving,
 mesh or functional placement, plus the port's own contracts —
-the suites equal the reference's spec for spec, cells with an unported
-axis are refused before anything runs (naming the ROADMAP item), and the
-workload curves are bit-identical to the reference's."""
+the suites equal the reference's spec for spec, every axis runs (the mesh
+since ROADMAP A9), and the workload curves are bit-identical to the
+reference's."""
 
 import json
 from pathlib import Path
@@ -15,6 +15,7 @@ pytest.importorskip("torch")
 
 import cdrs_tpu.config as jcfg  # noqa: E402
 from cdrs_tpu.scenarios import presets as ref_presets  # noqa: E402
+from cdrs_tpu.scenarios import sweep as ref_sweep  # noqa: E402
 from cdrs_tpu.scenarios.spec import ScenarioSpec as RefSpec  # noqa: E402
 from cdrs_tpu.sim import access as ref_access  # noqa: E402
 from cdrs_tpu.sim.generator import generate_population as ref_generate  # noqa: E402
@@ -23,7 +24,7 @@ from cdrs_tpu_torch import cli as port_cli  # noqa: E402
 from cdrs_tpu_torch.config import GeneratorConfig, SimulatorConfig  # noqa: E402
 from cdrs_tpu_torch.faults import FaultSchedule  # noqa: E402
 from cdrs_tpu_torch.scenarios import (PRESETS, ScenarioSpec, preset,  # noqa: E402
-                                      random_cell, run_cell, suite_cells, unported_axes)
+                                      random_cell, run_cell, suite_cells)
 from cdrs_tpu_torch.scenarios.harness import (_controller, build_events,  # noqa: E402
                                               build_schedule, repro_line)
 from cdrs_tpu_torch.scenarios.sweep import run_cells  # noqa: E402
@@ -110,21 +111,16 @@ def test_suite_cells_equal_the_reference(suite, seed):
 # -- unported axes ------------------------------------------------------------------
 
 @pytest.mark.parametrize("axis,kw,item", [
-    ("mesh", {"storage": "ec_archival", "mesh": {"data": 2}, "backend": "jax"}, "A9"),
+    ("mesh", {"storage": "replicate", "mesh": {"data": 2}, "backend": "jax"}, "A9"),
     ("mesh", {"mesh": {"data": 2}, "backend": "jax"}, "A9"),
 ])
-def test_unported_axis_is_refused_before_anything_runs(axis, kw, item, monkeypatch):
-    import cdrs_tpu_torch.scenarios.harness as harness
-
-    def built(*a, **k):
-        raise AssertionError("the cell was built")
-
-    monkeypatch.setattr(harness, "generate_population", built)
+def test_unported_axis_is_refused_before_anything_runs(axis, kw, item):
+    """Named for the refusal these mesh cells met until ROADMAP A9 landed:
+    they now run, on a mesh of shards, and the mesh engages."""
     spec = _tiny(name=f"needs-{axis}", **kw)
-    assert axis in [a for a, _, _ in unported_axes(spec)]
-    assert "storage" not in [a for a, _, _ in unported_axes(spec)]
-    with pytest.raises(ValueError, match=f"{axis}.*ROADMAP {item}|ROADMAP {item}"):
-        _run(spec)
+    cell = _run(spec)
+    assert cell["invariants"]["mesh_engaged"]
+    assert cell["ok"], cell["invariants"]
 
 
 @pytest.mark.parametrize("axis,kw", [
@@ -137,7 +133,6 @@ def test_placement_and_elastic_axes_run(axis, kw):
     """The placement and elastic axes (ROADMAP A8f) are ported: the cell runs
     and its placement stamp engages."""
     spec = _tiny(name=f"runs-{axis}", **kw)
-    assert unported_axes(spec) == []
     cell = _run(spec)
     assert cell["invariants"]["functional_engaged"]
     assert ("elastic_engaged" in cell["invariants"]) == (axis == "elastic")
@@ -151,16 +146,18 @@ def test_sweep_lists_unported_cells_and_runs_the_rest():
              _tiny(name="s5", mesh={"data": 2}, backend="jax")]
     lines = []
     out = run_cells(cells, device="cpu", progress=lines.append)
-    assert out["ok"] and out["n_cells"] == 4 and out["n_failed"] == 0
-    assert [c["cell"] for c in out["cells"]] == ["s1", "s2", "s3", "s4"]
+    assert out["ok"] and out["n_cells"] == 5 and out["n_failed"] == 0
+    assert [c["cell"] for c in out["cells"]] == ["s1", "s2", "s3", "s4", "s5"]
     assert out["cells"][3]["invariants"]["functional_engaged"]
-    assert out["n_not_ported"] == 1
-    assert out["not_ported"] == [{"cell": "s5", "item": "A9", "axes": ["mesh (A9)"]}]
+    assert out["cells"][4]["invariants"]["mesh_engaged"]
+    # The reference's artifact, key for key (no list of cells left out).
+    want = ref_sweep.run_cells([], suite=None)
+    assert set(out) == set(want)
     assert out["invariants_checked"] == sum(len(c["invariants"]) for c in out["cells"])
     assert {r["metric"] for r in out["bench_records"]} == \
         {"scenario_s1_churn_bytes", "scenario_s2_churn_bytes", "scenario_s3_churn_bytes",
-         "scenario_s3_p99_ms", "scenario_s4_churn_bytes"}
-    assert sum("[skip]" in line for line in lines) == 1
+         "scenario_s3_p99_ms", "scenario_s4_churn_bytes", "scenario_s5_churn_bytes"}
+    assert len(lines) == 5 and all(line.startswith("  [ok  ]") for line in lines)
 
 
 # -- fault templates ----------------------------------------------------------------
@@ -235,8 +232,6 @@ def test_presets_build_their_inputs():
     """Every preset whose axes are ported builds its manifest, events,
     schedule and controller at a small size."""
     for name, spec in PRESETS.items():
-        if unported_axes(spec):
-            continue
         small = spec.replace(n_files=min(spec.n_files, 60), k=4)
         manifest = generate_population(GeneratorConfig(n_files=small.n_files, seed=small.seed,
                                                        nodes=small.nodes))
@@ -283,10 +278,9 @@ def test_cli_scenarios_list(capsys):
     assert "control-shift" in out and "ci-smoke" in out
     assert all(name in out for name in PRESETS)
     lines = {ln.split()[0]: ln for ln in out.splitlines() if ln.startswith("  ")}
-    assert "waits for" not in lines["black-friday"] and "waits for A9" in lines["scale-mesh"]
+    assert "mesh" in lines["scale-mesh"] and "mesh" not in lines["black-friday"]
     assert "elastic" in lines["black-friday"] and "placement=functional" in lines["region-loss"]
-    assert "waits for" not in lines["chaos-kill"] and "waits for" not in lines["serve-chaos"]
-    assert "waits for" not in lines["storage-ec"] and "storage=ec_archival" in lines["storage-ec"]
+    assert "faults" in lines["chaos-kill"] and "storage=ec_archival" in lines["storage-ec"]
     assert "serve=p2c" in lines["serve-chaos"]
 
 
@@ -302,11 +296,11 @@ def test_cli_scenarios_run_spec_and_errors(tmp_path, capsys):
     assert port_cli.main(["scenarios", "run", "--preset", "cascade", "--seed", "1",
                           "--device", "cpu"]) == 2
     capsys.readouterr()
-    # An unported preset exits non-zero before anything runs, naming its item.
+    # The mesh preset, refused until ROADMAP A9 landed, runs green.
     assert port_cli.main(["scenarios", "run", "--preset", "scale-mesh", "--device",
-                          "cpu"]) == 2
-    captured = capsys.readouterr()
-    assert "A9" in captured.err and captured.out == ""
+                          "cpu"]) == 0
+    cell = json.loads(capsys.readouterr().out)
+    assert cell["cell"] == "scale-mesh" and cell["ok"] and cell["invariants"]["mesh_engaged"]
     # search and triage run on a tiny budget over a temporary corpus.
     corpus = tmp_path / "corpus"
     (corpus / "violations").mkdir(parents=True)
@@ -354,12 +348,12 @@ def test_cli_scenarios_sweep_extra_cells(tmp_path, capsys):
     assert rc == 0 and digest["ok"] and digest["n_failed"] == 0
     art = json.loads(out_path.read_text())
     ran = [c["cell"] for c in art["cells"]]
-    assert ran[-2:] == ["corpus-a", "corpus-b"] and digest["n_cells"] == len(ran) == 23
+    assert ran[-2:] == ["corpus-a", "corpus-b"] and digest["n_cells"] == len(ran) == 24
     assert {"storage-ec", "scale-placement", "region-loss", "wan-partition",
-            "black-friday"} <= set(ran)
-    assert digest["n_not_ported"] == 1
-    assert art["not_ported"] == [{"cell": "scale-mesh", "item": "A9", "axes": ["mesh (A9)"]}]
-    assert captured.err.count("[skip]") == 1
+            "black-friday", "scale-mesh"} <= set(ran)
+    assert set(digest) == {"suite", "seed", "n_cells", "n_failed", "invariants_checked",
+                           "ok", "seconds"}
+    assert captured.err.count("[ok  ]") == len(ran) and "[FAIL]" not in captured.err
     events = [json.loads(line) for line in metrics.read_text().splitlines()]
     assert [e["cell"] for e in events if e.get("kind") == "cell"] == ran
 
