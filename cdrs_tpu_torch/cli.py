@@ -36,15 +36,24 @@
   gated on invariants (a failing cell prints its repro line);
   ``scenarios search`` grows the matrix by coverage-guided mutation and
   banks new cells and shrunk violations in a corpus, and ``scenarios
-  triage`` reruns the banked violations as regression-locked cells.
+  triage`` reruns the banked violations as regression-locked cells;
+* ``metrics summarize|tail|export|report|watch|alerts`` reads a telemetry
+  stream (``obs/metrics_cli.py``), ``trace list|show|export`` the daemon's
+  decision traces (``obs/trace.py``), and ``status HOST:PORT`` a live
+  daemon's ``/statusz`` with its probes.
 
 The flags are those of ``cdrs_tpu``'s subcommands of the same names that
 this port supports, plus ``--device`` (CUDA unless "cpu" is asked for).
 ``--mesh`` ('8' or 'data=4,model=2') runs ``features``, ``cluster``,
 ``pipeline``, ``stream`` and the controller family on a mesh of shards
-(``parallel/mesh.py``).  Flags of theirs that belong to modules not ported
-yet (``--metrics``, ``--profile``) are refused with exit code 2 and the
-ROADMAP item.
+(``parallel/mesh.py``).  ``--metrics FILE`` on ``cluster``, ``pipeline``,
+``stream``, ``control``, ``daemon``, ``chaos`` and ``serve`` activates the
+ambient instrument (``obs/``) over one JSONL stream with one root span per
+command: stage spans, counters, histograms, the kmeans convergence
+traces, the kernels' calls and costs, and the window records of the
+controller family (``--metrics_max_bytes`` rotates it,
+``--device_memory`` adds the card's memory gauges at every span's end).
+``pipeline --profile DIR`` writes a ``torch.profiler`` Chrome trace.
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ import time
 
 from .config import (GeneratorConfig, KMeansConfig, PipelineConfig, ScoringConfig,
                      SimulatorConfig, load_scoring_config, validated_scoring_config)
+from .utils.logging import StageTimer
 
 __all__ = ["main", "build_parser"]
 
@@ -76,23 +86,20 @@ def _load_scoring(args) -> ScoringConfig:
     return ScoringConfig(compute_global_medians_from_data=medians_from_data)
 
 
-#: Flags of the reference's batch commands whose modules are not ported
-#: yet: (attribute, flag, what it brings, ROADMAP item).
-_UNPORTED_FLAGS = (
-    ("metrics", "--metrics", "the telemetry stream", "A10b"),
-    ("profile", "--profile", "the profiler trace", "A10b"),
-)
+def _open_telemetry(args, stack, root_span: str):
+    """Activate a ``Telemetry`` over the ``--metrics`` JSONL sink (None
+    without the flag), with one root span ``root_span`` for the command,
+    both owned by the ``contextlib.ExitStack`` ``stack``."""
+    path = getattr(args, "metrics", None)
+    if not path:
+        return None
+    from .obs import JsonlSink, Telemetry
 
-
-def _refuse_unported(args) -> int | None:
-    """2, with an error naming the ROADMAP item, when a flag of
-    ``_UNPORTED_FLAGS`` was given; None otherwise."""
-    for attr, flag, what, item in _UNPORTED_FLAGS:
-        if getattr(args, attr, None) is not None:
-            print(f"error: {flag} ({what}) is not ported yet (ROADMAP {item})",
-                  file=sys.stderr)
-            return 2
-    return None
+    tel = Telemetry(JsonlSink(path, max_bytes=args.metrics_max_bytes),
+                    device_memory=args.device_memory)
+    stack.enter_context(tel)
+    stack.enter_context(tel.span(root_span, device=getattr(args, "device", None)))
+    return tel
 
 
 def _parse_mesh(spec: str) -> dict[str, int]:
@@ -112,10 +119,8 @@ def _parse_mesh(spec: str) -> dict[str, int]:
 
 def _cmd_pipeline(args) -> int:
     from .pipeline import run_pipeline
+    from .utils.profiling import trace_region
 
-    refused = _refuse_unported(args)
-    if refused is not None:
-        return refused
     cfg = PipelineConfig(
         device=args.device,
         dtype="float64" if args.dtype == "float64" else "float32",
@@ -128,7 +133,10 @@ def _cmd_pipeline(args) -> int:
         evaluate=args.evaluate,
         mesh_shape=args.mesh,
     )
-    result = run_pipeline(cfg, outdir=args.outdir)
+    with contextlib.ExitStack() as stack:
+        _open_telemetry(args, stack, "pipeline")
+        with trace_region(args.profile):
+            result = run_pipeline(cfg, outdir=args.outdir)
     print(json.dumps(result.summary(), indent=2))
     return 0
 
@@ -203,26 +211,25 @@ def _cmd_cluster(args) -> int:
     from .io.features import load_feature_matrix
     from .models.replication import ReplicationPolicyModel
 
-    refused = _refuse_unported(args)
-    if refused is not None:
-        return refused
     dev = resolve_device(args.device)
     model = ReplicationPolicyModel(
         kmeans_cfg=KMeansConfig(k=args.k, seed=args.seed, init_method=args.init_method,
                                 dtype=args.dtype),
         scoring_cfg=_load_scoring(args), mesh_shape=args.mesh)
-    t0 = time.perf_counter()
-    X, paths = load_feature_matrix(args.input_path)
-    # The features' float32 table, as the pipeline hands it to clustering;
-    # float64 keeps the CSV's values unrounded.
-    dtype = torch.float64 if args.dtype == "float64" else torch.float32
-    with deterministic():
-        decision = model.run(torch.as_tensor(X, dtype=dtype).to(dev))
-    decision.write_csv(args.output_csv)
-    if args.assignments_csv:
-        decision.write_assignments_csv(args.assignments_csv, paths)
+    with contextlib.ExitStack() as stack:
+        _open_telemetry(args, stack, "cluster_cmd")
+        with StageTimer("cluster") as t:
+            X, paths = load_feature_matrix(args.input_path)
+            # The features' float32 table, as the pipeline hands it to
+            # clustering; float64 keeps the CSV's values unrounded.
+            dtype = torch.float64 if args.dtype == "float64" else torch.float32
+            with deterministic():
+                decision = model.run(torch.as_tensor(X, dtype=dtype).to(dev))
+            decision.write_csv(args.output_csv)
+            if args.assignments_csv:
+                decision.write_assignments_csv(args.assignments_csv, paths)
     print(f"Cluster centroid assignments ({args.k} clusters) saved to: "
-          f"{args.output_csv} in {time.perf_counter() - t0:.2f}s")
+          f"{args.output_csv} in {t.elapsed:.2f}s")
     return 0
 
 
@@ -284,18 +291,25 @@ def _cmd_stream(args) -> int:
                                 init_method=args.init_method),
         scoring_cfg=_load_scoring(args), mesh_shape=mesh_shape)
     stats: dict = {}
-    with deterministic():
-        t0 = time.perf_counter()
-        manifest = Manifest.read_csv(args.manifest)
-        state = fold_stream(args.access_log, manifest, device=args.device,
-                            batch_size=args.batch_size, stats=stats,
-                            checkpoint_path=args.checkpoint,
-                            checkpoint_every=args.checkpoint_every, mesh_shape=mesh_shape)
-        table = stream_finalize(state, manifest)
+    with contextlib.ExitStack() as stack, deterministic():
+        tel = _open_telemetry(args, stack, "stream_cmd")
+        with StageTimer("stream") as t:
+            manifest = Manifest.read_csv(args.manifest)
+            state = fold_stream(args.access_log, manifest, device=args.device,
+                                batch_size=args.batch_size, stats=stats,
+                                checkpoint_path=args.checkpoint,
+                                checkpoint_every=args.checkpoint_every, mesh_shape=mesh_shape)
+            table = stream_finalize(state, manifest)
         if args.checkpoint and stats["resumed_from_offset"]:
             print(f"Resumed from checkpoint at byte {stats['resumed_from_offset']}")
         print(f"Streamed {state.n_events} events in {stats['batches']} batches "
-              f"({time.perf_counter() - t0:.2f}s)")
+              f"({t.elapsed:.2f}s)")
+        if tel is not None:
+            # Ingest rate, the stream path's headline number.
+            if t.elapsed > 0:
+                tel.gauge("stream.events_per_sec", state.n_events / t.elapsed)
+            tel.counter_inc("stream.events", int(state.n_events))
+            tel.counter_inc("stream.batches", int(stats["batches"]))
         t0 = time.perf_counter()
         decision = model.run(table.norm)
         decision.write_csv(args.output_csv)
@@ -342,22 +356,26 @@ def _controller_cfg(args, fault_schedule=None, topology=None):
         mesh_shape=args.mesh)
 
 
-def _cmd_control(args, manifest=None, cfg=None) -> int:
+def _cmd_control(args, manifest=None, cfg=None, root_span: str = "control_cmd") -> int:
     """Online replication controller: the log as time windows, drift-gated
     re-clusters, bounded-churn migrations (control/controller.py); ``chaos``
-    passes its manifest and fault-path config."""
+    passes its manifest, fault-path config and root span."""
     from .control.controller import ReplicationController
     from .io.events import Manifest
 
     if manifest is None:
         manifest = Manifest.read_csv(args.manifest)
     controller = ReplicationController(manifest, cfg or _controller_cfg(args))
-    t0 = time.perf_counter()
-    result = controller.run(args.access_log, metrics_path=args.metrics,
-                            checkpoint_path=args.checkpoint,
-                            checkpoint_every=args.checkpoint_every,
-                            max_windows=args.max_windows, batch_size=args.batch_size)
-    elapsed = time.perf_counter() - t0
+    with contextlib.ExitStack() as stack:
+        # One stream: the window records ride the instrument's sink.
+        _open_telemetry(args, stack, root_span)
+        with StageTimer(root_span) as t:
+            result = controller.run(args.access_log, metrics_path=args.metrics,
+                                    metrics_max_bytes=args.metrics_max_bytes,
+                                    checkpoint_path=args.checkpoint,
+                                    checkpoint_every=args.checkpoint_every,
+                                    max_windows=args.max_windows, batch_size=args.batch_size)
+    elapsed = t.elapsed
     if args.plan_out:
         from .cluster.plan import write_plan_csv
 
@@ -425,7 +443,8 @@ def _cmd_chaos(args) -> int:
             json.dump(schedule.to_json(), f, indent=2)
             f.write("\n")
         print(f"schedule: {len(schedule)} events -> {args.schedule_out}", file=sys.stderr)
-    return _cmd_control(args, manifest, _controller_cfg(args, schedule, topology))
+    return _cmd_control(args, manifest, _controller_cfg(args, schedule, topology),
+                        "chaos_cmd")
 
 
 def _read_assignments(manifest, path, categories):
@@ -540,8 +559,8 @@ def _cmd_serve(args) -> int:
     from .faults import ClusterState, FaultSchedule
     from .io.events import Manifest
     from .obs.aggregate import serve_digest
-    from .obs.sink import JsonlSink
-    from .serve import HotspotDetector, ReadRouter, ServeConfig, SloSpec, read_view
+    from .serve import (HotspotDetector, ReadRouter, ServeConfig, SloSpec,
+                        emit_window_telemetry, read_view)
 
     manifest = Manifest.read_csv(args.manifest)
     topology = ClusterTopology(nodes=tuple(manifest.nodes))
@@ -581,9 +600,10 @@ def _cmd_serve(args) -> int:
                               min_reads=serve_cfg.hotspot_min_reads,
                               top_k=serve_cfg.hotspot_top_k)
     records: list[dict] = []
-    sink = JsonlSink(args.metrics) if args.metrics else None
-    t0 = time.perf_counter()
-    try:
+    with contextlib.ExitStack() as stack:
+        # The window records ride the instrument's stream ("kind": "window").
+        tel = _open_telemetry(args, stack, "serve_cmd")
+        t = stack.enter_context(StageTimer("serve"))
         for w, ev in iter_windows(args.access_log, manifest, args.window_seconds,
                                   batch_size=args.batch_size):
             if args.max_windows is not None and len(records) >= args.max_windows:
@@ -614,19 +634,66 @@ def _cmd_serve(args) -> int:
                 rec.update(res.record_fields())
                 rec["hotspot_score"] = round(hs.score, 6)
                 rec["hotspot_files"] = list(hs.files)
+                if tel is not None:
+                    emit_window_telemetry(tel, rec, res.latency_ms)
             records.append(rec)
-            if sink is not None:
-                sink.emit({"kind": "window", **rec})
-    finally:
-        if sink is not None:
-            sink.close()
-    elapsed = time.perf_counter() - t0
+            if tel is not None:
+                tel._emit({"kind": "window", **rec})
+    elapsed = t.elapsed
     out = serve_digest(records) or {"windows": len(records), "reads_routed": 0}
     out["policy"] = args.policy
     out["seconds"] = round(elapsed, 3)
     if out.get("reads_routed"):
         out["routed_reads_per_sec"] = round(out["reads_routed"] / max(elapsed, 1e-9), 1)
     print(json.dumps(out, indent=2))
+    return 0
+
+
+def _cmd_metrics(args) -> int:
+    """Inspect a telemetry JSONL stream (obs/metrics_cli.py)."""
+    from .obs.metrics_cli import main as metrics_main
+
+    return metrics_main(args.rest)
+
+
+def _cmd_trace(args) -> int:
+    """The daemon's decision traces (obs/trace.py): list slowest first,
+    show one span tree, export Chrome/Perfetto JSON."""
+    from .obs.trace import main as trace_main
+
+    return trace_main(args.rest)
+
+
+def _cmd_status(args) -> int:
+    """One-shot reader of a live daemon's /statusz (obs/httpz.py) with the
+    /readyz and /healthz verdicts; exit 1 when it is unreachable."""
+    import urllib.error
+    import urllib.request
+
+    from .obs.metrics_cli import base_url, fetch_statusz, statusz_lines
+
+    base = base_url(args.url)
+    try:
+        doc = fetch_statusz(base)
+    except (OSError, ValueError) as e:
+        print(f"error: {base} unreachable: {e}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(doc, sort_keys=True, indent=1))
+        return 0
+    for line in statusz_lines(base, doc):
+        print(line)
+    for probe in ("/readyz", "/healthz"):
+        try:
+            with urllib.request.urlopen(base + probe, timeout=5) as r:
+                body = r.read().decode("utf-8").strip()
+                code = r.status
+        except urllib.error.HTTPError as e:
+            body = e.read().decode("utf-8").strip()
+            code = e.code
+        except OSError as e:
+            body, code = str(e), None
+        print(f"{probe}:  {code} {body}")
     return 0
 
 
@@ -688,11 +755,12 @@ def _cmd_daemon(args) -> int:
             # The bound address (port 0 binds an ephemeral one).
             print(f"http: serving /metrics /healthz /readyz /statusz /debug/trace on "
                   f"{server.url}", file=sys.stderr)
-        t0 = time.perf_counter()
-        digest = daemon.run(args.access_log, metrics_path=args.metrics,
-                            metrics_max_bytes=args.metrics_max_bytes,
-                            checkpoint_path=args.checkpoint)
-        elapsed = time.perf_counter() - t0
+        _open_telemetry(args, stack, "daemon_cmd")
+        with StageTimer("daemon_cmd") as t:
+            digest = daemon.run(args.access_log, metrics_path=args.metrics,
+                                metrics_max_bytes=args.metrics_max_bytes,
+                                checkpoint_path=args.checkpoint)
+    elapsed = t.elapsed
     if args.plan_out:
         from .cluster.plan import write_plan_csv
         from .control.controller import ControllerResult
@@ -939,13 +1007,18 @@ def _add_mesh_arg(p: argparse.ArgumentParser) -> None:
                         "s mod the card count; the CPU with --device cpu)")
 
 
-def _add_unported_args(p: argparse.ArgumentParser, *flags: str) -> None:
-    """The reference's flags whose modules are not ported yet: accepted by
-    the parser, refused by the command (``_refuse_unported``)."""
-    for attr, flag, what, item in _UNPORTED_FLAGS:
-        if flag in flags:
-            p.add_argument(flag, default=None, metavar="ARG",
-                           help=f"{what}: not ported yet (ROADMAP {item}); refused")
+def _add_metrics_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--metrics", default=None, metavar="JSONL",
+                   help="emit telemetry here (spans, counters, kmeans convergence traces, "
+                        "kernel calls and costs, window records); read it with "
+                        "'metrics summarize'")
+    p.add_argument("--metrics_max_bytes", type=int, default=None, metavar="BYTES",
+                   help="with --metrics: rotate the stream past this size (.1/.2 "
+                        "suffixes, larger = older); readers see the rotated set as one "
+                        "stream")
+    p.add_argument("--device_memory", action="store_true",
+                   help="with --metrics: torch.cuda.memory_stats gauges at every span's "
+                        "end (nothing on the CPU)")
 
 
 def _add_control_args(p: argparse.ArgumentParser) -> None:
@@ -975,8 +1048,7 @@ def _add_control_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--default_rf", type=int, default=1)
     p.add_argument("--batch_size", type=int, default=1_000_000,
                    help="events per log read batch (windows re-slice it)")
-    p.add_argument("--metrics", default=None, metavar="JSONL",
-                   help="append one JSON line per window record here")
+    _add_metrics_arg(p)
     p.add_argument("--plan_out", default=None, metavar="CSV",
                    help="write the final applied plan (path,category,rf)")
     p.add_argument("--checkpoint", default=None, metavar="NPZ",
@@ -1044,7 +1116,10 @@ def build_parser() -> argparse.ArgumentParser:
     _add_dtype_arg(p)
     _add_device_arg(p)
     _add_mesh_arg(p)
-    _add_unported_args(p, "--metrics", "--profile")
+    _add_metrics_arg(p)
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace (CPU and CUDA activity) "
+                        "into DIR/trace.json")
     p.set_defaults(fn=_cmd_pipeline)
 
     p = sub.add_parser("gen", help="generate a synthetic file population")
@@ -1096,7 +1171,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_dtype_arg(p)
     _add_device_arg(p)
     _add_mesh_arg(p)
-    _add_unported_args(p, "--metrics")
+    _add_metrics_arg(p)
     p.set_defaults(fn=_cmd_cluster)
 
     p = sub.add_parser("evaluate", help="apply replication factors on the simulated "
@@ -1137,6 +1212,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_init_method_arg(p)
     _add_device_arg(p)
     _add_mesh_arg(p)
+    _add_metrics_arg(p)
     p.set_defaults(fn=_cmd_stream)
 
     p = sub.add_parser("control", help="online replication controller: windowed drift "
@@ -1159,8 +1235,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'minibatch' also advances a mini-batch Lloyd step per window on "
                         "the device (live centroids and inertia; decisions unchanged)")
     p.add_argument("--minibatch_rows", type=int, default=2048, metavar="ROWS")
-    p.add_argument("--metrics_max_bytes", type=int, default=None, metavar="BYTES",
-                   help="rotate the --metrics file past this size (path.1, path.2, ...)")
     p.add_argument("--digest_out", default=None, metavar="JSON",
                    help="also write the final digest here")
     p.add_argument("--http", default=None, metavar="HOST:PORT",
@@ -1290,9 +1364,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "them)")
     p.add_argument("--batch_size", type=int, default=1_000_000)
     p.add_argument("--max_windows", type=int, default=None)
-    p.add_argument("--metrics", default=None, metavar="JSONL",
-                   help="append one JSON line per window record here (the serve.* "
-                        "telemetry events are not ported yet, ROADMAP A10b)")
+    _add_metrics_arg(p)
     p.set_defaults(fn=_cmd_serve)
 
     p = sub.add_parser("storage", help="storage strategies: resolve a replicate/EC/tier "
@@ -1360,6 +1432,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "set covering its frontier (<corpus>/distilled.json)")
     _add_device_arg(p)
     p.set_defaults(fn=_cmd_scenarios)
+
+    p = sub.add_parser("metrics", help="inspect a telemetry JSONL stream: summarize | tail | "
+                       "export | report | watch | alerts")
+    p.add_argument("rest", nargs=argparse.REMAINDER,
+                   help="summarize FILE | tail FILE [-n N] | "
+                        "export FILE --format prometheus [--out FILE] | "
+                        "report FILE [-o HTML] | watch FILE | "
+                        "alerts FILE [--follow] [--rules JSON]")
+    p.set_defaults(fn=_cmd_metrics)
+
+    p = sub.add_parser("trace", help="per-decision causal traces of the streaming daemon: "
+                       "list | show | export (Chrome/Perfetto trace_event JSON)")
+    p.add_argument("rest", nargs=argparse.REMAINDER,
+                   help="list FILE [--limit N] | show FILE WINDOW | "
+                        "export FILE [--out JSON] [--canonical]")
+    p.set_defaults(fn=_cmd_trace)
+
+    p = sub.add_parser("status", help="one-shot status of a live daemon started with "
+                       "--http: /statusz digest plus the /readyz and /healthz verdicts")
+    p.add_argument("url", metavar="HOST:PORT|URL",
+                   help="the daemon's --http address (scheme optional)")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw /statusz JSON instead of the human block")
+    p.set_defaults(fn=_cmd_status)
     return parser
 
 

@@ -13,7 +13,8 @@ hierarchy ``levels`` (racks inside regions) fills the slots greedily,
 least-covered region first, then least-covered rack, then best priority
 (``placement_fn.compute.hierarchical_fill``); there a region-local file
 (``local_mask``) stays in its primary's region.  The rf is capped at the
-node count, with a one-time warning.  ``place_stripes`` places the shards
+node count, with a one-time warning (and every time the
+``placement.rf_capped`` counter of the active instrument).  ``place_stripes`` places the shards
 of storage strategies the same way, accounting a slot at its shard size.
 
 ``ClusterTopology`` parses the CLI's rack spec (``from_rack_spec``) and
@@ -34,6 +35,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..io.events import Manifest
+from ..obs import current
 
 __all__ = ["ClusterTopology", "PlacementResult", "place_replicas", "place_stripes",
            "primary_on_topology", "reset_rf_cap_warning"]
@@ -435,6 +437,9 @@ def place_replicas(manifest: Manifest, rf_per_file: np.ndarray,
             f"(requested up to {int(rf_want.max())}, topology has {n_nodes} nodes): "
             f"replicas are distinct-per-node, so e.g. Archival rf=4 on a 3-node "
             f"topology places 3")
+        tel = current()
+        if tel is not None:
+            tel.counter_inc("placement.rf_capped", n_capped)
     rf = np.maximum(np.minimum(rf_want, n_nodes), 1)
     max_rf = int(rf.max())
 

@@ -11,9 +11,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import time
 from dataclasses import dataclass, field
 from typing import Mapping
+
+from .utils.logging import MetricsLog
 
 __all__ = [
     "CATEGORIES", "CLUSTERING_FEATURES", "RAW_FEATURES", "PLANTED_TO_CATEGORY",
@@ -340,45 +341,3 @@ class PipelineConfig:
             from .parallel.mesh import validate_mesh_shape
 
             self.mesh_shape = validate_mesh_shape(self.mesh_shape)
-
-
-class _StageTimer:
-    def __init__(self, name: str, metrics: "MetricsLog", device=None):
-        self.name = name
-        self.metrics = metrics
-        self.device = device
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc) -> None:
-        if self.device is not None and self.device.type == "cuda":
-            import torch
-
-            torch.cuda.synchronize(self.device)
-        self.metrics.record(f"{self.name}.seconds",
-                            time.perf_counter() - self._t0)
-
-
-@dataclass
-class MetricsLog:
-    """Flat metric record dict; a repeated key turns into a list."""
-
-    records: dict[str, float | list[float]] = field(default_factory=dict)
-
-    def record(self, key: str, value) -> None:
-        value = value if value is None else float(value)
-        if key in self.records:
-            old = self.records[key]
-            if isinstance(old, list):
-                old.append(value)
-            else:
-                self.records[key] = [old, value]
-        else:
-            self.records[key] = value
-
-    def timer(self, name: str, device=None) -> _StageTimer:
-        """Host wall clock around a stage; on a CUDA ``device`` the stage
-        ends with a synchronise, so its queued kernels count toward it."""
-        return _StageTimer(name, self, device)

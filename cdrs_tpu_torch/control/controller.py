@@ -110,9 +110,22 @@ Departures from the reference:
   reference's ``mesh`` stamp (shard count, collective bytes an
   iteration).  A mesh needs decay 1 (the reference's mesh runs are its jax
   backend, whose fold has no decayed counterpart).  Mesh shape is a
-  runtime choice, not checkpoint state.  Window telemetry (the
-  reference's ``_instrument_window`` with its ``serve.*`` events and
-  ``storage.*`` gauges) waits for A10b.
+  runtime choice, not checkpoint state.
+* Without a degraded mode there is nothing to count as
+  ``degraded.kernel_fallback`` or ``degraded.checkpoint_fallback``: the
+  port's window telemetry has neither counter.
+
+**Telemetry** (``obs/``): with an active instrument every window goes
+through ``_instrument_window``, the reference's: the controller, migrate,
+planner, mesh, fault, durability, repair, scrub, integrity and
+``storage.*`` counters and gauges, the ``serve.*`` emission of
+``serve/router.emit_window_telemetry``, one ``lineage`` event per admitted
+batch, the per-stage ``controller.<stage>.seconds`` histograms, and
+(unless ``Telemetry(audit=False)``) the decision-quality audit of
+``obs/audit.py``.  Under the daemon's trace (``_trace_id``) each measured
+stage also lands as a ``controller.<stage>`` span.  ``run(metrics_path=)``
+writes its window records into the instrument's own sink when both name
+the same file: one stream, one writer.
 """
 
 from __future__ import annotations
@@ -137,13 +150,14 @@ from ..faults import ClusterState, FaultSchedule, RepairScheduler, Scrubber
 from ..features.streaming import StreamFeatureState, stream_finalize, stream_init, stream_update
 from ..io.events import EventLog, Manifest
 from ..models.replication import ReplicationPolicyModel
+from ..obs import current as _obs_current
 from ..obs.aggregate import integrity_digest, pacing_digest, serve_digest, storage_digest
 from ..obs.sink import JsonlSink
 from ..parallel.mesh import collective_bytes_estimate, validate_mesh_shape
 from ..placement_fn.compute import compute_placement
 from ..placement_fn.epoch import addition_moved
 from ..placement_fn.state import FunctionalClusterState, OverlayClusterState
-from ..serve import HotspotDetector, ReadRouter, read_view
+from ..serve import HotspotDetector, ReadRouter, emit_window_telemetry, read_view
 from ..utils.checkpoint import CheckpointError, load_state, save_state
 from .drift import detect_drift, detect_drift_torch
 from .elastic import _ElasticRuntime
@@ -151,7 +165,10 @@ from .migrate import MigrationScheduler, plan_diff
 from .windows import _slice, iter_windows
 
 __all__ = ["ControllerConfig", "ControllerResult", "ReplicationController",
-           "finalize_counters", "MOVE_CAUSES"]
+           "finalize_counters", "MOVE_CAUSES", "LINEAGE_ID_CAP"]
+
+#: File ids listed in one ``lineage`` event (the counts stay exact).
+LINEAGE_ID_CAP = 4096
 
 #: Why an admitted migration happened: the code rides the per-file
 #: ``_move_cause`` vector from plan submission to admission (and the
@@ -526,6 +543,13 @@ class ReplicationController:
         self._fn_static_primary: np.ndarray | None = None
         #: One window's (cause, file ids, bytes) batches: the record's ``causes``.
         self._lineage: list[tuple[str, np.ndarray, int]] = []
+        #: The window's routed latency samples, for the ``serve.latency_ms``
+        #: histogram of its telemetry.
+        self._last_latency_ms: np.ndarray | None = None
+        #: Decision-quality auditor, made at the first instrumented window.
+        self._auditor = None
+        #: The daemon's trace id of the window in progress (None outside it).
+        self._trace_id: str | None = None
         #: One {window, bytes, seconds} per checkpoint save.
         self.checkpoint_log: list[dict] = []
         self.window_index = 0
@@ -680,7 +704,7 @@ class ReplicationController:
             self._pending_accept = decision
         seconds["recluster"] = time.perf_counter() - t0
         seconds["host_a"] = time.perf_counter() - t_start
-        return {"w": int(w), "events": events, "rec": rec, "seconds": seconds,
+        return {"w": int(w), "events": events, "rec": rec, "seconds": seconds, "X": X,
                 "decision": decision, "reads": reads}
 
     def _window_phase_b(self, ctx: dict) -> dict:
@@ -941,7 +965,124 @@ class ReplicationController:
         seconds["plan"] = plan_seconds
         seconds["total"] = seconds.pop("host_a") + (time.perf_counter() - t_b)
         rec["seconds"] = {k: round(v, 6) for k, v in seconds.items()}
+        self._instrument_window(rec, seconds, ctx["X"])
         return rec
+
+    def _instrument_window(self, rec: dict, seconds: dict, X=None) -> None:
+        """The window's observations through the active instrument, the
+        reference's schema: counters of events, re-clusters, migrations,
+        faults, repairs and scrub; planner, mesh, durability, integrity
+        and storage gauges; the ``serve.*`` telemetry; lineage events; the
+        per-stage seconds histograms; the audit over the window's feature
+        snapshot ``X`` (when the loop took one); and, inside a daemon
+        decision, one retrospective ``controller.<stage>`` span a stage.
+        Nothing without an instrument; nothing here changes the plan."""
+        tel = _obs_current()
+        if tel is None:
+            return
+        if tel.audit:
+            if self._auditor is None:
+                from ..obs.audit import DecisionAuditor
+
+                self._auditor = DecisionAuditor(self._sizes, len(CATEGORIES))
+            self._auditor.audit_window(tel, window=rec["window"], rec=rec, X=X,
+                                       centroids=self._accepted_centroids,
+                                       rf=self.current_rf, cat=self.current_cat)
+        tel.counter_inc("controller.windows")
+        if rec["n_events"]:
+            tel.counter_inc("controller.events_folded", rec["n_events"])
+        if rec["recluster"]:
+            tel.counter_inc(f"controller.reclusters.{rec['recluster_mode']}")
+        for key, name in (("moves_applied", "migrate.files_moved"),
+                          ("bytes_migrated", "migrate.bytes_moved"),
+                          ("deferred_hysteresis", "migrate.deferred_hysteresis"),
+                          ("deferred_budget", "migrate.deferred_budget")):
+            if rec[key]:
+                tel.counter_inc(name, rec[key])
+        tel.gauge("planner.backlog_files", rec["backlog_files"])
+        tel.gauge("planner.backlog_bytes", rec["backlog_bytes"])
+        mesh = rec.get("mesh")
+        if mesh is not None:
+            ndata = max(1, int((self.cfg.mesh_shape or {}).get("data", 1)))
+            tel.gauge("mesh.devices", mesh["devices"])
+            tel.gauge("mesh.rows_per_device", -(-len(self.manifest) // ndata))
+            tel.gauge("mesh.collective_bytes_per_iter", mesh["collective_bytes_per_iter"])
+        if rec.get("fault_events"):
+            tel.counter_inc("fault.events", len(rec["fault_events"]))
+            n_part_ev = sum(1 for s in rec["fault_events"]
+                            if s.startswith(("partition:", "heal:")))
+            if n_part_ev:
+                tel.counter_inc("fault.partition.events", n_part_ev)
+        dur = rec.get("durability")
+        if dur is not None:
+            tel.gauge("durability.under_replicated", dur["under_replicated"])
+            tel.gauge("durability.at_risk", dur["at_risk"])
+            tel.gauge("durability.lost", dur["lost"])
+            tel.gauge("durability.nodes_up", dur["nodes_up"])
+            tel.gauge("durability.correlated.files", dur.get("correlated_risk", 0))
+            tel.gauge("durability.correlated.domains_reachable",
+                      dur.get("domains_reachable", 1))
+            tel.gauge("fault.partition.nodes", dur.get("nodes_partitioned", 0))
+            tel.gauge("fault.partition.unreachable_files", dur.get("unreachable", 0))
+            if rec.get("unavailable_reads"):
+                tel.counter_inc("fault.unavailable_reads", rec["unavailable_reads"])
+        for key, name in (("repair_moves", "repair.files_replicated"),
+                          ("repair_bytes", "repair.bytes"),
+                          ("repair_failed", "repair.failed"),
+                          ("repair_deferred_budget", "repair.deferred_budget"),
+                          ("repair_deferred_no_source", "repair.deferred_no_source"),
+                          ("repair_deferred_no_target", "repair.deferred_no_target"),
+                          ("repair_deferred_partition", "fault.partition.stalled_repairs"),
+                          ("repair_rebalanced", "repair.rebalanced_domain"),
+                          ("repair_corrupt_sources", "repair.corrupt_sources")):
+            if rec.get(key):
+                tel.counter_inc(name, rec[key])
+        sc = rec.get("scrub")
+        if sc is not None:
+            if sc["bytes"]:
+                tel.counter_inc("scrub.bytes", sc["bytes"])
+            if sc["copies_verified"]:
+                tel.counter_inc("scrub.copies_verified", sc["copies_verified"])
+            if sc["corrupt_found"]:
+                tel.counter_inc("scrub.corrupt_found", sc["corrupt_found"])
+            if sc["starved"]:
+                tel.counter_inc("scrub.starved_windows")
+            tel.gauge("scrub.cursor", sc["cursor"])
+        integ = rec.get("integrity")
+        if integ is not None:
+            tel.gauge("integrity.corrupt_copies", integ["corrupt_copies"])
+            tel.gauge("integrity.files_corrupt", integ["files_corrupt"])
+            tel.gauge("integrity.true_lost", integ["true_lost"])
+        st = rec.get("storage")
+        if st is not None:
+            tel.gauge("storage.bytes_stored", st["bytes_stored"])
+            tel.gauge("storage.overhead_ratio", st["overhead_ratio"])
+            tel.gauge("storage.cost_units", st["cost_units"])
+            tel.gauge("storage.ec_files", st["ec_files"])
+            for t, b in st["per_tier_bytes"].items():
+                tel.gauge(f"storage.tier.{t}.bytes", b)
+        if self._router is not None:
+            emit_window_telemetry(tel, rec, self._last_latency_ms)
+        self._last_latency_ms = None
+        for name, fids, b in self._lineage:
+            ev = {"kind": "lineage", "window": rec["window"], "cause": name,
+                  "files": int(fids.size), "bytes": int(b),
+                  "file_ids": [int(x) for x in fids[:LINEAGE_ID_CAP]]}
+            if fids.size > LINEAGE_ID_CAP:
+                ev["truncated"] = True
+            tel._emit(ev)
+            if fids.size:
+                tel.counter_inc(f"lineage.{name}.files", int(fids.size))
+            if b:
+                tel.counter_inc(f"lineage.{name}.bytes", int(b))
+        for stage, secs in seconds.items():
+            tel.histogram(f"controller.{stage}.seconds", secs)
+        if self._trace_id is not None:
+            parent = tel.current_span_id()
+            for stage, secs in seconds.items():
+                if stage != "total":
+                    tel.emit_span(f"controller.{stage}", secs, parent=parent,
+                                  trace=self._trace_id, window=rec["window"])
 
     def _serve_window(self, w: int, rec: dict, read_pid: np.ndarray, read_ts: np.ndarray,
                       read_client: np.ndarray) -> int:
@@ -990,6 +1131,7 @@ class ReplicationController:
             rng=np.random.default_rng([int(cfg.serve.seed), int(w)]), extra_ms=extra_ms,
             edge_ms=self._edge_ms, slot_corrupt=view.slot_corrupt)
         rec.update(res.record_fields())
+        self._last_latency_ms = res.latency_ms
         if self.serve_shed is not None:
             # Only brownout runs carry the key.
             rec["reads_shed"] = reads_shed
@@ -1501,6 +1643,7 @@ class ReplicationController:
 
     # -- the loop ----------------------------------------------------------
     def run(self, source, *, metrics_path: str | None = None,
+            metrics_max_bytes: int | None = None,
             checkpoint_path: str | None = None, checkpoint_every: int = 1,
             max_windows: int | None = None, batch_size: int = 1_000_000) -> ControllerResult:
         """Drive the controller over a log (path, EventLog or batch iterable).
@@ -1513,21 +1656,33 @@ class ReplicationController:
         it, folding the late tail of the last processed window first.
 
         ``metrics_path``: append each window record, with ``"kind":
-        "window"``, to a ``JsonlSink``.  ``max_windows`` stops after that
+        "window"``, to a ``JsonlSink`` (rotated past ``metrics_max_bytes``),
+        or to the active instrument's sink when it writes that path.
+        ``max_windows`` stops after that
         many processed windows (skipped ones do not count).
         """
         with deterministic():
-            return self._run(source, metrics_path, checkpoint_path, checkpoint_every,
-                             max_windows, batch_size)
+            return self._run(source, metrics_path, metrics_max_bytes, checkpoint_path,
+                             checkpoint_every, max_windows, batch_size)
 
-    def _run(self, source, metrics_path, checkpoint_path, checkpoint_every, max_windows,
-             batch_size) -> ControllerResult:
+    def _run(self, source, metrics_path, metrics_max_bytes, checkpoint_path, checkpoint_every,
+             max_windows, batch_size) -> ControllerResult:
         if checkpoint_path:
             self._load_checkpoint_with_fallback(checkpoint_path)
         records: list[dict] = []
         sink = None
+        own_sink = False
         if metrics_path:
-            sink = JsonlSink(metrics_path)
+            # One stream, one writer: an active instrument's sink on this
+            # very path takes the window records too (two sinks on one file
+            # would each rotate it under the other); it closes with the
+            # instrument.
+            tel = _obs_current()
+            if tel is not None and tel.sink is not None and tel.sink.path == metrics_path:
+                sink = tel.sink
+            else:
+                sink = JsonlSink(metrics_path, max_bytes=metrics_max_bytes)
+                own_sink = True
         processed = 0
         since_ckpt = 0
         t0_box: dict = {}
@@ -1584,7 +1739,7 @@ class ReplicationController:
                 finish(pending)
                 pending = None
         finally:
-            if sink:
+            if own_sink:
                 sink.close()
         # Only on a clean exit: an exception can land mid-window, and that
         # torn state would fold the window twice on resume.

@@ -45,9 +45,11 @@ loop it adds:
   from the first epoch until the drain, the tailer's poll as the liveness
   heartbeat.  Off the decision path: records are the same with it.
 
-Not ported yet: the ambient telemetry spans (ROADMAP A10b).  ``run`` holds
-the loop inside ``device.deterministic()``, as the controller's ``run``
-does.
+With an active instrument that writes the metrics path, each decision is
+a ``daemon.decision`` span (trace id, window) with the controller's
+measured stages as ``controller.<stage>`` children, all in the one shared
+sink.  ``run`` holds the loop inside ``device.deterministic()``, as the
+controller's ``run`` does.
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ from ..cluster.placement import ClusterTopology
 from ..control.windows import _concat, _slice, iter_windows
 from ..device import deterministic
 from ..io.events import EventLog, is_binary_log
+from ..obs import current as _obs_current
 from ..obs.alerts import SEVERE_ALERTS, AlertEngine, default_rules
 from ..obs.sink import JsonlSink
 from ..obs.trace import STAGE_ORDER, build_span_tree, decision_trace_id
@@ -670,9 +673,22 @@ class StreamDaemon:
             self._source_path = os.fspath(source)
         if checkpoint_path:
             self._restore(checkpoint_path)
+        sink = None
+        own_sink = False
+        tel = None
+        if metrics_path:
+            # One stream, one writer (the controller's rule): an active
+            # instrument writing this path lends its sink, and only then
+            # do the live ``daemon.decision`` and ``controller.*`` spans
+            # join the stream.
+            tel = _obs_current()
+            if tel is not None and tel.sink is not None and tel.sink.path == metrics_path:
+                sink = tel.sink
+            else:
+                sink = JsonlSink(metrics_path, max_bytes=metrics_max_bytes)
+                own_sink = True
+                tel = None
         # Decision tracing rides the metrics sink.
-        sink = JsonlSink(metrics_path, max_bytes=metrics_max_bytes) if metrics_path \
-            else None
         trace_on = sink is not None
         if trace_on:
             self.publisher.record_pins = True
@@ -723,7 +739,15 @@ class StreamDaemon:
                 if ref == 0 or ref > t_start:
                     ref = t_start
                 tid = decision_trace_id(w)
-                rec = ctl.process_window(w, events)
+                if tel is not None:
+                    ctl._trace_id = tid
+                    try:
+                        with tel.span("daemon.decision", trace=tid, window=int(w)):
+                            rec = ctl.process_window(w, events)
+                    finally:
+                        ctl._trace_id = None
+                else:
+                    rec = ctl.process_window(w, events)
                 t1 = time.perf_counter_ns()
                 ctl.window_index = w + 1
                 ctl._last_window_events = len(events)
@@ -788,7 +812,7 @@ class StreamDaemon:
                 if deadline is not None and time.monotonic() > deadline:
                     self.request_stop("max_seconds")
         finally:
-            if sink is not None:
+            if own_sink:
                 sink.close()
             if self._obs is not None:
                 # The loop is over: a pinned epoch stays with its holders,

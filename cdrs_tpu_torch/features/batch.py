@@ -28,7 +28,9 @@ edge-second correction.  The counters are integers, so the table is
 bit-identical to one device.  An unsorted log is refused.
 
 The JAX package has no Pallas kernel in this stage; these torch ops are
-its port.
+its port.  With an active instrument a call counts
+``kernel.calls.compute_features_torch`` and spans its two stages
+(``features.counters``, ``features.finalize``).
 """
 
 from __future__ import annotations
@@ -40,7 +42,10 @@ import torch
 
 from ..device import resolve_device, torch_dtype
 from ..io.events import EventLog, Manifest
+from ..obs import current
+from ..obs.devtools import signature
 from ..parallel.mesh import data_mesh
+from ..utils.logging import stage_span
 from .table import FeatureTable
 
 __all__ = ["compute_features_torch", "features_from_counters", "second_runs",
@@ -171,11 +176,18 @@ def compute_features_torch(
     primary = torch.as_tensor(np.asarray(manifest.primary_node_id, dtype=np.int32),
                               device=dev)
 
-    if mesh is None:
-        counters = _counters(pid, sec, op, client, primary, n)
-    else:
-        counters = _counters_mesh(mesh, pid, sec, op, client, primary, n)
-    return features_from_counters(manifest, *counters, observation_end, ftype)
+    tel = current()
+    if tel is not None:
+        shards = None if mesh is None else mesh.n_data
+        tel.record_kernel_call("compute_features_torch",
+                               signature(pid, sec, op, client, static=(n, str(ftype), shards)))
+    with stage_span("features.counters", dev):
+        if mesh is None:
+            counters = _counters(pid, sec, op, client, primary, n)
+        else:
+            counters = _counters_mesh(mesh, pid, sec, op, client, primary, n)
+    with stage_span("features.finalize", dev):
+        return features_from_counters(manifest, *counters, observation_end, ftype)
 
 
 def _valid_events(pid, sec, op, client, primary, n):

@@ -25,6 +25,7 @@ from ..config import (CATEGORIES, KMeansConfig, MetricsLog, ScoringConfig,
 from ..ops.kmeans import kmeans_full
 from ..ops.kmeans_stream import MiniBatchKMeans, MiniBatchState
 from ..ops.scoring import classify, scoring_tables
+from ..utils.logging import StageTimer
 
 __all__ = ["ClusterDecision", "ReplicationPolicyModel", "centroid_id"]
 
@@ -164,12 +165,13 @@ class ReplicationPolicyModel(nn.Module):
             init_centroids=None, metrics: MetricsLog | None = None) -> ClusterDecision:
         """Cluster then score ``X`` on its device; only the k-sized tables
         and the labels come back to the host.  ``metrics`` gets the
-        "kmeans" and "score" stage times."""
-        metrics = metrics or MetricsLog()
-        with metrics.timer("kmeans", X.device):
+        "kmeans" and "score" stage times and ``kmeans.n_iter``; with an
+        active instrument both stages are spans either way."""
+        with StageTimer("kmeans", metrics, X.device):
             centroids, labels = self.cluster(X, init_centroids=init_centroids)
-        metrics.record("kmeans.n_iter", self.n_iter)
-        with metrics.timer("score", X.device):
+        if metrics is not None:
+            metrics.record("kmeans.n_iter", self.n_iter)
+        with StageTimer("score", metrics, X.device):
             winner, scores, medians = self.score(X, labels)
         return ClusterDecision(
             centroids=centroids.cpu().numpy(),

@@ -17,18 +17,20 @@ nor resolves): the rules on fields of unported subsystems (serving) stay in
 the table and never apply to the port's records, as in the reference when
 those subsystems are off.  :func:`evaluate_records` is the batch verdict
 over a list of window records (the scenario harness's alert gates); its
-``finish`` fires the absence rules of a stream with no window at all.  The
-wall-clock staleness poll of the reference belongs to ``cdrs metrics
-alerts``, which the port does not have yet (ROADMAP A10b).
+``finish`` fires the absence rules of a stream with no window at all.
+``check_staleness`` is the wall-clock poll of a follow session (``cdrs
+metrics alerts --follow``); :func:`firing_spans` pairs each firing with its
+resolution for the renderers.
 """
 
 from __future__ import annotations
 
 import json
+import time
 from dataclasses import asdict, dataclass
 
 __all__ = ["AlertRule", "AlertEngine", "default_rules", "rules_from_json", "evaluate_records",
-           "DEFAULT_RULE_NAMES", "SEVERE_ALERTS"]
+           "firing_spans", "DEFAULT_RULE_NAMES", "SEVERE_ALERTS"]
 
 _KINDS = ("threshold", "burn_rate", "absence")
 _OPS = {
@@ -196,6 +198,7 @@ class AlertEngine:
             else default_rules()
         self._st = {r.name: _RuleState() for r in self.rules}
         self.windows_seen = 0
+        self._last_window_wall: float | None = None
 
     def _fire(self, rule: AlertRule, st: _RuleState, window, value) -> dict:
         st.firing = True
@@ -221,6 +224,7 @@ class AlertEngine:
         if event.get("kind") != "window":
             return []
         self.windows_seen += 1
+        self._last_window_wall = time.monotonic()
         w = event.get("window")
         out: list[dict] = []
         for rule in self.rules:
@@ -252,6 +256,23 @@ class AlertEngine:
                 out.append(self._resolve_alert(rule, st, w))
         return out
 
+    def check_staleness(self, now: float | None = None) -> list[dict]:
+        """Follow-session poll: fire the absence rules whose
+        ``stale_seconds`` have passed since the last window record (or
+        since the first poll, when none arrived yet)."""
+        now = time.monotonic() if now is None else now
+        if self._last_window_wall is None:
+            self._last_window_wall = now
+            return []
+        out = []
+        for rule in self.rules:
+            if rule.kind != "absence":
+                continue
+            st = self._st[rule.name]
+            if now - self._last_window_wall >= rule.stale_seconds and not st.firing:
+                out.append(self._fire(rule, st, None, now - self._last_window_wall))
+        return out
+
     def finish(self) -> list[dict]:
         """End of a batch stream: absence rules fire iff it carried no window
         record at all."""
@@ -271,6 +292,22 @@ class AlertEngine:
                  "since": self._st[r.name].since, "streak": self._st[r.name].streak,
                  "transitions": list(self._st[r.name].transitions)}
                 for r in self.rules]
+
+
+def firing_spans(transitions: list[dict]) -> list[tuple]:
+    """Each firing paired with its resolution: ``[(start_window,
+    end_window or None), ...]``, None while still firing."""
+    spans: list[tuple] = []
+    start = None
+    for t in transitions:
+        if t["state"] == "firing":
+            start = t["window"]
+        else:
+            spans.append((start, t["window"]))
+            start = None
+    if start is not None:
+        spans.append((start, None))
+    return spans
 
 
 def evaluate_records(records: list[dict], rules=None) -> list[dict]:

@@ -7,7 +7,10 @@ with ``ctypes``.  Builds happen at first use, never at import, into
 name carries the hash of its source, the shared headers (``csrc/*.cuh``)
 and the flags, so an edited source rebuilds and an unchanged one loads as
 it is.  ``build_all`` starts one ``nvcc`` per source at once and waits for
-all of them.  ``bind`` sets a function's ctypes signature once;
+all of them; each ``nvcc`` run counts ``kernel.builds.<source>`` and its
+wall time goes to the ``kernel.build.seconds`` histogram of the active
+instrument (a library found on disk or already loaded counts nothing).
+``bind`` sets a function's ctypes signature once;
 ``scratch`` keeps a kernel's reusable buffers.
 """
 
@@ -21,7 +24,10 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
+
+from ..obs.telemetry import current
 
 __all__ = ["SOURCES", "build_all", "load", "bind", "scratch", "on_device", "nvcc_path",
            "ptxas_info"]
@@ -77,11 +83,16 @@ def build_all(names=SOURCES) -> None:
         todo = [n for n in names if n not in _libs and not _target(n).exists()]
         if todo:
             nvcc = nvcc_path()
+            t0 = time.perf_counter()
             jobs = {n: _start(n, nvcc) for n in todo}
             errors = []
+            tel = current()
             for name, (proc, tmp, out) in jobs.items():
                 log, _ = proc.communicate()
                 ptxas_info[name] = log
+                if tel is not None:
+                    tel.counter_inc(f"kernel.builds.{name}")
+                    tel.histogram("kernel.build.seconds", time.perf_counter() - t0)
                 if proc.returncode != 0:
                     os.unlink(tmp)
                     errors.append(f"nvcc failed on {name}.cu:\n{log}")

@@ -49,6 +49,17 @@ padding never counted), each shard running the kernels itself:
 
 A 1 x 1 mesh is the one-device path.
 
+**Telemetry** (``obs/``): with an active instrument each call counts
+``kernel.calls.kmeans_full``, and with ``kmeans_trace`` on (and no model
+axis, as in the reference) emits one ``kmeans_iter`` event per iteration
+with its ``inertia`` and ``shift`` and the ``kmeans.iterations``
+histogram.  The traced run keeps the Lloyd kernel (the reference swaps its
+fused kernel for a matmul to see distances): an iteration's inertia against
+the centroids it assigned to comes from the kernel's own (sums, counts) as
+Σ‖x‖² − 2 Σ_j c_j·S_j + Σ_j n_j‖c_j‖² in float64, Σ‖x‖² taken once a call;
+the values stay on the device until one fetch after the loop.  Tracing
+changes no value of the run.
+
 Noise comes from ``torch.Generator``s seeded from (seed, stream, index)
 through numpy's ``SeedSequence``; it is not the JAX package's threefry
 stream, so a cold init picks other rows than the reference on the same
@@ -64,6 +75,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, stat_dtype, torch_dtype
+from ..obs import current as _obs_current
+from ..obs.devtools import signature
 from ..parallel.mesh import resolve_mesh, shard_valid
 from .lloyd import centroid_operands, lloyd_assign_reduce, sharded_assign_reduce
 
@@ -487,18 +500,39 @@ def kmeans_full(
 
         def label(c):
             return labels_mesh(mesh, shards, n_loc, c, n_valid)
-    return _lloyd(step, fetch, label, c, n_valid, k, tol, seed, max_iter, iter_offset)
+    tel = _obs_current()
+    if tel is None:
+        return _lloyd(step, fetch, label, c, n_valid, k, tol, seed, max_iter, iter_offset)[:4]
+    x_sq = None
+    if tel.kmeans_trace and (mesh is None or mesh.n_model == 1):
+        x_sq = xp[:n_valid].to(torch.float64).square().sum()
+    c, labels, it, shift, trace = _lloyd(step, fetch, label, c, n_valid, k, tol, seed,
+                                         max_iter, iter_offset, x_sq)
+    tel.record_kernel_call("kmeans_full", signature(
+        xp, static=(n_valid, k, max_iter, float(tol), init_centroids is not None, init_method,
+                    None if mesh is None else (mesh.n_data, mesh.n_model))))
+    if trace is not None:
+        tel.emit_kmeans_trace("kmeans_full", inertia=trace[0], shift=trace[1],
+                              backend="torch", k=int(k), n=int(n_valid), update="lloyd")
+    return c, labels, it, shift
 
 
-def _lloyd(step, fetch, label, c, n_valid, k, tol, seed, max_iter, iter_offset):
+def _lloyd(step, fetch, label, c, n_valid, k, tol, seed, max_iter, iter_offset, x_sq=None):
     """The Lloyd loop on one device or a mesh: ``step(c)`` gives the
     (sums, counts) of the valid rows, ``fetch(rows)`` the points of the
     (iters, k) global reseed rows, ``label(c)`` the (n_valid,) labels.
+    Returns (centroids, labels, n_iter, shift, trace).
 
     The reseed rows of a block of iterations are drawn when the loop
     enters it and fetched at once: an empty cluster is reseeded by a
-    device-side where, and the shift is the loop's only host read."""
+    device-side where, and the shift is the loop's only host read.  Given
+    ``x_sq`` (Σ‖x‖² over the valid rows, float64), ``trace`` is the
+    (inertia, shift) per iteration as float64 arrays; the loop only keeps
+    each iteration's (centroids, sums, counts, shift) tensors, and the
+    inertias come from them in one batched pass after it, fetched once.
+    Otherwise ``trace`` is None."""
     c_prev, it, shift = c, 0, math.inf
+    kept = []
     while it < max_iter and (tol <= 0 or it == 0 or shift >= tol):
         if it % _RESEED_BLOCK == 0:
             reseed = fetch(_reseed_table(seed, iter_offset + it,
@@ -507,13 +541,29 @@ def _lloyd(step, fetch, label, c, n_valid, k, tol, seed, max_iter, iter_offset):
         new_c = torch.where(counts[:, None] > 0, sums / torch.clamp(counts, min=1.0)[:, None],
                             reseed[it % _RESEED_BLOCK])
         shift_t = torch.sqrt(((new_c - c) ** 2).sum())
+        if x_sq is not None:
+            kept.append((c, sums, counts, shift_t))
         if tol > 0:
             shift = float(shift_t)
         c_prev, c = c, new_c
         it += 1
     if tol <= 0 and it:
         shift = float(shift_t)
-    return c, label(c_prev), it, shift
+    trace = None
+    if x_sq is not None:
+        trace = _inertia_trace(x_sq, kept) if kept else (np.zeros(0), np.zeros(0))
+    return c, label(c_prev), it, shift, trace
+
+
+def _inertia_trace(x_sq, kept):
+    """(inertia, shift) per iteration as float64 arrays from the kept
+    (centroids, sums, counts, shift) of each: Σ‖x‖² − 2 Σ_j c_j·S_j +
+    Σ_j n_j‖c_j‖², clamped at 0, in float64."""
+    cs, sums, counts, shifts = (torch.stack(t).to(torch.float64) for t in zip(*kept))
+    inertia = torch.clamp(x_sq - 2.0 * (sums * cs).sum((1, 2))
+                          + (counts * (cs * cs).sum(2)).sum(1), min=0.0)
+    out = torch.stack([inertia, shifts]).cpu().numpy()
+    return out[0], out[1]
 
 
 def kmeans(X, k: int, **kwargs):

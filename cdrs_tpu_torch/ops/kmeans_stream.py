@@ -17,6 +17,10 @@
   Lloyd kernel once a shard with labels and adds the (k, d + 1) statistics
   with one shard-ordered psum.  ``predict`` stays on one device, as in the
   reference.
+
+With an active instrument every update counts
+``kernel.calls.minibatch_update`` (its Lloyd launch counts as
+``kernel.calls.lloyd_assign_reduce`` with its kernel event, ``obs/kprof``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import current
+from ..obs.devtools import signature
 from ..parallel.mesh import resolve_mesh
 from .kmeans import _d2_init, d2_init_mesh
 from .lloyd import lloyd_assign_reduce, sharded_assign_reduce
@@ -83,7 +89,12 @@ def minibatch_update(state: MiniBatchState, batch, mesh_shape=None):
     int32 labels of the batch's rows)."""
     c = state.centroids
     x = _points(batch, c.device)
-    labels, sums, bcounts = _batch_stats(x, c, resolve_mesh(mesh_shape, c.device))
+    mesh = resolve_mesh(mesh_shape, c.device)
+    tel = current()
+    if tel is not None:
+        tel.record_kernel_call("minibatch_update", signature(
+            x, c, static=(None if mesh is None else (mesh.n_data, mesh.n_model),)))
+    labels, sums, bcounts = _batch_stats(x, c, mesh)
     counts = state.counts + bcounts.to(torch.int32)
     eta = torch.where(bcounts > 0, bcounts / torch.clamp(counts, min=1).to(c.dtype), 0.0)
     bmean = sums / torch.clamp(bcounts, min=1.0)[:, None]

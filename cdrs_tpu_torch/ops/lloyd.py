@@ -45,12 +45,14 @@ Semantics shared by both versions:
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
 from ..device import sm_count, stat_dtype, unfilled
-from ..parallel.mesh import shard_valid
+from ..obs import kprof
+from ..parallel.mesh import collective_bytes_estimate, shard_valid
 from . import _build
 
 __all__ = ["lloyd_assign_reduce", "lloyd_assign_reduce_plain", "centroid_operands",
@@ -113,8 +115,11 @@ def lloyd_assign_reduce(x: torch.Tensor, c: torch.Tensor, n_valid: int | None = 
     f32, counts (k,) f32); ``n_valid`` defaults to every row."""
     n_valid = x.shape[0] if n_valid is None else int(n_valid)
     _check(x, c, n_valid)
+    probe = kprof.instrumented_kernel("lloyd_assign_reduce", x, (c.shape[0], with_labels),
+                                      lambda: _cost(x, c, n_valid, with_labels))
     if x.device.type == "cpu":
-        return lloyd_assign_reduce_plain(x, c, n_valid, with_labels)
+        with probe:
+            return lloyd_assign_reduce_plain(x, c, n_valid, with_labels)
     if x.device.type != "cuda" or c.device != x.device:
         raise ValueError(f"x and c must share one CUDA device; got {x.device}, {c.device}")
     fn_name = _KERNEL_DTYPES.get(x.dtype)
@@ -134,7 +139,7 @@ def lloyd_assign_reduce(x: torch.Tensor, c: torch.Tensor, n_valid: int | None = 
         sums = torch.empty((k, d), dtype=torch.float32, device=dev)
         counts = torch.empty(k, dtype=torch.float32, device=dev)
     fn = _build.bind("lloyd", fn_name, _ARGTYPES)
-    with _build.on_device(dev.index):
+    with _build.on_device(dev.index), probe:
         err = fn(x.data_ptr(), c_used.data_ptr(), n, n_valid, d, k,
                  labels.data_ptr() if labels is not None else None,
                  part_sums.data_ptr(), part_counts.data_ptr(), ticket.data_ptr(),
@@ -158,14 +163,25 @@ def sharded_assign_reduce(mesh, shards, n_loc: int, c: torch.Tensor, n_valid: in
     if step is None:
         def step(_, x, c, nv, wl):
             return lloyd_assign_reduce(x, c, nv, with_labels=wl)
-    out = [step(s, x, c.to(x.device), shard_valid(n_valid, n_loc, s), with_labels)
-           for s, x in zip(mesh.local, shards)]
     d = c.shape[1]
+    payload = c.shape[0] * (d + 1) * c.element_size()
+    stamp = (kprof.mesh_stamp(mesh.size, collective_bytes_estimate(payload, mesh.n_data))
+             if mesh.size > 1 else contextlib.nullcontext())
+    with stamp:
+        out = [step(s, x, c.to(x.device), shard_valid(n_valid, n_loc, s), with_labels)
+               for s, x in zip(mesh.local, shards)]
     stats = mesh.psum([torch.cat([sums, counts[:, None]], dim=1) for _, sums, counts in out])
     labels = None
     if with_labels:
         labels = mesh.all_gather([lab for lab, _, _ in out]).reshape(-1)[:n_valid]
     return labels, stats[:, :d], stats[:, d]
+
+
+def _cost(x, c, n_valid: int, with_labels: bool) -> dict:
+    n, d = x.shape
+    return kprof.kernel_cost("lloyd_assign_reduce", n=n, d=d, k=c.shape[0], n_valid=n_valid,
+                             dtype=str(x.dtype).replace("torch.", ""),
+                             with_labels=with_labels)
 
 
 def _make_scratch(dev, nb: int, k: int, d: int):

@@ -19,6 +19,9 @@
 
 Empty clusters get NaN medians, which score 0 everywhere.
 
+With an active instrument ``classify`` counts ``kernel.calls.classify``
+and spans its median stage (``classify.medians``).
+
 **Mesh** (``classify(mesh_shape=)``): rows and labels split into the
 mesh's contiguous data shards (padding rows get label -1, no cluster).
 Histogram medians add the shards' integer (k, bins) histograms; bisection
@@ -34,7 +37,10 @@ import numpy as np
 import torch
 
 from ..config import ScoringConfig
+from ..obs import current
+from ..obs.devtools import signature
 from ..parallel.mesh import data_mesh
+from ..utils.logging import stage_span
 from .seg_count import label_threshold_count
 
 __all__ = ["HIST_MEDIAN_THRESHOLD", "resolve_median_method", "scoring_tables",
@@ -274,13 +280,19 @@ def classify(x: torch.Tensor, labels: torch.Tensor, k: int,
                                    1 if mesh is None else mesh.n_data)
     bins = int(cfg.median_bins)
     want_global = global_medians is None and cfg.compute_global_medians_from_data
-    if method == "bisect":
-        medians, gm = bisect_medians(x, labels, k, bins, want_global, mesh)
-    elif method == "hist":
-        medians, gm = hist_medians(x, labels, k, bins, want_global, mesh)
-    else:
-        medians = cluster_medians_sort(x, labels, k)
-        gm = global_medians_sort(x) if want_global else None
+    tel = current()
+    if tel is not None:
+        tel.record_kernel_call("classify", signature(
+            x, labels, static=(method, int(k), bins, bool(want_global),
+                               None if mesh is None else mesh.n_data)))
+    with stage_span("classify.medians", dev):
+        if method == "bisect":
+            medians, gm = bisect_medians(x, labels, k, bins, want_global, mesh)
+        elif method == "hist":
+            medians, gm = hist_medians(x, labels, k, bins, want_global, mesh)
+        else:
+            medians = cluster_medians_sort(x, labels, k)
+            gm = global_medians_sort(x) if want_global else None
     if global_medians is not None:
         gm = torch.as_tensor(global_medians).to(device=dev, dtype=ftype)
     elif not want_global:

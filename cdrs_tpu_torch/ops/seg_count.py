@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from ..device import sm_count, unfilled
+from ..obs import kprof
 from . import _build
 
 __all__ = ["label_threshold_count", "label_threshold_count_plain"]
@@ -82,8 +83,15 @@ def label_threshold_count(x: torch.Tensor, labels: torch.Tensor, thr: torch.Tens
     """(k, 2d) int32 counts, or (counts, (2, d) int32 global counts) when
     ``gthr`` is given; labels < 0 (or >= k) belong to no cluster."""
     _check(x, labels, thr, gthr)
+    n, d = x.shape
+    k = thr.shape[1]
+    probe = kprof.instrumented_kernel(
+        "label_threshold_count", x, (k, gthr is not None), lambda: kprof.kernel_cost(
+            "label_threshold_count", n=n, d=d, k=k, dtype=str(x.dtype).replace("torch.", ""),
+            with_global=gthr is not None))
     if x.device.type == "cpu":
-        return label_threshold_count_plain(x, labels, thr, gthr)
+        with probe:
+            return label_threshold_count_plain(x, labels, thr, gthr)
     dev = x.device
     if dev.type != "cuda" or labels.device != dev or thr.device != dev or (
             gthr is not None and gthr.device != dev):
@@ -97,8 +105,6 @@ def label_threshold_count(x: torch.Tensor, labels: torch.Tensor, thr: torch.Tens
             gthr is not None and gthr.dtype != torch.float32):
         raise TypeError(f"labels must be int32 and thr, gthr float32; got {labels.dtype}, "
                         f"{thr.dtype}, {None if gthr is None else gthr.dtype}")
-    n, d = x.shape
-    k = thr.shape[1]
     cells = k * 2 * d + (2 * d if gthr is not None else 0)
     sms = sm_count(dev.index)
     nb = 2 * sms   # the small path keeps at most two blocks on an SM
@@ -108,7 +114,7 @@ def label_threshold_count(x: torch.Tensor, labels: torch.Tensor, thr: torch.Tens
     with unfilled():   # the kernel writes both tables in full
         out = torch.empty(cells, dtype=torch.int32, device=dev)
     fn = _build.bind("seg_count", fn_name, _ARGTYPES)
-    with _build.on_device(dev.index):
+    with _build.on_device(dev.index), probe:
         err = fn(x.data_ptr(), labels.data_ptr(), thr.data_ptr(),
                  gthr.data_ptr() if gthr is not None else None, n, d, k, out.data_ptr(),
                  part.data_ptr(), ticket.data_ptr(), nb, sms, stream)

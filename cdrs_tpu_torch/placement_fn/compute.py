@@ -14,7 +14,7 @@ priority), and a region-local file is clipped to its primary's region
 (``clip_shards_for_locality``).  Each packed priority holds the node id in
 its low 6 bits under a 26-bit hash, so the minimum over the node axis
 carries its winner and a file's values never tie; that caps a topology at
-63 nodes.  ``explain_placement`` waits for ROADMAP A10.
+63 nodes.  ``explain_placement`` waits for ROADMAP A10c (with ``explain``).
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ live state, a static placement or a pinned epoch (``view``).  All host
 numpy: serving routes reads and runs no kernel."""
 
 from .hotspot import HotspotDetector, HotspotResult
-from .router import POLICIES, ReadRouter, ServeConfig, SloSpec, WindowServeResult
+from .router import (POLICIES, ReadRouter, ServeConfig, SloSpec, WindowServeResult,
+                     emit_window_telemetry)
 from .view import ReadView, read_view
 
 __all__ = [
@@ -16,5 +17,6 @@ __all__ = [
     "ServeConfig",
     "SloSpec",
     "WindowServeResult",
+    "emit_window_telemetry",
     "read_view",
 ]

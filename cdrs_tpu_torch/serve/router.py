@@ -23,9 +23,9 @@ The router serves one time-ordered batch of reads against a replica map:
   (file, node) pairs go back to the caller for quarantine.
 
 The random draws, the float64 load comparisons and ``np.percentile`` are
-the reference's, which keeps every percentile equal to its.  The serving
-telemetry (``emit_window_telemetry``) waits for the port's ambient
-telemetry (ROADMAP A10b).
+the reference's, which keeps every percentile equal to its.
+``emit_window_telemetry`` is the one emission path of the ``serve.*``
+telemetry, shared by the controller's serve plane and ``serve --metrics``.
 """
 
 from __future__ import annotations
@@ -34,7 +34,39 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-__all__ = ["POLICIES", "SloSpec", "ServeConfig", "WindowServeResult", "ReadRouter"]
+__all__ = ["POLICIES", "SloSpec", "ServeConfig", "WindowServeResult", "ReadRouter",
+           "emit_window_telemetry"]
+
+
+def emit_window_telemetry(tel, rec: dict, latency_ms=None) -> None:
+    """One serving window's observations through the instrument ``tel``:
+    the ``serve.*`` and read-integrity counters and gauges of the record
+    (``WindowServeResult.record_fields()`` plus the hotspot fields), and
+    the window's raw latency samples as one bucketed ``serve.latency_ms``
+    ``hist_bulk`` event.  Nothing for a record that served no reads."""
+    if rec.get("reads_routed") is None:
+        return
+    if rec["reads_routed"]:
+        tel.counter_inc("serve.reads_routed", rec["reads_routed"])
+    if rec.get("reads_unavailable"):
+        tel.counter_inc("serve.reads_unavailable", rec["reads_unavailable"])
+    if rec.get("reads_corrupt_served"):
+        tel.counter_inc("integrity.reads_corrupt_served", rec["reads_corrupt_served"])
+    if rec.get("reads_corrupt_detected"):
+        tel.counter_inc("integrity.reads_corrupt_detected", rec["reads_corrupt_detected"])
+    if rec.get("latency_p99_ms") is not None:
+        tel.gauge("serve.latency_p50_ms", rec["latency_p50_ms"])
+        tel.gauge("serve.latency_p99_ms", rec["latency_p99_ms"])
+    tel.gauge("serve.utilization_max", rec.get("utilization_max", 0.0))
+    tel.gauge("serve.slo_burn", rec.get("slo_burn", 0.0))
+    if rec.get("hotspot_files"):
+        tel.counter_inc("serve.hotspot.windows")
+        tel.gauge("serve.hotspot.score", rec.get("hotspot_score", 0.0))
+    if rec.get("recluster_trigger") == "hotspot":
+        tel.counter_inc("serve.reclusters.hotspot")
+    if latency_ms is not None and len(latency_ms):
+        tel.histogram_bulk("serve.latency_ms", latency_ms)
+
 
 POLICIES: tuple[str, ...] = ("primary", "random", "least_loaded", "p2c")
 

@@ -7,7 +7,9 @@ JSON blob, the JAX package's layout, so either package loads what the
 other saved.  ``kmeans_checkpointed`` runs ``ops/kmeans.kmeans_full`` a
 block of iterations at a time and snapshots the centroids between
 blocks; a killed run resumes from the last block with the results of an
-uninterrupted one.
+uninterrupted one.  With an active instrument every save sets the
+``checkpoint.bytes`` and ``checkpoint.save_seconds`` gauges and counts
+``checkpoint.saves``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import tempfile
 import time
 
 import numpy as np
+
+from ..obs import current
 
 __all__ = ["CheckpointError", "save_state", "load_state", "kmeans_checkpointed"]
 
@@ -68,8 +72,14 @@ def save_state(path: str, arrays: dict, meta: dict | None = None) -> dict:
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
-    return {"bytes": int(os.path.getsize(path)),
-            "seconds": round(time.perf_counter() - t_start, 6)}
+    stats = {"bytes": int(os.path.getsize(path)),
+             "seconds": round(time.perf_counter() - t_start, 6)}
+    tel = current()
+    if tel is not None:
+        tel.gauge("checkpoint.bytes", stats["bytes"])
+        tel.gauge("checkpoint.save_seconds", stats["seconds"])
+        tel.counter_inc("checkpoint.saves")
+    return stats
 
 
 def load_state(path: str) -> tuple[dict, dict]:

@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernel checks only (no ok line)
     python3 chip_smoke.py --phase 10 # build, kernel checks and one phase (9,
-                                     # 10, 11, 12, 13 or 14) alone; no ok line
+                                     # 10, 11, 12, 13, 14 or 15) alone; no ok line
 
 Phases, each of which exits non-zero when a check fails:
 
@@ -21,7 +21,9 @@ Phases, each of which exits non-zero when a check fails:
    against the same on the CPU.  Each kernel's time per call is one pair
    of CUDA events around back-to-back calls (wrapper included), its
    ``device_ms`` the kernel's own time per launch from torch.profiler,
-   which also shows one launch per call.
+   which also shows one launch per call; its bound is
+   ``obs/kprof.kernel_cost``'s work over the H100's peaks
+   (``obs/kprof.DEVICE_PEAKS``), the count the telemetry stream uses.
 3. The main path: ``run_pipeline`` on CUDA over 2,500,000 files (seed 10,
    60 s of simulated traffic, k = 8, validated scoring with medians from
    the data).  The Lloyd kernel must run ``kmeans.n_iter + 1`` times and
@@ -219,6 +221,30 @@ Phases, each of which exits non-zero when a check fails:
    in-process data = 2 mesh.  No speedup is claimed: the shards share one
    card.  ``--phase 14`` runs phase 3's pipeline and makes phase 5's
    workload first.
+15. Telemetry (``obs/``), on phase 3's population: (a)
+   ``ReplicationPolicyModel.run`` on phase 3's feature table with the
+   instrument off, on, on without the convergence trace and on without
+   the kernel costs, in ``TELEMETRY_ROUNDS`` rounds of turns: labels,
+   categories and per-file rf bit-identical, B1 and B2 launches equal
+   (n_iter + 1 and 12), the stream's ``kernel.calls.*`` equal to the
+   launch counters, no
+   ``kernel.builds.*`` (phase 1 built the kernels), one ``kmeans_iter`` a
+   Lloyd iteration whose first and last inertia lie within 1e-3 of a
+   float64 recomputation on the card, and every roofline share the stream
+   gives (``obs/aggregate.roofline_rows``: the bound over the first
+   launch's CUDA-event time) in (0, 1.05]; the seconds with the
+   instrument off and on; (b) ``pipeline --metrics --profile`` through
+   ``cli.main`` at phase 3's 2,500,000 files over
+   ``TELEMETRY_PIPELINE_SECONDS`` of traffic: the Chrome trace names the ``lloyd_``
+   and ``seg_`` kernels and ``metrics summarize`` prints their rows on
+   this card, the stream's size; (c) ``TELEMETRY_WINDOWS`` controller
+   windows with phase 6's settings, the audit on: the counters equal the
+   window records, one audit a window, the stream's bytes a window; (d)
+   ``TELEMETRY_DAEMON_WINDOWS`` daemon windows with mini-batch tracking at
+   ``MB_BATCH`` rows: one ``daemon.decision`` span a window with the
+   controller's stages under it, and B3's kernel event with its share.
+   ``--phase 15`` runs phase 3's pipeline and makes phase 5's workload
+   first.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It imports nothing of the JAX
@@ -240,8 +266,8 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}   # IEEE f32 CUDA cores; bf16 dense
+#: The card whose published peaks bound every kernel row (obs/kprof.DEVICE_PEAKS).
+H100 = "NVIDIA H100 80GB HBM3"
 MAIN_FILES = 2_500_000
 MAIN_SEED = 10
 MAIN_DURATION = 60.0
@@ -334,6 +360,18 @@ MESH_AGREE = 0.999
 MESH_TOL = 1e-4
 MESH_CHILD_ITERS = 100
 MESH_CHILD_TIMEOUT = 300
+#: Phase 15: controller and daemon windows run under the instrument, the
+#: inertia tolerance of its trace against a float64 recomputation, and the
+#: upper end of a roofline share (a first launch timed between CUDA events
+#: cannot beat the HBM bound by more than the L2's share of its inputs).
+TELEMETRY_WINDOWS = 2
+TELEMETRY_DAEMON_WINDOWS = 2
+#: 15b's seconds of traffic: the pipeline's own workload at phase 3's
+#: 2,500,000 files (the kernels' shapes), its simulation cut from 60 s.
+TELEMETRY_PIPELINE_SECONDS = 10.0
+TELEMETRY_ROUNDS = 3
+TELEMETRY_INERTIA_TOL = 1e-3
+TELEMETRY_SHARE_MAX = 1.05
 
 
 def fail(msg: str) -> None:
@@ -405,10 +443,13 @@ def l2_note(dev_ms, b_ms) -> str:
     return f"device {dev_ms:.4f} ms ({b_ms / dev_ms:.1%} of the bound)"
 
 
-def bound_ms(n_bytes: float, n_ops: float, dtype_name: str):
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound_ms(cost: dict):
+    """(ms, "bytes" or "operations"): the least time an H100 could take for
+    ``obs/kprof.kernel_cost``'s work ``cost``."""
+    from cdrs_tpu_torch.obs import kprof
+
+    secs, by = kprof.bound_seconds(cost, kprof.resolve_peaks(H100, cost["dtype"]))
+    return secs * 1e3, by
 
 
 def phase_environment():
@@ -470,6 +511,7 @@ def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False):
     times are of calls with ``with_labels`` as the path makes them."""
     import torch
 
+    from cdrs_tpu_torch.obs import kprof
     from cdrs_tpu_torch.ops.lloyd import (centroid_operands, lloyd_assign_reduce,
                                           lloyd_assign_reduce_plain)
 
@@ -520,12 +562,9 @@ def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False):
     plain_ms = time_ms(
         lambda: lloyd_assign_reduce_plain(x, c, n_valid, with_labels=with_labels),
         max(2, reps // 4))
-    # Bytes: x read once, labels written once when asked, centroids and
-    # |c|^2 read, sums and counts written.
-    n_bytes = (n * d * x.element_size() + (n * 4 if with_labels else 0)
-               + k * d * 8 + k * 8)
-    n_ops = 2.0 * n * k * d + n_valid * d
-    b_ms, b_by = bound_ms(n_bytes, n_ops, str(dtype).replace("torch.", ""))
+    b_ms, b_by = bound_ms(kprof.kernel_cost(
+        "lloyd_assign_reduce", n=n, d=d, k=k, n_valid=n_valid,
+        dtype=str(dtype).replace("torch.", ""), with_labels=with_labels))
     log(f"lloyd {name}: n={n} d={d} k={k} {dtype} n_valid={n_valid} "
         f"with_labels={with_labels} labels agree "
         f"{agree:.6f} ({diff.numel()} ties) sums rel {rel:.2e} |kernel-plain| {max_abs:.3e} "
@@ -543,6 +582,7 @@ def check_seg(name, n, d, k, reps, gen, with_global=True):
     ``with_global`` is false.  Labels are uniform in [-1, k)."""
     import torch
 
+    from cdrs_tpu_torch.obs import kprof
     from cdrs_tpu_torch.ops.seg_count import (label_threshold_count,
                                               label_threshold_count_plain)
 
@@ -563,11 +603,8 @@ def check_seg(name, n, d, k, reps, gen, with_global=True):
           f"seg_count {name}: {per_call} kernel launches per call")
     plain_ms = time_ms(lambda: label_threshold_count_plain(x, labels, thr, gthr),
                        max(2, reps // 4))
-    # Bytes: x and the labels read once, both threshold tables read, both
-    # count tables written; operations: the four compares per element.
-    g_cells = 2 * d if with_global else 0
-    n_bytes = n * d * 4 + n * 4 + (2 * k * d + g_cells) * 4 * 2
-    b_ms, b_by = bound_ms(n_bytes, (4.0 if with_global else 2.0) * n * d, "float32")
+    b_ms, b_by = bound_ms(kprof.kernel_cost("label_threshold_count", n=n, d=d, k=k,
+                                            with_global=with_global))
     log(f"seg_count {name}: n={n} d={d} k={k} global={with_global} exact; kernel "
         f"{ms:.4f} ms per call ({l2_note(dev_ms, b_ms)}, {per_call} launches seen per "
         f"call) plain "
@@ -3554,11 +3591,329 @@ def phase_mesh(cfg, main_result, manifest, events, work):
     return launches
 
 
+def stream_rows(path, what):
+    """The roofline rows of a telemetry stream, every one timed on the card
+    and its share of the bound in (0, ``TELEMETRY_SHARE_MAX``].  A card not
+    in ``obs/kprof.DEVICE_PEAKS`` is held to the H100's published peaks."""
+    from cdrs_tpu_torch.obs import kprof, read_events
+    from cdrs_tpu_torch.obs.aggregate import collect, roofline_rows
+
+    digest = collect(read_events(path))
+    rows = roofline_rows(digest)
+    if any("peak_fraction" not in r for r in rows):
+        peaks = kprof.resolve_peaks(H100)
+        log(f"{what}: {torch_device_name()} is not in DEVICE_PEAKS; shares against {H100}")
+        rows = roofline_rows(digest, peaks[0], peaks[1] / 1e9)
+    check(bool(rows), f"{what}: the stream holds no kernel event")
+    for r in rows:
+        check(r["exec_seconds"] is not None and r["device"] == torch_device_name(),
+              f"{what}: {r['kernel']} was not timed on the card: {r}")
+        check(0 < r["peak_fraction"] <= TELEMETRY_SHARE_MAX,
+              f"{what}: {r['kernel']} share {r['peak_fraction']} outside "
+              f"(0, {TELEMETRY_SHARE_MAX}]")
+    return rows
+
+
+def torch_device_name() -> str:
+    import torch
+
+    return torch.cuda.get_device_name(0)
+
+
+def row_summary(r) -> dict:
+    return {"kernel": r["kernel"], "bytes": r["bytes"], "ops": r["flops"],
+            "first_launch_ms": r["exec_seconds"] * 1e3, "gbps": r["gbps"],
+            "bound_ms": r["bound_seconds"] * 1e3, "bound_by": r["bound"],
+            "share": r["peak_fraction"]}
+
+
+def find_row(rows, cost, what):
+    """The row of ``rows`` whose work is ``cost`` (its signature's)."""
+    got = [r for r in rows if (r["flops"], r["bytes"]) == (cost["flops"], cost["bytes"])]
+    check(len(got) == 1, f"{what}: {len(got)} stream rows with the work {cost}")
+    return got[0]
+
+
+def telemetry_model(cfg, main_result, work):
+    """15a: the model on phase 3's table, the instrument off and on (whole
+    and partial), in turns."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from cdrs_tpu_torch.device import deterministic
+    from cdrs_tpu_torch.models.replication import ReplicationPolicyModel
+    from cdrs_tpu_torch.obs import JsonlSink, Telemetry, kprof, read_events
+    from cdrs_tpu_torch.ops.kmeans import kmeans_full
+
+    norm = main_result.table.norm
+    n = norm.shape[0]
+    with deterministic():
+        init = kmeans_full(norm, K, seed=cfg.kmeans.seed, max_iter=0,
+                           init_method=cfg.kmeans.init_method)[0]
+    runs = []
+    # In turns, TELEMETRY_ROUNDS rounds; the two partial instruments
+    # attribute the cost.
+    variants = (("off", None), ("on", {}), ("on_no_trace", {"kmeans_trace": False}),
+                ("on_no_kprof", {"kprof": False}))
+    for turn, (label, kw) in enumerate(variants * TELEMETRY_ROUNDS):
+        path = os.path.join(work, f"telemetry_15a_{turn}.jsonl") if kw is not None else None
+        model = ReplicationPolicyModel(cfg.kmeans, cfg.scoring)
+        kprof.clear_cache()   # every instrumented run times its first launches
+        tel = Telemetry(JsonlSink(path), **kw) if kw is not None else None
+        reset_launches()
+        with deterministic(), (tel or contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec = model.run(norm)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        runs.append({"on": label, "dec": dec, "n_iter": model.n_iter, "seconds": secs,
+                     "launches": read_launches(), "tel": tel, "path": path})
+    base = runs[0]
+    rf0 = base["dec"].replication_factor_per_file(cfg.scoring)
+    for r in runs[1:]:
+        check(np.array_equal(r["dec"].labels, base["dec"].labels)
+              and np.array_equal(r["dec"].category_idx, base["dec"].category_idx)
+              and np.array_equal(r["dec"].replication_factor_per_file(cfg.scoring), rf0),
+              f"15a: labels, categories or rf differ with the instrument on={r['on']}")
+        check(r["launches"] == base["launches"] and r["n_iter"] == base["n_iter"],
+              f"15a: launches {r['launches']} against {base['launches']} (on={r['on']})")
+    check(base["launches"] == {"lloyd": base["n_iter"] + 1, "seg_count": 12},
+          f"15a: launches {base['launches']} for {base['n_iter']} iterations")
+    on = runs[1]
+    counters = on["tel"].counters
+    check(counters.get("kernel.calls.lloyd_assign_reduce") == on["launches"]["lloyd"]
+          and counters.get("kernel.calls.label_threshold_count") == on["launches"]["seg_count"],
+          f"15a: kernel.calls {counters} against the launch counters {on['launches']}")
+    builds = {k: v for k, v in counters.items() if k.startswith("kernel.builds.")}
+    check(not builds, f"15a: kernels rebuilt after phase 1: {builds}")
+    events = read_events(on["path"])
+    iters = [e for e in events if e["kind"] == "kmeans_iter"]
+    check(len(iters) == on["n_iter"], f"15a: {len(iters)} kmeans_iter for {on['n_iter']}")
+    x64 = norm.double()
+    c0 = init.double()
+    d2 = (x64 * x64).sum(1)[:, None] - 2.0 * (x64 @ c0.T) + (c0 * c0).sum(1)[None, :]
+    first = float(d2.min(dim=1).values.clamp(min=0.0).sum())
+    lab = torch.as_tensor(on["dec"].labels, device=norm.device).long()
+    cf = torch.as_tensor(on["dec"].centroids, device=norm.device, dtype=torch.float64)
+    last = float(((x64 - cf[lab]) ** 2).sum())
+    del x64, d2
+    for got, want, which in ((iters[0]["inertia"], first, "first"),
+                             (iters[-1]["inertia"], last, "last")):
+        check(abs(got - want) <= TELEMETRY_INERTIA_TOL * want,
+              f"15a: {which} inertia {got} against the float64 recomputation {want}")
+    rows = stream_rows(on["path"], "15a")
+    b1 = find_row(rows, kprof.kernel_cost("lloyd_assign_reduce", n=n, d=5, k=K), "15a B1")
+    b1_labels = find_row(rows, kprof.kernel_cost("lloyd_assign_reduce", n=n, d=5, k=K,
+                                                 with_labels=True), "15a B1 labels")
+    b2 = find_row(rows, kprof.kernel_cost("label_threshold_count", n=n, d=5, k=K), "15a B2")
+    seconds = {label: [r["seconds"] for r in runs if r["on"] == label]
+               for label, _ in variants}
+    med = {label: sorted(v)[len(v) // 2] for label, v in seconds.items()}
+    log("telemetry 15a " + json.dumps({
+        "iterations": on["n_iter"], "launches": on["launches"], "seconds": seconds,
+        "median_overhead_seconds": {label: med[label] - med["off"] for label in med
+                                    if label != "off"},
+        "inertia_first": [iters[0]["inertia"], first],
+        "inertia_last": [iters[-1]["inertia"], last],
+        "stream_bytes": os.path.getsize(on["path"]), "stream_events": len(events)}))
+    log("telemetry 15a roofline " + json.dumps([row_summary(r) for r in rows]))
+    return on["launches"], {"lloyd": b1, "lloyd_labels": b1_labels, "seg_count": b2}
+
+
+def telemetry_pipeline(work):
+    """15b: ``pipeline --metrics --profile`` through ``cli.main``."""
+    import contextlib
+    import io
+
+    from cdrs_tpu_torch.obs import kprof, read_events
+    from cdrs_tpu_torch.obs.metrics_cli import main as metrics_main
+
+    stream, prof = os.path.join(work, "pipeline.jsonl"), os.path.join(work, "prof")
+    kprof.clear_cache()
+    reset_launches()
+    rc, out, secs = run_cli(["pipeline", "--n", str(MAIN_FILES), "--k", str(K), "--seed",
+                             str(MAIN_SEED), "--duration_seconds",
+                             str(TELEMETRY_PIPELINE_SECONDS),
+                             "--scoring_config", "validated", "--outdir", "",
+                             "--metrics", stream, "--profile", prof])
+    launches = read_launches()
+    check(rc == 0, f"15b: pipeline exited {rc}")
+    summary = json.loads(out)
+    check(launches == {"lloyd": int(summary["kmeans.n_iter"]) + 1, "seg_count": 12},
+          f"15b: launches {launches} for {summary['kmeans.n_iter']} iterations")
+    with open(os.path.join(prof, "trace.json")) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    check(any("lloyd_" in nm for nm in names) and any("seg_" in nm for nm in names),
+          f"15b: the Chrome trace names no lloyd_/seg_ kernel ({len(names)} kernels)")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(metrics_main(["summarize", stream]) == 0, "15b: metrics summarize failed")
+    text = buf.getvalue()
+    rows = [ln for ln in text.splitlines()
+            if ln.strip().startswith(("lloyd_assign_reduce", "label_threshold_count"))]
+    check(any(ln.strip().startswith("lloyd_assign_reduce") for ln in rows)
+          and any(ln.strip().startswith("label_threshold_count") for ln in rows)
+          and all(torch_device_name() in ln
+                  and ("share" in ln or torch_device_name() not in kprof.DEVICE_PEAKS)
+                  for ln in rows),
+          f"15b: summarize's kernel rows: {rows}")
+    counters = {e["name"]: e["value"] for e in read_events(stream) if e["kind"] == "counter"}
+    check(counters.get("kernel.calls.lloyd_assign_reduce") == launches["lloyd"],
+          f"15b: kernel.calls.lloyd_assign_reduce {counters} against {launches}")
+    stream_rows(stream, "15b")
+    log("telemetry 15b " + json.dumps({
+        "seconds": secs, "launches": launches, "stream_bytes": os.path.getsize(stream),
+        "stream_events": len(read_events(stream)),
+        "trace_bytes": os.path.getsize(os.path.join(prof, "trace.json")),
+        "trace_kernels": len(names)}))
+    for ln in rows:
+        log("telemetry 15b summarize:" + ln)
+    return launches
+
+
+def telemetry_controller(manifest, events, work):
+    """15c: controller windows under the instrument, the audit on."""
+    from cdrs_tpu_torch.control.controller import ReplicationController
+    from cdrs_tpu_torch.obs import JsonlSink, Telemetry, kprof, read_events
+    from cdrs_tpu_torch.obs.aggregate import collect
+
+    path = os.path.join(work, "control.jsonl")
+    kprof.clear_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    with Telemetry(JsonlSink(path)):
+        ctl = ReplicationController(manifest, control_config("cuda"))
+        seen = watch_reclusters(ctl)
+        res = ctl.run(events, metrics_path=path, max_windows=TELEMETRY_WINDOWS)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    recs = res.records
+    digest = collect(read_events(path))
+    c = digest["counters"]
+    modes = {}
+    for r in recs:
+        if r["recluster"]:
+            modes[r["recluster_mode"]] = modes.get(r["recluster_mode"], 0) + 1
+    want = {"controller.windows": len(recs),
+            "controller.events_folded": sum(r["n_events"] for r in recs),
+            "migrate.files_moved": sum(r["moves_applied"] for r in recs),
+            "migrate.bytes_moved": sum(r["bytes_migrated"] for r in recs),
+            "kernel.calls.kmeans_full": len(seen),
+            "kernel.calls.lloyd_assign_reduce": launches["lloyd"],
+            "kernel.calls.label_threshold_count": launches["seg_count"],
+            **{f"controller.reclusters.{m}": v for m, v in modes.items()}}
+    got = {k: c.get(k, 0) for k in want}
+    check(len(recs) == TELEMETRY_WINDOWS and got == {k: float(v) for k, v in want.items()},
+          f"15c: counters {got} against the window records {want}")
+    check(launches["lloyd"] == sum(s["n_iter"] + 1 for s in seen)
+          and launches["seg_count"] == 12 * len(seen), f"15c: launches {launches}")
+    audits = digest["audits"]
+    check([a["window"] for a in audits] == [r["window"] for r in recs]
+          and all(a.get("silhouette") is not None for a in audits[1:]),
+          f"15c: audits {[(a['window'], a.get('silhouette')) for a in audits]}")
+    check(digest["gauges"].get("planner.backlog_files") == recs[-1]["backlog_files"],
+          "15c: planner.backlog_files is not the last record's")
+    size = os.path.getsize(path)
+    log("telemetry 15c " + json.dumps({
+        "windows": len(recs), "wall_seconds": wall, "launches": launches,
+        "stream_bytes": size, "stream_bytes_per_window": size / len(recs),
+        "audits": [{k: a.get(k) for k in ("window", "silhouette", "davies_bouldin",
+                                           "category_entropy", "flags")} for a in audits]}))
+    return launches
+
+
+def telemetry_daemon(manifest, log_path, work):
+    """15d: daemon windows under the instrument, mini-batch tracking on."""
+    from cdrs_tpu_torch.control.controller import ReplicationController
+    from cdrs_tpu_torch.daemon import DaemonConfig, StreamDaemon
+    from cdrs_tpu_torch.obs import JsonlSink, Telemetry, kprof, read_events
+
+    path = os.path.join(work, "daemon15.jsonl")
+    ctl = ReplicationController(manifest, control_config("cuda"))
+    seen = watch_reclusters(ctl)
+    daemon = StreamDaemon(ctl, DaemonConfig(recluster="minibatch", minibatch_rows=MB_BATCH,
+                                            max_windows=TELEMETRY_DAEMON_WINDOWS))
+    mb = {"seconds": 0.0, "launches": 0}
+    count_minibatch(daemon, mb)
+    kprof.clear_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    with Telemetry(JsonlSink(path)):
+        dig = daemon.run(log_path, metrics_path=path)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    launches["lloyd"] -= mb["launches"]
+    launches["lloyd_rowmajor"] = mb["launches"]
+    events = read_events(path)
+    spans = [e for e in events if e["kind"] == "span"]
+    decisions = [e for e in spans if e["name"] == "daemon.decision"]
+    traces = {e["id"]: e["attrs"]["trace"] for e in decisions}
+    stages = [e for e in spans if e["name"].startswith("controller.")]
+    check([e["attrs"]["window"] for e in decisions] == [r["window"] for r in daemon.records]
+          and len(decisions) == dig["windows_processed"] == TELEMETRY_DAEMON_WINDOWS,
+          f"15d: {len(decisions)} decision spans for {dig['windows_processed']} windows")
+    check(bool(stages) and all(traces.get(e["parent"]) == e["attrs"]["trace"] for e in stages),
+          "15d: controller stage spans are not children of their decision")
+    check(launches["lloyd_rowmajor"] == dig["windows_processed"]
+          and launches["lloyd"] == sum(s["n_iter"] + 1 for s in seen)
+          and launches["seg_count"] == 12 * len(seen), f"15d: launches {launches}")
+    rows = stream_rows(path, "15d")
+    b3 = find_row(rows, kprof.kernel_cost("lloyd_assign_reduce", n=MB_BATCH, d=5, k=K,
+                                          with_labels=True), "15d B3")
+    log("telemetry 15d " + json.dumps({
+        "windows": dig["windows_processed"], "wall_seconds": wall, "launches": launches,
+        "decision_spans": len(decisions), "stage_spans": len(stages),
+        "stream_bytes": os.path.getsize(path), "b3": row_summary(b3)}))
+    return launches, b3
+
+
+def phase_telemetry(cfg, main_result, manifest, events, log_path, work):
+    """Phase 15 (15a-15d).  Returns the kernels' launches over the phase
+    and the stream's B1/B2/B3 rows."""
+    t0 = time.perf_counter()
+    a, rows = telemetry_model(cfg, main_result, work)
+    log(f"phase 15a: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    b = telemetry_pipeline(work)
+    log(f"phase 15b: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    c = telemetry_controller(manifest, events, work)
+    log(f"phase 15c: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    d, b3 = telemetry_daemon(manifest, log_path, work)
+    log(f"phase 15d: {time.perf_counter() - t1:.1f} s")
+    rows["lloyd_rowmajor"] = b3
+    launches = {key: a[key] + b[key] + c[key] + d[key] for key in ("lloyd", "seg_count")}
+    launches["lloyd_rowmajor"] = d["lloyd_rowmajor"]
+    log("telemetry roofline " + json.dumps({k: row_summary(r) for k, r in rows.items()}))
+    return launches, rows
+
+
+def telemetry_alone(work):
+    """``--phase 15``: phase 3's pipeline, phase 5's workload and log made
+    anew, then phase 15."""
+    from cdrs_tpu_torch import run_pipeline
+    from cdrs_tpu_torch.sim.access import simulate_access
+    from cdrs_tpu_torch.sim.generator import generate_population
+
+    cfg = main_config()
+    main_result = run_pipeline(cfg)
+    manifest = generate_population(cfg.generator)
+    events = simulate_access(manifest, cfg.simulator)
+    log_path = os.path.join(work, "access.cdrsb")
+    events.write_binary(log_path, manifest)
+    return phase_telemetry(cfg, main_result, manifest, events, log_path, work)[0]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
                         help="build and check the kernels only; prints no ok line")
-    parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12, 13, 14), default=None,
+    parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12, 13, 14, 15), default=None,
                         help="build and check the kernels, then run this phase alone; prints "
                              "no ok line")
     args = parser.parse_args()
@@ -3596,6 +3951,8 @@ def main() -> int:
                 log(f"phase 13 launches {phase_batch(*main_workload(work), work)}")
             elif args.phase == 14:
                 log(f"phase 14 launches {mesh_alone(work)}")
+            elif args.phase == 15:
+                log(f"phase 15 launches {telemetry_alone(work)}")
             else:
                 from cdrs_tpu_torch import GeneratorConfig
                 from cdrs_tpu_torch.sim.generator import generate_population
@@ -3633,6 +3990,10 @@ def main() -> int:
         t0 = time.perf_counter()
         mesh_launches = phase_mesh(cfg, main_result, manifest, events, work)
         log(f"phase 14 (mesh): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        telemetry_launches, telemetry_rows = phase_telemetry(cfg, main_result, manifest,
+                                                             events, log_path, work)
+        log(f"phase 15 (telemetry): {time.perf_counter() - t0:.1f} s")
         del events
         t0 = time.perf_counter()
         scenario_launches = phase_scenarios()
@@ -3670,6 +4031,8 @@ def main() -> int:
          "storage_launches": storage_launches["lloyd"],
          "placement_launches": placement["launches"]["lloyd"],
          "batch_launches": batch_launches["lloyd"], "mesh_launches": mesh_launches["lloyd"],
+         "telemetry_launches": telemetry_launches["lloyd"],
+         "telemetry_share": telemetry_rows["lloyd"]["peak_fraction"],
          **rows["lloyd"], "library_ms": None},
         {"name": "label_threshold_count", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/seg_count.cu",
@@ -3683,7 +4046,9 @@ def main() -> int:
          "storage_launches": storage_launches["seg_count"],
          "placement_launches": placement["launches"]["seg_count"],
          "batch_launches": batch_launches["seg_count"],
-         "mesh_launches": mesh_launches["seg_count"], **rows["seg_count"],
+         "mesh_launches": mesh_launches["seg_count"],
+         "telemetry_launches": telemetry_launches["seg_count"],
+         "telemetry_share": telemetry_rows["seg_count"]["peak_fraction"], **rows["seg_count"],
          "library_ms": None},
         {"name": "lloyd_assign_reduce (row-major, labels)", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
@@ -3692,8 +4057,10 @@ def main() -> int:
          "daemon_launches": daemon_launches["lloyd_rowmajor"], "chaos_launches": 0,
          "scenario_launches": 0, "serve_launches": 0, "storage_launches": 0,
          "placement_launches": 0, "batch_launches": 0,
-         "mesh_launches": mesh_launches["lloyd_rowmajor"], **rows["lloyd_rowmajor"],
-         "library_ms": None},
+         "mesh_launches": mesh_launches["lloyd_rowmajor"],
+         "telemetry_launches": telemetry_launches["lloyd_rowmajor"],
+         "telemetry_share": telemetry_rows["lloyd_rowmajor"]["peak_fraction"],
+         **rows["lloyd_rowmajor"], "library_ms": None},
     ]
     for row in kernels:
         check(all(isinstance(row[key], (int, float)) and math.isfinite(row[key])

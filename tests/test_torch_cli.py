@@ -113,8 +113,13 @@ def test_control_summary_has_the_reference_keys(tmp_path, capsys, monkeypatch):
     with open(tmp_path / "plan.csv", newline="") as f:
         rows = list(csv.DictReader(f))
     assert len(rows) == 300 and set(rows[0]) == {"path", "category", "rf"}
-    records = [json.loads(ln) for ln in (tmp_path / "m.jsonl").read_text().splitlines()]
+    # The stream holds the instrument's events too; the window records are
+    # its "kind": "window" lines.
+    events = [json.loads(ln) for ln in (tmp_path / "m.jsonl").read_text().splitlines()]
+    records = [e for e in events if e["kind"] == "window"]
     assert [r["window"] for r in records] == list(range(summary["windows"]))
+    counters = {e["name"]: e["value"] for e in events if e["kind"] == "counter"}
+    assert counters["controller.windows"] == summary["windows"]
     assert records[-1]["plan_hash"] == summary["final_plan_hash"]
     # Rerunning resumes from the checkpoint: nothing left to process.
     again = json.loads(_port("control", *opts, "--device", "cpu", cwd=tmp_path))

@@ -310,8 +310,12 @@ def test_serve_cli_prints_the_reference_digest(cli_inputs, capsys, extra):
         {k: v for k, v in want.items() if k not in timing}
     assert got["reads_routed"] > 0 and got["routed_reads_per_sec"] > 0
     with open(metrics) as f:
-        windows = [json.loads(line) for line in f]
-    assert {w["kind"] for w in windows} == {"window"}
+        events = [json.loads(line) for line in f]
+    # The window records ride the instrument's stream with its serve.* events.
+    windows = [e for e in events if e["kind"] == "window"]
+    assert {"meta", "span", "window"} <= {e["kind"] for e in events}
+    counters = {e["name"]: e["value"] for e in events if e["kind"] == "counter"}
+    assert counters["serve.reads_routed"] == got["reads_routed"]
     assert serve_digest(windows) == {k: v for k, v in got.items()
                                      if k not in timing + ("policy",)}
     if "--no_verify_reads" in extra:

@@ -15,8 +15,8 @@ and through ``cdrs_tpu.cli.main``.
   rows.
 * ``pipeline --evaluate``: the ``evaluation`` equal to the reference's
   from a carried init.
-* ``--mesh``, ``--metrics`` and ``--profile`` are refused with exit code 2,
-  naming their ROADMAP items.
+* ``--mesh``, ``--metrics`` and ``--profile``, once refused, run and
+  change nothing the command writes besides their own output.
 * The counterparts of ``tests/test_plan.py``, each also held to the
   reference's functions.
 """
@@ -296,57 +296,65 @@ def test_pipeline_cli_evaluate_prints_what_run_pipeline_gives(tmp_path, capsys):
     assert rc == 0 and "evaluation" not in json.loads(out)
 
 
-@pytest.mark.parametrize("argv,flag,item", [
+@pytest.mark.parametrize("argv,flag,writes", [
     (["features", "--manifest", "m.csv", "--access_log", "a.log", "--mesh", "8"], "--mesh",
      None),
     (["cluster", "--input_path", "f/", "--mesh", "data=2"], "--mesh", None),
-    (["cluster", "--input_path", "f/", "--metrics", "t.jsonl"], "--metrics", "A10b"),
+    (["cluster", "--input_path", "f/", "--metrics", "t.jsonl"], "--metrics", "t.jsonl"),
     (["pipeline", "--n", "50", "--mesh", "2"], "--mesh", None),
-    (["pipeline", "--n", "50", "--metrics", "t.jsonl"], "--metrics", "A10b"),
-    (["pipeline", "--n", "50", "--profile", "prof"], "--profile", "A10b"),
+    (["pipeline", "--n", "50", "--metrics", "t.jsonl"], "--metrics", "t.jsonl"),
+    (["pipeline", "--n", "50", "--profile", "prof"], "--profile", "prof/trace.json"),
 ])
-def test_unported_flags_are_refused_by_name(argv, flag, item, tmp_path, capsys,
+def test_unported_flags_are_refused_by_name(argv, flag, writes, tmp_path, capsys,
                                             monkeypatch):
-    """A flag of a module not ported yet exits 2 naming its ROADMAP item and
-    writes nothing.  ``--mesh`` (item None) was refused so until the mesh
-    (ROADMAP A9) landed: the command now runs on a mesh of shards and
-    writes what it writes without the flag."""
+    """The flags that were refused while their modules were not ported now
+    run: ``--mesh`` since the mesh (ROADMAP A9), ``--metrics`` and
+    ``--profile`` since telemetry (ROADMAP A10b).  The command writes what
+    it writes without the flag, and the flag's stream or profile besides
+    (``writes``): a stream with the command's root span and its kernel
+    calls, or a Chrome trace."""
     monkeypatch.chdir(tmp_path)
-    if item is None:
-        for pre in (["gen", "--n", "120", "--seed", "7", "--out_manifest", "m.csv"],
-                    ["simulate", "--manifest", "m.csv", "--out", "a.log",
-                     "--duration_seconds", "60", "--seed", "8"],
-                    ["features", "--manifest", "m.csv", "--access_log", "a.log", "--out",
-                     "f/", "--device", "cpu"]):
-            assert _run(port_main, pre, capsys)[0] == 0
-        outputs = {"features": "features_out/part-00000-features.csv",
-                   "cluster": "final_categories.csv"}
-        i = argv.index(flag)
-        plain = argv[:i] + argv[i + 2:]
-        runs = []
-        for args in (plain, argv):
-            rc, out, err = _run(port_main, [*args, "--device", "cpu"], capsys)
-            assert rc == 0, err
-            if argv[0] == "pipeline":
-                summary = json.loads(out)
-                runs.append((summary["categories"], summary["planted_accuracy"]))
-            else:
-                runs.append((tmp_path / outputs[argv[0]]).read_text())
-        if argv[0] == "cluster":
-            # Categories exact; centroids within 1e-5 (float32 sums added in
-            # another order), so their full-precision columns may differ.
-            (head0, *rows0), (head1, *rows1) = (list(csv.reader(r.splitlines()))
-                                                for r in runs)
-            assert head0 == head1 and [r[1] for r in rows0] == [r[1] for r in rows1]
-            np.testing.assert_allclose(np.asarray([r[2:] for r in rows0], float),
-                                       np.asarray([r[2:] for r in rows1], float), atol=1e-5)
+    for pre in (["gen", "--n", "120", "--seed", "7", "--out_manifest", "m.csv"],
+                ["simulate", "--manifest", "m.csv", "--out", "a.log",
+                 "--duration_seconds", "60", "--seed", "8"],
+                ["features", "--manifest", "m.csv", "--access_log", "a.log", "--out",
+                 "f/", "--device", "cpu"]):
+        assert _run(port_main, pre, capsys)[0] == 0
+    outputs = {"features": "features_out/part-00000-features.csv",
+               "cluster": "final_categories.csv"}
+    i = argv.index(flag)
+    plain = argv[:i] + argv[i + 2:]
+    runs = []
+    for args in (plain, argv):
+        rc, out, err = _run(port_main, [*args, "--device", "cpu"], capsys)
+        assert rc == 0, err
+        if argv[0] == "pipeline":
+            summary = json.loads(out)
+            runs.append((summary["categories"], summary["planted_accuracy"]))
         else:
-            assert runs[0] == runs[1]
+            runs.append((tmp_path / outputs[argv[0]]).read_text())
+    if argv[0] == "cluster" and flag == "--mesh":
+        # Categories exact; centroids within 1e-5 (float32 sums added in
+        # another order), so their full-precision columns may differ.
+        (head0, *rows0), (head1, *rows1) = (list(csv.reader(r.splitlines())) for r in runs)
+        assert head0 == head1 and [r[1] for r in rows0] == [r[1] for r in rows1]
+        np.testing.assert_allclose(np.asarray([r[2:] for r in rows0], float),
+                                   np.asarray([r[2:] for r in rows1], float), atol=1e-5)
+    else:
+        assert runs[0] == runs[1]
+    if writes is None:
         return
-    rc, out, err = _run(port_main, [*argv, "--device", "cpu"], capsys)
-    assert rc == 2 and out == ""
-    assert f"error: {flag} " in err and f"(ROADMAP {item})" in err
-    assert list(tmp_path.iterdir()) == []
+    if flag == "--profile":
+        assert json.loads((tmp_path / writes).read_text())["traceEvents"]
+        return
+    from cdrs_tpu_torch.obs import read_events
+
+    events = read_events(str(tmp_path / writes))
+    roots = [e for e in events if e["kind"] == "span" and e["parent"] is None]
+    assert [r["name"] for r in roots] == [{"cluster": "cluster_cmd"}.get(argv[0], argv[0])]
+    calls = {e["name"]: e["value"] for e in events if e["kind"] == "counter"}
+    assert calls["kernel.calls.kmeans_full"] == 1 and calls["kernel.calls.classify"] == 1
+    assert calls["kernel.calls.lloyd_assign_reduce"] >= 2
 
 
 # -- the counterparts of tests/test_plan.py ----------------------------------
