@@ -1,7 +1,8 @@
 """Command line of the PyTorch port: ``python -m cdrs_tpu_torch <command>``.
 
 * ``gen`` and ``simulate`` make a manifest and an access log on the host
-  (``simulate --out x.cdrsb`` writes the binary columnar log);
+  (``simulate --out x.cdrsb`` writes the binary columnar log;
+  ``--engine native`` runs the host library's threaded generator);
 * ``features``, ``cluster`` and ``evaluate`` are the staged batch path:
   manifest and log to the features CSV (on the device), features CSV to
   ``final_categories.csv`` and the per-file assignments (KMeans and
@@ -40,7 +41,9 @@
 * ``metrics summarize|tail|export|report|watch|alerts`` reads a telemetry
   stream (``obs/metrics_cli.py``), ``trace list|show|export`` the daemon's
   decision traces (``obs/trace.py``), and ``status HOST:PORT`` a live
-  daemon's ``/statusz`` with its probes.
+  daemon's ``/statusz`` with its probes;
+* ``explain file|category|window`` rebuilds a decision's provenance from a
+  telemetry stream and a controller checkpoint (``obs/explain.py``).
 
 The flags are those of ``cdrs_tpu``'s subcommands of the same names that
 this port supports, plus ``--device`` (CUDA unless "cpu" is asked for).
@@ -146,7 +149,8 @@ def _cmd_gen(args) -> int:
 
     cfg = GeneratorConfig(n_files=args.n, base_dir=args.hdfs_dir, min_size=args.min_size,
                           max_size=args.max_size, nodes=tuple(args.nodes.split(",")),
-                          age_days_max=args.age_days_max, seed=args.seed)
+                          age_days_max=args.age_days_max, seed=args.seed,
+                          write_payloads=args.write_payloads)
     t0 = time.perf_counter()
     manifest = generate_population(cfg)
     manifest.write_csv(args.out_manifest)
@@ -166,7 +170,7 @@ def _cmd_simulate(args) -> int:
         fmt = "binary" if args.out.endswith(".cdrsb") else "csv"
     t0 = time.perf_counter()
     manifest = Manifest.read_csv(args.manifest)
-    events = simulate_access(manifest, cfg)
+    events = simulate_access(manifest, cfg, engine=args.engine)
     if fmt == "binary":
         events.write_binary(args.out, manifest)
     else:
@@ -656,6 +660,14 @@ def _cmd_metrics(args) -> int:
     return metrics_main(args.rest)
 
 
+def _cmd_explain(args) -> int:
+    """Decision provenance (obs/explain.py), offline from a telemetry stream
+    and a checkpoint."""
+    from .obs.explain import main as explain_main
+
+    return explain_main(args.rest)
+
+
 def _cmd_trace(args) -> int:
     """The daemon's decision traces (obs/trace.py): list slowest first,
     show one span tree, export Chrome/Perfetto JSON."""
@@ -1131,6 +1143,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--age_days_max", type=float, default=365.0)
     p.add_argument("--out_manifest", default="metadata.csv")
     p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--write_payloads", action="store_true",
+                   help="also write each file's random bytes under --hdfs_dir "
+                        "(relative to the working directory)")
     p.set_defaults(fn=_cmd_gen)
 
     p = sub.add_parser("simulate", help="simulate Poisson access events")
@@ -1139,6 +1154,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--duration_seconds", type=float, default=300.0)
     p.add_argument("--clients", default="dn1,dn2,dn3,dn4")
     p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--engine", choices=["numpy", "native"], default="numpy",
+                   help="'native' = the host library's threaded generator "
+                        "(runtime/native.py)")
     p.add_argument("--format", choices=["auto", "csv", "binary"], default="auto",
                    help="'csv' = access.log; 'binary' = the columnar .cdrsb log "
                         "(every reader detects it); 'auto' = binary when --out "
@@ -1448,6 +1466,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="list FILE [--limit N] | show FILE WINDOW | "
                         "export FILE [--out JSON] [--canonical]")
     p.set_defaults(fn=_cmd_trace)
+
+    p = sub.add_parser("explain", help="decision provenance: why a file lives where it "
+                       "does (slot-by-slot chooser narration and cause-tagged move "
+                       "history), why a category scored what it did (per-feature "
+                       "decomposition), what a window's signals, traffic and alerts were")
+    p.add_argument("rest", nargs=argparse.REMAINDER,
+                   help="file ID --manifest CSV [--metrics JSONL] [--checkpoint NPZ] "
+                        "[--topology JSON|--racks SPEC] | category NAME --checkpoint NPZ | "
+                        "window W --metrics JSONL")
+    p.set_defaults(fn=_cmd_explain)
 
     p = sub.add_parser("status", help="one-shot status of a live daemon started with "
                        "--http: /statusz digest plus the /readyz and /healthz verdicts")

@@ -289,6 +289,9 @@ class GeneratorConfig:
     age_days_max: float = 365.0
     category_mix: dict[str, float] = field(default_factory=_default_category_mix)
     seed: int | None = None
+    #: Also write each file's random bytes (``base_dir`` taken relative to
+    #: the working directory); the analytics read only the manifest.
+    write_payloads: bool = False
 
 
 @dataclass

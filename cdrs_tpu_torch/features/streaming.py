@@ -337,7 +337,8 @@ _QUEUE_DEPTH = 2
 def fold_stream(source, manifest: Manifest, *, device=None, batch_size: int = 4_000_000,
                 checkpoint_path: str | None = None, checkpoint_every: int = 25,
                 stats: dict | None = None,
-                mesh_shape: dict[str, int] | None = None) -> StreamFeatureState:
+                mesh_shape: dict[str, int] | None = None,
+                native: bool = True) -> StreamFeatureState:
     """Fold a whole log, parsing and preparing batches on a producer thread
     while the calling thread folds them on ``device`` (CUDA unless "cpu").
 
@@ -346,8 +347,10 @@ def fold_stream(source, manifest: Manifest, *, device=None, batch_size: int = 4_
     every ``checkpoint_every`` folded batches, with the log byte offset it
     covers; a later call with the same path resumes there, bit-identical to
     an uninterrupted fold.  It needs a path source, and snapshots happen
-    only at reported offsets (``.cdrsb`` block ends; a CSV log reports
-    none).  The checkpoint is deleted when the fold completes.  ``stats``
+    only at reported offsets (``.cdrsb`` block ends; every batch of the
+    native CSV parser, none once Python's parser has taken over or with
+    ``native=False``).  ``native`` is ``EventLog.read_csv_batches``'s.  The
+    checkpoint is deleted when the fold completes.  ``stats``
     receives ``parse_seconds``, ``prep_seconds`` (the producer's),
     ``fold_seconds`` (copy and fold, synchronised on the card), ``batches``
     and ``resumed_from_offset``.  ``mesh_shape`` folds each batch over the
@@ -383,7 +386,8 @@ def fold_stream(source, manifest: Manifest, *, device=None, batch_size: int = 4_
 
     if is_path:
         batches = EventLog.read_csv_batches(source, manifest, batch_size=batch_size,
-                                            start_offset=start_offset, with_offsets=True)
+                                            native=native, start_offset=start_offset,
+                                            with_offsets=True)
     else:
         batches = ((ev, None) for ev in source)
 

@@ -4,8 +4,12 @@ Copied from ``cdrs_tpu/io/events.py``: paths and client nodes are interned
 to int32 ids, timestamps are float64 epoch seconds.  ``metadata.csv`` and
 ``access.log`` keep the byte format of the JAX package's writers, and the
 binary columnar log (``.cdrsb``) its layout, so either package reads what
-the other wrote.  CSV logs are parsed by Python's ``csv`` module (the JAX
-package's native C++ parser is not ported).
+the other wrote.  CSV logs are read by the host library's chunked C++
+parser with native interning (``runtime/native.py``), which reports a
+resumable byte offset on every batch; rows its grammar rejects (CSV
+quoting, malformed rows, other timestamps) hand over to Python's ``csv``
+module at the exact byte reached.  ``write_csv`` uses the native writer
+whenever no string needs quoting.
 """
 
 from __future__ import annotations
@@ -163,9 +167,11 @@ class EventLog:
     # -- readers -----------------------------------------------------------
 
     @classmethod
-    def read_csv(cls, path: str, manifest: Manifest) -> "EventLog":
-        """The whole log (CSV or ``.cdrsb``) as one EventLog."""
-        batches = list(cls.read_csv_batches(path, manifest, batch_size=None))
+    def read_csv(cls, path: str, manifest: Manifest,
+                 native: bool = True) -> "EventLog":
+        """The whole log (CSV or ``.cdrsb``) as one EventLog; ``native`` as
+        in :meth:`read_csv_batches`."""
+        batches = list(cls.read_csv_batches(path, manifest, batch_size=None, native=native))
         if not batches:
             return cls(ts=np.zeros(0), path_id=np.zeros(0, dtype=np.int32),
                        op=np.zeros(0, dtype=np.int8),
@@ -189,9 +195,13 @@ class EventLog:
             clients=parts[-1].clients,
         )
 
+    #: Rows per native chunk when the whole file is read as one batch.
+    _NATIVE_CHUNK_ROWS = 4_000_000
+
     @classmethod
     def read_csv_batches(cls, path: str, manifest: Manifest,
                          batch_size: int | None = 1_000_000,
+                         native: bool = True,
                          start_offset: int = 0, with_offsets: bool = False):
         """Yield EventLog batches of up to ``batch_size`` rows (``None``:
         everything in one batch).
@@ -199,12 +209,18 @@ class EventLog:
         The client vocabulary is threaded across batches, with ids shared
         with the manifest's node vocabulary so locality compares ids.
 
+        A CSV log is read by the native chunk parser (``native=True``; a
+        failed build of the host library raises) or, with ``native=False``,
+        by Python's ``csv``.  Rows the native grammar
+        rejects hand over to Python's parser from the exact byte reached.
+
         ``start_offset`` resumes the scan at a byte offset reported earlier
         with ``with_offsets=True``, which yields ``(batch, next_offset)``
         pairs: ``next_offset`` is the byte just past the batch's last row,
         valid as a later ``start_offset``, or None where no such byte is
-        known.  A CSV log always reports None (``csv.reader`` reads ahead);
-        a ``.cdrsb`` log reports offsets at block boundaries.
+        known (batches of the Python parser, which reads ahead, and the one
+        batch of ``batch_size=None``).  A ``.cdrsb`` log reports offsets at
+        block boundaries.
         """
         if not os.path.exists(path):
             raise FileNotFoundError(f"missing event log {path!r}: no such file")
@@ -212,7 +228,10 @@ class EventLog:
             gen = cls.read_binary_batches(path, manifest, batch_size=batch_size,
                                           start_offset=start_offset)
         else:
-            gen = cls._read_csv_rows(path, manifest, batch_size, start_offset)
+            if native:
+                gen = cls._read_csv_native(path, manifest, batch_size, start_offset)
+            else:
+                gen = cls._read_csv_rows(path, manifest, batch_size, start_offset)
         if batch_size is not None:
             if with_offsets:
                 yield from gen
@@ -226,10 +245,45 @@ class EventLog:
         yield (out, None) if with_offsets else out
 
     @classmethod
-    def _read_csv_rows(cls, path: str, manifest: Manifest,
-                       batch_size: int | None, start_offset: int = 0):
-        """(batch, None) pairs from the Python csv parser."""
+    def _read_csv_native(cls, path: str, manifest: Manifest, batch_size: int | None,
+                         start_offset: int = 0):
+        """(batch, next_offset) pairs from the native chunk parser, then, from
+        the byte where its grammar gave up (if anywhere), (batch, None) pairs
+        from the Python parser with the vocabulary grown so far."""
+        from ..runtime.native import InternMap, parse_log_chunk_native
+
         clients = list(manifest.nodes)
+        rows_per_chunk = batch_size or cls._NATIVE_CHUNK_ROWS
+        path_map = InternMap(manifest.paths)
+        client_map = InternMap(clients)
+        offset = int(start_offset)
+        size = os.path.getsize(path)
+        while True:
+            chunk = parse_log_chunk_native(path, offset, rows_per_chunk)
+            if chunk is None:
+                break
+            ts, op, pblob, poff, cblob, coff, nxt = chunk
+            if len(ts) == 0:
+                # No row parsed: the end of the file, or blank lines before
+                # a row larger than the chunk's budget (Python's to read).
+                if nxt >= size:
+                    return
+                offset = nxt
+                break
+            pid = path_map.lookup(pblob, poff)
+            cid = client_map.insert_lookup(cblob, coff)
+            clients.extend(client_map.names_from(len(clients)))
+            yield cls(ts=ts, path_id=pid, op=op, client_id=cid, clients=list(clients)), nxt
+            offset = nxt
+        yield from cls._read_csv_rows(path, manifest, batch_size, offset, clients)
+
+    @classmethod
+    def _read_csv_rows(cls, path: str, manifest: Manifest,
+                       batch_size: int | None, start_offset: int = 0, clients=None):
+        """(batch, None) pairs from the Python csv parser; ``clients`` is the
+        vocabulary grown before ``start_offset`` (the manifest's nodes when
+        None)."""
+        clients = list(manifest.nodes) if clients is None else list(clients)
         client_vocab = {nm: i for i, nm in enumerate(clients)}
         path_to_id = manifest.path_to_id
 
@@ -471,8 +525,27 @@ class EventLog:
 
     def write_csv(self, path: str, manifest: Manifest) -> None:
         """``access.log`` rows ``ts,path,op,client,pid``; rows with
-        ``path_id == -1`` are skipped.  The millisecond field truncates
-        ``(t - floor(t)) * 1000`` exactly as the JAX package's writers do."""
+        ``path_id == -1`` are skipped.  The native writer runs whenever no
+        path or client needs CSV quoting, else Python's ``csv``; the files
+        are byte-identical (the millisecond field truncates ``(t - floor(t))
+        * 1000`` in both, as the JAX package's writers do)."""
+        needs_quoting = any(any(ch in s for ch in (",", '"', "\n", "\r"))
+                            for s in (*manifest.paths, *self.clients))
+        if needs_quoting:
+            self._write_csv_python(path, manifest)
+            return
+        from ..runtime.native import write_access_log_native
+
+        valid = self.path_id >= 0
+        if valid.all():
+            cols = (self.ts, self.path_id, self.op, self.client_id)
+        else:
+            cols = (self.ts[valid], self.path_id[valid], self.op[valid],
+                    self.client_id[valid])
+        write_access_log_native(path, *cols, manifest.paths, self.clients)
+
+    def _write_csv_python(self, path: str, manifest: Manifest) -> None:
+        """The Python ``csv`` writer of :meth:`write_csv`."""
         with open(path, "w", newline="") as f:
             w = csv.writer(f, lineterminator="\n")
             out_i = 0

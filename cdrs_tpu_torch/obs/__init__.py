@@ -17,7 +17,8 @@ readers (the counterpart of ``cdrs_tpu/obs``).
 
 Event kinds and names are the reference's, except where a name describes
 JAX: ``jit.calls.<k>`` is ``kernel.calls.<k>``, the recompile counter is
-``kernel.builds.<source>`` (``nvcc`` runs), ``xla.compile.seconds`` is
+``kernel.builds.<source>`` (compiler runs: ``nvcc`` for a kernel, ``g++``
+for the host library), ``xla.compile.seconds`` is
 ``kernel.build.seconds``, and ``{"kind": "xla"}`` events are
 ``{"kind": "kernel"}``.
 """

@@ -16,6 +16,9 @@
   same call (its global table over every row with a valid label), so an
   iteration is one pass over x.
 * **Score table** and the replication-factor tie-break ``_pick_winner``.
+* **Score terms** (``score_table_terms``) — the (k, C, d) gated
+  per-feature terms whose feature-axis sum is the score table, host
+  float64 numpy off the device path; ``explain category`` reads them.
 
 Empty clusters get NaN medians, which score 0 everywhere.
 
@@ -45,7 +48,7 @@ from .seg_count import label_threshold_count
 
 __all__ = ["HIST_MEDIAN_THRESHOLD", "resolve_median_method", "scoring_tables",
            "cluster_medians_sort", "hist_medians", "bisect_medians",
-           "score_table", "pick_winner", "classify"]
+           "score_table", "score_table_terms", "pick_winner", "classify"]
 
 #: Row count past which "auto" leaves the exact sort medians.
 HIST_MEDIAN_THRESHOLD = 2_000_000
@@ -252,6 +255,30 @@ def score_table(cluster_medians, global_medians, W, D, is_moderate, band):
     gate = torch.where(mod, gate_mod, gate_dir) & valid_b
     term = torch.where(mod, term_mod, term_dir)
     return torch.where(gate, term, 0.0).sum(dim=2)
+
+
+def score_table_terms(cluster_medians: np.ndarray, cfg: ScoringConfig,
+                      global_medians: np.ndarray | None = None) -> np.ndarray:
+    """(k, C, d) float64 gated per-feature score terms (host numpy): the
+    score table is their sum over the feature axis.  A zero term is a
+    closed gate (direction mismatch, or |delta| outside the Moderate band)
+    or a NaN median (an empty cluster)."""
+    W = np.asarray(cfg.weight_matrix(), dtype=np.float64)
+    D = np.asarray(cfg.direction_matrix(), dtype=np.float64)
+    if global_medians is None:
+        global_medians = np.asarray([cfg.global_medians[f] for f in cfg.features],
+                                    dtype=np.float64)
+    delta = np.asarray(cluster_medians, dtype=np.float64) - global_medians[None, :]
+    valid = ~np.isnan(delta)
+    delta = np.where(valid, delta, 0.0)
+    delta_b = delta[:, None, :]
+    absd_b = np.abs(delta)[:, None, :]
+    is_moderate = np.array([c == "Moderate" for c in cfg.categories])[None, :, None]
+    gate_dir = (D[None] == 0) | (np.sign(delta_b) == D[None])
+    gate_mod = absd_b < cfg.moderate_band
+    gate = np.where(is_moderate, gate_mod, gate_dir) & valid[:, None, :]
+    term = np.where(is_moderate, W[None] * (1.0 - absd_b) ** 2, W[None] * absd_b ** 2)
+    return np.where(gate, term, 0.0)
 
 
 def pick_winner(scores: torch.Tensor, rf: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Stateless hash placement: ``cdrs_tpu/placement_fn/compute.py`` (without
-``explain_placement``), host numpy, bit-identical to it.
+"""Stateless hash placement: ``cdrs_tpu/placement_fn/compute.py``, host
+numpy, bit-identical to it.
 
 The priority of node j for file f is a hash of (seed, file id, node
 name), CRUSH's straw2 draw, so any subset of files places in O(subset)
@@ -14,7 +14,8 @@ priority), and a region-local file is clipped to its primary's region
 (``clip_shards_for_locality``).  Each packed priority holds the node id in
 its low 6 bits under a 26-bit hash, so the minimum over the node axis
 carries its winner and a file's values never tie; that caps a topology at
-63 nodes.  ``explain_placement`` waits for ROADMAP A10c (with ``explain``).
+63 nodes.  ``explain_placement`` narrates one file's slots scalar by
+scalar and checks the narration against ``compute_placement``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import hashlib
 import numpy as np
 
 __all__ = ["node_salts", "file_keys", "hash_priorities", "compute_placement",
-           "hierarchical_fill", "clip_shards_for_locality", "PRIO_MAX", "NODE_MASK",
+           "explain_placement", "hierarchical_fill", "clip_shards_for_locality", "PRIO_MAX", "NODE_MASK",
            "MAX_NODES"]
 
 _SPLITMIX_GAMMA = np.uint64(0x9E3779B97F4A7C15)
@@ -288,3 +289,143 @@ def compute_placement(file_ids: np.ndarray, n_shards: np.ndarray, primary: np.nd
         if width > max_rf:
             out[:, max_rf:] = -1
     return slots, rf
+
+
+def explain_placement(file_id: int, n_shards: int, primary: int, topology, seed: int = 0, *,
+                      local: bool = False) -> dict:
+    """Slot-by-slot trace of one file's computed placement.
+
+    Re-derives the chooser's slots scalar by scalar (each candidate's hash
+    priority, the domain-count keys of the hierarchical fill, the rule that
+    took each slot), then checks that the narrated slots equal the file's
+    :func:`compute_placement` row and raises if they do not.  ``primary``
+    is already mapped onto ``topology``
+    (``cluster.placement.primary_on_topology``).
+
+    Returns ``{"file", "seed", "rf", "local", "slots"}``; a slot carries
+    ``slot``, ``node``, ``node_name``, ``rule`` and, past slot 0, its
+    ``candidates`` (``priority`` is the 26-bit hash channel; hierarchical
+    slots add ``top_count`` and ``base_count`` and the winner's ``key``; a
+    masked candidate says why).
+    """
+    fid = int(file_id)
+    n_nodes = len(topology)
+    prim = int(primary)
+    salts = node_salts(topology.nodes, seed)
+    w = hash_priorities(file_keys(np.asarray([fid]), seed), salts).reshape(n_nodes).copy()
+    hier = topology.n_levels > 0
+    rf_arr = np.clip(np.asarray([int(n_shards)], dtype=np.int32), 1, n_nodes)
+    local_mask = np.asarray([bool(local)]) if hier else None
+    if hier:
+        rf_arr = clip_shards_for_locality(rf_arr, np.asarray([prim], dtype=np.int64),
+                                          topology, local_mask)
+    rf = int(rf_arr[0])
+    dom = topology.domain_index()
+    dom_top = topology.top_domain_index() if hier else None
+    names = list(topology.nodes)
+    base_names = list(topology.domains) if topology.domains else names
+    masked_why = {}   # node -> why it is no longer a candidate
+
+    def cand_rows(extra=None):
+        rows = []
+        for j in range(n_nodes):
+            row = {"node": j, "name": str(names[j]), "domain": str(base_names[j])}
+            if w[j] == PRIO_MAX:
+                row["masked"] = masked_why.get(j, "taken")
+            else:
+                row["priority"] = int(w[j] >> np.uint32(6))
+            if extra is not None:
+                row.update(extra(j))
+            rows.append(row)
+        return rows
+
+    def take(c, sel, rule, cands, **extra):
+        slots.append({"slot": c, "node": int(sel), "node_name": str(names[sel]),
+                      "rule": rule, **extra, "candidates": cands})
+        w[sel] = PRIO_MAX
+        masked_why[sel] = f"taken (slot {c})"
+
+    def best(cands_idx):
+        return min(cands_idx, key=lambda j: int(w[j]))
+
+    slots: list[dict] = [{"slot": 0, "node": prim, "node_name": str(names[prim]),
+                          "rule": "primary"}]
+    w[prim] = PRIO_MAX
+    masked_why[prim] = "primary (slot 0)"
+
+    if hier:
+        # The scalar form of ``hierarchical_fill``: each slot takes the
+        # candidate of least (copies in its top-level domain, copies in its
+        # base domain, packed priority); a region-local file first loses
+        # every off-region candidate.
+        if local:
+            for j in range(n_nodes):
+                if dom_top[j] != dom_top[prim] and w[j] != PRIO_MAX:
+                    w[j] = PRIO_MAX
+                    masked_why[j] = "off-region (locality pin)"
+        base_cnt = np.zeros(topology.n_domains, dtype=np.int64)
+        top_cnt = np.zeros(topology.n_domains_at(topology.n_levels), dtype=np.int64)
+        base_cnt[dom[prim]] += 1
+        top_cnt[dom_top[prim]] += 1
+
+        def key_of(j):
+            return {"top_count": int(top_cnt[dom_top[j]]), "base_count": int(base_cnt[dom[j]])}
+
+        for c in range(1, rf):
+            cands = cand_rows(key_of)
+            live = [j for j in range(n_nodes) if w[j] != PRIO_MAX]
+            if not live:
+                slots.append({"slot": c, "node": -1, "node_name": None, "rule": "exhausted",
+                              "candidates": cands})
+                continue
+            sel = min(live, key=lambda j: (int(top_cnt[dom_top[j]]), int(base_cnt[dom[j]]),
+                                           int(w[j])))
+            key = {**key_of(sel), "priority": int(w[sel] >> np.uint32(6))}
+            take(c, sel, "hierarchical_fill (least-covered region, then rack, then best "
+                 "priority)", cands, key=key)
+            base_cnt[dom[sel]] += 1
+            top_cnt[dom_top[sel]] += 1
+    else:
+        multi_domain = 1 < topology.n_domains < n_nodes and rf >= 2
+        start_col = 1
+        if multi_domain:
+            # Rack-aware: replica 1 is the best node outside the primary's
+            # domain, replica 2 that domain's second-best (each falling back
+            # to the best remaining node).
+            dp = int(dom[prim])
+            cands = cand_rows()
+            remote = [j for j in range(n_nodes) if w[j] != PRIO_MAX and dom[j] != dp]
+            has1 = bool(remote)
+            if has1:
+                sel1, rule1 = best(remote), "best node of a remote domain (off-rack)"
+            else:
+                sel1 = best([j for j in range(n_nodes) if w[j] != PRIO_MAX])
+                rule1 = "best remaining node (no remote domain)"
+            take(1, sel1, rule1, cands)
+            start_col = 2
+            if rf >= 3:
+                cands = cand_rows()
+                second = [j for j in range(n_nodes)
+                          if w[j] != PRIO_MAX and has1 and dom[j] == dom[sel1]]
+                if second:
+                    sel2, rule2 = best(second), "second-best node of the remote domain"
+                else:
+                    sel2 = best([j for j in range(n_nodes) if w[j] != PRIO_MAX])
+                    rule2 = "best remaining node (remote domain has no second member)"
+                take(2, sel2, rule2, cands)
+                start_col = 3
+        for c in range(start_col, rf):
+            cands = cand_rows()
+            take(c, best([j for j in range(n_nodes) if w[j] != PRIO_MAX]),
+                 "ascending hash priority", cands)
+
+    truth, truth_rf = compute_placement(
+        np.asarray([fid], dtype=np.int64), np.asarray([int(n_shards)], dtype=np.int32),
+        np.asarray([prim], dtype=np.int64), topology, seed, local_mask=local_mask)
+    told = [s["node"] for s in slots]
+    want = [int(x) for x in truth[0, :int(truth_rf[0])]]
+    if told != want or rf != int(truth_rf[0]):
+        raise RuntimeError(
+            f"explain_placement narration diverged from compute_placement for file {fid}: "
+            f"narrated {told}, computed {want}")
+    return {"file": fid, "seed": int(seed), "rf": rf, "local": bool(local), "slots": slots}

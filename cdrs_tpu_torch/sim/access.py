@@ -14,6 +14,13 @@ the curve, op mix, a locality-biased client, then a stable global time sort.
   :func:`simulate_access_with_shift` is its one-shift case;
 * :func:`simulate_flash_crowd` — the flat stream plus a read burst on a
   cohort (seeded ``seed + 0x9E37``).
+
+``engine="native"`` draws the flat stream (and with it every phase of the
+phased curves and a flash crowd's base) with the host library's threaded
+engine (``runtime/native.py``): the same jittered rates and client
+vocabulary, then its own deterministic C++ stream, bit-identical to the
+JAX package's native engine on the same seed and invariant to the thread
+count.
 """
 
 from __future__ import annotations
@@ -92,12 +99,27 @@ def _poisson_stream(manifest: Manifest, cfg: SimulatorConfig, rng,
 
 
 def simulate_access(manifest: Manifest, cfg: SimulatorConfig,
-                    sim_start: float | None = None) -> EventLog:
+                    sim_start: float | None = None, engine: str = "numpy") -> EventLog:
     """Globally time-sorted event log over ``cfg.duration_seconds``,
-    starting just after the manifest's latest creation time."""
+    starting just after the manifest's latest creation time.
+    ``engine="native"`` runs the host library's threaded generator."""
     rng = np.random.default_rng(cfg.seed)
     if sim_start is None:
         sim_start = _default_start(manifest)
+    if engine == "native":
+        from ..runtime.native import simulate_events_native
+
+        read, write, loc = jittered_rates(manifest, cfg, rng)
+        clients, pool = client_vocabulary(manifest, cfg.clients)
+        # An unseeded run draws a fresh 64-bit seed from the (entropy-seeded)
+        # generator, so unseeded runs stay independent.
+        seed = int(cfg.seed) if cfg.seed is not None else int(rng.integers(0, 2**63 - 1))
+        ts, pid, op, client = simulate_events_native(
+            read, write, loc, manifest.primary_node_id, pool, cfg.duration_seconds,
+            sim_start, seed=seed)
+        return EventLog(ts=ts, path_id=pid, op=op, client_id=client, clients=clients)
+    if engine != "numpy":
+        raise ValueError(f"unknown simulator engine {engine!r}")
     return _poisson_stream(manifest, cfg, rng, sim_start,
                            lambda u: u * cfg.duration_seconds)
 
@@ -127,7 +149,8 @@ def simulate_diurnal(manifest: Manifest, cfg: SimulatorConfig, *,
 
 
 def simulate_access_phased(manifest: Manifest, cfg: SimulatorConfig, shifts, *,
-                           sim_start: float | None = None) -> tuple[EventLog, np.ndarray]:
+                           sim_start: float | None = None,
+                           engine: str = "numpy") -> tuple[EventLog, np.ndarray]:
     """N-phase workload: cumulative category flips at successive times.
 
     ``shifts`` are ``(shift_at, category_flip, cohort)`` tuples (cohort None
@@ -169,7 +192,8 @@ def simulate_access_phased(manifest: Manifest, cfg: SimulatorConfig, shifts, *,
         seed_i = None if cfg.seed is None else int(cfg.seed) + i * 0x5F17
         cfg_i = dataclasses.replace(cfg, duration_seconds=bounds[i + 1] - bounds[i],
                                     seed=seed_i)
-        logs.append(simulate_access(cur_manifest, cfg_i, sim_start=sim_start + bounds[i]))
+        logs.append(simulate_access(cur_manifest, cfg_i, sim_start=sim_start + bounds[i],
+                                    engine=engine))
     # Phase i + 1 starts where phase i ends, and every phase interns clients
     # against the same vocabulary: the concatenation is time-sorted.
     changed = np.asarray([a != b for a, b in zip(manifest.category, cats)])
@@ -178,7 +202,8 @@ def simulate_access_phased(manifest: Manifest, cfg: SimulatorConfig, shifts, *,
 
 def simulate_flash_crowd(manifest: Manifest, cfg: SimulatorConfig, *, cohort: np.ndarray,
                          start: float, duration: float, boost: float,
-                         sim_start: float | None = None) -> tuple[EventLog, np.ndarray]:
+                         sim_start: float | None = None,
+                         engine: str = "numpy") -> tuple[EventLog, np.ndarray]:
     """The flat stream plus extra reads on a cohort over ``[start, start +
     duration)`` seconds of the span, at ``boost`` x its category's mean read
     rate, with the same locality bias.  Returns the merged time-sorted log
@@ -197,7 +222,7 @@ def simulate_flash_crowd(manifest: Manifest, cfg: SimulatorConfig, *, cohort: np
     if sim_start is None:
         sim_start = _default_start(manifest)
 
-    base = simulate_access(manifest, cfg, sim_start=sim_start)
+    base = simulate_access(manifest, cfg, sim_start=sim_start, engine=engine)
 
     rng = np.random.default_rng(None if cfg.seed is None else int(cfg.seed) + 0x9E37)
     ids = np.flatnonzero(in_cohort)
@@ -227,9 +252,10 @@ def simulate_flash_crowd(manifest: Manifest, cfg: SimulatorConfig, *, cohort: np
 
 def simulate_access_with_shift(manifest: Manifest, cfg: SimulatorConfig, shift_at: float,
                                category_flip: dict[str, str], cohort: np.ndarray | None = None,
-                               sim_start: float | None = None) -> tuple[EventLog, np.ndarray]:
+                               sim_start: float | None = None,
+                               engine: str = "numpy") -> tuple[EventLog, np.ndarray]:
     """Two-phase workload: planted categories flip at ``shift_at`` for a
     cohort (None = every file whose category is a key of the flip); the
     one-shift case of :func:`simulate_access_phased`."""
     return simulate_access_phased(manifest, cfg, [(float(shift_at), category_flip, cohort)],
-                                  sim_start=sim_start)
+                                  sim_start=sim_start, engine=engine)

@@ -4,10 +4,14 @@ Makes the same numpy draws in the same order as
 ``cdrs_tpu/sim/generator.py``, so one seed gives a bit-identical manifest
 in both packages: size ~ U{min, max}, creation = now - U(0, age_days_max)
 days, primary node uniform, category from ``category_mix``.
+``write_payloads`` also writes each file's ``os.urandom`` bytes under
+``base_dir`` taken relative to the working directory (after the draws, so
+the manifest is the same either way).
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -36,6 +40,12 @@ def generate_population(cfg: GeneratorConfig, now: float | None = None) -> Manif
     category = [cats[i] for i in cat_idx]
 
     paths = [f"{cfg.base_dir}/synth_{i}.bin" for i in range(n)]
+    if cfg.write_payloads:
+        root = cfg.base_dir.lstrip("/")
+        os.makedirs(root, exist_ok=True)
+        for i in range(n):
+            with open(os.path.join(root, f"synth_{i}.bin"), "wb") as f:
+                f.write(os.urandom(int(sizes[i])))
     return Manifest(
         paths=paths,
         creation_ts=np.floor(creation),

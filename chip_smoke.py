@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernel checks only (no ok line)
     python3 chip_smoke.py --phase 10 # build, kernel checks and one phase (9,
-                                     # 10, 11, 12, 13, 14 or 15) alone; no ok line
+                                     # 10, 11, 12, 13, 14, 15 or 16) alone; no ok line
 
 Phases, each of which exits non-zero when a check fails:
 
@@ -104,7 +104,8 @@ Phases, each of which exits non-zero when a check fails:
    (b) ``gradual-drift`` at 2,500,000 files in 10 windows over 30 s (cuts:
    files, windows and span, no alert gating), ``ok`` to its end, with B1 = sum(n_iter + 1) and B2 =
    12 per re-cluster (2.5M rows resolve to bisection), its mean seconds a
-   window by stage and the idle share of one profiled window.
+   window by stage and the idle share of one profiled window.  In the
+   whole smoke phase 9 runs last in phase 13's child, after phase 16.
 10. The read path: (a) the serving controller (``ServeConfig(policy=
    "p2c")``) on CUDA over phase 3's population and a flash crowd (phase 3's
    traffic plus a seeded 1% cohort of hot files, 25,000, boosted 40x over
@@ -195,11 +196,12 @@ Phases, each of which exits non-zero when a check fails:
    the committed corpus untouched, B1 = sum(n_iter + 1) over the cells'
    re-clusters and no B2 (their medians sort).  In the whole smoke phase 13
    runs in a child process started after phase 5, beside phases 6-12:
-   its CSV stages are host-bound.  ``--phase 13`` runs it alone, in
-   process, after making phase 5's workload.
+   its CSV stages are host-bound; phases 16 and 9 follow it there.
+   ``--phase 13`` runs it alone, in process, after making phase 5's
+   workload.
 
 14. The mesh (``parallel/mesh.py``; shards share card 0 by the placement
-   rule), run after phase 8 on phase 5's workload: (a) ``run_pipeline`` at
+   rule), run after phase 12 on phase 5's workload: (a) ``run_pipeline`` at
    ``{"data": 4}``, whose features equal phase 3's bit for bit, whose
    categories equal phase 3's, whose labels and per-file rf agree with
    phase 3's on >= ``MESH_AGREE`` of the files and whose centroids lie
@@ -245,6 +247,36 @@ Phases, each of which exits non-zero when a check fails:
    controller's stages under it, and B3's kernel event with its share.
    ``--phase 15`` runs phase 3's pipeline and makes phase 5's workload
    first.
+16. The host runtime (``runtime/native.py``, the host library built by
+   g++ from ``cdrs_tpu_torch/csrc/host``) and decision provenance, on phase
+   3's population: (a) ``simulate_access(engine="native")`` over phase 3's
+   60 s of traffic, identical arrays at every core and at
+   ``NATIVE_THREADS`` threads, its seconds beside the numpy engine's on
+   the same traffic, timed just before in the same process; (b) the first ``NATIVE_CSV_ROWS`` events written as CSV by
+   the native writer, byte-identical to the Python writer on
+   ``NATIVE_WRITER_PREFIX`` rows, parsed natively equal to Python's parser
+   on ``NATIVE_PARSER_PREFIX`` rows (ts bit for bit, ids, vocabulary
+   order), every batch of the clean log with a byte offset, the seconds of
+   each; (c) ``fold_stream`` over that CSV on the card, killed after its
+   first snapshot and resumed, bit-identical to an uninterrupted fold, then
+   ``ReplicationPolicyModel.run`` on its table with B1 = n_iter + 1 and B2
+   = 12; (d) at 20,000 files (phase 4's workload) a chaos run in
+   ``materialized_hash`` placement with a telemetry stream and a
+   checkpoint, on the card and on the CPU from one init: ``explain`` of
+   four files, every category present and every window print the same
+   text from both runs (a number computed from float32 centroids may print
+   one unit apart in its last digit), and each category's contributions
+   sum to its score; (e) ``entry()`` on the card against its plain version
+   on the CPU (its one launch is B1's: a full-batch step), and
+   ``dryrun_multichip(4)`` on card 0.  B3's launches over (c)-(e) are
+   counted at its callers (``count_rowmajor``); none is expected.  In the
+   whole smoke phase 16 runs in phase 13's child after 13c, and phase 9
+   after it there (the parent's path is the smoke's longest).
+   ``--phase 16`` runs it alone, in process.
+
+In the whole smoke the parent runs 1-8, 10, 11 and 12b, joins both
+children, then runs 14 and 15, which time stages, kernels and first
+launches, with no other process on the card.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It imports nothing of the JAX
@@ -254,6 +286,7 @@ package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import json
 import math
@@ -372,6 +405,13 @@ TELEMETRY_PIPELINE_SECONDS = 10.0
 TELEMETRY_ROUNDS = 3
 TELEMETRY_INERTIA_TOL = 1e-3
 TELEMETRY_SHARE_MAX = 1.05
+#: Phase 16: the rows of phase 3's log written as CSV (16b's cut: 10M of
+#: 42M events), the prefixes held against the Python writer and parser,
+#: and the thread count of 16a's second native simulate.
+NATIVE_CSV_ROWS = 10_000_000
+NATIVE_WRITER_PREFIX = 200_000
+NATIVE_PARSER_PREFIX = 1_000_000
+NATIVE_THREADS = 2
 
 
 def fail(msg: str) -> None:
@@ -1216,6 +1256,41 @@ def count_minibatch(daemon, spent):
         spent["launches"] += lloyd_assign_reduce.launches - before
 
     daemon._minibatch_step = counted
+
+
+@contextlib.contextmanager
+def count_rowmajor():
+    """Count the Lloyd launches of B3's callers while the block runs: the
+    mini-batch step and predict (``ops/kmeans_stream.py``) and the drift
+    step (``control/drift.detect_drift_torch``, the controller's name for
+    it too).  Yields a dict whose ``"launches"`` grows; every other launch
+    of ``lloyd_assign_reduce`` in the block is B1's."""
+    import cdrs_tpu_torch.control.controller as ctl_mod
+    import cdrs_tpu_torch.control.drift as drift_mod
+    import cdrs_tpu_torch.ops.kmeans_stream as ks
+    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
+
+    seen = {"launches": 0}
+
+    def counted(fn):
+        def call(*args, **kw):
+            before = lloyd_assign_reduce.launches
+            try:
+                return fn(*args, **kw)
+            finally:
+                seen["launches"] += lloyd_assign_reduce.launches - before
+        return call
+
+    wrapped = [(ks, "_batch_stats"), (ks.MiniBatchKMeans, "predict"),
+               (drift_mod, "detect_drift_torch"), (ctl_mod, "detect_drift_torch")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name in wrapped]
+    for obj, name, fn in saved:
+        setattr(obj, name, counted(fn))
+    try:
+        yield seen
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
 
 
 def profile_decision(daemon, log_path, ck):
@@ -2525,7 +2600,7 @@ def start_child(work, name: str):
              f"sys.exit(chip_smoke.{name}_child({work!r}))"],
             cwd=work, env=dict(os.environ, PYTHONPATH=ROOT, **threads), stdout=out,
             stderr=subprocess.STDOUT, start_new_session=True)
-    return child, child_log, time.perf_counter()
+    return child, child_log, time.time()
 
 
 def stop_child(child) -> None:
@@ -2546,16 +2621,21 @@ def placement_child(work) -> int:
 
 def join_child(child, child_log, t_child, work, name: str, phases: str):
     """Wait for the child, relay its log and return its result (the JSON it
-    wrote to ``<name>.json`` in ``work``)."""
+    wrote to ``<name>.json`` in ``work`` as its last step, whose time
+    stamp says when the child ended)."""
+    t_wait = time.perf_counter()
     rc = child.wait(timeout=1200)
+    waited = time.perf_counter() - t_wait
     with open(child_log) as f:
         child_text = f.read()
     for line in child_text.splitlines():
         log(line)
     check(rc == 0, f"phase {phases}'s child exited {rc}: {child_text[-3000:]}")
-    with open(os.path.join(work, f"{name}.json")) as f:
+    path = os.path.join(work, f"{name}.json")
+    with open(path) as f:
         result = json.load(f)
-    log(f"phase {phases}: {time.perf_counter() - t_child:.1f} s in the child")
+    log(f"phase {phases}: the child ended {os.path.getmtime(path) - t_child:.1f} s after its "
+        f"start; joined {time.time() - t_child:.1f} s after it, after waiting {waited:.1f} s")
     return result
 
 
@@ -3198,10 +3278,17 @@ def main_workload(work):
 
 def batch_child(work) -> int:
     """The phase-13 child's body: phase 5's manifest CSV and ``.cdrsb`` log
-    in ``work``, both written by the parent; the launches go to
-    ``batch.json``."""
+    in ``work``, both written by the parent, then phase 16, then phase 9;
+    the launches go to ``batch.json``, phase 16's under ``"native"`` and
+    phase 9's under ``"scenario"``."""
     launches = phase_batch(os.path.join(work, "metadata.csv"),
                            os.path.join(work, "access.cdrsb"), work)
+    t0 = time.perf_counter()
+    launches["native"] = phase_native(work)
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["scenario"] = phase_scenarios()
+    log(f"phase 9 (scenarios): {time.perf_counter() - t0:.1f} s")
     with open(os.path.join(work, "batch.json"), "w") as f:
         json.dump(launches, f)
     return 0
@@ -3909,11 +3996,383 @@ def telemetry_alone(work):
     return phase_telemetry(cfg, main_result, manifest, events, log_path, work)[0]
 
 
+# -- phase 16: the host runtime and decision provenance -----------------------------
+
+
+class Killed16(RuntimeError):
+    """Raised by a wrapped ``save_stream_state``: a fold killed after a snapshot."""
+
+
+def same_text(got: str, want: str):
+    """(same text, numbers printed apart): the texts equal but for decimal
+    numbers, each within one unit of its last printed digit of the other's
+    (a float computed from float32 centroids may round to the next printed
+    digit); integers, names and hashes exactly.  Returns (False, n) on any
+    other difference."""
+    import re
+
+    number = re.compile(r"(?<![\w.])[-+]?(?:\d+\.\d*|\.\d+|\d+(?=e))(?:e[-+]?\d+)?(?![\w.])")
+    if got == want:
+        return True, 0
+    if number.split(got) != number.split(want):
+        return False, 0
+    apart = 0
+    for a, b in zip(number.findall(got), number.findall(want)):
+        if a == b:
+            continue
+        mant, _, exp = a.lower().partition("e")
+        unit = 10.0 ** (int(exp or 0) - (len(mant.split(".")[1]) if "." in mant else 0))
+        if abs(float(a) - float(b)) > unit * (1 + 1e-9):
+            return False, apart
+        apart += 1
+    return True, apart
+
+
+def native_simulate(manifest, sim_cfg):
+    """16a: the numpy engine, then the native engine over phase 3's traffic
+    in the same process (so under the same load), the native one at every
+    core and at ``NATIVE_THREADS`` threads: identical arrays.  Returns the
+    native log."""
+    import numpy as np
+
+    from cdrs_tpu_torch.io.events import client_vocabulary
+    from cdrs_tpu_torch.runtime.native import simulate_events_native
+    from cdrs_tpu_torch.sim.access import jittered_rates, simulate_access
+
+    t0 = time.perf_counter()
+    simulate_access(manifest, sim_cfg)
+    t_numpy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events = simulate_access(manifest, sim_cfg, engine="native")
+    t_all = time.perf_counter() - t0
+    read, write, loc = jittered_rates(manifest, sim_cfg, np.random.default_rng(sim_cfg.seed))
+    _, pool = client_vocabulary(manifest, sim_cfg.clients)
+    start = float(np.ceil(manifest.creation_ts.max())) + 1.0
+    t0 = time.perf_counter()
+    cols = simulate_events_native(read, write, loc, manifest.primary_node_id, pool,
+                                  sim_cfg.duration_seconds, start, seed=sim_cfg.seed,
+                                  n_threads=NATIVE_THREADS)
+    t_few = time.perf_counter() - t0
+    check(all(np.array_equal(a, getattr(events, name)) for a, name in
+              zip(cols, ("ts", "path_id", "op", "client_id"))),
+          f"16a: the native engine differs at {NATIVE_THREADS} threads")
+    del cols
+    check(bool((np.diff(events.ts) >= 0).all()), "16a: the native log is not time-sorted")
+    log("native simulate " + json.dumps({
+        "files": len(manifest), "events": len(events), "seconds_all_cores": round(t_all, 3),
+        "cores": os.cpu_count(), f"seconds_{NATIVE_THREADS}_threads": round(t_few, 3),
+        "identical_across_thread_counts": True,
+        "numpy_simulate_seconds": round(t_numpy, 3),
+        "events_per_second_all_cores": round(len(events) / t_all)}))
+    return events
+
+
+def native_csv(manifest, events, work):
+    """16b: the first ``NATIVE_CSV_ROWS`` events as CSV by the native writer,
+    held against the Python writer (a prefix) and read back by the native
+    parser (every batch with an offset) and by Python's (a prefix).
+    Returns the CSV's path."""
+    import numpy as np
+
+    from cdrs_tpu_torch.io.events import EventLog
+
+    n = min(NATIVE_CSV_ROWS, len(events))
+    part = EventLog(ts=events.ts[:n], path_id=events.path_id[:n], op=events.op[:n],
+                    client_id=events.client_id[:n], clients=events.clients)
+    path = os.path.join(work, "access16.log")
+    t0 = time.perf_counter()
+    part.write_csv(path, manifest)
+    t_write = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    head = EventLog(ts=part.ts[:NATIVE_WRITER_PREFIX], path_id=part.path_id[:NATIVE_WRITER_PREFIX],
+                    op=part.op[:NATIVE_WRITER_PREFIX],
+                    client_id=part.client_id[:NATIVE_WRITER_PREFIX], clients=part.clients)
+    py_path = os.path.join(work, "access16_py.log")
+    t0 = time.perf_counter()
+    head._write_csv_python(py_path, manifest)
+    t_py_write = time.perf_counter() - t0
+    with open(py_path, "rb") as f:
+        py_bytes = f.read()
+    with open(path, "rb") as f:
+        check(f.read(len(py_bytes)) == py_bytes,
+              f"16b: the native writer's first {NATIVE_WRITER_PREFIX} rows differ from the "
+              f"Python writer's bytes")
+        f.seek(0)
+        chunk = np.frombuffer(f.read(NATIVE_PARSER_PREFIX * 120), dtype=np.uint8)
+    os.unlink(py_path)
+    newlines = np.flatnonzero(chunk == 10)
+    check(len(newlines) >= NATIVE_PARSER_PREFIX, "16b: the parser prefix is short")
+    prefix_path = os.path.join(work, "access16_prefix.log")
+    with open(prefix_path, "wb") as f:
+        f.write(chunk[:newlines[NATIVE_PARSER_PREFIX - 1] + 1].tobytes())
+    del chunk
+    t0 = time.perf_counter()
+    nat = EventLog.read_csv(prefix_path, manifest)
+    t_nat_prefix = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = EventLog.read_csv(prefix_path, manifest, native=False)
+    t_py_prefix = time.perf_counter() - t0
+    os.unlink(prefix_path)
+    check(len(nat) == len(py) == NATIVE_PARSER_PREFIX
+          and np.array_equal(nat.ts.view(np.int64), py.ts.view(np.int64))
+          and np.array_equal(nat.path_id, py.path_id) and np.array_equal(nat.op, py.op)
+          and np.array_equal(nat.client_id, py.client_id) and nat.clients == py.clients,
+          f"16b: the native parse of {NATIVE_PARSER_PREFIX} rows differs from Python's")
+    del nat, py
+    offsets, rows, ok = [], 0, True
+    t0 = time.perf_counter()
+    for batch, off in EventLog.read_csv_batches(path, manifest, batch_size=STREAM_BATCH,
+                                                with_offsets=True):
+        lo, hi = rows, rows + len(batch)
+        ok &= bool(np.array_equal(batch.path_id, part.path_id[lo:hi])
+                   and np.array_equal(batch.op, part.op[lo:hi])
+                   and np.array_equal(np.asarray(batch.clients)[batch.client_id],
+                                      np.asarray(part.clients)[part.client_id[lo:hi]])
+                   and float(np.abs(batch.ts - part.ts[lo:hi]).max()) < 1e-3)
+        offsets.append(off)
+        rows = hi
+    t_nat = time.perf_counter() - t0
+    check(ok and rows == n, f"16b: the native parse of the slice differs from the log ({rows} "
+          f"of {n} rows)")
+    check(all(o is not None for o in offsets) and offsets[-1] == size,
+          f"16b: a batch of the clean log has no offset: {offsets}")
+    log("native csv " + json.dumps({
+        "rows": n, "bytes": size, "native_write_seconds": round(t_write, 3),
+        "native_write_rows_per_second": round(n / t_write),
+        "python_write_rows": NATIVE_WRITER_PREFIX, "python_write_seconds": round(t_py_write, 3),
+        "writers_byte_identical_rows": NATIVE_WRITER_PREFIX,
+        "parser_prefix_rows": NATIVE_PARSER_PREFIX,
+        "native_prefix_parse_seconds": round(t_nat_prefix, 3),
+        "python_prefix_parse_seconds": round(t_py_prefix, 3),
+        "native_parse_seconds": round(t_nat, 3), "native_parse_rows_per_second": round(n / t_nat),
+        "batches": len(offsets), "offsets": offsets}))
+    return path
+
+
+def native_fold(manifest, path, work, cfg):
+    """16c: ``fold_stream`` over 16b's CSV on the card, killed after its first
+    snapshot and resumed, against an uninterrupted fold; then the model on
+    the table.  Returns the kernels' launches."""
+    import torch
+
+    import cdrs_tpu_torch.features.streaming as streaming
+    from cdrs_tpu_torch.models.replication import ReplicationPolicyModel
+
+    t0 = time.perf_counter()
+    full = streaming.fold_stream(path, manifest, batch_size=STREAM_BATCH)
+    t_full = time.perf_counter() - t0
+    ck = os.path.join(work, "fold16.npz")
+    save, saved = streaming.save_stream_state, []
+
+    def dying(p, state, log_offset=None, log_bytes=None):
+        save(p, state, log_offset=log_offset, log_bytes=log_bytes)
+        saved.append(log_offset)
+        raise Killed16("killed after a snapshot")
+
+    t0 = time.perf_counter()
+    streaming.save_stream_state = dying
+    try:
+        streaming.fold_stream(path, manifest, batch_size=STREAM_BATCH, checkpoint_path=ck,
+                              checkpoint_every=1)
+        fail("16c: the fold was not killed")
+    except Killed16:
+        pass
+    finally:
+        streaming.save_stream_state = save
+    stats = {}
+    resumed = streaming.fold_stream(path, manifest, batch_size=STREAM_BATCH,
+                                    checkpoint_path=ck, checkpoint_every=1, stats=stats)
+    t_kill = time.perf_counter() - t0
+    check(stats["resumed_from_offset"] == saved[0] > 0, f"16c: resumed from "
+          f"{stats['resumed_from_offset']}, the snapshot was at {saved}")
+    a, b = streaming.stream_finalize(resumed, manifest), streaming.stream_finalize(full, manifest)
+    check(a.norm.device.type == "cuda" and torch.equal(a.raw, b.raw)
+          and torch.equal(a.norm, b.norm),
+          "16c: the resumed CSV fold differs from the uninterrupted one")
+    model = ReplicationPolicyModel(cfg.kmeans, cfg.scoring)
+    reset_launches()
+    dec = model.run(b.norm)
+    launches = read_launches()
+    check(launches["lloyd"] == model.n_iter + 1 and launches["seg_count"] == 12,
+          f"16c: {launches} for {model.n_iter} iterations")
+    log("native fold " + json.dumps({
+        "rows": full.n_events, "batches": stats["batches"], "fold_seconds": round(t_full, 3),
+        "killed_and_resumed_seconds": round(t_kill, 3), "snapshot_offset": saved[0],
+        "resumed_parse_seconds": round(stats["parse_seconds"], 3), "bit_identical": True,
+        "model_iterations": model.n_iter, "categories": list(dec.categories),
+        "b1_launches": launches["lloyd"], "b2_launches": launches["seg_count"]}))
+    return launches
+
+
+def native_explain(work):
+    """16d: a chaos run in ``materialized_hash`` placement at 20,000 files with
+    a telemetry stream and a checkpoint, on the card and on the CPU from one
+    init; ``explain`` of files, every category present and every window
+    from both runs.  Returns the card run's launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from cdrs_tpu_torch.config import CATEGORIES
+    from cdrs_tpu_torch.control.controller import ReplicationController
+    from cdrs_tpu_torch.obs import JsonlSink, Telemetry
+    from cdrs_tpu_torch.obs.explain import explain_category, main as explain_main
+    from cdrs_tpu_torch.utils.checkpoint import load_state
+
+    manifest, events = _phase4_workload()
+    m_csv = os.path.join(work, "metadata16.csv")
+    manifest.write_csv(m_csv)
+    files = {}
+    for dev in ("cuda", "cpu"):
+        mp, ck = (os.path.join(work, f"explain16_{dev}.{ext}") for ext in ("jsonl", "npz"))
+        ctl = ReplicationController(manifest, chaos_config(dev, [f"crash:{CHAOS_KILL}"],
+                                                           placement_mode="materialized_hash"))
+        watch_reclusters(ctl, cpu_init)
+        reset_launches()
+        t0 = time.perf_counter()
+        with Telemetry(JsonlSink(mp)):
+            res = ctl.run(events, metrics_path=mp, checkpoint_path=ck)
+        files[dev] = {"mp": mp, "ck": ck, "seconds": time.perf_counter() - t0,
+                      "launches": read_launches(), "records": res.records}
+    card, cpu = files["cuda"], files["cpu"]
+    check([r["plan_hash"] for r in card["records"]] == [r["plan_hash"] for r in cpu["records"]],
+          "16d: plan hashes differ between the card and the CPU")
+    arrays, _ = load_state(card["ck"])
+    present = sorted({CATEGORIES[int(c)] for c in arrays["accepted_category_idx"]})
+    windows = [r["window"] for r in card["records"]]
+
+    def argv(d, what):
+        if what[0] == "file":
+            return ["file", str(what[1]), "--manifest", m_csv, "--metrics", d["mp"],
+                    "--checkpoint", d["ck"]]
+        if what[0] == "category":
+            return ["category", what[1], "--checkpoint", d["ck"], "--scoring_config",
+                    "validated"]
+        return ["window", str(what[1]), "--metrics", d["mp"]]
+
+    asks = ([("file", f) for f in (0, 1, 7_777, 19_999)]
+            + [("category", c) for c in present] + [("window", w) for w in windows])
+    identical = apart = nbytes = 0
+    t0 = time.perf_counter()
+    for what in asks:
+        texts = []
+        for d in (card, cpu):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = explain_main(argv(d, what))
+            check(rc == 0, f"16d: explain {what} exited {rc}")
+            texts.append(buf.getvalue())
+        same, n_apart = same_text(*texts)
+        check(same, f"16d: explain {what} differs between the card's run and the CPU's:\n"
+              f"{texts[0]}\n---\n{texts[1]}")
+        identical += texts[0] == texts[1]
+        apart += n_apart
+        nbytes += len(texts[0])
+    t_explain = time.perf_counter() - t0
+    from cdrs_tpu_torch import validated_scoring_config
+
+    worst = 0.0
+    for name in present:
+        d = explain_category(name, arrays["accepted_centroids"],
+                             arrays["accepted_category_idx"], validated_scoring_config())
+        for c in d["clusters"]:
+            worst = max(worst, abs(sum(f["contribution"] for f in c["features"]) - c["score"]))
+    check(worst <= 1e-5, f"16d: a category's contributions miss its score by {worst:.3e}")
+    check(any(r.get("fault_events") for r in card["records"]), "16d: no fault window")
+    log("native explain " + json.dumps({
+        "files": len(manifest), "windows": len(windows), "categories_present": present,
+        "explains": len(asks), "byte_identical": identical, "numbers_printed_apart": apart,
+        "bytes": nbytes, "explain_seconds": round(t_explain, 3),
+        "contributions_off_score_max": worst,
+        "seconds_card": round(card["seconds"], 3), "seconds_cpu": round(cpu["seconds"], 3),
+        "b1_launches": card["launches"]["lloyd"], "b2_launches": card["launches"]["seg_count"],
+        "plan_hashes": [r["plan_hash"] for r in card["records"]]}))
+    return card["launches"]
+
+
+def native_entry(rowmajor):
+    """16e: ``entry()`` on the card against its plain version on the CPU, and
+    ``dryrun_multichip(4)`` on card 0.  ``rowmajor`` is ``count_rowmajor``'s
+    count, around this call.  Returns the launches."""
+    import torch
+
+    from cdrs_tpu_torch.entry import dryrun_multichip, entry
+
+    reset_launches()
+    b3_before = rowmajor["launches"]
+    fn, args = entry()
+    new_c, labels, scores = fn(*args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    fn_p, args_p = entry(device="cpu")
+    new_p, labels_p, scores_p = fn_p(*args_p)
+    x = args_p[0]
+    diff = torch.nonzero(labels.cpu() != labels_p).flatten()
+    if diff.numel():
+        c = args_p[1]
+        dk = _distances64(x, c, diff, labels.cpu()[diff].long())
+        dp = _distances64(x, c, diff, labels_p[diff].long())
+        check(float((dk - dp).abs().max()) <= 1e-5, "16e: entry() labels differ beyond a tie")
+    c_err = float((new_c.cpu() - new_p).abs().max())
+    s_err = float((scores.cpu() - scores_p).abs().max())
+    check(c_err <= 1e-5 and s_err <= 1e-5,
+          f"16e: entry() on the card off its plain version (centroids {c_err}, scores {s_err})")
+    # entry()'s step is one full-batch Lloyd step (every row valid, the
+    # statistics of every row and each row's label): B1's route, the full
+    # batch loop and its label pass, not the mini-batch or drift callers
+    # that make B3.
+    check(launches["lloyd"] == 1 and rowmajor["launches"] == b3_before,
+          f"16e: entry() made {launches['lloyd']} Lloyd launches, "
+          f"{rowmajor['launches'] - b3_before} of them B3's")
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4)
+    check(dry["device"].startswith("cuda"), f"16e: the dry run ran on {dry['device']}")
+    total = read_launches()
+    log("native entry " + json.dumps({
+        "points": list(x.shape), "k": int(args_p[1].shape[0]), "label_ties": diff.numel(),
+        "centroid_err": c_err, "score_err": s_err, "b1_launches": launches["lloyd"],
+        "b3_launches": rowmajor["launches"] - b3_before,
+        "dryrun": dry, "dryrun_seconds": round(time.perf_counter() - t0, 3),
+        "dryrun_b1_launches": total["lloyd"] - launches["lloyd"],
+        "dryrun_b2_launches": total["seg_count"] - launches["seg_count"]}))
+    return total
+
+
+def phase_native(work):
+    """Phase 16: the host runtime (16a-c) and decision provenance (16d-e) on
+    phase 3's population.  Returns the kernels' launches: ``lloyd`` B1's,
+    ``lloyd_rowmajor`` B3's (``count_rowmajor``), ``seg_count`` B2's."""
+    from cdrs_tpu_torch.sim.generator import generate_population
+
+    cfg = main_config()
+    manifest = generate_population(cfg.generator)
+    t0 = time.perf_counter()
+    events = native_simulate(manifest, cfg.simulator)
+    path = native_csv(manifest, events, work)
+    del events
+    log(f"phase 16a-b: {time.perf_counter() - t0:.1f} s")
+    with count_rowmajor() as rowmajor:
+        t0 = time.perf_counter()
+        launches = native_fold(manifest, path, work, cfg)
+        os.unlink(path)
+        del manifest
+        log(f"phase 16c: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for part in (native_explain(work), native_entry(rowmajor)):
+            launches = {k: launches[k] + part[k] for k in launches}
+        log(f"phase 16d-e: {time.perf_counter() - t0:.1f} s")
+    launches["lloyd"] -= rowmajor["launches"]
+    launches["lloyd_rowmajor"] = rowmajor["launches"]
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
                         help="build and check the kernels only; prints no ok line")
-    parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12, 13, 14, 15), default=None,
+    parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12, 13, 14, 15, 16),
+                        default=None,
                         help="build and check the kernels, then run this phase alone; prints "
                              "no ok line")
     args = parser.parse_args()
@@ -3953,6 +4412,8 @@ def main() -> int:
                 log(f"phase 14 launches {mesh_alone(work)}")
             elif args.phase == 15:
                 log(f"phase 15 launches {telemetry_alone(work)}")
+            elif args.phase == 16:
+                log(f"phase 16 launches {phase_native(work)}")
             else:
                 from cdrs_tpu_torch import GeneratorConfig
                 from cdrs_tpu_torch.sim.generator import generate_population
@@ -3966,14 +4427,15 @@ def main() -> int:
         log(f"phase {args.phase} run done in {time.perf_counter() - t_start:.1f} s")
         return 0
     try:
-        # 12a and 12c (host-bound, one core) run in a child beside 3-11.
+        # 12a and 12c (host-bound, one core) run in a child beside 3-12b.
         child, child_log, t_child = start_child(work, "placement")
         launches, cfg, main_result = phase_main_path()
         norm_20k, init_20k = phase_card_vs_cpu()
         stream_launches, stream_times, manifest, events, log_path = phase_stream_path(
             cfg, main_result, work)
-        # Phase 13 (host-bound CSV stages) runs in a child beside 6-12 from
-        # here, on phase 5's manifest written as CSV and its log.
+        # Phase 13 (host-bound CSV stages), then 16, then 9, run in a child
+        # beside 6-12 from here, on phase 5's manifest written as CSV and its
+        # log.
         batch_manifest_csv(manifest, work)
         batch, batch_log, t_batch = start_child(work, "batch")
         phase_minibatch_card_vs_cpu(norm_20k, init_20k)
@@ -3988,32 +4450,32 @@ def main() -> int:
         chaos_launches = phase_chaos(manifest, events)
         log(f"phase 8 (chaos): {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        mesh_launches = phase_mesh(cfg, main_result, manifest, events, work)
-        log(f"phase 14 (mesh): {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        telemetry_launches, telemetry_rows = phase_telemetry(cfg, main_result, manifest,
-                                                             events, log_path, work)
-        log(f"phase 15 (telemetry): {time.perf_counter() - t0:.1f} s")
-        del events
-        t0 = time.perf_counter()
-        scenario_launches = phase_scenarios()
-        log(f"phase 9 (scenarios): {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
         serve_launches = phase_serve(manifest, work)
         log(f"phase 10 (serve): {time.perf_counter() - t0:.1f} s")
-        del manifest
         t0 = time.perf_counter()
         storage_launches = phase_storage()
         log(f"phase 11 (storage): {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         placement_small()
         log(f"phase 12b: {time.perf_counter() - t0:.1f} s")
-        batch_launches = join_child(batch, batch_log, t_batch, work, "batch", "13")
+        batch_launches = join_child(batch, batch_log, t_batch, work, "batch", "13, 16 and 9")
+        native_launches = batch_launches.pop("native")
+        scenario_launches = batch_launches.pop("scenario")
         placement = join_child(child, child_log, t_child, work, "placement", "12a/12c")
         log(f"phase 12 (placement): {time.perf_counter() - t0:.1f} s after phase 11")
         for name in ("lloyd", "seg_count"):
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                             placement["max_abs_err"][name])
+        # 14 and 15 time stages, kernels and first launches: they run once
+        # both children have ended, with no other process on the card.
+        t0 = time.perf_counter()
+        mesh_launches = phase_mesh(cfg, main_result, manifest, events, work)
+        log(f"phase 14 (mesh): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        telemetry_launches, telemetry_rows = phase_telemetry(cfg, main_result, manifest,
+                                                             events, log_path, work)
+        log(f"phase 15 (telemetry): {time.perf_counter() - t0:.1f} s")
+        del events, manifest
     finally:
         stop_child(child)
         stop_child(batch)
@@ -4033,6 +4495,7 @@ def main() -> int:
          "batch_launches": batch_launches["lloyd"], "mesh_launches": mesh_launches["lloyd"],
          "telemetry_launches": telemetry_launches["lloyd"],
          "telemetry_share": telemetry_rows["lloyd"]["peak_fraction"],
+         "native_launches": native_launches["lloyd"],
          **rows["lloyd"], "library_ms": None},
         {"name": "label_threshold_count", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/seg_count.cu",
@@ -4048,7 +4511,8 @@ def main() -> int:
          "batch_launches": batch_launches["seg_count"],
          "mesh_launches": mesh_launches["seg_count"],
          "telemetry_launches": telemetry_launches["seg_count"],
-         "telemetry_share": telemetry_rows["seg_count"]["peak_fraction"], **rows["seg_count"],
+         "telemetry_share": telemetry_rows["seg_count"]["peak_fraction"],
+         "native_launches": native_launches["seg_count"], **rows["seg_count"],
          "library_ms": None},
         {"name": "lloyd_assign_reduce (row-major, labels)", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
@@ -4060,7 +4524,8 @@ def main() -> int:
          "mesh_launches": mesh_launches["lloyd_rowmajor"],
          "telemetry_launches": telemetry_launches["lloyd_rowmajor"],
          "telemetry_share": telemetry_rows["lloyd_rowmajor"]["peak_fraction"],
-         **rows["lloyd_rowmajor"], "library_ms": None},
+         "native_launches": native_launches["lloyd_rowmajor"], **rows["lloyd_rowmajor"],
+         "library_ms": None},
     ]
     for row in kernels:
         check(all(isinstance(row[key], (int, float)) and math.isfinite(row[key])

@@ -190,12 +190,18 @@ def test_manifest_and_csv_log_read_like_the_reference(tmp_path, workload):
         np.testing.assert_array_equal(getattr(port_m, name), getattr(ref_m, name))
     np.testing.assert_array_equal(port_m.creation_ts, manifest.creation_ts)
 
-    got = list(EventLog.read_csv_batches(lpath, port_m, batch_size=250, with_offsets=True))
-    want = list(JEventLog.read_csv_batches(lpath, ref_m, batch_size=250, native=False,
-                                           with_offsets=True))
-    assert len(got) == len(want) and all(off is None for _, off in got)
-    for (a, _), (b, _) in zip(got, want):
-        _assert_logs_equal(a, b)
+    # The native parser reports the reference's offset on every batch; the
+    # Python parser (native=False) none, on both sides.
+    for native in (True, False):
+        got = list(EventLog.read_csv_batches(lpath, port_m, batch_size=250, native=native,
+                                             with_offsets=True))
+        want = list(JEventLog.read_csv_batches(lpath, ref_m, batch_size=250,
+                                               native=native, with_offsets=True))
+        assert len(got) == len(want)
+        assert [off for _, off in got] == [off for _, off in want]
+        assert all((off is None) == (native is False) for _, off in got)
+        for (a, _), (b, _) in zip(got, want):
+            _assert_logs_equal(a, b)
     _assert_logs_equal(EventLog.read_csv(lpath, port_m),
                        JEventLog.read_csv(lpath, ref_m, native=False))
     # A start offset at a line boundary resumes the CSV scan there.
