@@ -10,52 +10,110 @@
 // for its lane padding of narrow rows; this kernel has the row-major contract.
 // What it computes:
 //   |c_j|^2 = sum_f c_jf * c_jf, added in feature order (mul, then add)
-//   label_i = first argmin_j ( |c_j|^2 - 2 <x_i, c_j> )   (fmaf in feature order,
-//             strict < over increasing j, no TF32)
+//   label_i = first argmin_j ( |c_j|^2 - 2 <x_i, c_j> )   (first minimum wins)
 //   sums[j] = sum_{i < n_valid, label_i = j} x_i     counts[j] = #{...}
+// No float atomics anywhere: sums are added in a fixed order and counts are
+// integers, so two calls on the same inputs give the same bits.
 //
-// What bounds it on this card.  At the pipeline's shape (d = 5, k = 8) each
-// row costs k*d FMAs per 4*d bytes read, ~2 FMA/byte: memory bound by a
-// wide margin (the card does ~10 f32 FMA per byte of HBM).  At d = 32,
-// k = 128 it is ~32 FMA/byte and at d = 128, k = 1024 ~256 FMA/byte, both on
-// the f32 CUDA-core side of the roofline.
-//
-// Two paths, one launch each.  Both end the same way: each block writes its
-// partial (sum, count) table, and the last block to take a ticket from an
-// integer counter sums the partials in a fixed order, writes sums and the
-// counts (as f32, from exact int32 totals), and resets the ticket.  No
-// float atomics anywhere, so two calls on the same inputs give the same
-// bits.
+// Two paths, one launch each.
 //
 // * Small path (d <= 8, k <= 16: the pipeline, the stream path and drift).
-//   D is a template constant and k is bucketed to K in {4, 8, 16}; padded
-//   clusters get |c|^2 = +inf and never win.  Each warp walks its own
-//   32-row tiles of x (warp w takes tiles w, w + all warps, ...), staged in
-//   shared memory by 16-byte cp.async copies, three tiles in flight per
-//   warp: coalesced although a 20-byte row is not 16-byte aligned, and with
-//   no block-wide barrier in the loop.  A lane owns a row: its distances
-//   and argmin are in registers, the centroids read as float4 broadcasts
-//   from shared memory.  Its sums go to its thread's own slab in shared
-//   memory, laid out cell-major (cell * THREADS + thread) so a warp's adds
-//   hit 32 banks whatever the labels: D adds per row, where register
-//   accumulators with compile-time indices cost K*D predicated adds per
-//   row and measured slower.  Counts: lane j counts cluster j's rows of
-//   its warp from one ballot of the counted rows and one per label bit.
-//   At the end each cell is summed over the threads in a fixed order (lane
-//   order, then a shuffle tree) and counts by integer adds.  1024 threads
-//   at <= 64 registers keep 32 warps on each SM at K*D <= 40.
-// * General path (any other shape: d = 32, k = 128 and d = 128, k = 1024).
-//   A persistent grid of 2 x SMs blocks, block b owning a fixed contiguous
-//   row range.  Centroids and |c|^2 sit in shared memory, in tiles of kt rows
-//   when the whole table does not fit (d = 128, k = 1024 is 512 KB).  Per
-//   chunk of 256 rows, G thread groups each own every G-th row and add into
-//   their own shared-memory slab (one writer per (cluster, feature) cell);
-//   slabs are summed in group order.  Counts are shared-memory integer
-//   atomics (exact).  The last block sums the block partials cell by cell
-//   (a thread per cell, or per four cells with 16-byte loads), blocks in
-//   order.
-// * with_labels = false (labels == NULL) skips the labels store.
+//   At d = 5, k = 8 a row costs k*d FMAs per 4*d bytes read, ~2 FMA/byte:
+//   memory bound by a wide margin.  D is a template constant and k is
+//   bucketed to K in {4, 8, 16}; padded clusters get |c|^2 = +inf and never
+//   win.  Dot products are fmaf chains in feature order (no TF32).  Each
+//   warp walks its own 32-row tiles of x (warp w takes tiles w, w + all
+//   warps, ...), staged in shared memory by 16-byte cp.async copies, three
+//   tiles in flight per warp: coalesced although a 20-byte row is not
+//   16-byte aligned, and with no block-wide barrier in the loop.  A lane
+//   owns a row: its distances and argmin are in registers, the centroids
+//   read as float4 broadcasts from shared memory.  Its sums go to its
+//   thread's own slab in shared memory, laid out cell-major (cell * THREADS
+//   + thread) so a warp's adds hit 32 banks whatever the labels.  Counts:
+//   lane j counts cluster j's rows of its warp from one ballot of the
+//   counted rows and one per label bit.  At the end each cell is summed over
+//   the threads in a fixed order (lane order, then a shuffle tree), and the
+//   last block to take a ticket from an integer counter sums the block
+//   partials in block order and resets the ticket.
+//
+// * General path (every other shape: entry()'s d = 5, k = 64, d = 32,
+//   k = 128, d = 128, k = 1024, odd d and k).  What bounds it: 2 n k d
+//   operations against 4 n d bytes (f32) is k/2 operations a byte, 64 at
+//   k = 128 and 512 at k = 1024, so f32 work is bound by operations (at
+//   495 / 3 TFLOP/s, the f32-accurate rate of the tensor cores); bf16
+//   points halve the bytes and their products run at 989 TFLOP/s, so
+//   1M x 32, k = 128 in bf16 is bound by its bytes.  The design puts the
+//   products on the tensor cores:
+//   - Tiles.  A block of 256 threads (8 warps, 4 along the rows x 2 along
+//     the centroids) takes 128-row tiles of x; a warp computes a 32-row x
+//     (8 WN)-centroid block of dot products with mma.sync (m16n8k8 TF32 for
+//     f32 points, m16n8k16 bf16 for bf16 points), f32 accumulators in
+//     registers.  First, every block writes its share of csplit: c in the
+//     layout the products read (tiles of 16 WN centroids x a feature chunk,
+//     row-major, zero-padded; f32 points split once into TF32 high and low
+//     parts), then one grid barrier.  Either all of csplit sits in shared
+//     memory, copied once, and x streams through a ring of up to 8 tiles
+//     (two blocks an SM, at most 128 registers); or (when c does not fit,
+//     as at d = 128, k = 1024) a two-slot ring carries (x chunk, c chunk)
+//     pairs: for each 128-row tile, each centroid tile and each chunk of
+//     features (64 at d = 128 in f32), so any d is served (one block an SM,
+//     registers uncapped).  x is staged by coalesced cp.async copies (16
+//     bytes where rows allow, else 8, 4, or plain 2-byte copies for odd
+//     bf16 rows) at a padded row stride that makes every fragment load hit
+//     32 banks; c as whole 16-byte copies of csplit.  The depth is padded to
+//     the instruction's (8 or 16): c's padding is zero, x's last step is
+//     masked.  mma.sync, not wgmma: a wgmma build (A from registers, B in
+//     128-byte-swizzle shared memory, the same staging) gave the same
+//     labels but was slower at d = 32 and only a little faster at d = 128;
+//     wgmma pays with warp-specialised producers (TMA) and epilogues that
+//     overlap the products, the next redesign.  tools/lloyd_breakdown.py
+//     times this path without its sums and with one product of three.
+//   - The split product (f32 points).  Each operand v is split as
+//     hi = rna_tf32(v), lo = rna_tf32(v - hi) (cvt.rna: round to nearest,
+//     ties away, 10 stored mantissa bits): c once a launch (csplit), x as it
+//     is loaded into a fragment.  x.c is taken as lo.hi' + hi.lo' + hi.hi'
+//     (three tensor-core products; lo.lo' dropped).  |v - hi - lo| <=
+//     2^-22 |v|, so each term's error is at most 3.01 * 2^-22 |x_f c_f| <
+//     2^-20 |x_f c_f|, and with the f32 additions of 3 d products (round or
+//     truncate, 2^-23 each):
+//       |dot - x.c| <= (2^-20 + 3 d 2^-23) * sum_f |x_f c_f|,
+//     the order of an f32 dot product's own rounding (the plain version's
+//     cuBLAS product: d 2^-24).  Each distance |c|^2 - 2 dot carries twice
+//     that, so a label can differ from the plain version's only where two
+//     distances lie within the sum of their errors.  bf16 points: the
+//     products of bf16 values are exact in f32, so one bf16 product, c
+//     rounded to bf16 by the wrapper.
+//   - Ranking.  The epilogue of each centroid tile turns a thread's
+//     accumulators into |c_j|^2 - 2 dot (|c|^2 in f32 from shared memory,
+//     taken once a block in feature order, +inf for padded centroids) and
+//     keeps a running best per row with strict < over increasing j.  The
+//     four lanes that share a row, then the two centroid warps, merge by
+//     (distance, index): the lower index wins equal distances, so the first
+//     minimum wins as in the plain version.
+//   - Statistics.  Counts are shared-memory integer atomics.  Sums: cluster
+//     j belongs to warp j mod 8, and its lane l adds features l, l + 32, ...
+//     of that cluster's rows in row order, so each cell has one writer and
+//     a fixed order without atomics.  When the (k, d) table fits in 64 KB
+//     (d = 32, k = 128), the rows are added from the staged tile as each
+//     128-row tile is labelled.  Otherwise (d = 128, k = 1024: 512 KB) the
+//     labels go to device memory (the output, or the wrapper's n-long
+//     scratch), and after its tiles the block makes a few passes over its
+//     own rows, each owning as many clusters as its freed shared memory
+//     holds: for each chunk of 256 labels the pass lists its rows in order
+//     and brings them in by bulk cp.async, 64 at a time, so the gather
+//     keeps many loads in flight.  Either way each block writes its (k, d)
+//     partial once, not per chunk.  The kernel is a cooperative launch
+//     (co-residency guaranteed); after a second grid-wide barrier every
+//     block sums its share of the cells over the block partials in block
+//     order.  The other choices: a one-hot product on the tensor cores (the
+//     TPU kernel's way) costs two thirds of the distance products again for
+//     f32 points, and a thread-block cluster holding the table in
+//     distributed shared memory leaves no room for the tiles.
+// * with_labels = false (labels == NULL) skips the labels store; the
+//   general path needs them stored when it takes its sums in passes, and
+//   cdrs_lloyd_keeps_labels says when.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -67,8 +125,6 @@ namespace {
 
 using cdrs::kStages;
 using cdrs::to_f;
-
-constexpr int kThreads = 256;   // general path
 
 struct Args {
   const void* x;
@@ -285,265 +341,669 @@ cudaError_t small_path(const Args& a) {
 
 // -------------------------------------------------------------- general path
 
-constexpr size_t kTileBytes = 64 * 1024;   // centroid tile budget
-constexpr size_t kSlabBytes = 64 * 1024;   // statistics slab budget
-constexpr int kJB = 16;                    // centroids per register tile (d > 32)
-constexpr int kFC = 32;                    // features per register chunk (d > 32)
+namespace gen {
 
-struct Plan {
-  int kt;       // centroid rows per distance tile
-  int gs;       // threads per group (features handled by a group)
-  int groups;   // groups G
-  int kts;      // clusters per statistics slab
-  size_t smem;  // dynamic shared memory bytes
+constexpr int kThreads = 256;                 // 8 warps: 4 along the rows x 2 along c
+constexpr int kWarps = kThreads / 32;
+constexpr int kBM = 128;                      // rows per tile, 32 per row warp
+constexpr int kLabChunk = kThreads;           // labels per chunk of a statistics pass
+constexpr size_t kSmemMax = 227 * 1024;
+constexpr size_t kInlineBytes = 64 * 1024;    // (k, d) sums kept whole in shared memory
+constexpr size_t kXRingBytes = 64 * 1024;     // x ring when c is resident
+constexpr int kMaxStages = 8;
+
+struct Params {
+  const void* x;
+  const float* c;
+  int64_t n, n_valid;
+  int d, k;
+  int* labels;          // labels (or the wrapper's scratch); NULL: none kept
+  float* part_sums;     // (grid, k*d) block partials
+  float* csplit;        // c as the products read it, written once a launch (csplit_c)
+  int* part_counts;     // (grid, k)
+  float* sums;          // (k, d)
+  float* counts;        // (k,)
+  int64_t tiles_per_block;
+  int resident;         // 1: all of c in shared memory, x through a ring of `stages`
+  int stages;
+  int dc, nfc;          // features a chunk, chunks (resident: d, 1)
+  int xs, cs;           // shared row strides: x (elements), c (floats)
+  int kp;               // k rounded up to the centroid tile
+  int xgran;            // x's copy granularity in bytes (16, 8, 4 or 2)
+  int cchunk;           // bytes of one (centroid tile, feature chunk) of csplit
+  int inline_stats;     // 1: the (k, d) sums in shared memory through the pass
+  int slab;             // clusters a statistics pass (inline_stats = 0)
+  int gather;           // rows a pass stages at once (inline_stats = 0)
+  int off_stage, off_list;   // a pass's staged rows, and its row and label lists
+  int off_c, off_csq, off_cnt, off_lab, off_best, off_acc;   // shared-memory offsets
+  int slot_bytes, slot_c;   // chunk ring: one slot, and its c part's offset
 };
 
-Plan make_plan(int d, int k) {
-  Plan p;
-  int kt = (int)(kTileBytes / (sizeof(float) * (size_t)(d + 1)));
-  p.kt = kt < k ? (kt < 1 ? 1 : kt) : k;
-  p.gs = d < kThreads ? d : kThreads;
-  int groups = kThreads / p.gs;
-  size_t cell = sizeof(float) * (size_t)k * d;
-  int fit = (int)(kSlabBytes / cell);
-  if (fit >= 1) {
-    p.groups = fit < groups ? fit : groups;
-    p.kts = k;
-  } else {
-    p.groups = 1;
-    int kts = (int)(kSlabBytes / (sizeof(float) * (size_t)d));
-    p.kts = kts < 1 ? 1 : kts;
-  }
-  p.smem = sizeof(float) * (size_t)p.kt * (d + 1)            // centroid tile + |c|^2
-         + sizeof(int) * kThreads                            // chunk labels
-         + sizeof(int) * (size_t)k                           // block counts
-         + sizeof(float) * (size_t)p.groups * p.kts * d;     // slabs
-  return p;
+// ---- fragments and products
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(v));
+  return u;
 }
 
-// DMAX > 0: rows (d <= DMAX) are loaded once into registers; DMAX == 0: any d,
-// the row is re-read (from L1) once per tile of kJB centroids.
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
-lloyd_stats_kernel(const T* __restrict__ x, const float* __restrict__ c,
-                   int64_t n, int64_t n_valid,
-                   int d, int k, int64_t rows_per_block, Plan plan,
-                   int* __restrict__ labels, float* __restrict__ part_sums,
-                   int* __restrict__ part_counts, unsigned* __restrict__ ticket,
-                   float* __restrict__ sums, float* __restrict__ counts) {
+// v = hi + lo + e, |e| <= 2^-22 |v| (the source note's bound).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <typename T> __host__ __device__ constexpr int depth() { return sizeof(T) == 4 ? 8 : 16; }
+__host__ __device__ inline int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+
+// One instruction-depth step of a warp's 32 x 8 WN block of dot products.
+// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32 / m16n8k16 .bf16; g = lane / 4,
+// t = lane % 4): A rows g and g + 8 of each 16-row tile, B column g of each
+// 8-centroid tile.  xa points at x_tile[row g of the warp][t (f32) or 2t
+// (bf16)], cb at c_tile[centroid g of the warp][the same], k0 is the step's
+// first feature and w the features staged: with MASK, operands at w or past
+// are taken as zero (the depth's padding).
+template <int WN, bool MASK>
+__device__ __forceinline__ void mma_step(float (&acc)[2][WN][4], const float* xa, int xs,
+                                         const float* cb, int cs, int k0, int w, int t) {
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const float* r0 = xa + mt * 16 * xs + k0;
+    const float* r1 = r0 + 8 * xs;
+    float v[4] = {r0[0], r1[0], r0[4], r1[4]};
+    if (MASK) {
+      if (k0 + t >= w) v[0] = v[1] = 0.f;
+      if (k0 + t + 4 >= w) v[2] = v[3] = 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) split_tf32(v[q], ah[mt][q], al[mt][q]);
+  }
+  const float* cl = cb + 16 * WN * cs;   // c's low parts follow its high parts
+#pragma unroll
+  for (int nt = 0; nt < WN; ++nt) {    // c was split once (csplit_c), zero-padded
+    const int o = nt * 8 * cs + k0;
+    const uint32_t bh0 = __float_as_uint(cb[o]), bh1 = __float_as_uint(cb[o + 4]);
+    const uint32_t bl0 = __float_as_uint(cl[o]), bl1 = __float_as_uint(cl[o + 4]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {   // small terms first, then hi.hi'
+      mma_tf32(acc[mt][nt], al[mt], bh0, bh1);
+      mma_tf32(acc[mt][nt], ah[mt], bl0, bl1);
+      mma_tf32(acc[mt][nt], ah[mt], bh0, bh1);
+    }
+  }
+}
+
+template <bool MASK>
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p, int col, int w) {
+  if (!MASK || col + 1 < w) return *reinterpret_cast<const uint32_t*>(p);
+  if (col < w) return (uint32_t)*reinterpret_cast<const uint16_t*>(p);
+  return 0u;
+}
+
+template <int WN, bool MASK>
+__device__ __forceinline__ void mma_step(float (&acc)[2][WN][4], const __nv_bfloat16* xa,
+                                         int xs, const float* cb, int cs, int k0, int w,
+                                         int t) {
+  const int col = k0 + 2 * t;
+  uint32_t a[2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const __nv_bfloat16* r0 = xa + mt * 16 * xs + k0;
+    const __nv_bfloat16* r1 = r0 + 8 * xs;
+    a[mt][0] = ld_pair<MASK>(r0, col, w);
+    a[mt][1] = ld_pair<MASK>(r1, col, w);
+    a[mt][2] = ld_pair<MASK>(r0 + 8, col + 8, w);
+    a[mt][3] = ld_pair<MASK>(r1 + 8, col + 8, w);
+  }
+#pragma unroll
+  for (int nt = 0; nt < WN; ++nt) {
+    const float* cr = cb + nt * 8 * cs + k0;
+    const float2 u0 = *reinterpret_cast<const float2*>(cr);   // zero-padded (csplit_c)
+    const float2 u1 = *reinterpret_cast<const float2*>(cr + 8);
+    const uint32_t b0 = pack_bf16(u0.x, u0.y), b1 = pack_bf16(u1.x, u1.y);   // exact
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], a[mt], b0, b1);
+  }
+}
+
+// c as the products read it: for each (centroid tile, feature chunk) a block
+// of cchunk bytes holding the tile's BN centroids x cs features, row-major,
+// features past the chunk and centroids past k zero: for f32 points the
+// TF32 high parts, then the low parts (split once here, not per tile); for
+// bf16 points the values (already rounded to bf16).  Every block writes its
+// share; a grid barrier follows.
+template <typename T>
+__device__ void csplit_c(const Params& p, int bn) {
+  const int64_t part = (int64_t)bn * p.cs;   // floats of one part of a chunk
+  const int64_t total = (int64_t)p.kp * p.nfc * p.cs;
+  for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < total;
+       e += (int64_t)gridDim.x * kThreads) {
+    const int64_t chunk = e / part;   // jt * nfc + fc
+    const int off = (int)(e - chunk * part);
+    const int jt = (int)(chunk / p.nfc), fc = (int)(chunk - (int64_t)jt * p.nfc);
+    const int n = off / p.cs, ff = off - n * p.cs;
+    const int j = jt * bn + n, f = fc * p.dc + ff;
+    const float v = (j < p.k && ff < p.dc && f < p.d) ? p.c[(int64_t)j * p.d + f] : 0.f;
+    float* dst = (float*)((unsigned char*)p.csplit + chunk * p.cchunk) + off;
+    if (sizeof(T) == 4) {
+      uint32_t hi, lo;
+      split_tf32(v, hi, lo);
+      dst[0] = __uint_as_float(hi);
+      dst[part] = __uint_as_float(lo);
+    } else {
+      dst[0] = v;
+    }
+  }
+}
+
+// ---- staging and statistics
+
+// Starts the copy of `gran` bytes (16, 8 or 4: cp.async; 2: a plain load
+// and store, complete at once).
+__device__ __forceinline__ void copy_chunk(unsigned char* dst, const unsigned char* src, int gran) {
+  if (gran == 16) cdrs::cp_async16(dst, src, 16);
+  else if (gran == 8) cdrs::cp_async8(dst, src);
+  else if (gran == 4) cdrs::cp_async4(dst, src);
+  else *reinterpret_cast<uint16_t*>(dst) = *reinterpret_cast<const uint16_t*>(src);
+}
+
+// Starts the copy of `rows` rows of `bytes` bytes (source stride src_stride)
+// into shared rows of dst_stride bytes, `gran` bytes a copy.
+__device__ __forceinline__ void stage_rows(unsigned char* dst, int dst_stride,
+                                           const unsigned char* src, int64_t src_stride,
+                                           int bytes, int rows, int gran) {
+  const int per = bytes / gran;
+  const int total = rows * per;
+  for (int q = threadIdx.x; q < total; q += kThreads) {
+    const int r = q / per, o = (q - r * per) * gran;
+    copy_chunk(dst + r * dst_stride + o, src + r * src_stride + o, gran);
+  }
+}
+
+// Adds rows 0..rows-1 of a chunk whose clusters lab[] (shared; -1: not
+// counted) fall in [s0, s0 + ns) into acc[(j - s0) * d + f].  Cluster j
+// belongs to warp j % kWarps and feature f to its lane f % 32: one writer a
+// cell, rows in increasing order, so the same inputs give the same bits.
+// Up to four rows are fetched before they are added, so a gather from
+// device memory keeps several loads in flight.
+template <typename Get>
+__device__ __forceinline__ void add_rows(float* acc, const int* lab, int rows, int s0, int ns,
+                                         int d, Get get) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int r0 = 0; r0 < rows; r0 += 32) {
+    const int j = r0 + lane < rows ? lab[r0 + lane] : -1;
+    const int rel = j - s0;
+    unsigned m = __ballot_sync(0xffffffffu, j >= 0 && rel >= 0 && rel < ns &&
+                                                (j % kWarps) == w);
+    while (m) {
+      int rr[4], jr[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int b = m ? __ffs(m) - 1 : -1;
+        rr[q] = b;
+        jr[q] = __shfl_sync(0xffffffffu, rel, b < 0 ? 0 : b);
+        if (m) m &= m - 1;
+      }
+      for (int f = lane; f < d; f += 32) {
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = rr[q] >= 0 ? get(r0 + rr[q], f) : 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (rr[q] >= 0) acc[jr[q] * d + f] += v[q];
+      }
+    }
+  }
+}
+
+// ---- the kernel
+
+// MINB blocks an SM: 2 (at most 128 registers) when all of c is resident and
+// a block's shared memory leaves room for two, 1 for the chunk ring, whose
+// shared memory holds one block anyway and whose products then keep more of
+// their operands in registers.
+template <typename T, int WN, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB) lloyd_general_kernel(const Params p) {
+  constexpr int BN = 16 * WN;   // centroids a tile: two warps of 8 WN
+  constexpr int KS = depth<T>();
   extern __shared__ __align__(16) unsigned char smem[];
-  float* s_c = (float*)smem;                           // kt * d
-  float* s_csq = s_c + (size_t)plan.kt * d;            // kt
-  int* s_lab = (int*)(s_csq + plan.kt);                // kThreads
-  int* s_cnt = s_lab + kThreads;                       // k
-  float* s_slab = (float*)(s_cnt + k);                 // groups * kts * d
+  float* s_c = (float*)(smem + p.off_c);
+  float* s_csq = (float*)(smem + p.off_csq);
+  int* s_cnt = (int*)(smem + p.off_cnt);
+  int* s_lab = (int*)(smem + p.off_lab);
+  float* s_bv = (float*)(smem + p.off_best);
+  int* s_bj = (int*)(s_bv + 2 * kBM);
+  float* s_acc = (float*)(smem + p.off_acc);
 
-  const int t = threadIdx.x;
-  const int64_t b = blockIdx.x;
-  const int64_t row0 = b * rows_per_block;
-  int64_t row1 = row0 + rows_per_block;
-  if (row1 > n) row1 = n;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int d = p.d, k = p.k;
   const int64_t kd = (int64_t)k * d;
-  float* my_part = part_sums + b * kd;   // block-major partials
-  const int slab_elems = plan.groups * plan.kts * d;
-  const bool one_tile = plan.kt >= k;
-  const bool one_slab = plan.kts >= k;
+  const int64_t ntiles = (p.n + kBM - 1) / kBM;
+  const int64_t t0 = (int64_t)blockIdx.x * p.tiles_per_block;
+  const int64_t t1 = min64(t0 + p.tiles_per_block, ntiles);
+  const int my = t1 > t0 ? (int)(t1 - t0) : 0;
+  const int ntc = p.kp / BN;
+  constexpr int esz = (int)sizeof(T);
+  const unsigned char* xb = (const unsigned char*)p.x;
 
-  for (int j = t; j < k; j += kThreads) s_cnt[j] = 0;
-  if (one_slab) {
-    for (int e = t; e < slab_elems; e += kThreads) s_slab[e] = 0.f;
-  } else {
-    for (int64_t e = t; e < kd; e += kThreads) my_part[e] = 0.f;
-  }
-  if (one_tile) {
-    for (int e = t; e < k * d; e += kThreads) s_c[e] = c[e];
+  csplit_c<T>(p, BN);
+  for (int j = tid; j < k; j += kThreads) s_cnt[j] = 0;
+  if (p.inline_stats)
+    for (int64_t e = tid; e < kd; e += kThreads) s_acc[e] = 0.f;
+  for (int j = tid; j < p.kp; j += kThreads)
+    s_csq[j] = j < k ? sq_norm(p.c + (int64_t)j * d, d) : INFINITY;
+  cooperative_groups::this_grid().sync();   // csplit is whole
+
+  auto stage_x = [&](unsigned char* dst, int64_t tile, int f0, int w) {
+    const int64_t r0 = tile * kBM;
+    const int rows = (int)min64(kBM, p.n - r0);
+    stage_rows(dst, p.xs * esz, xb + (r0 * d + f0) * esz, (int64_t)d * esz, w * esz, rows,
+               p.xgran);
+  };
+  // Starts the copy of `bytes` contiguous bytes of csplit from a chunk on.
+  auto stage_c = [&](unsigned char* dst, int64_t chunk, int bytes) {
+    const unsigned char* src = (const unsigned char*)p.csplit + chunk * p.cchunk;
+    for (int q = tid * 16; q < bytes; q += kThreads * 16) cdrs::cp_async16(dst + q, src + q, 16);
+  };
+
+  float acc[2][WN][4];
+  float bv[4];
+  int bj[4];
+  const int xoff = (wm * 32 + g) * p.xs + (esz == 4 ? t : 2 * t);
+  const int coff = (wn * WN * 8 + g) * p.cs + (esz == 4 ? t : 2 * t);
+
+  // acc (+)= x_tile[:, :w] . c_tile[:, :w]^T for the warp's block.
+  auto zero_acc = [&]() {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < WN; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+  };
+  auto products = [&](const T* xt, const float* ct, int w) {
+    const int full = w / KS;
+    for (int s = 0; s < full; ++s)
+      mma_step<WN, false>(acc, xt + xoff, p.xs, ct + coff, p.cs, s * KS, w, t);
+    if (full * KS < w) mma_step<WN, true>(acc, xt + xoff, p.xs, ct + coff, p.cs, full * KS, w, t);
+  };
+  // Running best of the rows over centroid tile jt: strict < over increasing j.
+  auto rank = [&](int jt) {
+#pragma unroll
+    for (int nt = 0; nt < WN; ++nt) {
+      const int j = jt * BN + wn * WN * 8 + nt * 8 + 2 * t;
+      const float c0 = s_csq[j], c1 = s_csq[j + 1];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = 2 * mt + h;
+          const float v0 = c0 - 2.f * acc[mt][nt][2 * h];
+          const float v1 = c1 - 2.f * acc[mt][nt][2 * h + 1];
+          if (v0 < bv[q]) { bv[q] = v0; bj[q] = j; }
+          if (v1 < bv[q]) { bv[q] = v1; bj[q] = j + 1; }
+        }
+    }
+  };
+  auto reset_best = [&]() {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) { bv[q] = INFINITY; bj[q] = 0; }
+  };
+  // Labels of tile `tile`: merge the four lanes of a row, then the two
+  // centroid warps, by (distance, index); store, count, and (inline) add
+  // the tile's rows from `xt`.
+  auto finish = [&](int64_t tile, const T* xt) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float v = bv[q];
+      int j = bj[q];
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+        const int oj = __shfl_xor_sync(0xffffffffu, j, o);
+        if (ov < v || (ov == v && oj < j)) { v = ov; j = oj; }
+      }
+      if (t == 0) {
+        const int r = wm * 32 + (q >> 1) * 16 + (q & 1) * 8 + g;
+        s_bv[wn * kBM + r] = v;
+        s_bj[wn * kBM + r] = j;
+      }
+    }
     __syncthreads();
-    for (int j = t; j < k; j += kThreads) s_csq[j] = sq_norm(s_c + (size_t)j * d, d);
-  }
-  __syncthreads();
-
-  const int grp = t / plan.gs;
-  const int lane = t - grp * plan.gs;
-
-  for (int64_t base = row0; base < row1; base += kThreads) {
-    const int64_t r = base + t;
-    const bool in = r < row1;
-    const T* xrow = x + r * d;
-    float xr[DMAX > 0 ? DMAX : 1];
-    if (DMAX > 0 && in) {
-#pragma unroll
-      for (int f = 0; f < DMAX; ++f)
-        if (f < d) xr[f] = to_f(xrow[f]);
+    if (tid < kBM) {
+      const float v0 = s_bv[tid], v1 = s_bv[kBM + tid];
+      const int j0 = s_bj[tid], j1 = s_bj[kBM + tid];
+      const int lab = (v1 < v0 || (v1 == v0 && j1 < j0)) ? j1 : j0;
+      const int64_t row = tile * kBM + tid;
+      if (row < p.n && p.labels != nullptr) p.labels[row] = lab;
+      const bool counted = row < p.n_valid;
+      if (counted) atomicAdd(&s_cnt[lab], 1);
+      s_lab[tid] = counted ? lab : -1;
     }
-    float best = INFINITY;
-    int best_j = 0;
-    for (int j0 = 0; j0 < k; j0 += plan.kt) {
-      const int ktc = (k - j0) < plan.kt ? (k - j0) : plan.kt;
-      if (!one_tile) {
-        __syncthreads();
-        for (int e = t; e < ktc * d; e += kThreads) s_c[e] = c[(int64_t)j0 * d + e];
-        __syncthreads();
-        for (int j = t; j < ktc; j += kThreads) s_csq[j] = sq_norm(s_c + (size_t)j * d, d);
-        __syncthreads();
-      }
-      if (in && DMAX > 0) {
-        for (int j = 0; j < ktc; ++j) {
-          const float* cj = s_c + (size_t)j * d;
-          float dot = 0.f;
-#pragma unroll
-          for (int f = 0; f < (DMAX > 0 ? DMAX : 1); ++f)
-            if (f < d) dot = fmaf(xr[f], cj[f], dot);
-          const float dist = s_csq[j] - 2.f * dot;
-          if (dist < best) { best = dist; best_j = j0 + j; }
-        }
-      } else if (in) {
-        // Any d: kJB centroids at a time, the row streamed through registers
-        // kFC features at a time, so each row element is loaded once per kJB
-        // centroids.  Each dot still adds its features in order 0..d-1.
-        for (int jb = 0; jb < ktc; jb += kJB) {
-          const int nj = (ktc - jb) < kJB ? (ktc - jb) : kJB;
-          float acc[kJB];
-#pragma unroll
-          for (int q = 0; q < kJB; ++q) acc[q] = 0.f;
-          for (int f0 = 0; f0 < d; f0 += kFC) {
-            float xc[kFC];
-#pragma unroll
-            for (int f = 0; f < kFC; ++f) xc[f] = (f0 + f < d) ? to_f(xrow[f0 + f]) : 0.f;
-#pragma unroll
-            for (int q = 0; q < kJB; ++q) {
-              if (q < nj) {
-                const float* cq = s_c + (size_t)(jb + q) * d + f0;
-#pragma unroll
-                for (int f = 0; f < kFC; ++f)
-                  if (f0 + f < d) acc[q] = fmaf(xc[f], cq[f], acc[q]);
-              }
-            }
-          }
-#pragma unroll
-          for (int q = 0; q < kJB; ++q) {
-            if (q < nj) {
-              const float dist = s_csq[jb + q] - 2.f * acc[q];
-              if (dist < best) { best = dist; best_j = j0 + jb + q; }
-            }
-          }
-        }
-      }
-    }
-    if (in && labels != nullptr) labels[r] = best_j;
-    const int lab = (in && r < n_valid) ? best_j : -1;
-    s_lab[t] = lab;
-    if (lab >= 0) atomicAdd(&s_cnt[lab], 1);
     __syncthreads();
+    if (xt != nullptr)
+      add_rows(s_acc, s_lab, kBM, 0, k, d,
+               [&](int r, int f) { return to_f(xt[r * p.xs + f]); });
+  };
 
-    if (one_slab) {
-      if (grp < plan.groups) {
-        float* slab = s_slab + (size_t)grp * plan.kts * d;
-        for (int rr = grp; rr < kThreads; rr += plan.groups) {
-          const int lj = s_lab[rr];
-          if (lj < 0) continue;
-          const T* xs = x + (base + rr) * d;
-          for (int f = lane; f < d; f += plan.gs) slab[lj * d + f] += to_f(xs[f]);
-        }
-      }
-      __syncthreads();  // s_lab is rewritten by the next chunk
-      continue;
+  if (p.resident) {
+    // All of c once; x tiles through a ring of S buffers, S - 1 in flight.
+    const int S = p.stages;
+    const int xtile = kBM * p.xs * esz;
+    stage_c((unsigned char*)s_c, 0, ntc * p.cchunk);
+    for (int s = 0; s < S - 1; ++s) {
+      if (s < my) stage_x(smem + s * xtile, t0 + s, 0, d);
+      cdrs::cp_async_commit();
     }
-    for (int k0 = 0; k0 < k; k0 += plan.kts) {
-      const int ktc = (k - k0) < plan.kts ? (k - k0) : plan.kts;
-      const int cells = ktc * d;
-      for (int e = t; e < slab_elems; e += kThreads) s_slab[e] = 0.f;
-      __syncthreads();
-      if (grp < plan.groups) {
-        float* slab = s_slab + (size_t)grp * plan.kts * d;
-        for (int rr = grp; rr < kThreads; rr += plan.groups) {
-          const int lj = s_lab[rr] - k0;
-          if (s_lab[rr] < 0 || lj < 0 || lj >= ktc) continue;
-          const T* xs = x + (base + rr) * d;
-          for (int f = lane; f < d; f += plan.gs) slab[lj * d + f] += to_f(xs[f]);
-        }
+    for (int i = 0; i < my; ++i) {
+      cdrs::cp_async_wait_dyn(S - 2);   // tile i is in
+      __syncthreads();                  // and every warp is done with tile i - 1
+      const int nx = i + S - 1;
+      if (nx < my) stage_x(smem + (nx % S) * xtile, t0 + nx, 0, d);
+      cdrs::cp_async_commit();
+      const T* xt = (const T*)(smem + (i % S) * xtile);
+      reset_best();
+      for (int jt = 0; jt < ntc; ++jt) {
+        zero_acc();
+        products(xt, (const float*)((const unsigned char*)s_c + (size_t)jt * p.cchunk), d);
+        rank(jt);
       }
-      __syncthreads();
-      for (int e = t; e < cells; e += kThreads) {
-        float s = 0.f;
-        for (int gg = 0; gg < plan.groups; ++gg) s += s_slab[(size_t)gg * plan.kts * d + e];
-        my_part[(int64_t)k0 * d + e] += s;
-      }
-      __syncthreads();
-    }
-  }
-  __syncthreads();
-  if (one_slab) {
-    for (int64_t e = t; e < kd; e += kThreads) {
-      float s = 0.f;
-      for (int gg = 0; gg < plan.groups; ++gg) s += s_slab[(size_t)gg * plan.kts * d + e];
-      my_part[e] = s;
-    }
-  }
-  for (int j = t; j < k; j += kThreads) part_counts[b * k + j] = s_cnt[j];
-  if (!cdrs::last_block(ticket)) return;
-  // Last block: one thread per cell (four when they fill 16-byte loads),
-  // blocks in order, coalesced across the block's threads and unrolled so
-  // that many loads are in flight: at d = 128, k = 1024 this one block
-  // reads 264 x 131,072 partials.
-  const int g = gridDim.x;
-  if (kd % 4 == 0) {   // four cells per thread, one 16-byte load per block
-    const float4* p4 = reinterpret_cast<const float4*>(part_sums);
-    for (int64_t q = t; q < kd / 4; q += kThreads) {
-      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 16
-      for (int bb = 0; bb < g; ++bb) {
-        const float4 v = __ldcg(p4 + bb * (kd / 4) + q);
-        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
-      }
-      reinterpret_cast<float4*>(sums)[q] = s;
+      finish(t0 + i, p.inline_stats ? xt : nullptr);
     }
   } else {
-    for (int64_t e = t; e < kd; e += kThreads) {
-      float s = 0.f;
-#pragma unroll 16
-      for (int bb = 0; bb < g; ++bb) s += __ldcg(part_sums + bb * kd + e);
-      sums[e] = s;
+    // Steps (tile, centroid tile, feature chunk), each one slot of (x chunk,
+    // c chunk) of a two-slot ring: step s + 1 loads while step s computes.
+    const int64_t nsteps = (int64_t)my * ntc * p.nfc;
+    auto stage_step = [&](int64_t s) {
+      const int fc = (int)(s % p.nfc);
+      const int64_t q = s / p.nfc;
+      const int jt = (int)(q % ntc);
+      const int64_t i = q / ntc;
+      unsigned char* slot = smem + (s & 1) * p.slot_bytes;
+      const int f0 = fc * p.dc, w = min(p.dc, d - f0);
+      stage_x(slot, t0 + i, f0, w);
+      stage_c(slot + p.slot_c, (int64_t)jt * p.nfc + fc, p.cchunk);
+    };
+    if (nsteps > 0) stage_step(0);
+    cdrs::cp_async_commit();
+    int64_t s = 0;
+    for (int i = 0; i < my; ++i) {
+      reset_best();
+      for (int jt = 0; jt < ntc; ++jt) {
+        for (int fc = 0; fc < p.nfc; ++fc, ++s) {
+          __syncthreads();   // every warp is done with step s - 1's slot
+          if (s + 1 < nsteps) stage_step(s + 1);
+          cdrs::cp_async_commit();
+          cdrs::cp_async_wait<1>();   // step s is in
+          __syncthreads();
+          const unsigned char* slot = smem + (s & 1) * p.slot_bytes;
+          const int f0 = fc * p.dc;
+          if (fc == 0) zero_acc();   // later chunks add to the accumulators
+          products((const T*)slot, (const float*)(slot + p.slot_c), min(p.dc, d - f0));
+          if (fc == p.nfc - 1) rank(jt);
+        }
+      }
+      finish(t0 + i, nullptr);
     }
   }
-  for (int j = t; j < k; j += kThreads) {
-    int s = 0;
-    for (int bb = 0; bb < g; ++bb) s += __ldcg(part_counts + (int64_t)bb * k + j);
-    counts[j] = (float)s;
+  cdrs::cp_async_wait<0>();
+  __syncthreads();
+
+  // The block's partial, written once.
+  float* my_part = p.part_sums + (int64_t)blockIdx.x * kd;
+  if (p.inline_stats) {
+    for (int64_t e = tid; e < kd; e += kThreads) my_part[e] = s_acc[e];
+  } else {
+    // Passes over the block's counted rows, each owning p.slab clusters in
+    // the shared memory the tiles used.  For each chunk of labels (read
+    // back from device memory) the rows of the pass's clusters are listed
+    // in row order, copied in by bulk cp.async, p.gather at a time, and
+    // added from shared memory.
+    float* slab = (float*)smem;
+    T* stage = (T*)(smem + p.off_stage);
+    int* s_list = (int*)(smem + p.off_list);
+    int* s_plab = s_list + kLabChunk;
+    int* s_wcnt = s_bj;   // free here: rows of the pass a warp holds
+    const int64_t r0 = t0 * kBM, r1 = min64(t1 * kBM, p.n_valid);
+    const int row_bytes = d * esz, per = row_bytes / p.xgran;
+    for (int s0 = 0; s0 < k; s0 += p.slab) {
+      const int ns = min(p.slab, k - s0);
+      for (int e = tid; e < ns * d; e += kThreads) slab[e] = 0.f;
+      for (int64_t base = r0; base < r1; base += kLabChunk) {
+        const int64_t r = base + tid;
+        const int lab = r < r1 ? __ldcg(p.labels + r) : -1;
+        const bool in = lab >= s0 && lab < s0 + ns;
+        const unsigned bal = __ballot_sync(0xffffffffu, in);
+        if (lane == 0) s_wcnt[warp] = __popc(bal);
+        __syncthreads();
+        int before = 0, total = 0;
+        for (int w2 = 0; w2 < kWarps; ++w2) {
+          before += w2 < warp ? s_wcnt[w2] : 0;
+          total += s_wcnt[w2];
+        }
+        if (in) {
+          const int pos = before + __popc(bal & ((1u << lane) - 1u));
+          s_list[pos] = tid;
+          s_plab[pos] = lab;
+        }
+        __syncthreads();
+        for (int sub = 0; sub < total; sub += p.gather) {
+          const int cnt = min(p.gather, total - sub);
+          for (int q = tid; q < cnt * per; q += kThreads) {
+            const int i = q / per, o = (q - i * per) * p.xgran;
+            copy_chunk((unsigned char*)stage + i * row_bytes + o,
+                       xb + (base + s_list[sub + i]) * row_bytes + o, p.xgran);
+          }
+          cdrs::cp_async_commit();
+          cdrs::cp_async_wait<0>();
+          __syncthreads();
+          add_rows(slab, s_plab + sub, cnt, s0, ns, d,
+                   [&](int rr, int f) { return to_f(stage[rr * d + f]); });
+          __syncthreads();
+        }
+      }
+      __syncthreads();
+      for (int e = tid; e < ns * d; e += kThreads) my_part[(int64_t)s0 * d + e] = slab[e];
+      __syncthreads();
+    }
   }
-  if (t == 0) *ticket = 0u;
+  for (int j = tid; j < k; j += kThreads) p.part_counts[(int64_t)blockIdx.x * k + j] = s_cnt[j];
+
+  cooperative_groups::this_grid().sync();
+
+  // Every block sums its share of the cells over the partials, blocks in order.
+  const int nb = gridDim.x;
+  const int64_t gt = (int64_t)blockIdx.x * kThreads + tid, gs = (int64_t)nb * kThreads;
+  for (int64_t e = gt; e < kd; e += gs) {
+    float sum = 0.f;
+#pragma unroll 8
+    for (int b = 0; b < nb; ++b) sum += __ldcg(p.part_sums + (int64_t)b * kd + e);
+    p.sums[e] = sum;
+  }
+  for (int64_t j = gt; j < k; j += gs) {
+    int sum = 0;
+    for (int b = 0; b < nb; ++b) sum += __ldcg(p.part_counts + (int64_t)b * k + j);
+    p.counts[j] = (float)sum;
+  }
 }
 
-template <typename T, int DMAX>
-cudaError_t launch_general(const Args& a, const Plan& plan) {
+// ---- host side
+
+size_t a16(size_t v) { return (v + 15) & ~(size_t)15; }
+int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// Largest copy size (16, 8, 4 or 2 bytes) that divides both the row size
+// and the address.
+int gran_of(const void* ptr, int64_t row_bytes) {
+  int g = 16;
+  while (g > 2 && (((uintptr_t)ptr % g) != 0 || row_bytes % g != 0)) g >>= 1;
+  return g;
+}
+
+// The shape's layout: all of c resident when it fits beside a ring of at
+// least two x tiles, else the chunk ring with the widest feature chunk
+// that fits (split evenly).  Row strides are padded to 4 mod 8 words (f32
+// fragments) or 8 mod 16 (bf16 pairs), so fragment loads hit 32 banks.
+template <typename T>
+bool plan(int d, int k, int wn, Params& p, size_t& smem) {
+  const int esz = (int)sizeof(T), ks = depth<T>(), pad = esz == 4 ? 4 : 8;
+  const int bn = 16 * wn, dp = round_up(d, ks);
+  p.kp = round_up(k, bn);
+  const size_t tail = a16((size_t)p.kp * 4) + a16((size_t)k * 4) + a16(kLabChunk * 4)
+                    + a16(2 * kBM * 8);   // |c|^2, counts, labels, best pairs
+  const size_t kd_bytes = (size_t)k * d * 4;
+  auto offsets = [&](size_t head, size_t acc) {
+    p.off_csq = (int)head;
+    p.off_cnt = p.off_csq + (int)a16((size_t)p.kp * 4);
+    p.off_lab = p.off_cnt + (int)a16((size_t)k * 4);
+    p.off_best = p.off_lab + (int)a16(kLabChunk * 4);
+    p.off_acc = p.off_best + (int)a16(2 * kBM * 8);
+    smem = (size_t)p.off_acc + acc;
+    // The passes' layout in [0, off_cnt), free once the tiles are done:
+    // the clusters' sums, then p.gather staged rows, then the lists.
+    const size_t lists = a16(2 * kLabChunk * 4);
+    p.gather = 64;
+    while (p.gather > 1 && (size_t)p.off_cnt < lists + a16((size_t)p.gather * d * esz)
+                                                 + a16((size_t)4 * d))
+      p.gather /= 2;
+    const size_t room = (size_t)p.off_cnt - lists - a16((size_t)p.gather * d * esz);
+    p.slab = (int)((room > 16 ? room - 16 : 0) / (4 * (size_t)d));
+    p.off_stage = (int)a16((size_t)p.slab * d * 4);
+    p.off_list = p.off_stage + (int)a16((size_t)p.gather * d * esz);
+  };
+  p.xs = dp + pad;
+  p.cs = dp + pad;
+  const size_t xt = (size_t)kBM * p.xs * esz;   // a multiple of 16
+  const int parts = esz == 4 ? 2 : 1;   // f32: c's high and low parts
+  p.cchunk = parts * bn * p.cs * 4;      // a multiple of 16
+  const size_t cres = (size_t)(p.kp / bn) * p.cchunk;
+  for (int inl = kd_bytes <= kInlineBytes ? 1 : 0; inl >= 0; --inl) {
+    const size_t acc = inl ? a16(kd_bytes) : 0;
+    const size_t fixed = cres + tail + acc;
+    int stages = (int)(kXRingBytes / xt);
+    stages = stages < 2 ? 2 : (stages > kMaxStages ? kMaxStages : stages);
+    while (stages > 2 && fixed + stages * xt > kSmemMax) --stages;
+    if (fixed + stages * xt <= kSmemMax) {
+      p.resident = 1;
+      p.stages = stages;
+      p.dc = d;
+      p.nfc = 1;
+      p.inline_stats = inl;
+      p.off_c = (int)(stages * xt);
+      offsets(p.off_c + cres, acc);
+      return p.inline_stats || p.slab >= 1;
+    }
+  }
+  // Chunk ring: two slots of (128 x (dc + pad) of x, bn x (dc + pad) of c).
+  if (tail >= kSmemMax) return false;
+  const size_t per = 2 * ((size_t)kBM * esz + (size_t)parts * bn * 4);   // bytes a feature
+  int dcmax = (int)((kSmemMax - tail - 64) / per) - pad;
+  dcmax = dcmax / ks * ks;
+  if (dcmax < ks) return false;
+  p.nfc = (dp + dcmax - 1) / dcmax;
+  p.dc = round_up((dp + p.nfc - 1) / p.nfc, ks);
+  p.nfc = (d + p.dc - 1) / p.dc;
+  p.xs = p.dc + pad;
+  p.cs = p.dc + pad;
+  p.cchunk = parts * bn * p.cs * 4;
+  p.slot_c = (int)a16((size_t)kBM * p.xs * esz);
+  p.slot_bytes = p.slot_c + p.cchunk;
+  p.resident = 0;
+  p.stages = 2;
+  p.inline_stats = 0;
+  p.off_c = 0;
+  offsets(2 * (size_t)p.slot_bytes, 0);
+  return smem <= kSmemMax && p.slab >= 1;
+}
+
+int wn_for(int k) { return k > 64 ? 8 : 4; }
+
+template <typename T, int WN, int MINB>
+cudaError_t launch(const Args& a, Params p, size_t smem) {
+  auto kern = lloyd_general_kernel<T, WN, MINB>;
   static size_t smem_set[32] = {};
-  auto kern = lloyd_stats_kernel<T, DMAX>;
-  cudaError_t err = cdrs::set_smem_once(kern, plan.smem, smem_set);
+  static size_t occ_smem = 0;   // the last shared-memory size asked, and its answer
+  static int occ_blocks = 0;
+  cudaError_t err = cdrs::set_smem_once(kern, smem, smem_set);
   if (err != cudaSuccess) return err;
-  int64_t grid = (a.n + kThreads - 1) / kThreads;
+  if (occ_smem != smem) {
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    occ_smem = smem;
+    occ_blocks = blocks;
+  }
+  if (occ_blocks < 1) return cudaErrorInvalidConfiguration;
+  const int64_t ntiles = (a.n + kBM - 1) / kBM;
+  int64_t grid = (int64_t)a.sms * occ_blocks;
   if (grid > a.nb) grid = a.nb;
+  if (grid > ntiles) grid = ntiles;
   if (grid < 1) grid = 1;
-  const int64_t rows_per_block = (a.n + grid - 1) / grid;
-  kern<<<(unsigned)grid, kThreads, plan.smem, a.stream>>>(
-      (const T*)a.x, a.c, a.n, a.n_valid, a.d, a.k, rows_per_block, plan, a.labels,
-      a.part_sums, a.part_counts, a.ticket, a.sums, a.counts);
-  return cudaGetLastError();
+  p.tiles_per_block = (ntiles + grid - 1) / grid;
+  if (p.tiles_per_block > 0) grid = (ntiles + p.tiles_per_block - 1) / p.tiles_per_block;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel((const void*)kern, dim3((unsigned)grid), dim3(kThreads),
+                                    args, smem, a.stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t general_path(const Args& a) {
-  const Plan plan = make_plan(a.d, a.k);
-  if (plan.smem > 227 * 1024) return cudaErrorInvalidValue;
-  if (a.d <= 8) return launch_general<T, 8>(a, plan);
-  if (a.d <= 32) return launch_general<T, 32>(a, plan);
-  return launch_general<T, 0>(a, plan);
+  Params p{};
+  size_t smem = 0;
+  const int wn = wn_for(a.k);
+  if (!plan<T>(a.d, a.k, wn, p, smem)) return cudaErrorInvalidValue;
+  if (!p.inline_stats && a.labels == nullptr) return cudaErrorInvalidValue;
+  p.x = a.x;
+  p.c = a.c;
+  p.n = a.n;
+  p.n_valid = a.n_valid;
+  p.d = a.d;
+  p.k = a.k;
+  p.labels = a.labels;
+  p.part_sums = a.part_sums;
+  p.part_counts = a.part_counts;
+  p.sums = a.sums;
+  p.counts = a.counts;
+  p.xgran = gran_of(a.x, (int64_t)a.d * (int64_t)sizeof(T));
+  // The wrapper's extra floats past the partials, from a 16-byte boundary.
+  p.csplit = a.part_sums + (((int64_t)a.nb * a.k * a.d + 3) & ~(int64_t)3);
+  if (p.resident) return wn == 8 ? launch<T, 8, 2>(a, p, smem) : launch<T, 4, 2>(a, p, smem);
+  return wn == 8 ? launch<T, 8, 1>(a, p, smem) : launch<T, 4, 1>(a, p, smem);
 }
+
+}  // namespace gen
 
 template <typename T>
 int launch(const Args& a) {
   if (a.n < 0 || a.d < 1 || a.k < 1 || a.nb < 2 || a.sms < 1 || a.n_valid < 0 || a.n_valid > a.n)
     return (int)cudaErrorInvalidValue;
   if (a.d <= 8 && a.k <= 16) return (int)small_path<T>(a);
-  return (int)general_path<T>(a);
+  return (int)gen::general_path<T>(a);
 }
 
 }  // namespace
@@ -551,12 +1011,14 @@ int launch(const Args& a) {
 extern "C" {
 
 // x (n, d) row-major f32 or bf16; c (k, d) f32 (already rounded to x's type;
-// |c|^2 is taken in the kernel); labels (n,) int32 or NULL; part_sums
-// (nb * k * d) f32 and
-// part_counts (nb * k) int32 scratch; ticket one uint32, zero before the
-// first launch (each launch leaves it zero); sums (k, d) f32; counts (k,) f32.
-// nb >= 2 is the partial capacity in blocks (2 x SMs); sms the device's
-// SM count.  Returns a cudaError_t code (0 = launched).
+// |c|^2 is taken in the kernel); labels (n,) int32 or NULL (the general
+// path needs a buffer where cdrs_lloyd_keeps_labels says so); part_sums
+// (nb * k * d + cdrs_lloyd_extra_scratch) f32 and part_counts (nb * k)
+// int32 scratch; ticket one
+// uint32, zero before the first launch (each launch leaves it zero); sums
+// (k, d) f32; counts (k,) f32.  nb >= 2 is the partial capacity in blocks
+// (2 x SMs); sms the device's SM count.  Returns a cudaError_t code (0 =
+// launched).
 int cdrs_lloyd_f32(const void* x, const void* c, int64_t n, int64_t n_valid,
                    int d, int k, void* labels, void* part_sums, void* part_counts,
                    void* ticket, void* sums, void* counts, int nb, int sms, void* stream) {
@@ -573,6 +1035,30 @@ int cdrs_lloyd_bf16(const void* x, const void* c, int64_t n, int64_t n_valid,
                (float*)part_sums, (int*)part_counts, (unsigned*)ticket, (float*)sums,
                (float*)counts, nb, sms, (cudaStream_t)stream};
   return launch<__nv_bfloat16>(a);
+}
+
+// Floats part_sums needs past nb * k * d: the general path's csplit, from
+// a 16-byte boundary (0 on the small path or for a shape it cannot serve).
+int64_t cdrs_lloyd_extra_scratch(int d, int k, int bf16) {
+  if (d < 1 || k < 1 || (d <= 8 && k <= 16)) return 0;
+  gen::Params p{};
+  size_t smem = 0;
+  const int wn = gen::wn_for(k);
+  const bool ok = bf16 ? gen::plan<__nv_bfloat16>(d, k, wn, p, smem)
+                       : gen::plan<float>(d, k, wn, p, smem);
+  return ok ? (int64_t)(p.kp / (16 * wn)) * p.nfc * (p.cchunk / 4) + 4 : 0;
+}
+
+// 1 when a call of this shape stores labels even without with_labels (the
+// general path taking its sums in passes over the block's rows), else 0.
+int cdrs_lloyd_keeps_labels(int d, int k, int bf16) {
+  if (d < 1 || k < 1 || (d <= 8 && k <= 16)) return 0;
+  gen::Params p{};
+  size_t smem = 0;
+  const int wn = gen::wn_for(k);
+  const bool ok = bf16 ? gen::plan<__nv_bfloat16>(d, k, wn, p, smem)
+                       : gen::plan<float>(d, k, wn, p, smem);
+  return ok && !p.inline_stats ? 1 : 0;
 }
 
 }  // extern "C"

@@ -43,11 +43,15 @@ from .telemetry import current
 __all__ = ["instrumented_kernel", "kernel_cost", "bound_seconds", "DEVICE_PEAKS",
            "resolve_peaks", "clear_cache", "mesh_stamp"]
 
-#: Per-card peaks: HBM bytes/s and operations/s by the operands' type
-#: (f32 outside the tensor cores; bf16 dense on them).  H100 SXM5, HBM3.
+#: Per-card peaks: HBM bytes/s and operations/s by the operands' type (bf16
+#: dense on the tensor cores).  H100 SXM5, HBM3.  f32: the card computes
+#: f32-accurate products on its tensor cores as three TF32 products (high
+#: and low parts, as B1's general path does), so 495 TFLOP/s TF32 / 3 bounds
+#: f32 work; the 67 TFLOP/s of its CUDA cores no longer does, and a
+#: tensor-core kernel would read a share over 100% against it.
 DEVICE_PEAKS: dict[str, dict] = {
     "NVIDIA H100 80GB HBM3": {"bytes_per_s": 3.35e12,
-                              "ops_per_s": {"float32": 67e12, "bfloat16": 989e12}},
+                              "ops_per_s": {"float32": 495e12 / 3, "bfloat16": 989e12}},
 }
 
 #: Cycles the stream spins before a timed launch's start event: about

@@ -23,8 +23,13 @@ about that.
 One call is one launch.  The wrapper's fixed host cost is kept small: the
 ctypes signature is set once when the library is bound, the SM count is
 read once per device, and the kernel's scratch (block partials and the
-last-block ticket) is made once per (device, stream, k, d) and
+last-block ticket) is made once per (device, stream, k, d, dtype) and
 reused: calls on one stream run in order, so they never share it at once.
+The general path also keeps its copy of c, in the layout its products
+read, past the partials (``cdrs_lloyd_extra_scratch``).  Where it takes its
+sums in passes over stored labels (large k * d:
+``cdrs_lloyd_keeps_labels``) and the caller asked for none, an n-long int32
+label buffer is kept the same way, keyed by n.
 Outputs are fresh on every call (callers keep them) and are allocated
 without deterministic mode's NaN fill, since the kernel writes them in
 full.
@@ -41,6 +46,20 @@ Semantics shared by both versions:
 * sums are float32 (the stat dtype), counts are exact integers returned
   as float32; the kernel adds in a fixed order, so two calls on the same
   inputs give the same bits.
+
+How each version ranks (where labels may differ, they differ only on
+near-ties):
+* plain: one float32 matmul ``x @ c.T`` (full f32 on the card: PyTorch's
+  default keeps TF32 off for matmuls), then ``argmin``;
+* the kernel's small path (d <= 8 and k <= 16): fmaf chains in feature
+  order on the CUDA cores, strict ``<`` over increasing j;
+* the kernel's general path (any other shape): tensor-core products.
+  f32 points are split into TF32 high and low parts (round to nearest)
+  and ``x.c`` is lo.hi' + hi.lo' + hi.hi', within
+  ``(2^-20 + 3 d 2^-23) sum_f |x_f c_f|`` of the exact product; bf16
+  points take one exact bf16 product.  The best per row is kept with
+  strict ``<`` over increasing j and merged by (distance, index), so the
+  lower index wins equal distances.
 """
 
 from __future__ import annotations
@@ -61,6 +80,9 @@ __all__ = ["lloyd_assign_reduce", "lloyd_assign_reduce_plain", "centroid_operand
 _KERNEL_DTYPES = {torch.float32: "cdrs_lloyd_f32", torch.bfloat16: "cdrs_lloyd_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
              + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+#: (d, k, bf16) -> (whether the kernel stores labels even when none are
+#: asked, floats of scratch it needs past the block partials).
+_SHAPES: dict[tuple, tuple[bool, int]] = {}
 
 
 def centroid_operands(c: torch.Tensor, dtype: torch.dtype):
@@ -132,16 +154,22 @@ def lloyd_assign_reduce(x: torch.Tensor, c: torch.Tensor, n_valid: int | None = 
     sms = sm_count(dev.index)
     nb = 2 * sms   # neither path keeps more than two blocks on an SM
     stream = torch.cuda.current_stream(dev).cuda_stream
+    keeps_labels, extra = _shape_info(d, k, x.dtype)
     part_sums, part_counts, ticket = _build.scratch(
-        ("lloyd", dev.index, stream, k, d), lambda: _make_scratch(dev, nb, k, d))
+        ("lloyd", dev.index, stream, k, d, x.dtype),
+        lambda: _make_scratch(dev, nb * k * d + extra, nb * k))
     with unfilled():   # the kernel writes every label, sum and count
         labels = torch.empty(n, dtype=torch.int32, device=dev) if with_labels else None
         sums = torch.empty((k, d), dtype=torch.float32, device=dev)
         counts = torch.empty(k, dtype=torch.float32, device=dev)
+    lab_buf = labels
+    if lab_buf is None and keeps_labels:
+        lab_buf = _build.scratch(("lloyd_labels", dev.index, stream, n),
+                                 lambda: _label_scratch(dev, n))
     fn = _build.bind("lloyd", fn_name, _ARGTYPES)
     with _build.on_device(dev.index), probe:
         err = fn(x.data_ptr(), c_used.data_ptr(), n, n_valid, d, k,
-                 labels.data_ptr() if labels is not None else None,
+                 lab_buf.data_ptr() if lab_buf is not None else None,
                  part_sums.data_ptr(), part_counts.data_ptr(), ticket.data_ptr(),
                  sums.data_ptr(), counts.data_ptr(), nb, sms, stream)
     if err != 0:
@@ -184,12 +212,34 @@ def _cost(x, c, n_valid: int, with_labels: bool) -> dict:
                              with_labels=with_labels)
 
 
-def _make_scratch(dev, nb: int, k: int, d: int):
-    """Block partials (written in full by each launch) and the ticket (zero
-    between launches)."""
+def _shape_info(d: int, k: int, dtype) -> tuple[bool, int]:
+    """(whether the kernel stores labels at this shape even when the caller
+    asked for none, floats of scratch it needs past the block partials), as
+    ``cdrs_lloyd_keeps_labels`` and ``cdrs_lloyd_extra_scratch`` say: the
+    general path's sums taken in passes, and its copy of c in the layout its
+    products read.  Asked once per shape."""
+    if d <= 8 and k <= 16:
+        return False, 0   # the small path
+    key = (d, k, dtype == torch.bfloat16)
+    if key not in _SHAPES:
+        keeps = _build.bind("lloyd", "cdrs_lloyd_keeps_labels", [ctypes.c_int] * 3)
+        extra = _build.bind("lloyd", "cdrs_lloyd_extra_scratch", [ctypes.c_int] * 3,
+                            restype=ctypes.c_int64)
+        _SHAPES[key] = (bool(keeps(d, k, int(key[2]))), int(extra(d, k, int(key[2]))))
+    return _SHAPES[key]
+
+
+def _label_scratch(dev, n: int):
     with unfilled():
-        part_sums = torch.empty(nb * k * d, dtype=torch.float32, device=dev)
-        part_counts = torch.empty(nb * k, dtype=torch.int32, device=dev)
+        return torch.empty(max(n, 1), dtype=torch.int32, device=dev)
+
+
+def _make_scratch(dev, sum_floats: int, count_ints: int):
+    """Block partials (and the general path's copy of c past them; written
+    in full by each launch) and the ticket (zero between launches)."""
+    with unfilled():
+        part_sums = torch.empty(sum_floats, dtype=torch.float32, device=dev)
+        part_counts = torch.empty(count_ints, dtype=torch.int32, device=dev)
     return part_sums, part_counts, torch.zeros(1, dtype=torch.int32, device=dev)
 
 

@@ -24,6 +24,10 @@ Phases, each of which exits non-zero when a check fails:
    which also shows one launch per call; its bound is
    ``obs/kprof.kernel_cost``'s work over the H100's peaks
    (``obs/kprof.DEVICE_PEAKS``), the count the telemetry stream uses.
+   The Lloyd kernel's general path runs at 2.5M x 5, k = 64 (``entry()``'s
+   k), 1M x 32, k = 128 (f32 and bf16), 1M x 128, k = 1024 and two odd
+   shapes; its wide rows also print the bound at the CUDA cores' 67
+   TFLOP/s f32 rate and the time of the product ``x @ c.T`` alone.
 3. The main path: ``run_pipeline`` on CUDA over 2,500,000 files (seed 10,
    60 s of simulated traffic, k = 8, validated scoring with medians from
    the data).  The Lloyd kernel must run ``kmeans.n_iter + 1`` times and
@@ -301,6 +305,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 #: The card whose published peaks bound every kernel row (obs/kprof.DEVICE_PEAKS).
 H100 = "NVIDIA H100 80GB HBM3"
+#: The H100's f32 rate on its CUDA cores: the bound before B1's general path
+#: moved to the tensor cores, printed beside ``obs/kprof``'s for the wide rows.
+F32_CUDA_CORES = 67e12
 MAIN_FILES = 2_500_000
 MAIN_SEED = 10
 MAIN_DURATION = 60.0
@@ -543,12 +550,17 @@ def _distances64(x, c, rows, labs):
     return ((x[rows].double() - c[labs].double()) ** 2).sum(dim=1)
 
 
-def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False):
+def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False,
+                yardstick=False):
     """The Lloyd kernel against its plain version; returns a result row.
 
     Labels are compared on every row, rows past ``n_valid`` included,
     which hold values far outside the data (they must add nothing).  The
-    times are of calls with ``with_labels`` as the path makes them."""
+    times are of calls with ``with_labels`` as the path makes them.  With
+    ``yardstick`` the row also has the bound at the CUDA cores' 67 TFLOP/s
+    f32 rate (``bound_ms_67``) and ``library_ms``: the time of the single
+    product ``x @ c.T`` in the points' type (full f32 for f32 points), the
+    largest part of the same work, which the port never calls."""
     import torch
 
     from cdrs_tpu_torch.obs import kprof
@@ -605,15 +617,32 @@ def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False):
     b_ms, b_by = bound_ms(kprof.kernel_cost(
         "lloyd_assign_reduce", n=n, d=d, k=k, n_valid=n_valid,
         dtype=str(dtype).replace("torch.", ""), with_labels=with_labels))
+    row = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "max_abs_err": max_abs, "disagreements": diff.numel()}
+    extra = ""
+    if yardstick:
+        cost = kprof.kernel_cost("lloyd_assign_reduce", n=n, d=d, k=k, n_valid=n_valid,
+                                 dtype=str(dtype).replace("torch.", ""),
+                                 with_labels=with_labels)
+        peaks = kprof.resolve_peaks(H100, cost["dtype"])
+        if dtype == torch.float32:
+            peaks = (F32_CUDA_CORES, peaks[1])
+        secs, by = kprof.bound_seconds(cost, peaks)
+        c_op = c_used.to(dtype)
+        row["bound_ms_67"], row["bound_by_67"] = secs * 1e3, by
+        row["library_ms"] = time_ms(lambda: x @ c_op.T, reps)
+        extra = (f" (at 67 TFLOP/s f32: {row['bound_ms_67']:.4f} ms, {by}); "
+                 f"library x @ c.T {row['library_ms']:.4f} ms")
     log(f"lloyd {name}: n={n} d={d} k={k} {dtype} n_valid={n_valid} "
         f"with_labels={with_labels} labels agree "
-        f"{agree:.6f} ({diff.numel()} ties) sums rel {rel:.2e} |kernel-plain| {max_abs:.3e} "
+        f"{agree:.6f} ({diff.numel()} disagreements, all ties) sums rel {rel:.2e} "
+        f"|kernel-plain| {max_abs:.3e} "
         f"two calls bit-identical; kernel {ms:.4f} ms per call ({l2_note(dev_ms, b_ms)}, "
-        f"{per_call} launches seen per call) plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        f"{per_call} launches seen per call) plain {plain_ms:.4f} ms bound {b_ms:.4f} ms "
+        f"({b_by}){extra}")
     del x, lab_k, lab_2, lab_p, ref
     torch.cuda.empty_cache()
-    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": max_abs}
+    return row
 
 
 def check_seg(name, n, d, k, reps, gen, with_global=True):
@@ -725,12 +754,25 @@ def phase_kernels(reps):
     wide = {
         "seg_count 2.5Mx5 k1": seg_k1,
         "lloyd 2.5Mx5 k8 labels": lloyd_drift,
+        # B1's general path: entry()'s k at the main path's width, then
+        # reference configs 2 and 3's widths.
+        "lloyd 2.5Mx5 k64 f32": check_lloyd("entry-width", n_main, 5, 64, torch.float32,
+                                            n_main, reps, gen, yardstick=True),
         "lloyd 1Mx32 k128 f32": check_lloyd("config2-f32", 1 << 20, 32, 128, torch.float32,
-                                            (1 << 20) - 5, reps, gen),
+                                            (1 << 20) - 5, reps, gen, yardstick=True),
         "lloyd 1Mx32 k128 bf16": check_lloyd("config2-bf16", 1 << 20, 32, 128,
-                                             torch.bfloat16, (1 << 20) - 5, reps, gen),
+                                             torch.bfloat16, (1 << 20) - 5, reps, gen,
+                                             yardstick=True),
         "lloyd 1Mx128 k1024 f32": check_lloyd("ktiled", 1 << 20, 128, 1024, torch.float32,
-                                              1 << 20, max(3, reps // 4), gen),
+                                              1 << 20, max(3, reps // 4), gen,
+                                              yardstick=True),
+        # Odd shapes: a masked last depth step and 2-byte copies (bf16,
+        # d = 37); the feature-chunk ring and the pass-based sums without
+        # labels asked (d = 300).
+        "lloyd odd 100003x37 k150 bf16": check_lloyd("odd-bf16", 100_003, 37, 150,
+                                                     torch.bfloat16, 100_000, 3, gen),
+        "lloyd odd 70001x300 k33 f32": check_lloyd("odd-f32", 70_001, 300, 33, torch.float32,
+                                                   70_000, 3, gen),
         "seg_count 1Mx128 k1024": check_seg("wide", 1 << 20, 128, 1024,
                                             max(3, reps // 4), gen),
     }

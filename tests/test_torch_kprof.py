@@ -3,7 +3,8 @@ the kernel-build counter (``ops/_build.py``) and the roofline rows of the
 stream (``obs/aggregate.roofline_rows``).
 
 ``kernel_cost`` at smoke phase 2's shapes reproduces the bounds of the
-kernel table (B1 0.0149, B2 0.0179, B3 0.0019 ms on an H100); on the CPU a
+kernel table (B1 0.0149, B2 0.0179, B3 0.0019 ms on an H100; B1's general
+path 0.0523, 0.0200 in bf16, and 1.6667 ms at 1M x 128, k = 1024); on the CPU a
 kernel event has ``seconds`` null and its roofline row says "not
 measured"; a build found on disk counts nothing; and the wrappers give
 bit-identical results with the instrument on or off."""
@@ -26,6 +27,7 @@ from cdrs_tpu_torch.ops.seg_count import label_threshold_count  # noqa: E402
 H100 = "NVIDIA H100 80GB HBM3"
 N_MAIN = 2_500_000 - 3      # smoke phase 2's pipeline rows
 MB_BATCH = 262_144          # its mini-batch rows
+WIDE = 1 << 20              # its wide B1 shapes' rows
 
 
 @pytest.fixture(autouse=True)
@@ -35,16 +37,23 @@ def _fresh_signatures():
     kprof.clear_cache()
 
 
-@pytest.mark.parametrize("kernel, kw, bound_ms", [
-    ("lloyd_assign_reduce", dict(n=N_MAIN, d=5, k=8, n_valid=N_MAIN), 0.0149),
-    ("label_threshold_count", dict(n=N_MAIN, d=5, k=8, with_global=True), 0.0179),
+@pytest.mark.parametrize("kernel, kw, bound_ms, by", [
+    ("lloyd_assign_reduce", dict(n=N_MAIN, d=5, k=8, n_valid=N_MAIN), 0.0149, "bytes"),
+    ("label_threshold_count", dict(n=N_MAIN, d=5, k=8, with_global=True), 0.0179, "bytes"),
     ("lloyd_assign_reduce", dict(n=MB_BATCH, d=5, k=8, n_valid=MB_BATCH - 1000,
-                                 with_labels=True), 0.0019),
-], ids=["B1", "B2", "B3"])
-def test_kernel_cost_reproduces_the_kernel_table_bounds(kernel, kw, bound_ms):
+                                 with_labels=True), 0.0019, "bytes"),
+    # B1's general path at smoke phase 2's wide shapes: f32 work bound by
+    # f32-accurate tensor-core products (165 TFLOP/s), bf16 by its bytes.
+    ("lloyd_assign_reduce", dict(n=WIDE, d=32, k=128, n_valid=WIDE - 5), 0.0523,
+     "operations"),
+    ("lloyd_assign_reduce", dict(n=WIDE, d=32, k=128, n_valid=WIDE - 5, dtype="bfloat16"),
+     0.0200, "bytes"),
+    ("lloyd_assign_reduce", dict(n=WIDE, d=128, k=1024, n_valid=WIDE), 1.6667, "operations"),
+], ids=["B1", "B2", "B3", "B1-1Mx32-k128-f32", "B1-1Mx32-k128-bf16", "B1-1Mx128-k1024-f32"])
+def test_kernel_cost_reproduces_the_kernel_table_bounds(kernel, kw, bound_ms, by):
     cost = kprof.kernel_cost(kernel, **kw)
-    secs, by = kprof.bound_seconds(cost, kprof.resolve_peaks(H100))
-    assert by == "bytes" and round(secs * 1e3, 4) == bound_ms
+    secs, bound_by = kprof.bound_seconds(cost, kprof.resolve_peaks(H100, cost["dtype"]))
+    assert bound_by == by and round(secs * 1e3, 4) == bound_ms
 
 
 def test_kernel_cost_counts_each_byte_once():
@@ -62,7 +71,7 @@ def test_kernel_cost_counts_each_byte_once():
 
 
 def test_resolve_peaks_knows_only_the_h100():
-    assert kprof.resolve_peaks(H100) == (67e12, 3.35e12)
+    assert kprof.resolve_peaks(H100) == (495e12 / 3, 3.35e12)
     assert kprof.resolve_peaks(H100, "bfloat16") == (989e12, 3.35e12)
     assert kprof.resolve_peaks("cpu") is None and kprof.resolve_peaks(None) is None
 

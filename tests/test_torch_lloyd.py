@@ -48,6 +48,8 @@ def assert_labels_match(x, c_used, got, want, rtol=1e-6):
 @pytest.mark.parametrize("n,d,k,n_valid", [
     (2048, 5, 7, 2048),      # pipeline width, k not lane-aligned
     (2048, 32, 128, 1999),   # rows past n_valid carry no weight
+    (2048, 5, 64, 2001),     # entry()'s k at the pipeline's width
+    (1024, 128, 1024, 1000),  # reference config 3's width
 ])
 def test_plain_lloyd_matches_pallas_kernel(n, d, k, n_valid, dtype):
     rng = np.random.default_rng(3)
@@ -72,6 +74,8 @@ def test_plain_lloyd_matches_pallas_kernel(n, d, k, n_valid, dtype):
 @pytest.mark.parametrize("n,d,k,n_valid", [
     (2048, 5, 8, 1999),      # the mini-batch and drift width
     (3072, 32, 128, 2051),   # a wider model, three row tiles
+    (2048, 5, 64, 2001),     # entry()'s k at the pipeline's width
+    (1024, 128, 1024, 1000),  # reference config 3's width
 ])
 def test_plain_lloyd_matches_row_major_pallas_kernel(n, d, k, n_valid, dtype):
     """B3's contract: rows padded to the 1024-row tile, garbage (not zeros)
