@@ -38,8 +38,12 @@
   ``scenarios search`` grows the matrix by coverage-guided mutation and
   banks new cells and shrunk violations in a corpus, and ``scenarios
   triage`` reruns the banked violations as regression-locked cells;
+* ``bench`` runs one BASELINE config of the benchmark harness
+  (``benchmarks/harness.py``) and prints its detail JSON;
 * ``metrics summarize|tail|export|report|watch|alerts`` reads a telemetry
-  stream (``obs/metrics_cli.py``), ``trace list|show|export`` the daemon's
+  stream (``obs/metrics_cli.py``), ``metrics regress`` holds a bench run
+  against its trajectory bands (``benchmarks/regress.py``),
+  ``trace list|show|export`` the daemon's
   decision traces (``obs/trace.py``), and ``status HOST:PORT`` a live
   daemon's ``/statusz`` with its probes;
 * ``explain file|category|window`` rebuilds a decision's provenance from a
@@ -909,10 +913,6 @@ def _cmd_scenarios(args) -> int:
     invariants."""
     from .scenarios import PRESETS, SUITES, run_cell
 
-    if args.round_no is not None or args.history:
-        print("error: --round/--history (the bench history append) belong to the "
-              "port's benchmark, not ported yet (ROADMAP A10a)", file=sys.stderr)
-        return 2
     if args.action == "search":
         return _cmd_search(args)
     if args.action == "triage":
@@ -964,7 +964,8 @@ def _cmd_scenarios(args) -> int:
     from .scenarios.sweep import format_cell_line, run_sweep
 
     try:
-        out = run_sweep(args.suite, seed=args.seed, extra=args.extra_cells or None,
+        out = run_sweep(args.suite, seed=args.seed, round_no=args.round_no,
+                        history=args.history or None, extra=args.extra_cells or None,
                         device=args.device,
                         progress=lambda line: print(line, file=sys.stderr, flush=True))
     except (KeyError, ValueError) as e:
@@ -981,13 +982,40 @@ def _cmd_scenarios(args) -> int:
             sink.close()
     if args.out:
         _write_json(args.out, out)
-    print(json.dumps({k: out[k] for k in ("suite", "seed", "n_cells", "n_failed",
-                                          "invariants_checked", "ok", "seconds")}, indent=2))
+    digest = {k: out[k] for k in ("suite", "seed", "n_cells", "n_failed",
+                                  "invariants_checked", "ok", "seconds")}
+    for key in ("round", "history_appended"):
+        if key in out:
+            digest[key] = out[key]
+    print(json.dumps(digest, indent=2))
     if not out["ok"]:
         for c in out["cells"]:
             if not c["ok"]:
                 print(format_cell_line(c), file=sys.stderr)
         return 1
+    return 0
+
+
+def _cmd_bench(args) -> int:
+    """One BASELINE config of the harness; the detail JSON (with the
+    environment stamp) on stdout."""
+    from .benchmarks.harness import run_bench
+    from .obs import run_metadata
+
+    try:
+        with contextlib.ExitStack() as stack:
+            tel = _open_telemetry(args, stack, f"bench.config{args.config}")
+            if tel is not None:
+                # Spans and counters only: the timed loop runs as it would.
+                tel.kmeans_trace = False
+            out = run_bench(config=args.config, backend=args.backend, mesh_shape=args.mesh,
+                            update=args.update, e2e=args.e2e, dtype=args.dtype,
+                            device=args.device)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    out["run_meta"] = run_metadata()
+    print(json.dumps(out))
     return 0
 
 
@@ -1429,9 +1457,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(sweep) corpus cell files riding along with the suite "
                         "({'cells': [...], 'names': [...]}); never seed-shifted")
     p.add_argument("--round", type=int, default=None, dest="round_no",
-                   help="(sweep) bench-history round stamp: not ported yet (A10a)")
-    p.add_argument("--history", default=None, metavar="JSONL",
-                   help="(sweep) bench-history file: not ported yet (A10a)")
+                   help="(sweep) round stamp: appends the per-cell bench_records to "
+                        "--history (benchmarks/regress.append_history, deduped: re-runs "
+                        "never double-append); suite seed 0 only")
+    p.add_argument("--history", default="data/bench_history_torch.jsonl", metavar="JSONL",
+                   help="(sweep) trajectory history the per-cell records append to when "
+                        "--round is given ('' disables)")
     p.add_argument("--metrics", default=None, metavar="JSONL",
                    help="(sweep) emit the per-cell records as 'cell' events here")
     p.add_argument("--budget-cells", type=int, default=50, dest="budget_cells",
@@ -1451,13 +1482,37 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device_arg(p)
     p.set_defaults(fn=_cmd_scenarios)
 
+    p = sub.add_parser("bench", help="benchmark harness (BASELINE.md configs): Lloyd "
+                       "iter/s, --e2e time-to-categories, config 5 streaming events/s, "
+                       "each against the plain version on the CPU")
+    p.add_argument("--config", type=int, default=1, choices=[1, 2, 3, 4, 5])
+    p.add_argument("--backend", default=None, choices=["torch", "torch-cpu"],
+                   help="torch = the device path; torch-cpu = the plain version on the "
+                        "CPU alone (default: the config's)")
+    p.add_argument("--update", default=None,
+                   help="the reference's Lloyd strategy option: only auto is taken (the "
+                        "port's step is the CUDA kernel on a card, its plain version on "
+                        "the CPU); any other value is refused")
+    p.add_argument("--e2e", action="store_true",
+                   help="wall-clock time-to-categories (kmeans -> scoring -> host) instead "
+                        "of Lloyd iterations/s")
+    p.add_argument("--dtype", choices=["float32", "bfloat16", "float64"], default=None,
+                   help="points dtype override (bfloat16 halves the Lloyd kernel's reads; "
+                        "float64 runs on the CPU only)")
+    _add_mesh_arg(p)
+    _add_metrics_arg(p)
+    _add_device_arg(p)
+    p.set_defaults(fn=_cmd_bench)
+
     p = sub.add_parser("metrics", help="inspect a telemetry JSONL stream: summarize | tail | "
-                       "export | report | watch | alerts")
+                       "export | report | watch | alerts; regress: a bench run against "
+                       "its trajectory bands")
     p.add_argument("rest", nargs=argparse.REMAINDER,
                    help="summarize FILE | tail FILE [-n N] | "
                         "export FILE --format prometheus [--out FILE] | "
                         "report FILE [-o HTML] | watch FILE | "
-                        "alerts FILE [--follow] [--rules JSON]")
+                        "alerts FILE [--follow] [--rules JSON] | "
+                        "regress RUN.json [--history JSONL] [--round N]")
     p.set_defaults(fn=_cmd_metrics)
 
     p = sub.add_parser("trace", help="per-decision causal traces of the streaming daemon: "

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.lloyd import lloyd_assign_reduce, sharded_assign_reduce
+from ..ops.lloyd import lloyd_assign_reduce, rowmajor, sharded_assign_reduce
 from ..parallel.mesh import data_mesh
 
 __all__ = ["DriftReport", "assign_labels", "detect_drift", "detect_drift_torch"]
@@ -103,11 +103,12 @@ def detect_drift_torch(X, centroids, category_idx, accepted_fractions,
     c = torch.as_tensor(np.asarray(centroids, dtype=np.float32), device=dev)
     n = x.shape[0]
     mesh = data_mesh(mesh_shape, dev)
-    if mesh is None:
-        _, sums, counts = lloyd_assign_reduce(x, c, n, with_labels=False)
-    else:
-        n_loc, shards = mesh.split(x)
-        _, sums, counts = sharded_assign_reduce(mesh, shards, n_loc, c, n)
+    with rowmajor():
+        if mesh is None:
+            _, sums, counts = lloyd_assign_reduce(x, c, n, with_labels=False)
+        else:
+            n_loc, shards = mesh.split(x)
+            _, sums, counts = sharded_assign_reduce(mesh, shards, n_loc, c, n)
     means = torch.where(counts[:, None] > 0, sums / torch.clamp(counts, min=1.0)[:, None], c)
     shift = float(torch.sqrt(((means - c) ** 2).sum(dim=1).mean()))
     # Category fractions from the exact integer counts: a (k, C) one-hot

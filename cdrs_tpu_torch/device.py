@@ -10,6 +10,8 @@
 * ``unfilled``: allocation without deterministic mode's NaN fill, for
   buffers a kernel writes in full; ``sm_count``: a device's SM count,
   read once.
+* ``device_name``: the card's name, or "torch-cpu" for the CPU: the
+  platform a run's records carry (``benchmarks/regress``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 import torch.utils.deterministic
 
 __all__ = ["resolve_device", "stat_dtype", "torch_dtype", "deterministic", "unfilled",
-           "sm_count"]
+           "sm_count", "device_name"]
 
 _DTYPES = {
     "float32": torch.float32,
@@ -100,6 +102,12 @@ class unfilled:
         if self._prev:
             torch.utils.deterministic.fill_uninitialized_memory = True
         return False
+
+
+def device_name(dev: torch.device) -> str:
+    """The card's name as ``torch.cuda.get_device_name`` gives it, or
+    "torch-cpu" on the CPU."""
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "torch-cpu"
 
 
 @functools.lru_cache(maxsize=None)

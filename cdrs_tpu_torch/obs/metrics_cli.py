@@ -14,8 +14,9 @@
   stream, or of a daemon's ``/statusz``.
 * ``alerts FILE [--follow]`` — the alert rules (``obs/alerts.py``) over the
   stream: batch verdicts with their transitions, or a live follow.
-* ``regress`` — the bench trajectory check; it belongs to the benchmark,
-  which the port does not have yet (ROADMAP A10a), and exits 2 naming it.
+* ``regress RUN.json [--history JSONL] [--round N]`` — a bench run against
+  the trajectory bands (``benchmarks/regress.py``; nonzero exit on a
+  regression), or ``--ingest`` captures into the history.
 
 Outputs are the reference's byte for byte on a stream without kernel
 events; unknown kinds are ignored and a missing, empty or torn stream is a
@@ -895,9 +896,9 @@ def main(argv: list[str] | None = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "regress":
-        print("error: metrics regress (the bench trajectory bands) is not ported yet "
-              "(ROADMAP A10a)", file=sys.stderr)
-        return 2
+        from ..benchmarks.regress import main as regress_main
+
+        return regress_main(list(argv[1:]))
 
     args = parser.parse_args(argv)
     if args.action == "watch":

@@ -19,9 +19,10 @@ on one device or a mesh of shards.
 * **D² init** — Gumbel-max over the valid prefix: the noise for all
   ``n_valid`` rows comes from one generator per round, so a later
   multi-device split of the rows leaves the draw unchanged.
-* **k-means||** — ``rounds`` oversampling passes of Gumbel top-m, candidate
-  weights from one assignment pass, a weighted D² reduction to k and a few
-  weighted Lloyd steps on the candidates.
+* **k-means||** — ``rounds`` oversampling passes of Gumbel top-m (each
+  pass's (rows x candidates) distances formed in row chunks of at most
+  ``_PAR_BLOCK``), candidate weights from one assignment pass, a weighted
+  D² reduction to k and a few weighted Lloyd steps on the candidates.
 
 **Mesh** (``mesh_shape={"data": N, "model": M}``, ``parallel/mesh.py``):
 rows split into N contiguous shards (zero-padded to a multiple of N, the
@@ -93,6 +94,10 @@ _INIT, _REDUCE, _RESEED = 0, 1, 2
 #: while the loop usually stops after tens of iterations.
 _RESEED_BLOCK = 64
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: Distances k-means|| forms at once (rows x a round's candidates): 2^27
+#: float32, 512 MiB.  At 10M rows and k = 1024 a round's (n, 410) block
+#: would take 16 GiB, three times over with its temporaries.
+_PAR_BLOCK = 1 << 27
 
 
 def generator(seed: int | None, stream: int, index: int, device) -> torch.Generator:
@@ -165,6 +170,16 @@ def _d2_init(x: torch.Tensor, k: int, seed) -> torch.Tensor:
     return cent
 
 
+def _min_sq_dist(x, x_sq, rows):
+    """(n,) squared distance of each row of ``x`` to its nearest of
+    ``rows``, formed in row chunks of at most ``_PAR_BLOCK`` distances."""
+    r_sq = (rows * rows).sum(dim=1)[None, :]
+    step = max(1, _PAR_BLOCK // max(1, rows.shape[0]))
+    return torch.cat([torch.clamp(x_sq[i:i + step, None] - 2.0 * (x[i:i + step] @ rows.T)
+                                  + r_sq, min=0.0).min(dim=1).values
+                      for i in range(0, x.shape[0], step)])
+
+
 def _weighted_kmeanspp(c, wts, seed, k):
     """Weighted D² reduction of the candidate set to k centroids;
     zero-weight candidates are never drawn."""
@@ -215,9 +230,7 @@ def _kmeans_par_init(x, k, seed, rounds, per_round, cand_lloyd_iters=10):
                          per_round).indices
         rows = x[idx]
         cands.append(rows)
-        d2new = torch.clamp(x_sq[:, None] - 2.0 * (x @ rows.T)
-                            + (rows * rows).sum(dim=1)[None, :], min=0.0)
-        min_sq = torch.minimum(min_sq, d2new.min(dim=1).values)
+        min_sq = torch.minimum(min_sq, _min_sq_dist(x, x_sq, rows))
     cands = torch.cat(cands)
     # Candidate weights: how many points each owns (one Lloyd-step pass).
     _, _, wts = lloyd_assign_reduce(x, cands, n, with_labels=False)
@@ -320,9 +333,7 @@ def _kmeans_par_init_mesh(mesh, shards, n_loc, n_valid, k, seed, rounds, per_rou
         new_rows = rr[order[:per_round]]
         cands.append(new_rows)
         nr = [new_rows.to(x.device) for _, x, _ in views]
-        min_sq = [torch.minimum(m, torch.clamp(q[:, None] - 2.0 * (x @ w.T)
-                                               + (w * w).sum(dim=1)[None, :], min=0.0)
-                                .min(dim=1).values)
+        min_sq = [torch.minimum(m, _min_sq_dist(x, q, w))
                   for m, (_, x, _), q, w in zip(min_sq, views, x_sq, nr)]
     cands = torch.cat(cands)
     wts = sharded_assign_reduce(mesh, shards, n_loc, cands, n_valid)[2].to(cands.dtype)

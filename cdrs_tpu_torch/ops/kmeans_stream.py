@@ -35,7 +35,7 @@ from ..obs import current
 from ..obs.devtools import signature
 from ..parallel.mesh import resolve_mesh
 from .kmeans import _d2_init, d2_init_mesh
-from .lloyd import lloyd_assign_reduce, sharded_assign_reduce
+from .lloyd import lloyd_assign_reduce, rowmajor, sharded_assign_reduce
 
 __all__ = ["MiniBatchState", "minibatch_init", "minibatch_update", "MiniBatchKMeans"]
 
@@ -78,10 +78,11 @@ def minibatch_init(first_batch, k: int, seed: int | None = None,
 def _batch_stats(x, c, mesh):
     """(labels, sums, counts) of one batch: one Lloyd launch, or one a
     shard and a psum of the (k, d + 1) statistics."""
-    if mesh is None:
-        return lloyd_assign_reduce(x, c, x.shape[0], with_labels=True)
-    n_loc, shards = mesh.split(x)
-    return sharded_assign_reduce(mesh, shards, n_loc, c, x.shape[0], with_labels=True)
+    with rowmajor():
+        if mesh is None:
+            return lloyd_assign_reduce(x, c, x.shape[0], with_labels=True)
+        n_loc, shards = mesh.split(x)
+        return sharded_assign_reduce(mesh, shards, n_loc, c, x.shape[0], with_labels=True)
 
 
 def minibatch_update(state: MiniBatchState, batch, mesh_shape=None):
@@ -136,4 +137,5 @@ class MiniBatchKMeans:
     def predict(self, X) -> torch.Tensor:
         c = self._fitted().centroids
         x = _points(X, c.device)
-        return lloyd_assign_reduce(x, c, x.shape[0], with_labels=True)[0]
+        with rowmajor():
+            return lloyd_assign_reduce(x, c, x.shape[0], with_labels=True)[0]

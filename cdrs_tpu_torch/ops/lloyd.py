@@ -14,7 +14,10 @@ in ``cdrs_tpu/ops/pallas_kernels.py``:
 The TPU needed two kernels only for its lane padding of narrow rows; the
 CUDA kernel reads row-major ``x``, masks rows ``>= n_valid`` itself and
 writes every label when asked, which is the second kernel's contract, so
-one kernel and one launch counter serve both.  On a CPU tensor the
+one kernel and one launch counter serve both.  The second kernel's callers
+run their steps inside ``rowmajor()``, and each launch made there also
+counts in ``lloyd_assign_reduce.rowmajor_launches``: the run's share of
+the row-major route.  On a CPU tensor the
 wrapper runs ``lloyd_assign_reduce_plain``, the same function in plain
 PyTorch; on a CUDA tensor it launches the kernel or raises.  The kernel's
 source note says what bounds it on the card and what its design does
@@ -65,6 +68,7 @@ near-ties):
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import ctypes
 
 import torch
@@ -75,7 +79,7 @@ from ..parallel.mesh import collective_bytes_estimate, shard_valid
 from . import _build
 
 __all__ = ["lloyd_assign_reduce", "lloyd_assign_reduce_plain", "centroid_operands",
-           "sharded_assign_reduce"]
+           "sharded_assign_reduce", "rowmajor"]
 
 _KERNEL_DTYPES = {torch.float32: "cdrs_lloyd_f32", torch.bfloat16: "cdrs_lloyd_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
@@ -83,6 +87,21 @@ _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
 #: (d, k, bf16) -> (whether the kernel stores labels even when none are
 #: asked, floats of scratch it needs past the block partials).
 _SHAPES: dict[tuple, tuple[bool, int]] = {}
+#: True inside ``rowmajor()``.
+_ROWMAJOR = contextvars.ContextVar("lloyd_rowmajor", default=False)
+
+
+@contextlib.contextmanager
+def rowmajor():
+    """The block's launches are the row-major route's (the TPU's
+    ``lloyd_assign_reduce_pallas``): the mini-batch step, predict and the
+    drift step.  Each counts in ``lloyd_assign_reduce.launches`` and in
+    ``lloyd_assign_reduce.rowmajor_launches``."""
+    token = _ROWMAJOR.set(True)
+    try:
+        yield
+    finally:
+        _ROWMAJOR.reset(token)
 
 
 def centroid_operands(c: torch.Tensor, dtype: torch.dtype):
@@ -176,6 +195,8 @@ def lloyd_assign_reduce(x: torch.Tensor, c: torch.Tensor, n_valid: int | None = 
         raise RuntimeError(f"lloyd kernel launch failed: cudaError {err} "
                            f"(n={n}, d={d}, k={k}, dtype={x.dtype})")
     lloyd_assign_reduce.launches += 1
+    if _ROWMAJOR.get():
+        lloyd_assign_reduce.rowmajor_launches += 1
     return labels, sums, counts
 
 
@@ -245,3 +266,5 @@ def _make_scratch(dev, sum_floats: int, count_ints: int):
 
 #: Launches of the CUDA kernel (CPU calls of the plain version do not count).
 lloyd_assign_reduce.launches = 0
+#: Those of them made inside ``rowmajor()``.
+lloyd_assign_reduce.rowmajor_launches = 0

@@ -5,8 +5,10 @@ per-cell verdicts and headline metrics, the flattened ``bench_records``,
 and ``ok``, which the CLI turns into the exit code.  Failing cells carry
 their one-line repro.
 
-The reference's history append (``--round``/``--history``, its
-``benchmarks/regress``) belongs to the port's benchmark, ROADMAP A10a.
+With ``round_no`` and ``history`` each cell's records append to the
+trajectory history through ``benchmarks/regress.append_history`` (deduped
+on (round, metric, platform): a re-run appends nothing), their platform the
+device the cells ran on (``device.device_name``).
 """
 
 from __future__ import annotations
@@ -55,18 +57,29 @@ def load_extra_cells(paths) -> list[ScenarioSpec]:
     return specs
 
 
-def run_sweep(suite: str, *, seed: int = 0, extra=None, progress=None,
+def run_sweep(suite: str, *, seed: int = 0, round_no: int | None = None,
+              history: str | None = None, extra=None, progress=None,
               device=None) -> dict:
     """Run every cell of ``suite`` (and of the ``extra`` corpus cell
     files, never seed-shifted) on ``device``; returns the sweep artifact."""
     cells = list(suite_cells(suite, seed))
     if extra:
         cells += load_extra_cells(extra)
-    return run_cells(cells, suite=suite, seed=seed, progress=progress, device=device)
+    return run_cells(cells, suite=suite, seed=seed, round_no=round_no, history=history,
+                     progress=progress, device=device)
 
 
 def run_cells(cells: list[ScenarioSpec], *, suite: str | None = None, seed: int = 0,
+              round_no: int | None = None, history: str | None = None,
               progress=None, device=None) -> dict:
+    # Checked before any cell runs: per-cell baseline keys are defined at
+    # suite seed 0 (a shifted sweep re-seeds every workload, so its records
+    # would alias them).
+    if history and round_no is not None and seed:
+        raise ValueError(
+            "history append (--round) is only valid at suite seed 0 "
+            "— non-zero seeds shift every cell's workload, so their "
+            "records would alias the seed-0 baseline keys")
     t0 = time.perf_counter()
     results = []
     for spec in cells:
@@ -74,7 +87,7 @@ def run_cells(cells: list[ScenarioSpec], *, suite: str | None = None, seed: int 
         results.append(cell)
         if progress is not None:
             progress(format_cell_line(cell))
-    return {
+    out = {
         "suite": suite,
         "seed": seed,
         "cells": results,
@@ -85,3 +98,15 @@ def run_cells(cells: list[ScenarioSpec], *, suite: str | None = None, seed: int 
         "seconds": round(time.perf_counter() - t0, 3),
         "bench_records": [r for c in results for r in c["bench_records"]],
     }
+    if round_no is not None:
+        out["round"] = int(round_no)
+    if history and round_no is not None:
+        from ..benchmarks.regress import append_history, extract_records
+        from ..device import device_name, resolve_device
+
+        records = extract_records(out, f"scenarios_{suite or 'cells'}")
+        platform = device_name(resolve_device(device))
+        for rec in records:
+            rec["platform"] = rec["platform"] or platform
+        out["history_appended"] = append_history(history, records)
+    return out

@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernel checks only (no ok line)
     python3 chip_smoke.py --phase 10 # build, kernel checks and one phase (9,
-                                     # 10, 11, 12, 13, 14, 15 or 16) alone; no ok line
+                                     # 10, 11, 12, 13, 14, 15, 16 or 17) alone; no ok line
 
 Phases, each of which exits non-zero when a check fails:
 
@@ -27,7 +27,13 @@ Phases, each of which exits non-zero when a check fails:
    The Lloyd kernel's general path runs at 2.5M x 5, k = 64 (``entry()``'s
    k), 1M x 32, k = 128 (f32 and bf16), 1M x 128, k = 1024 and two odd
    shapes; its wide rows also print the bound at the CUDA cores' 67
-   TFLOP/s f32 rate and the time of the product ``x @ c.T`` alone.
+   TFLOP/s f32 rate and the time of the product ``x @ c.T`` alone.  The
+   bench's k = 1024 shapes (phase 17) follow: B1 at config 3's 10,485,760 x
+   128 (f32) and at the config-4 rehearsal's bf16 rows (as many as the
+   bench's memory guard leaves on this card), B2 at 10,485,760 x 128; their
+   points are drawn, the plain versions run, the float64 sums recomputed and
+   the product timed in row chunks of ``WIDE_CHUNK_ROWS`` (the (n, k)
+   matrices would not fit the card).
 3. The main path: ``run_pipeline`` on CUDA over 2,500,000 files (seed 10,
    60 s of simulated traffic, k = 8, validated scoring with medians from
    the data).  The Lloyd kernel must run ``kmeans.n_iter + 1`` times and
@@ -109,7 +115,7 @@ Phases, each of which exits non-zero when a check fails:
    files, windows and span, no alert gating), ``ok`` to its end, with B1 = sum(n_iter + 1) and B2 =
    12 per re-cluster (2.5M rows resolve to bisection), its mean seconds a
    window by stage and the idle share of one profiled window.  In the
-   whole smoke phase 9 runs last in phase 13's child, after phase 16.
+   whole smoke phase 9 runs last in the third child, after 11 and 10.
 10. The read path: (a) the serving controller (``ServeConfig(policy=
    "p2c")``) on CUDA over phase 3's population and a flash crowd (phase 3's
    traffic plus a seeded 1% cohort of hot files, 25,000, boosted 40x over
@@ -146,7 +152,9 @@ Phases, each of which exits non-zero when a check fails:
    replicate's bytes, the EC run equal to the CPU's from one init and to
    its own kill/resume; with p2c serving, EC stripes whose primary shard
    is down after the crash, and latencies above the same run's without
-   the storage penalty.
+   the storage penalty.  In the whole smoke phase 11 runs first in a third
+   child process started after phase 5 (its workload is its own), then
+   phases 10 and 9 there, beside 6-8 and 12b.
 12. Functional placement, the reference's ``region-loss`` preset (3
    regions x 2 racks x 2 nodes with priced WAN edges, ``placement_mode=
    "functional"``, ``ec_archival``, p2c serving) with region eu crashed for
@@ -170,8 +178,8 @@ Phases, each of which exits non-zero when a check fails:
    node to each region moves exactly what the full compare finds
    (``addition_moved``), with the host seconds of each.  12a and 12c run in
    a child process (about one core of the host and 13 GiB of its memory,
-   almost none of the card) started before phase 3, beside phases 3-11 and
-   12b: run in turn they would take the whole smoke past its time limit.
+   almost none of the card) started before phase 3, beside phases 3-12b:
+   run in turn they would take the whole smoke past its time limit.
    ``--phase 12`` starts the same child beside 12b alone, after (d): 12a's
    run at 5,000 files with the functional state's single-row memo on and
    off (``placement_fn.state._MEMO_MAX = 0``), the same records either way,
@@ -199,8 +207,8 @@ Phases, each of which exits non-zero when a check fails:
    run's findings still red, the exit code 1 exactly when a cell is red,
    the committed corpus untouched, B1 = sum(n_iter + 1) over the cells'
    re-clusters and no B2 (their medians sort).  In the whole smoke phase 13
-   runs in a child process started after phase 5, beside phases 6-12:
-   its CSV stages are host-bound; phases 16 and 9 follow it there.
+   runs in a child process started after phase 5, beside phases 6-12b:
+   its CSV stages are host-bound; phase 16 follows it there.
    ``--phase 13`` runs it alone, in process, after making phase 5's
    workload.
 
@@ -273,14 +281,37 @@ Phases, each of which exits non-zero when a check fails:
    sum to its score; (e) ``entry()`` on the card against its plain version
    on the CPU (its one launch is B1's: a full-batch step), and
    ``dryrun_multichip(4)`` on card 0.  B3's launches over (c)-(e) are
-   counted at its callers (``count_rowmajor``); none is expected.  In the
-   whole smoke phase 16 runs in phase 13's child after 13c, and phase 9
-   after it there (the parent's path is the smoke's longest).
+   those made inside ``ops/lloyd.rowmajor()``, where its callers run their
+   steps (``rowmajor_launches``); none is expected.  In the
+   whole smoke phase 16 runs in phase 13's child after 13c.
    ``--phase 16`` runs it alone, in process.
 
-In the whole smoke the parent runs 1-8, 10, 11 and 12b, joins both
-children, then runs 14 and 15, which time stages, kernels and first
-launches, with no other process on the card.
+17. The benchmark entry point (``cdrs_tpu_torch/benchmarks``): (a)
+   ``python -m cdrs_tpu_torch.benchmarks`` in a child as a user runs it:
+   exactly one stdout line, config 2's ``lloyd_iters_per_sec_n1048576_d32_k128``
+   with ``vs_baseline`` > 1, and the stderr detail's ``config3`` (10,485,760
+   rows, not downscaled) and ``config4_rehearsal`` (bf16, bisection medians)
+   with no error, B1 launches in each and B2 launches in the rehearsal; (b)
+   ``run_bench(config=3, e2e=True)`` in process: a finite time, bisection
+   medians, B2 launches, no plain version called on a CUDA tensor, its
+   categories among the four; the e2e's scoring at 200,000 x 128, k = 1024
+   on the card equal to the CPU's from the same labels; (c) config 5 and its
+   batches folded on the card and on the CPU, counters equal; (d) ``ingest``
+   at its defaults and ``stream1b`` at ``BENCH_STREAM1B_EVENTS`` events of
+   CSV; (e) ``init_quality --small``: finite inertias, planted accuracy over
+   0.5 from both inits; then ``carry_witness`` at 100,000 files, seed 21:
+   from the CPU's D² init the card's planted accuracy is the CPU's within
+   ``CARRY_TOL`` and meets the reference's bound of 0.78 (the card's own
+   init is logged: its draws differ, ROADMAP C9); (f) ``metrics regress`` on (a)'s detail against an
+   empty history (``no_baseline``), a ``--round`` append, and a second check
+   inside its band.  ``--phase 17`` runs it after phases 1-2.
+
+In the whole smoke the parent runs 1-8 and 12b beside three children (12a
+and 12c from after phase 2; 13 and 16 from after phase 5; 11, 10 and 9, each
+generating its workload, from after phase 5), joins them, then runs 14, 15
+and 17, which
+time stages, kernels, first launches and the bench's captures, with no
+other process on the card.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  It imports nothing of the JAX
@@ -419,6 +450,18 @@ NATIVE_CSV_ROWS = 10_000_000
 NATIVE_WRITER_PREFIX = 200_000
 NATIVE_PARSER_PREFIX = 1_000_000
 NATIVE_THREADS = 2
+#: Phase 17 and phase 2's bench shapes: config 3's rows, the row chunks the
+#: checks of 10M-row shapes take at a time, the events of 17d's stream1b
+#: (CSV, about 0.74 GB) and the time limit of 17a's child.
+BENCH_CONFIG3_ROWS = 10_485_760
+WIDE_CHUNK_ROWS = 1 << 20
+BENCH_STREAM1B_EVENTS = 10_000_000
+BENCH_CHILD_TIMEOUT = 900
+#: 17e: how far the card's planted accuracy from the CPU's init may lie
+#: from the CPU's (200 of 100,000 files), and the reference's bound at
+#: 100,000 files (``tests/test_cluster.py``).
+CARRY_TOL = 0.002
+CARRY_BOUND = 0.78
 
 
 def fail(msg: str) -> None:
@@ -550,8 +593,65 @@ def _distances64(x, c, rows, labs):
     return ((x[rows].double() - c[labs].double()) ** 2).sum(dim=1)
 
 
+def rand_rows(n, d, dtype, n_valid, gen, chunk_rows=None):
+    """(n, d) uniform points in ``dtype`` on the card, rows past ``n_valid``
+    moved 50 away from the data; with ``chunk_rows`` drawn that many rows
+    at a time straight into ``dtype`` (no full-size float32 temporary)."""
+    import torch
+
+    if chunk_rows is None:
+        x = torch.rand((n, d), generator=gen, device="cuda")
+        x[n_valid:] += 50.0
+        return x.to(dtype)
+    x = torch.empty((n, d), dtype=dtype, device="cuda")
+    for i in range(0, n, chunk_rows):
+        j = min(n, i + chunk_rows)
+        part = torch.rand((j - i, d), generator=gen, device="cuda")
+        part[max(0, n_valid - i):] += 50.0
+        x[i:j] = part
+    return x
+
+
+def plain_lloyd(x, c, n_valid, with_labels, chunk_rows=None):
+    """B1's plain version over ``x``; with ``chunk_rows`` over row chunks of
+    that many rows, sums added in float64 (its (n, k) distance and one-hot
+    matrices would not fit the card at 10M x 1024)."""
+    import torch
+
+    from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce_plain
+
+    if chunk_rows is None:
+        return lloyd_assign_reduce_plain(x, c, n_valid, with_labels=with_labels)
+    labels, sums, counts = [], 0.0, 0.0
+    for i in range(0, x.shape[0], chunk_rows):
+        j = min(x.shape[0], i + chunk_rows)
+        lab, s, cnt = lloyd_assign_reduce_plain(x[i:j], c, max(0, min(n_valid, j) - i),
+                                                with_labels=with_labels)
+        labels.append(lab)
+        sums = sums + s.double()
+        counts = counts + cnt.double()
+    return (torch.cat(labels) if with_labels else None), sums.float(), counts.float()
+
+
+def chunked_product_ms(x, c_op, reps, chunk_rows):
+    """Milliseconds of the product ``x @ c.T`` taken ``chunk_rows`` rows at a
+    time into one reused buffer: the whole (n, k) product would not fit."""
+    import torch
+
+    buf = torch.empty((chunk_rows, c_op.shape[0]), dtype=x.dtype, device="cuda")
+
+    def product():
+        for i in range(0, x.shape[0], chunk_rows):
+            j = min(x.shape[0], i + chunk_rows)
+            torch.matmul(x[i:j], c_op.T, out=buf[:j - i])
+
+    ms = time_ms(product, reps)
+    del buf
+    return ms
+
+
 def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False,
-                yardstick=False):
+                yardstick=False, chunk_rows=None):
     """The Lloyd kernel against its plain version; returns a result row.
 
     Labels are compared on every row, rows past ``n_valid`` included,
@@ -560,20 +660,20 @@ def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False,
     ``yardstick`` the row also has the bound at the CUDA cores' 67 TFLOP/s
     f32 rate (``bound_ms_67``) and ``library_ms``: the time of the single
     product ``x @ c.T`` in the points' type (full f32 for f32 points), the
-    largest part of the same work, which the port never calls."""
+    largest part of the same work, which the port never calls.  With
+    ``chunk_rows`` (the 10M-row shapes) the points are drawn, the plain
+    version run, the float64 sums recomputed and the product timed that
+    many rows at a time; the plain version is timed once."""
     import torch
 
     from cdrs_tpu_torch.obs import kprof
-    from cdrs_tpu_torch.ops.lloyd import (centroid_operands, lloyd_assign_reduce,
-                                          lloyd_assign_reduce_plain)
+    from cdrs_tpu_torch.ops.lloyd import centroid_operands, lloyd_assign_reduce
 
-    x = torch.rand((n, d), generator=gen, device="cuda")
-    x[n_valid:] += 50.0
-    x = x.to(dtype)
+    x = rand_rows(n, d, dtype, n_valid, gen, chunk_rows)
     c = x[torch.randperm(n_valid, generator=gen, device="cuda")[:k]].float()
     lab_k, sums_k, cnt_k = lloyd_assign_reduce(x, c, n_valid, with_labels=True)
     lab_2, sums_2, cnt_2 = lloyd_assign_reduce(x, c, n_valid, with_labels=with_labels)
-    lab_p, sums_p, cnt_p = lloyd_assign_reduce_plain(x, c, n_valid, with_labels=True)
+    lab_p, sums_p, cnt_p = plain_lloyd(x, c, n_valid, True, chunk_rows)
     torch.cuda.synchronize()
     # The kernel adds in a fixed order: a second call gives the same bits.
     check(torch.equal(sums_k, sums_2) and torch.equal(cnt_k, cnt_2)
@@ -594,7 +694,9 @@ def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False,
         check(worst <= 1e-5, f"lloyd {name}: label disagreement not a tie ({worst:.3e})")
     lv = lab_k[:n_valid].long()
     ref = torch.zeros((k, d), dtype=torch.float64, device="cuda")
-    ref.index_add_(0, lv, x[:n_valid].double())
+    step = chunk_rows or n_valid
+    for i in range(0, n_valid, step):
+        ref.index_add_(0, lv[i:i + step], x[i:min(n_valid, i + step)].double())
     rel = float(((sums_k.double() - ref).abs() / ref.abs().clamp(min=1.0)).max())
     check(rel <= 1e-4, f"lloyd {name}: sums off the f64 recomputation by {rel:.3e} rel")
     cnt_ref = torch.bincount(lv, minlength=k)
@@ -611,9 +713,9 @@ def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False,
     dev_ms, per_call = device_ms(call, "lloyd_", max(3, min(reps, 10)))
     check(per_call is None or 0 < per_call <= 1.0,
           f"lloyd {name}: {per_call} kernel launches per call")
-    plain_ms = time_ms(
-        lambda: lloyd_assign_reduce_plain(x, c, n_valid, with_labels=with_labels),
-        max(2, reps // 4))
+    plain = lambda: plain_lloyd(x, c, n_valid, with_labels, chunk_rows)  # noqa: E731
+    plain_ms = (time_ms(plain, max(2, reps // 4)) if chunk_rows is None
+                else time_ms(plain, 1, warmup=0))
     b_ms, b_by = bound_ms(kprof.kernel_cost(
         "lloyd_assign_reduce", n=n, d=d, k=k, n_valid=n_valid,
         dtype=str(dtype).replace("torch.", ""), with_labels=with_labels))
@@ -630,7 +732,8 @@ def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False,
         secs, by = kprof.bound_seconds(cost, peaks)
         c_op = c_used.to(dtype)
         row["bound_ms_67"], row["bound_by_67"] = secs * 1e3, by
-        row["library_ms"] = time_ms(lambda: x @ c_op.T, reps)
+        row["library_ms"] = (time_ms(lambda: x @ c_op.T, reps) if chunk_rows is None
+                             else chunked_product_ms(x, c_op, reps, chunk_rows))
         extra = (f" (at 67 TFLOP/s f32: {row['bound_ms_67']:.4f} ms, {by}); "
                  f"library x @ c.T {row['library_ms']:.4f} ms")
     log(f"lloyd {name}: n={n} d={d} k={k} {dtype} n_valid={n_valid} "
@@ -645,22 +748,39 @@ def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False,
     return row
 
 
-def check_seg(name, n, d, k, reps, gen, with_global=True):
+def plain_seg(x, labels, thr, gthr, chunk_rows=None):
+    """B2's plain version; with ``chunk_rows`` the integer tables of row
+    chunks of that many rows, added (exact)."""
+    from cdrs_tpu_torch.ops.seg_count import label_threshold_count_plain
+
+    if chunk_rows is None:
+        return label_threshold_count_plain(x, labels, thr, gthr)
+    total = None
+    for i in range(0, x.shape[0], chunk_rows):
+        got = label_threshold_count_plain(x[i:i + chunk_rows], labels[i:i + chunk_rows],
+                                          thr, gthr)
+        got = got if gthr is not None else (got,)
+        total = got if total is None else tuple(a + b for a, b in zip(total, got))
+    return total if gthr is not None else total[0]
+
+
+def check_seg(name, n, d, k, reps, gen, with_global=True, chunk_rows=None):
     """The threshold-count kernel against its plain version (exact), in
     its fused form (per-cluster and global tables from one call) unless
-    ``with_global`` is false.  Labels are uniform in [-1, k)."""
+    ``with_global`` is false.  Labels are uniform in [-1, k).  With
+    ``chunk_rows`` the plain version runs over row chunks of that many
+    rows and is timed once."""
     import torch
 
     from cdrs_tpu_torch.obs import kprof
-    from cdrs_tpu_torch.ops.seg_count import (label_threshold_count,
-                                              label_threshold_count_plain)
+    from cdrs_tpu_torch.ops.seg_count import label_threshold_count
 
     x = torch.rand((n, d), generator=gen, device="cuda")
     labels = torch.randint(-1, k, (n,), generator=gen, device="cuda", dtype=torch.int32)
     thr = torch.rand((2, k, d), generator=gen, device="cuda")
     gthr = torch.rand((2, d), generator=gen, device="cuda") if with_global else None
     got = label_threshold_count(x, labels, thr, gthr)
-    want = label_threshold_count_plain(x, labels, thr, gthr)
+    want = plain_seg(x, labels, thr, gthr, chunk_rows)
     torch.cuda.synchronize()
     pairs = list(zip(got, want)) if with_global else [(got, want)]
     max_abs = max(float((g.long() - w.long()).abs().max()) for g, w in pairs)
@@ -670,8 +790,9 @@ def check_seg(name, n, d, k, reps, gen, with_global=True):
     dev_ms, per_call = device_ms(call, "seg_", max(3, min(reps, 10)))
     check(per_call is None or 0 < per_call <= 1.0,
           f"seg_count {name}: {per_call} kernel launches per call")
-    plain_ms = time_ms(lambda: label_threshold_count_plain(x, labels, thr, gthr),
-                       max(2, reps // 4))
+    plain = lambda: plain_seg(x, labels, thr, gthr, chunk_rows)  # noqa: E731
+    plain_ms = (time_ms(plain, max(2, reps // 4)) if chunk_rows is None
+                else time_ms(plain, 1, warmup=0))
     b_ms, b_by = bound_ms(kprof.kernel_cost("label_threshold_count", n=n, d=d, k=k,
                                             with_global=with_global))
     log(f"seg_count {name}: n={n} d={d} k={k} global={with_global} exact; kernel "
@@ -717,6 +838,19 @@ def check_bisect(n, d, k, gen, plain_on="cpu"):
         f"medians identical to the plain version's on the {plain_on}")
     del x, labels
     torch.cuda.empty_cache()
+
+
+def rehearsal_rows() -> int:
+    """The config-4 rehearsal's rows on this card: the bench's memory guard
+    (``benchmarks/harness.downscaled_rows``) at bf16 points."""
+    import torch
+
+    from cdrs_tpu_torch.benchmarks.harness import (CONFIGS, POINTS_BUDGET_SHARE,
+                                                   downscaled_rows)
+
+    cfg = CONFIGS[4]
+    budget = int(torch.cuda.get_device_properties(0).total_memory * POINTS_BUDGET_SHARE)
+    return downscaled_rows(cfg.n, cfg.d * 2, 1, budget)
 
 
 def label_launches() -> int:
@@ -776,6 +910,21 @@ def phase_kernels(reps):
         "seg_count 1Mx128 k1024": check_seg("wide", 1 << 20, 128, 1024,
                                             max(3, reps // 4), gen),
     }
+    # The bench's k = 1024 shapes (phase 17): config 3's whole 10M rows, the
+    # config-4 rehearsal's bf16 rows (as many as its memory guard leaves on
+    # this card), and B2 at config 3's e2e shape (its bisection medians).
+    n4 = rehearsal_rows()
+    wide.update({
+        "lloyd 10Mx128 k1024 f32": check_lloyd("config3", BENCH_CONFIG3_ROWS, 128, 1024,
+                                               torch.float32, BENCH_CONFIG3_ROWS, 3, gen,
+                                               yardstick=True, chunk_rows=WIDE_CHUNK_ROWS),
+        f"lloyd {n4}x128 k1024 bf16": check_lloyd("rehearsal", n4, 128, 1024,
+                                                  torch.bfloat16, n4, 3, gen,
+                                                  yardstick=True,
+                                                  chunk_rows=WIDE_CHUNK_ROWS),
+        "seg_count 10Mx128 k1024": check_seg("config3", BENCH_CONFIG3_ROWS, 128, 1024, 3,
+                                             gen, chunk_rows=WIDE_CHUNK_ROWS),
+    })
     log("kernel_shapes " + json.dumps(wide))
     return rows
 
@@ -1300,39 +1449,13 @@ def count_minibatch(daemon, spent):
     daemon._minibatch_step = counted
 
 
-@contextlib.contextmanager
-def count_rowmajor():
-    """Count the Lloyd launches of B3's callers while the block runs: the
-    mini-batch step and predict (``ops/kmeans_stream.py``) and the drift
-    step (``control/drift.detect_drift_torch``, the controller's name for
-    it too).  Yields a dict whose ``"launches"`` grows; every other launch
-    of ``lloyd_assign_reduce`` in the block is B1's."""
-    import cdrs_tpu_torch.control.controller as ctl_mod
-    import cdrs_tpu_torch.control.drift as drift_mod
-    import cdrs_tpu_torch.ops.kmeans_stream as ks
+def rowmajor_launches() -> int:
+    """B3's launches so far in this process: those of ``lloyd_assign_reduce``
+    made inside ``ops/lloyd.rowmajor()``, where the mini-batch step, predict
+    and the drift step run theirs.  Never reset: read it before and after."""
     from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
 
-    seen = {"launches": 0}
-
-    def counted(fn):
-        def call(*args, **kw):
-            before = lloyd_assign_reduce.launches
-            try:
-                return fn(*args, **kw)
-            finally:
-                seen["launches"] += lloyd_assign_reduce.launches - before
-        return call
-
-    wrapped = [(ks, "_batch_stats"), (ks.MiniBatchKMeans, "predict"),
-               (drift_mod, "detect_drift_torch"), (ctl_mod, "detect_drift_torch")]
-    saved = [(obj, name, getattr(obj, name)) for obj, name in wrapped]
-    for obj, name, fn in saved:
-        setattr(obj, name, counted(fn))
-    try:
-        yield seen
-    finally:
-        for obj, name, fn in saved:
-            setattr(obj, name, fn)
+    return lloyd_assign_reduce.rowmajor_launches
 
 
 def profile_decision(daemon, log_path, ck):
@@ -2661,6 +2784,30 @@ def placement_child(work) -> int:
     return 0
 
 
+def storage_child(work) -> int:
+    """The third child's body: phase 11 (its own 2.5M-file workload on 12
+    nodes), phase 10 (phase 3's population generated anew) and phase 9;
+    the launches go to ``storage.json`` in ``work`` under ``"storage"``,
+    ``"serve"`` and ``"scenario"``."""
+    from cdrs_tpu_torch import GeneratorConfig
+    from cdrs_tpu_torch.sim.generator import generate_population
+
+    t0 = time.perf_counter()
+    result = {"storage": phase_storage()}
+    log(f"phase 11 (storage): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    manifest = generate_population(GeneratorConfig(n_files=MAIN_FILES, seed=MAIN_SEED))
+    result["serve"] = phase_serve(manifest, work)
+    del manifest
+    log(f"phase 10 (serve): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    result["scenario"] = phase_scenarios()
+    log(f"phase 9 (scenarios): {time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(work, "storage.json"), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
 def join_child(child, child_log, t_child, work, name: str, phases: str):
     """Wait for the child, relay its log and return its result (the JSON it
     wrote to ``<name>.json`` in ``work`` as its last step, whose time
@@ -3320,17 +3467,13 @@ def main_workload(work):
 
 def batch_child(work) -> int:
     """The phase-13 child's body: phase 5's manifest CSV and ``.cdrsb`` log
-    in ``work``, both written by the parent, then phase 16, then phase 9;
-    the launches go to ``batch.json``, phase 16's under ``"native"`` and
-    phase 9's under ``"scenario"``."""
+    in ``work``, both written by the parent, then phase 16; the launches go
+    to ``batch.json``, phase 16's under ``"native"``."""
     launches = phase_batch(os.path.join(work, "metadata.csv"),
                            os.path.join(work, "access.cdrsb"), work)
     t0 = time.perf_counter()
     launches["native"] = phase_native(work)
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    launches["scenario"] = phase_scenarios()
-    log(f"phase 9 (scenarios): {time.perf_counter() - t0:.1f} s")
     with open(os.path.join(work, "batch.json"), "w") as f:
         json.dump(launches, f)
     return 0
@@ -4333,16 +4476,15 @@ def native_explain(work):
     return card["launches"]
 
 
-def native_entry(rowmajor):
+def native_entry():
     """16e: ``entry()`` on the card against its plain version on the CPU, and
-    ``dryrun_multichip(4)`` on card 0.  ``rowmajor`` is ``count_rowmajor``'s
-    count, around this call.  Returns the launches."""
+    ``dryrun_multichip(4)`` on card 0.  Returns the launches."""
     import torch
 
     from cdrs_tpu_torch.entry import dryrun_multichip, entry
 
     reset_launches()
-    b3_before = rowmajor["launches"]
+    b3_before = rowmajor_launches()
     fn, args = entry()
     new_c, labels, scores = fn(*args)
     torch.cuda.synchronize()
@@ -4364,9 +4506,9 @@ def native_entry(rowmajor):
     # statistics of every row and each row's label): B1's route, the full
     # batch loop and its label pass, not the mini-batch or drift callers
     # that make B3.
-    check(launches["lloyd"] == 1 and rowmajor["launches"] == b3_before,
-          f"16e: entry() made {launches['lloyd']} Lloyd launches, "
-          f"{rowmajor['launches'] - b3_before} of them B3's")
+    b3 = rowmajor_launches() - b3_before
+    check(launches["lloyd"] == 1 and b3 == 0,
+          f"16e: entry() made {launches['lloyd']} Lloyd launches, {b3} of them B3's")
     t0 = time.perf_counter()
     dry = dryrun_multichip(4)
     check(dry["device"].startswith("cuda"), f"16e: the dry run ran on {dry['device']}")
@@ -4374,7 +4516,7 @@ def native_entry(rowmajor):
     log("native entry " + json.dumps({
         "points": list(x.shape), "k": int(args_p[1].shape[0]), "label_ties": diff.numel(),
         "centroid_err": c_err, "score_err": s_err, "b1_launches": launches["lloyd"],
-        "b3_launches": rowmajor["launches"] - b3_before,
+        "b3_launches": b3,
         "dryrun": dry, "dryrun_seconds": round(time.perf_counter() - t0, 3),
         "dryrun_b1_launches": total["lloyd"] - launches["lloyd"],
         "dryrun_b2_launches": total["seg_count"] - launches["seg_count"]}))
@@ -4384,7 +4526,7 @@ def native_entry(rowmajor):
 def phase_native(work):
     """Phase 16: the host runtime (16a-c) and decision provenance (16d-e) on
     phase 3's population.  Returns the kernels' launches: ``lloyd`` B1's,
-    ``lloyd_rowmajor`` B3's (``count_rowmajor``), ``seg_count`` B2's."""
+    ``lloyd_rowmajor`` B3's (``rowmajor_launches``), ``seg_count`` B2's."""
     from cdrs_tpu_torch.sim.generator import generate_population
 
     cfg = main_config()
@@ -4394,18 +4536,263 @@ def phase_native(work):
     path = native_csv(manifest, events, work)
     del events
     log(f"phase 16a-b: {time.perf_counter() - t0:.1f} s")
-    with count_rowmajor() as rowmajor:
-        t0 = time.perf_counter()
-        launches = native_fold(manifest, path, work, cfg)
-        os.unlink(path)
-        del manifest
-        log(f"phase 16c: {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        for part in (native_explain(work), native_entry(rowmajor)):
-            launches = {k: launches[k] + part[k] for k in launches}
-        log(f"phase 16d-e: {time.perf_counter() - t0:.1f} s")
-    launches["lloyd"] -= rowmajor["launches"]
-    launches["lloyd_rowmajor"] = rowmajor["launches"]
+    b3_before = rowmajor_launches()
+    t0 = time.perf_counter()
+    launches = native_fold(manifest, path, work, cfg)
+    os.unlink(path)
+    del manifest
+    log(f"phase 16c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for part in (native_explain(work), native_entry()):
+        launches = {k: launches[k] + part[k] for k in launches}
+    log(f"phase 16d-e: {time.perf_counter() - t0:.1f} s")
+    b3 = rowmajor_launches() - b3_before
+    launches["lloyd"] -= b3
+    launches["lloyd_rowmajor"] = b3
+    return launches
+
+
+# -- phase 17: the benchmark entry point -------------------------------------------
+
+
+def bench_cli(work):
+    """17a: ``python -m cdrs_tpu_torch.benchmarks`` in a child, as a user
+    runs it: one stdout line (config 2's contract), the detail on stderr
+    with ``config3`` and ``config4_rehearsal``.  Returns the detail and the
+    path it was written to."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "cdrs_tpu_torch.benchmarks"], cwd=work,
+                          env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+                          text=True, timeout=BENCH_CHILD_TIMEOUT)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"bench exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    check(len(lines) == 1, f"bench printed {len(lines)} stdout lines, expected 1")
+    head = json.loads(lines[0])
+    check(list(head) == ["metric", "value", "unit", "vs_baseline"]
+          and head["metric"] == "lloyd_iters_per_sec_n1048576_d32_k128"
+          and head["unit"] == "iter/s" and head["vs_baseline"] > 1,
+          f"bench contract line {head}")
+    detail = json.loads([ln for ln in proc.stderr.splitlines() if ln.startswith("{")][-1])
+    check(detail["metric"] == head["metric"] and detail["value"] == head["value"],
+          "bench detail does not carry the contract line's numbers")
+    for key in ("config3", "config4_rehearsal"):
+        block = detail[key]
+        check("error" not in block and "skipped" not in block, f"bench {key}: {block}")
+        check(block["launches"]["lloyd_assign_reduce"] > 0, f"bench {key}: no B1 launch")
+        check(math.isfinite(block["value"]) and block["value"] > 0, f"bench {key} value")
+    c3, c4 = detail["config3"], detail["config4_rehearsal"]
+    check(c3["n"] == BENCH_CONFIG3_ROWS and "n_downscaled_from" not in c3,
+          f"config3 ran {c3['n']} rows")
+    check(c4["e2e"] and c4["dtype"] == "bfloat16" and c4["median_method"] == "bisect"
+          and c4["launches"]["label_threshold_count"] > 0, f"config4_rehearsal {c4}")
+    path = os.path.join(work, "bench_detail.json")
+    with open(path, "w") as f:
+        json.dump(detail, f)
+    log(f"bench {json.dumps(head)}")
+    for key, block in (("config2", detail), ("config3", c3), ("config4_rehearsal", c4)):
+        log(f"bench {key} " + json.dumps({k: v for k, v in block.items()
+                                           if k not in ("config3", "config4_rehearsal",
+                                                        "decision_quality", "run_meta")}))
+    log("bench decision_quality " + json.dumps(detail["decision_quality"]))
+    log(f"bench run_meta {json.dumps(detail['run_meta'])}; child {secs:.1f} s")
+    return detail, path
+
+
+@contextlib.contextmanager
+def plain_calls_on_card():
+    """Counts the plain versions' calls on CUDA tensors inside the block
+    (none may happen on the bench's path: a CUDA tensor launches the
+    kernel or raises)."""
+    from cdrs_tpu_torch.ops import lloyd, seg_count
+
+    seen = {"lloyd": 0, "seg_count": 0}
+    saved = (lloyd.lloyd_assign_reduce_plain, seg_count.label_threshold_count_plain)
+
+    def counted(name, fn):
+        def call(x, *args, **kw):
+            seen[name] += int(x.device.type == "cuda")
+            return fn(x, *args, **kw)
+        return call
+
+    lloyd.lloyd_assign_reduce_plain = counted("lloyd", saved[0])
+    seg_count.label_threshold_count_plain = counted("seg_count", saved[1])
+    try:
+        yield seen
+    finally:
+        lloyd.lloyd_assign_reduce_plain, seg_count.label_threshold_count_plain = saved
+
+
+def bench_e2e():
+    """17b: config 3's e2e in process (10,485,760 x 128, k = 1024, bisection
+    medians on B2), then the e2e's scoring on 200,000 of the same kind of
+    rows on the card against the CPU from the same labels."""
+    import torch
+
+    from cdrs_tpu_torch.benchmarks.harness import (_synth_blobs_device, e2e_scoring,
+                                                   run_bench)
+    from cdrs_tpu_torch.ops.scoring import classify
+
+    reset_launches()
+    with plain_calls_on_card() as plain:
+        out = run_bench(config=3, e2e=True, quality=False)
+    launches = read_launches()
+    check(math.isfinite(out["value"]) and out["value"] > 0, f"e2e value {out['value']}")
+    check(out["median_method"] == "bisect", f"e2e median_method {out['median_method']}")
+    check(launches["seg_count"] > 0 and launches["lloyd"] > 0, f"e2e launches {launches}")
+    check(plain == {"lloyd": 0, "seg_count": 0}, f"plain versions ran on the card: {plain}")
+    check(out["categories_found"] and set(out["categories_found"]) <= {0, 1, 2, 3},
+          f"e2e categories {out['categories_found']}")
+    log("bench e2e config3 " + json.dumps(out))
+    x = _synth_blobs_device(200_000, 128, 64, 3, "float32", "cuda")
+    labels = torch.randint(0, 1024, (200_000,), generator=torch.Generator("cuda").manual_seed(3),
+                           device="cuda", dtype=torch.int32)
+    scoring = e2e_scoring(128, "bisect")
+    got = classify(x, labels, 1024, scoring)[0].cpu()
+    want = classify(x.cpu(), labels.cpu(), 1024, scoring)[0]
+    check(torch.equal(got, want), "e2e categories on the card differ from the CPU's")
+    launches = read_launches()
+    log(f"bench e2e scoring at 200000 x 128, k = 1024: card = CPU categories "
+        f"({sorted(set(got.tolist()))}), launches {launches}")
+    return launches
+
+
+def bench_streaming():
+    """17c: config 5 (events/s), then its batches folded on the card and on
+    the CPU: integer counters and host scalars equal."""
+    import torch
+
+    from cdrs_tpu_torch.benchmarks.harness import (CONFIGS, STREAM_BATCH_EVENTS,
+                                                   _stream_workload, run_bench)
+    from cdrs_tpu_torch.features.streaming import stream_init, stream_update
+
+    out = run_bench(config=5, quality=False)
+    log("bench config5 " + json.dumps(out))
+    cfg = CONFIGS[5]
+    manifest, _, logs = _stream_workload(cfg.n, STREAM_BATCH_EVENTS, cfg.iters, 0)
+    card, cpu = stream_init(cfg.n, "cuda"), stream_init(cfg.n, "cpu")
+    for lg in logs:
+        card = stream_update(card, lg, manifest)
+        cpu = stream_update(cpu, lg, manifest)
+    for name in ("access_freq", "writes", "local_acc", "conc_max", "last_sec",
+                 "last_count"):
+        check(torch.equal(getattr(card, name).cpu(), getattr(cpu, name)),
+              f"config 5 fold: {name} on the card differs from the CPU's")
+    check((card.sec_base, card.observation_end, card.n_events)
+          == (cpu.sec_base, cpu.observation_end, cpu.n_events),
+          "config 5 fold: host scalars differ")
+    log(f"bench config5 fold: {cfg.iters} batches of {STREAM_BATCH_EVENTS} events, card = "
+        f"CPU counters exactly ({card.n_events} events)")
+
+
+def bench_io(work):
+    """17d: ``ingest`` at its defaults, then ``stream1b`` at
+    ``BENCH_STREAM1B_EVENTS`` events as CSV."""
+    from cdrs_tpu_torch.benchmarks.ingest import bench_ingest
+    from cdrs_tpu_torch.benchmarks.stream1b import run_stream1b
+
+    ing = bench_ingest()
+    check(ing["native_rows_per_sec"] > ing["python_rows_per_sec"] > 0, f"ingest {ing}")
+    log("bench ingest " + json.dumps(ing))
+    reset_launches()
+    s1b = run_stream1b(events=BENCH_STREAM1B_EVENTS, workdir=os.path.join(work, "stream1b"))
+    check(s1b["feature_rows"] == s1b["n_files"] and s1b["events_simulated"] > 0,
+          f"stream1b {s1b}")
+    log("bench stream1b " + json.dumps(s1b))
+    return read_launches()
+
+
+def bench_init_quality(work):
+    """17e: ``init_quality --small`` in process, then the 100,000-file
+    decision quality from the CPU's init (``carry_witness``, seed 21)."""
+    from cdrs_tpu_torch.benchmarks.init_quality import carry_witness, run_init_quality
+
+    reset_launches()
+    out = run_init_quality(small=True)
+    for shape in out["shapes"]:
+        for method in ("d2", "kmeans||"):
+            check(all(math.isfinite(v) and v > 0 for v in shape[method]["inertia_per_seed"]),
+                  f"init_quality {shape['n']}x{shape['d']} {method} inertias")
+    for method, acc in out["decision_quality_planted_accuracy"].items():
+        check(min(acc.values()) > 0.5, f"init_quality {method} planted accuracy {acc}")
+    with open(os.path.join(work, "init_quality.json"), "w") as f:
+        json.dump(out, f)
+    log("bench init_quality " + json.dumps(
+        {"ratios": [s["inertia_ratio_kmeans_par_over_d2"] for s in out["shapes"]],
+         "seconds_per_seed": [{m: s[m]["wall_seconds_per_seed"] for m in ("d2", "kmeans||")}
+                              for s in out["shapes"]],
+         "planted_accuracy": out["decision_quality_planted_accuracy"]}))
+    t0 = time.perf_counter()
+    (row,) = carry_witness(seeds=(21,))["seeds"]
+    check(abs(row["device_from_cpu_init"] - row["cpu"]) <= CARRY_TOL
+          and row["device_from_cpu_init"] >= CARRY_BOUND,
+          f"init_quality carry witness: the card from the CPU's init {row}")
+    log(f"bench carry witness {json.dumps(row)}; {time.perf_counter() - t0:.1f} s")
+    return read_launches()
+
+
+def bench_regress(detail_path, work):
+    """17f: ``metrics regress`` on 17a's detail against an empty history,
+    a ``--round`` append, then a check that finds its band."""
+    hist = os.path.join(work, "bench_history_torch.jsonl")
+    open(hist, "w").close()
+    argv = ["metrics", "regress", detail_path, "--history", hist, "--json"]
+    rc, text, _ = run_cli(argv)
+    first = json.loads(text)
+    check(rc == 0 and first and all(v["status"] == "no_baseline" for v in first),
+          f"regress against an empty history: rc {rc} {first}")
+    rc, _, _ = run_cli(argv + ["--round", "1"])
+    with open(hist) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    check(rc == 0 and len(rows) == len(first) == 3, f"regress --round appended {len(rows)}")
+    rc, text, _ = run_cli(argv)
+    second = json.loads(text)
+    check(rc == 0 and all(v["status"] == "pass" and v["baseline"] == v["value"]
+                          for v in second), f"regress against its own round: {second}")
+    log(f"bench regress: {[v['status'] for v in first]} -> --round 1 appended {len(rows)} "
+        f"rows on platform {rows[0]['platform']!r} -> {[v['status'] for v in second]}")
+
+
+def phase_bench(work):
+    """Phase 17.  Returns the kernels' launches: ``lloyd`` B1's,
+    ``lloyd_rowmajor`` B3's, ``seg_count`` B2's; 17a's from the child's
+    detail (the harness's ``launches``), 17b-17e's counted here, B3's by
+    ``rowmajor_launches``."""
+    launches = {"lloyd": 0, "seg_count": 0, "lloyd_rowmajor": 0}
+
+    def add(part):
+        for key in part:
+            launches[key] += part[key]
+
+    t0 = time.perf_counter()
+    detail, path = bench_cli(work)
+    for block in (detail, detail["config3"], detail["config4_rehearsal"]):
+        add({"lloyd": block["launches"]["lloyd_assign_reduce"],
+             "seg_count": block["launches"]["label_threshold_count"],
+             "lloyd_rowmajor": block["launches"]["lloyd_assign_reduce_rowmajor"]})
+    log(f"phase 17a: {time.perf_counter() - t0:.1f} s")
+    b3_before = rowmajor_launches()
+    t0 = time.perf_counter()
+    add(bench_e2e())
+    log(f"phase 17b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    reset_launches()
+    bench_streaming()
+    add(read_launches())
+    log(f"phase 17c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    add(bench_io(work))
+    log(f"phase 17d: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    add(bench_init_quality(work))
+    log(f"phase 17e: {time.perf_counter() - t0:.1f} s")
+    b3 = rowmajor_launches() - b3_before
+    add({"lloyd": -b3, "lloyd_rowmajor": b3})
+    t0 = time.perf_counter()
+    bench_regress(path, work)
+    log(f"phase 17f: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 17 launches {launches} (B3's: 17a's child {launches['lloyd_rowmajor'] - b3}, "
+        f"17b-17e {b3})")
     return launches
 
 
@@ -4413,7 +4800,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
                         help="build and check the kernels only; prints no ok line")
-    parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12, 13, 14, 15, 16),
+    parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12, 13, 14, 15, 16, 17),
                         default=None,
                         help="build and check the kernels, then run this phase alone; prints "
                              "no ok line")
@@ -4435,7 +4822,7 @@ def main() -> int:
         log(f"quick run done in {time.perf_counter() - t_start:.1f} s; main path skipped")
         return 0
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    child = batch = None
+    child = batch = storage = None
     if args.phase is not None:
         try:
             if args.phase == 9:
@@ -4446,7 +4833,8 @@ def main() -> int:
                 placement_memo()
                 child, child_log, t_child = start_child(work, "placement")
                 placement_small()
-                placement = join_child(child, child_log, t_child, work, "placement", "12a/12c")
+                placement = join_child(child, child_log, t_child, work, "placement",
+                                       "12a/12c")
                 log(f"phase 12 launches {placement}")
             elif args.phase == 13:
                 log(f"phase 13 launches {phase_batch(*main_workload(work), work)}")
@@ -4456,6 +4844,8 @@ def main() -> int:
                 log(f"phase 15 launches {telemetry_alone(work)}")
             elif args.phase == 16:
                 log(f"phase 16 launches {phase_native(work)}")
+            elif args.phase == 17:
+                log(f"phase 17 launches {phase_bench(work)}")
             else:
                 from cdrs_tpu_torch import GeneratorConfig
                 from cdrs_tpu_torch.sim.generator import generate_population
@@ -4475,11 +4865,13 @@ def main() -> int:
         norm_20k, init_20k = phase_card_vs_cpu()
         stream_launches, stream_times, manifest, events, log_path = phase_stream_path(
             cfg, main_result, work)
-        # Phase 13 (host-bound CSV stages), then 16, then 9, run in a child
-        # beside 6-12 from here, on phase 5's manifest written as CSV and its
-        # log.
+        # Phase 13 (host-bound CSV stages), then 16, run in a child beside
+        # 6-12b from here, on phase 5's manifest written as CSV and its log.
         batch_manifest_csv(manifest, work)
         batch, batch_log, t_batch = start_child(work, "batch")
+        # Phases 11, 10 and 9 (each generates its workload) run in a third
+        # child beside 6-8 and 12b.
+        storage, storage_log, t_storage = start_child(work, "storage")
         phase_minibatch_card_vs_cpu(norm_20k, init_20k)
         log("stream path times " + json.dumps(stream_times))
         t0 = time.perf_counter()
@@ -4492,24 +4884,21 @@ def main() -> int:
         chaos_launches = phase_chaos(manifest, events)
         log(f"phase 8 (chaos): {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        serve_launches = phase_serve(manifest, work)
-        log(f"phase 10 (serve): {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        storage_launches = phase_storage()
-        log(f"phase 11 (storage): {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
         placement_small()
         log(f"phase 12b: {time.perf_counter() - t0:.1f} s")
-        batch_launches = join_child(batch, batch_log, t_batch, work, "batch", "13, 16 and 9")
+        t0 = time.perf_counter()
+        third = join_child(storage, storage_log, t_storage, work, "storage", "11, 10 and 9")
+        storage_launches, serve_launches, scenario_launches = (
+            third["storage"], third["serve"], third["scenario"])
+        batch_launches = join_child(batch, batch_log, t_batch, work, "batch", "13 and 16")
         native_launches = batch_launches.pop("native")
-        scenario_launches = batch_launches.pop("scenario")
         placement = join_child(child, child_log, t_child, work, "placement", "12a/12c")
-        log(f"phase 12 (placement): {time.perf_counter() - t0:.1f} s after phase 11")
+        log(f"children joined {time.perf_counter() - t0:.1f} s after phase 12b")
         for name in ("lloyd", "seg_count"):
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                             placement["max_abs_err"][name])
         # 14 and 15 time stages, kernels and first launches: they run once
-        # both children have ended, with no other process on the card.
+        # the children have ended, with no other process on the card.
         t0 = time.perf_counter()
         mesh_launches = phase_mesh(cfg, main_result, manifest, events, work)
         log(f"phase 14 (mesh): {time.perf_counter() - t0:.1f} s")
@@ -4518,9 +4907,14 @@ def main() -> int:
                                                              events, log_path, work)
         log(f"phase 15 (telemetry): {time.perf_counter() - t0:.1f} s")
         del events, manifest
+        # 17 times the bench's captures: after 14 and 15, alone on the card.
+        t0 = time.perf_counter()
+        bench_launches = phase_bench(work)
+        log(f"phase 17 (bench): {time.perf_counter() - t0:.1f} s")
     finally:
         stop_child(child)
         stop_child(batch)
+        stop_child(storage)
         shutil.rmtree(work, ignore_errors=True)
 
     kernels = [
@@ -4538,6 +4932,7 @@ def main() -> int:
          "telemetry_launches": telemetry_launches["lloyd"],
          "telemetry_share": telemetry_rows["lloyd"]["peak_fraction"],
          "native_launches": native_launches["lloyd"],
+         "bench_launches": bench_launches["lloyd"],
          **rows["lloyd"], "library_ms": None},
         {"name": "label_threshold_count", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/seg_count.cu",
@@ -4554,7 +4949,8 @@ def main() -> int:
          "mesh_launches": mesh_launches["seg_count"],
          "telemetry_launches": telemetry_launches["seg_count"],
          "telemetry_share": telemetry_rows["seg_count"]["peak_fraction"],
-         "native_launches": native_launches["seg_count"], **rows["seg_count"],
+         "native_launches": native_launches["seg_count"],
+         "bench_launches": bench_launches["seg_count"], **rows["seg_count"],
          "library_ms": None},
         {"name": "lloyd_assign_reduce (row-major, labels)", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
@@ -4566,8 +4962,9 @@ def main() -> int:
          "mesh_launches": mesh_launches["lloyd_rowmajor"],
          "telemetry_launches": telemetry_launches["lloyd_rowmajor"],
          "telemetry_share": telemetry_rows["lloyd_rowmajor"]["peak_fraction"],
-         "native_launches": native_launches["lloyd_rowmajor"], **rows["lloyd_rowmajor"],
-         "library_ms": None},
+         "native_launches": native_launches["lloyd_rowmajor"],
+         "bench_launches": bench_launches["lloyd_rowmajor"],
+         **rows["lloyd_rowmajor"], "library_ms": None},
     ]
     for row in kernels:
         check(all(isinstance(row[key], (int, float)) and math.isfinite(row[key])

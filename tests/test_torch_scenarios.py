@@ -284,7 +284,7 @@ def test_cli_scenarios_list(capsys):
     assert "serve=p2c" in lines["serve-chaos"]
 
 
-def test_cli_scenarios_run_spec_and_errors(tmp_path, capsys):
+def test_cli_scenarios_run_spec_and_errors(tmp_path, capsys, monkeypatch):
     path = tmp_path / "cell.json"
     path.write_text(json.dumps(_tiny(name="cli-cell").to_dict()))
     assert port_cli.main(["scenarios", "run", "--spec", str(path), "--device", "cpu"]) == 0
@@ -320,8 +320,27 @@ def test_cli_scenarios_run_spec_and_errors(tmp_path, capsys):
     out = json.loads(capsys.readouterr().out)
     assert set(out) == {"names", "n_violations", "ok", "seconds"}
     assert out["names"] == ["triage-s0-11fcf7ee-bad"] and out["ok"]
-    assert port_cli.main(["scenarios", "sweep", "--round", "3", "--device", "cpu"]) == 2
-    assert "A10a" in capsys.readouterr().err
+    # sweep --round appends the cells' records to --history, deduped: a
+    # second run appends none.  Two tiny cells stand in for the suite.
+    from cdrs_tpu_torch.scenarios import sweep as port_sweep
+
+    monkeypatch.setattr(port_sweep, "suite_cells",
+                        lambda suite, seed=0: [_tiny(name="hist-a"),
+                                               _tiny(name="hist-b", serve={"policy": "p2c"})])
+    hist = tmp_path / "h.jsonl"
+    argv = ["scenarios", "sweep", "--round", "3", "--history", str(hist), "--device", "cpu"]
+    assert port_cli.main(argv) == 0
+    digest = json.loads(capsys.readouterr().out)
+    rows = [json.loads(line) for line in hist.read_text().splitlines()]
+    assert digest["round"] == 3 and digest["history_appended"] == len(rows) == 3
+    assert {r["metric"] for r in rows} == {"scenario_hist-a_churn_bytes",
+                                           "scenario_hist-b_churn_bytes",
+                                           "scenario_hist-b_p99_ms"}
+    assert all(r["round"] == 3 and r["platform"] == "torch-cpu" for r in rows)
+    assert port_cli.main(argv) == 0
+    assert json.loads(capsys.readouterr().out)["history_appended"] == 0
+    assert [json.loads(line) for line in hist.read_text().splitlines()] == rows
+    assert port_cli.main(argv[:-2] + ["--seed", "1", "--device", "cpu"]) == 2
 
 
 def test_cli_scenarios_run_suite_cell(capsys):
