@@ -18,17 +18,22 @@ replaces the TPU kernel ``label_segment_matmul``
 (``cdrs_tpu/ops/pallas_kernels.py:534``) applied to the 0/1 matrix its
 caller builds, with the caller's global count fused in.  On a CPU tensor
 the wrapper runs ``label_threshold_count_plain``; on a CUDA tensor it
-launches the kernel or raises.  As in ``ops/lloyd.py``, the ctypes
-signature is set once, the SM count is read once per device, and the
-block partials and last-block ticket are made once per (device, stream,
-d, k) and reused (calls on one stream run in order); the
-tables are fresh per call and allocated without deterministic mode's NaN
-fill, since the kernel writes them in full.
+launches the kernel or raises.  :func:`plan` picks the kernel's path and
+the width of the feature slice a block of the general path counts, so
+that the block's table fits in shared memory.  As in ``ops/lloyd.py``,
+the ctypes signature is set once, the SM count is read once per device,
+and the scratch (the small path's block partials and ticket, the general
+path's zeroed accumulator and one ticket a slice, which each launch
+leaves zero) is made once per (device, stream, d, k, plan) and reused
+(calls on one stream run in order); the tables are fresh per call and
+allocated without deterministic mode's NaN fill, since the kernel writes
+them in full.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -36,12 +41,72 @@ from ..device import sm_count, unfilled
 from ..obs import kprof
 from . import _build
 
-__all__ = ["label_threshold_count", "label_threshold_count_plain"]
+__all__ = ["label_threshold_count", "label_threshold_count_plain", "plan", "Plan",
+           "slices", "scratch_lengths"]
 
 _KERNEL_DTYPES = {torch.float32: "cdrs_seg_count_f32",
                   torch.bfloat16: "cdrs_seg_count_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
-             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+#: A general-path block's dynamic shared memory may not pass this: the
+#: H100's 227 KB a block less room for the kernel's static arrays
+#: (``kSmemMax`` in ``csrc/seg_count.cu``).
+SMEM_MAX = 232_448 - 1_024
+#: Warp tiles in flight per warp: the "rows" path's, the others'.
+STAGES = {"rows": 4, "pairs": 3, "global": 3}
+#: Slice widths of the "pairs" path, widest first.
+SLICE_WIDTHS = (8, 4, 2, 1)
+_PATH_IDS = {"small": 0, "rows": 1, "pairs": 2, "global": 3}
+
+
+class Plan(NamedTuple):
+    """How the kernel takes a call: ``path`` is "small" (d <= 8, k <= 32:
+    the main path's, registers and ballots), "rows" (d <= 8: a lane a row,
+    one slice of all d features), "pairs" (a lane a (row, feature) pair
+    over slices of ``slice`` features) or "global" (k too large for any
+    slice's table in shared memory: global atomics into the output, which
+    the wrapper zeroes); ``nslices`` slices of the features; a block's
+    dynamic shared memory ``smem`` in bytes (0 on the small path, whose
+    kernel sizes its own)."""
+
+    path: str
+    slice: int
+    nslices: int
+    smem: int
+
+
+def _smem(path: str, s: int, k: int, itemsize: int) -> int:
+    """A general-path block's dynamic shared memory, as ``gen_smem`` in
+    ``csrc/seg_count.cu`` counts it: 128 bytes of alignment room, its
+    warps' staging rings (x tiles and their labels), then the table
+    (float2 thresholds, int32 counts and packed 16-bit counts: 20 bytes a
+    (cluster, feature) cell)."""
+    rows = path == "rows"
+    threads = 1024 if rows and s <= 5 else 512
+    wr = 32 if rows else 32 * 4 // itemsize
+    staging = 128 + threads // 32 * STAGES[path] * (wr * s * itemsize + wr * 4)
+    return staging + (0 if path == "global" else 20 * k * s)
+
+
+def plan(d: int, k: int, itemsize: int = 4) -> Plan:
+    """The kernel's path for x of width ``d`` and ``itemsize``-byte
+    elements at ``k`` clusters: the small path where it serves, else the
+    widest slice whose table fits ``SMEM_MAX`` (all d features on the
+    "rows" path when d <= 8), else the global-atomic path."""
+    if d <= 8 and k <= 32:
+        return Plan("small", d, 1, 0)
+    if d <= 8 and _smem("rows", d, k, itemsize) <= SMEM_MAX:
+        return Plan("rows", d, 1, _smem("rows", d, k, itemsize))
+    for s in SLICE_WIDTHS:
+        if s <= d and _smem("pairs", s, k, itemsize) <= SMEM_MAX:
+            return Plan("pairs", s, -(-d // s), _smem("pairs", s, k, itemsize))
+    return Plan("global", 8, -(-d // 8), _smem("global", 8, k, itemsize))
+
+
+def slices(d: int, p: Plan) -> list[tuple[int, int]]:
+    """The [start, stop) feature ranges of the plan's slices."""
+    return [(c * p.slice, min(d, (c + 1) * p.slice)) for c in range(p.nslices)]
 
 
 def label_threshold_count_plain(x: torch.Tensor, labels: torch.Tensor,
@@ -107,20 +172,27 @@ def label_threshold_count(x: torch.Tensor, labels: torch.Tensor, thr: torch.Tens
                         f"{thr.dtype}, {None if gthr is None else gthr.dtype}")
     cells = k * 2 * d + (2 * d if gthr is not None else 0)
     sms = sm_count(dev.index)
-    nb = 2 * sms   # the small path keeps at most two blocks on an SM
+    p = plan(d, k, x.element_size())
+    # The small path keeps at most two blocks on an SM; the general path
+    # takes one ticket a slice.
+    nb = 2 * sms if p.path == "small" else p.nslices
     stream = torch.cuda.current_stream(dev).cuda_stream
-    part, ticket = _build.scratch(("seg_count", dev.index, stream, d, k),
-                                  lambda: _make_scratch(dev, nb, d, k))
-    with unfilled():   # the kernel writes both tables in full
-        out = torch.empty(cells, dtype=torch.int32, device=dev)
+    part, ticket = _build.scratch(("seg_count", dev.index, stream, d, k, p),
+                                  lambda: _make_scratch(dev, p, nb, d, k))
+    if p.path == "global":   # counted straight into the output
+        out = torch.zeros(cells, dtype=torch.int32, device=dev)
+    else:
+        with unfilled():   # the kernel writes both tables in full
+            out = torch.empty(cells, dtype=torch.int32, device=dev)
     fn = _build.bind("seg_count", fn_name, _ARGTYPES)
     with _build.on_device(dev.index), probe:
         err = fn(x.data_ptr(), labels.data_ptr(), thr.data_ptr(),
                  gthr.data_ptr() if gthr is not None else None, n, d, k, out.data_ptr(),
-                 part.data_ptr(), ticket.data_ptr(), nb, sms, stream)
+                 part.data_ptr(), ticket.data_ptr(), nb, sms, _PATH_IDS[p.path], p.slice,
+                 stream)
     if err != 0:
         raise RuntimeError(f"seg_count kernel launch failed: cudaError {err} "
-                           f"(n={n}, d={d}, k={k}, dtype={x.dtype})")
+                           f"(n={n}, d={d}, k={k}, dtype={x.dtype}, {p})")
     label_threshold_count.launches += 1
     counts = out[:k * 2 * d].view(k, 2 * d)
     if gthr is None:
@@ -128,15 +200,28 @@ def label_threshold_count(x: torch.Tensor, labels: torch.Tensor, thr: torch.Tens
     return counts, out[k * 2 * d:].view(2, d)
 
 
-def _make_scratch(dev, nb: int, d: int, k: int):
-    """Block partials (written in full by each launch; as long as the
-    kernel's path needs, with or without the global table) and the ticket
-    (zero between launches)."""
-    part_len = _build.bind("seg_count", "cdrs_seg_count_part_len",
-                           [ctypes.c_int] * 3, ctypes.c_int64)(d, k, nb)
-    with unfilled():
-        part = torch.empty(part_len, dtype=torch.int32, device=dev)
-    return part, torch.zeros(1, dtype=torch.int32, device=dev)
+def scratch_lengths(p: Plan, nb: int, d: int, k: int) -> tuple[int, int]:
+    """(int32 elements of ``part``, of the tickets) a call of plan ``p``
+    needs: the small path's block partials (written in full by each
+    launch, with or without the global table) and its one ticket, the
+    rows and pairs paths' accumulator of both tables and one ticket a
+    slice, or nothing (one element each) on the global path."""
+    cells = 2 * k * d + 2 * d
+    if p.path == "small":
+        return nb * cells, 1
+    return (cells, p.nslices) if p.path != "global" else (1, 1)
+
+
+def _make_scratch(dev, p: Plan, nb: int, d: int, k: int):
+    """The partials or accumulator, and the tickets; all that a launch
+    finds zero is made zero here, and each launch leaves it so."""
+    n_part, n_ticket = scratch_lengths(p, nb, d, k)
+    if p.path == "small":
+        with unfilled():
+            part = torch.empty(n_part, dtype=torch.int32, device=dev)
+    else:
+        part = torch.zeros(n_part, dtype=torch.int32, device=dev)
+    return part, torch.zeros(n_ticket, dtype=torch.int32, device=dev)
 
 
 #: Launches of the CUDA kernel (CPU calls of the plain version do not count).

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernel checks only (no ok line)
+    python3 chip_smoke.py --seg      # build + the threshold count's checks only
     python3 chip_smoke.py --phase 10 # build, kernel checks and one phase (9,
                                      # 10, 11, 12, 13, 14, 15, 16 or 17) alone; no ok line
 
@@ -30,10 +31,18 @@ Phases, each of which exits non-zero when a check fails:
    TFLOP/s f32 rate and the time of the product ``x @ c.T`` alone.  The
    bench's k = 1024 shapes (phase 17) follow: B1 at config 3's 10,485,760 x
    128 (f32) and at the config-4 rehearsal's bf16 rows (as many as the
-   bench's memory guard leaves on this card), B2 at 10,485,760 x 128; their
-   points are drawn, the plain versions run, the float64 sums recomputed and
-   the product timed in row chunks of ``WIDE_CHUNK_ROWS`` (the (n, k)
-   matrices would not fit the card).
+   bench's memory guard leaves on this card); their points are drawn, the
+   plain versions run, the float64 sums recomputed and the product timed in
+   row chunks of ``WIDE_CHUNK_ROWS`` (the (n, k) matrices would not fit the
+   card).  Then the threshold count's general path (``seg_rows``), exact
+   against its plain version at every shape: 2.5M x 5, k = 64; 1M x 128,
+   k = 1024 with uniform labels and with half the rows in cluster 0, and
+   one whole bisection there (12 launches, medians identical to the plain
+   version's on the card); four odd shapes that take the plan's other
+   paths; config 3's 10,485,760 x 128 and the rehearsal's bf16 rows (row
+   chunks).  Each threshold-count row also times the library's segment sum
+   of the same 0/1 matrix, ``index_add_`` (``library_seg_ms``, the row's
+   ``library_ms``).
 3. The main path: ``run_pipeline`` on CUDA over 2,500,000 files (seed 10,
    60 s of simulated traffic, k = 8, validated scoring with medians from
    the data).  The Lloyd kernel must run ``kmeans.n_iter + 1`` times and
@@ -764,19 +773,82 @@ def plain_seg(x, labels, thr, gthr, chunk_rows=None):
     return total if gthr is not None else total[0]
 
 
-def check_seg(name, n, d, k, reps, gen, with_global=True, chunk_rows=None):
+def seg_labels(n, k, gen, skew=False):
+    """int32 labels uniform in [-1, k) on the card; with ``skew`` the first
+    half of the rows are 0 (one cluster holds half the data)."""
+    import torch
+
+    labels = torch.randint(-1, k, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    if skew:
+        labels[:n // 2] = 0
+    return labels
+
+
+def seg_matrix(x, labels, thr):
+    """(valid labels as int64, the 0/1 matrix y as int32) that the TPU
+    kernel's caller builds: each valid row's compares against its own
+    cluster's thresholds, both ranks side by side."""
+    import torch
+
+    k = thr.shape[1]
+    valid = (labels >= 0) & (labels < k)
+    lab = labels[valid].long()
+    xv = x[valid].float()
+    thr_cat = torch.cat([thr[0], thr[1]], dim=1)
+    return lab, (torch.cat([xv, xv], dim=1) <= thr_cat[lab]).to(torch.int32)
+
+
+def library_seg_ms(x, labels, thr, reps, chunk_rows=None):
+    """The library's segment sum over the same 0/1 matrix: ms of
+    ``torch.zeros(k, 2d).index_add_(0, lab, y)`` (int32) over the valid
+    rows, y formed outside the timed window.  With ``chunk_rows`` (y would
+    not fit) y is formed a chunk at a time and each chunk's index_add_
+    into one table is timed by its own event pair; the times add.  It
+    computes the per-cluster table only (no global table)."""
+    import torch
+
+    k, d = thr.shape[1], thr.shape[2]
+    if chunk_rows is None:
+        lab, y = seg_matrix(x, labels, thr)
+        ms = time_ms(lambda: torch.zeros((k, 2 * d), dtype=torch.int32,
+                                         device="cuda").index_add_(0, lab, y), reps)
+        del lab, y
+        return ms
+    table = torch.zeros((k, 2 * d), dtype=torch.int32, device="cuda")
+    total = 0.0
+    for i in range(0, x.shape[0], chunk_rows):
+        lab, y = seg_matrix(x[i:i + chunk_rows], labels[i:i + chunk_rows], thr)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        table.index_add_(0, lab, y)
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+        del lab, y
+    return total
+
+
+def check_seg(name, n, d, k, reps, gen, with_global=True, chunk_rows=None,
+              dtype=None, skew=False):
     """The threshold-count kernel against its plain version (exact), in
     its fused form (per-cluster and global tables from one call) unless
-    ``with_global`` is false.  Labels are uniform in [-1, k).  With
-    ``chunk_rows`` the plain version runs over row chunks of that many
-    rows and is timed once."""
+    ``with_global`` is false, x in ``dtype`` (float32 by default).  Labels
+    are uniform in [-1, k), half of them 0 with ``skew``.  With
+    ``chunk_rows`` the points are drawn, the plain version runs and the
+    library yardstick forms its matrix over row chunks of that many rows,
+    and the plain version is timed once.  The row's ``library_ms`` is
+    ``library_seg_ms``; the log line names the kernel's plan."""
     import torch
 
     from cdrs_tpu_torch.obs import kprof
+    from cdrs_tpu_torch.ops import seg_count
     from cdrs_tpu_torch.ops.seg_count import label_threshold_count
 
-    x = torch.rand((n, d), generator=gen, device="cuda")
-    labels = torch.randint(-1, k, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    dtype = dtype or torch.float32
+    x = rand_rows(n, d, dtype, n, gen, chunk_rows)
+    labels = seg_labels(n, k, gen, skew)
     thr = torch.rand((2, k, d), generator=gen, device="cuda")
     gthr = torch.rand((2, d), generator=gen, device="cuda") if with_global else None
     got = label_threshold_count(x, labels, thr, gthr)
@@ -793,16 +865,20 @@ def check_seg(name, n, d, k, reps, gen, with_global=True, chunk_rows=None):
     plain = lambda: plain_seg(x, labels, thr, gthr, chunk_rows)  # noqa: E731
     plain_ms = (time_ms(plain, max(2, reps // 4)) if chunk_rows is None
                 else time_ms(plain, 1, warmup=0))
+    lib_ms = library_seg_ms(x, labels, thr, max(2, reps // 2), chunk_rows)
     b_ms, b_by = bound_ms(kprof.kernel_cost("label_threshold_count", n=n, d=d, k=k,
+                                            dtype=str(dtype).replace("torch.", ""),
                                             with_global=with_global))
-    log(f"seg_count {name}: n={n} d={d} k={k} global={with_global} exact; kernel "
-        f"{ms:.4f} ms per call ({l2_note(dev_ms, b_ms)}, {per_call} launches seen per "
-        f"call) plain "
-        f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+    how = getattr(seg_count, "plan", None)
+    path = how(d, k, x.element_size()) if how else None
+    log(f"seg_count {name}: n={n} d={d} k={k} {dtype} skew={skew} global={with_global} "
+        f"exact; kernel {ms:.4f} ms per call ({l2_note(dev_ms, b_ms)}, {per_call} launches "
+        f"seen per call) plain {plain_ms:.4f} ms library index_add_ {lib_ms:.4f} ms bound "
+        f"{b_ms:.4f} ms ({b_by}); plan {path}")
     del x, labels, got, want
     torch.cuda.empty_cache()
-    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": max_abs}
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": max_abs}
 
 
 def check_bisect(n, d, k, gen, plain_on="cpu"):
@@ -859,12 +935,55 @@ def label_launches() -> int:
     return label_threshold_count.launches
 
 
-def phase_kernels(reps):
+def seg_rows(reps, gen, n_main):
+    """Phase 2's rows of B2's general path (d > 8 or k > 32): ``entry()``'s
+    k at the main path's width, config 3's width at 1M rows (uniform and
+    skewed labels) with one whole bisection there, the bench's shapes
+    (config 3's whole rows, the config-4 rehearsal's bf16 rows), and odd
+    shapes that take every other path of the plan (bf16 2-byte copies,
+    38 slices, slices of 2 features, the global-atomic path)."""
+    import torch
+
+    rows = {
+        "seg_count 2.5Mx5 k64": check_seg("entry-width", n_main, 5, 64, reps, gen),
+        "seg_count 1Mx128 k1024": check_seg("wide", 1 << 20, 128, 1024,
+                                            max(3, reps // 4), gen),
+        "seg_count 1Mx128 k1024 skew": check_seg("skew", 1 << 20, 128, 1024,
+                                                 max(3, reps // 4), gen, skew=True),
+    }
+    check_bisect(1 << 20, 128, 1024, gen, plain_on="cuda")
+    for name, n, d, k, dt in (("odd-bf16", 100_003, 37, 150, torch.bfloat16),
+                              ("odd-slices", 70_001, 300, 33, torch.float32),
+                              ("odd-pairs2", 100_003, 5, 3000, torch.float32),
+                              ("odd-global", 50_001, 16, 20_000, torch.float32)):
+        rows[f"seg_count {name} {n}x{d} k{k}"] = check_seg(name, n, d, k, 3, gen, dtype=dt)
+    # The bench's k = 1024 shapes (phase 17): B2 at config 3's e2e shape and
+    # at the config-4 rehearsal's bf16 rows (its bisection medians).
+    n4 = rehearsal_rows()
+    rows.update({
+        "seg_count 10Mx128 k1024": check_seg("config3", BENCH_CONFIG3_ROWS, 128, 1024, 3,
+                                             gen, chunk_rows=WIDE_CHUNK_ROWS),
+        f"seg_count {n4}x128 k1024 bf16": check_seg("rehearsal", n4, 128, 1024, 3, gen,
+                                                    chunk_rows=WIDE_CHUNK_ROWS,
+                                                    dtype=torch.bfloat16),
+    })
+    return rows
+
+
+def phase_kernels(reps, seg_only=False):
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     n_main = MAIN_FILES - 3
+    if seg_only:
+        t0 = time.perf_counter()
+        wide = {"seg_count 2.5Mx5 k8": check_seg("pipeline", n_main, 5, K, reps, gen)}
+        check_bisect(n_main, 5, K, gen)
+        wide.update(seg_rows(reps, gen, n_main))
+        log("kernel_shapes " + json.dumps(wide))
+        log(f"B2 rows: {time.perf_counter() - t0:.1f} s")
+        return wide
     rows = {
         "lloyd": check_lloyd("pipeline", n_main, 5, K, torch.float32, n_main, reps, gen),
         "seg_count": check_seg("pipeline", n_main, 5, K, reps, gen),
@@ -907,12 +1026,10 @@ def phase_kernels(reps):
                                                      torch.bfloat16, 100_000, 3, gen),
         "lloyd odd 70001x300 k33 f32": check_lloyd("odd-f32", 70_001, 300, 33, torch.float32,
                                                    70_000, 3, gen),
-        "seg_count 1Mx128 k1024": check_seg("wide", 1 << 20, 128, 1024,
-                                            max(3, reps // 4), gen),
     }
-    # The bench's k = 1024 shapes (phase 17): config 3's whole 10M rows, the
-    # config-4 rehearsal's bf16 rows (as many as its memory guard leaves on
-    # this card), and B2 at config 3's e2e shape (its bisection medians).
+    # The bench's k = 1024 shapes (phase 17): config 3's whole 10M rows and
+    # the config-4 rehearsal's bf16 rows (as many as its memory guard leaves
+    # on this card).
     n4 = rehearsal_rows()
     wide.update({
         "lloyd 10Mx128 k1024 f32": check_lloyd("config3", BENCH_CONFIG3_ROWS, 128, 1024,
@@ -922,9 +1039,10 @@ def phase_kernels(reps):
                                                   torch.bfloat16, n4, 3, gen,
                                                   yardstick=True,
                                                   chunk_rows=WIDE_CHUNK_ROWS),
-        "seg_count 10Mx128 k1024": check_seg("config3", BENCH_CONFIG3_ROWS, 128, 1024, 3,
-                                             gen, chunk_rows=WIDE_CHUNK_ROWS),
     })
+    t0 = time.perf_counter()
+    wide.update(seg_rows(reps, gen, n_main))
+    log(f"B2 general-path rows: {time.perf_counter() - t0:.1f} s")
     log("kernel_shapes " + json.dumps(wide))
     return rows
 
@@ -4800,6 +4918,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
                         help="build and check the kernels only; prints no ok line")
+    parser.add_argument("--seg", action="store_true",
+                        help="build and check the threshold count alone (phase 2's B2 rows "
+                             "and bisections); prints no ok line")
     parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12, 13, 14, 15, 16, 17),
                         default=None,
                         help="build and check the kernels, then run this phase alone; prints "
@@ -4817,6 +4938,10 @@ def main() -> int:
     t_start = time.perf_counter()
 
     phase_environment()
+    if args.seg:
+        phase_kernels(reps=20, seg_only=True)
+        log(f"seg run done in {time.perf_counter() - t_start:.1f} s; main path skipped")
+        return 0
     rows = phase_kernels(reps=5 if args.quick else 20)
     if args.quick:
         log(f"quick run done in {time.perf_counter() - t_start:.1f} s; main path skipped")
@@ -4950,8 +5075,7 @@ def main() -> int:
          "telemetry_launches": telemetry_launches["seg_count"],
          "telemetry_share": telemetry_rows["seg_count"]["peak_fraction"],
          "native_launches": native_launches["seg_count"],
-         "bench_launches": bench_launches["seg_count"], **rows["seg_count"],
-         "library_ms": None},
+         "bench_launches": bench_launches["seg_count"], **rows["seg_count"]},
         {"name": "lloyd_assign_reduce (row-major, labels)", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:443",

@@ -4,7 +4,9 @@ stream (``obs/aggregate.roofline_rows``).
 
 ``kernel_cost`` at smoke phase 2's shapes reproduces the bounds of the
 kernel table (B1 0.0149, B2 0.0179, B3 0.0019 ms on an H100; B1's general
-path 0.0523, 0.0200 in bf16, and 1.6667 ms at 1M x 128, k = 1024); on the CPU a
+path 0.0523, 0.0200 in bf16, and 1.6667 ms at 1M x 128, k = 1024; B2's
+general path 0.1621, 1.6157 and 4.0697 ms at 1M, 10,485,760 and 52,428,800
+(bf16) x 128, k = 1024, and 0.0179 ms at 2,499,997 x 5, k = 64); on the CPU a
 kernel event has ``seconds`` null and its roofline row says "not
 measured"; a build found on disk counts nothing; and the wrappers give
 bit-identical results with the instrument on or off."""
@@ -49,7 +51,16 @@ def _fresh_signatures():
     ("lloyd_assign_reduce", dict(n=WIDE, d=32, k=128, n_valid=WIDE - 5, dtype="bfloat16"),
      0.0200, "bytes"),
     ("lloyd_assign_reduce", dict(n=WIDE, d=128, k=1024, n_valid=WIDE), 1.6667, "operations"),
-], ids=["B1", "B2", "B3", "B1-1Mx32-k128-f32", "B1-1Mx32-k128-bf16", "B1-1Mx128-k1024-f32"])
+    # B2's general path at smoke phase 2's shapes: config 3's width at 1M
+    # rows and at its whole rows, the config-4 rehearsal's bf16 rows on an
+    # 80 GB card, entry()'s k at the main path's width.
+    ("label_threshold_count", dict(n=WIDE, d=128, k=1024), 0.1621, "bytes"),
+    ("label_threshold_count", dict(n=10_485_760, d=128, k=1024), 1.6157, "bytes"),
+    ("label_threshold_count", dict(n=52_428_800, d=128, k=1024, dtype="bfloat16"), 4.0697,
+     "bytes"),
+    ("label_threshold_count", dict(n=N_MAIN, d=5, k=64), 0.0179, "bytes"),
+], ids=["B1", "B2", "B3", "B1-1Mx32-k128-f32", "B1-1Mx32-k128-bf16", "B1-1Mx128-k1024-f32",
+        "B2-1Mx128-k1024", "B2-10Mx128-k1024", "B2-52Mx128-k1024-bf16", "B2-2.5Mx5-k64"])
 def test_kernel_cost_reproduces_the_kernel_table_bounds(kernel, kw, bound_ms, by):
     cost = kprof.kernel_cost(kernel, **kw)
     secs, bound_by = kprof.bound_seconds(cost, kprof.resolve_peaks(H100, cost["dtype"]))
