@@ -5,7 +5,7 @@
     python3 chip_smoke.py --quick    # build + kernel checks only (no ok line)
     python3 chip_smoke.py --seg      # build + the threshold count's checks only
     python3 chip_smoke.py --phase 10 # build, kernel checks and one phase (9,
-                                     # 10, 11, 12, 13, 14, 15, 16 or 17) alone; no ok line
+                                     # 10, ..., 17 or 18) alone; no ok line
 
 Phases, each of which exits non-zero when a check fails:
 
@@ -314,11 +314,21 @@ Phases, each of which exits non-zero when a check fails:
    init is logged: its draws differ, ROADMAP C9); (f) ``metrics regress`` on (a)'s detail against an
    empty history (``no_baseline``), a ``--round`` append, and a second check
    inside its band.  ``--phase 17`` runs it after phases 1-2.
+18. The nine subsystem benches (``cdrs_tpu_torch.benchmarks.<name>``), each
+   through its ``main`` as a user runs it, outputs in a temporary directory:
+   ``control_bench`` and ``chaos_bench`` at their defaults (they have no
+   ``--quick``), the other seven with ``--quick``, placement's controller
+   window at the main path's 2,500,000 files (``--window_n``; its medians
+   bisect on B2).  Each must exit 0, stamp the card in ``run_meta`` and
+   ``cold_init``, launch B1, call no plain version on a CUDA tensor and hold
+   every criterion, or the criterion is a ``SUBSYSTEM_DEPARTURES`` entry
+   logged with its cause; placement's window must launch B2.  The overhead
+   blocks' ratios are printed.  ``--phase 18`` runs it after phases 1-2.
 
-In the whole smoke the parent runs 1-8 and 12b beside three children (12a
-and 12c from after phase 2; 13 and 16 from after phase 5; 11, 10 and 9, each
-generating its workload, from after phase 5), joins them, then runs 14, 15
-and 17, which
+In the whole smoke the parent runs 1-8 and 12b beside four children (12a
+and 12c, and 18, from after phase 2; 13 and 16 from after phase 5; 11, 10
+and 9, each generating its workload, from after phase 5), joins them, then
+runs 14, 15 and 17, which
 time stages, kernels, first launches and the bench's captures, with no
 other process on the card.
 
@@ -471,6 +481,47 @@ BENCH_CHILD_TIMEOUT = 900
 #: 100,000 files (``tests/test_cluster.py``).
 CARRY_TOL = 0.002
 CARRY_BOUND = 0.78
+#: Phase 18: each subsystem bench's arguments besides its outputs.  Control
+#: and chaos have no ``--quick`` (their defaults are 300 and 400 files);
+#: placement's window holds the main path's population, where medians
+#: bisect on B2 (``--quick``'s 2,000,000 rows do not).
+SUBSYSTEM_ARGV = {
+    "control_bench": [],
+    "chaos_bench": [],
+    "storage_bench": ["--quick"],
+    "integrity_bench": ["--quick"],
+    "serve_bench": ["--quick"],
+    "daemon_bench": ["--quick"],
+    "overload_bench": ["--quick"],
+    "geo_bench": ["--quick"],
+    "placement_bench": ["--quick", "--window_n", str(MAIN_FILES)],
+}
+#: Phase 18's criteria that may be false on the card, with the cause (ROADMAP
+#: Queue C, R7; PERF.md §6).
+SUBSYSTEM_OVERHEAD = ("ROADMAP R7: the instrument's cost on the card's host-bound controller "
+                      "windows, measured over the reference's 1.05 bound (PERF.md §6)")
+SUBSYSTEM_DEPARTURES: dict[str, dict[str, str]] = {
+    "chaos_bench": {"overhead_within_budget": SUBSYSTEM_OVERHEAD},
+    "storage_bench": {"overhead_within_budget": SUBSYSTEM_OVERHEAD},
+    "integrity_bench": {
+        "overhead_within_budget": SUBSYSTEM_OVERHEAD,
+        "scrubbed_zero_files_lost": "ROADMAP Queue C10: at --quick's 160 files the scrubbed "
+                                    "side's one loss depends on the cold init, and the "
+                                    "reference carrying such an init loses it too"},
+    "serve_bench": {
+        "overhead_within_budget": SUBSYSTEM_OVERHEAD,
+        "hotspot_catches_what_drift_misses": "ROADMAP Queue C4: the burst's drift sits at the "
+                                             "0.10 threshold, and the card's cold init puts it "
+                                             "over"},
+    "overload_bench": {
+        "ladder_recovered_to_rung0": "ROADMAP Queue C11: the ladder walks down one rung a "
+                                     "decision, and the windows left after the backlog drains "
+                                     "race the wall clock"},
+    "placement_bench": {
+        "epoch_diff_10x_faster": "host numpy, the reference's own code: at --quick's 1,000,000 "
+                                 "files the epoch diff is 5-6x the materialized one on the "
+                                 "card's host; 10x is the 10M-file claim (PERF.md §6)"},
+}
 
 
 def fail(msg: str) -> None:
@@ -4914,6 +4965,112 @@ def phase_bench(work):
     return launches
 
 
+# -- phase 18: the subsystem benches -----------------------------------------------
+
+
+def subsystem_bench(name: str, work) -> tuple[dict, list]:
+    """One of 18's benches: its ``main`` with ``SUBSYSTEM_ARGV[name]`` and
+    every output in ``work``, as a user runs it on the card.  Checks the
+    exit code, ``run_meta``'s card, its criteria (a false one must be a
+    ``SUBSYSTEM_DEPARTURES`` entry, logged with its cause), B1 launches,
+    and no plain version called on a CUDA tensor.  Returns its launches and
+    the false criteria with no recorded departure."""
+    import importlib
+    import io
+
+    import torch
+
+    mod = importlib.import_module(f"cdrs_tpu_torch.benchmarks.{name}")
+    out = os.path.join(work, f"{name}_torch.json")
+    argv = list(SUBSYSTEM_ARGV[name]) + ["--out", out]
+    if name == "chaos_bench":
+        argv += ["--rack_out", os.path.join(work, "chaos_rack_bench_torch.json")]
+    if name == "storage_bench":
+        argv += ["--overhead_out", os.path.join(work, "storage_overhead_torch.json")]
+    b3_before = rowmajor_launches()
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with plain_calls_on_card() as plain, contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    launches["lloyd_rowmajor"] = rowmajor_launches() - b3_before
+    launches["lloyd"] -= launches["lloyd_rowmajor"]
+    lines = buf.getvalue().strip().splitlines()
+    check(rc == 0, f"{name} exited {rc}: {lines[-3:]}")
+    with open(out) as f:
+        doc = json.load(f)
+    card = torch.cuda.get_device_name(0)
+    check(doc["run_meta"].get("device_name") == card and card in doc["cold_init"],
+          f"{name} run_meta {doc['run_meta']}")
+    check(plain == {"lloyd": 0, "seg_count": 0}, f"{name}: plain versions ran on the card {plain}")
+    check(launches["lloyd"] > 0, f"{name}: no B1 launch {launches}")
+    criteria = dict(doc["criteria"])
+    if name == "chaos_bench":
+        with open(os.path.join(work, "chaos_rack_bench_torch.json")) as f:
+            criteria.update({f"rack_{k}": v for k, v in json.load(f)["criteria"].items()})
+    for line in lines:
+        log(f"subsystem {name} {line}")
+    overhead = doc.get("overhead")
+    if name == "storage_bench" and overhead:   # the whole block has its own file
+        with open(os.path.join(work, "storage_overhead_torch.json")) as f:
+            overhead = json.load(f)
+    if overhead:
+        log(f"subsystem {name} overhead " + json.dumps(
+            {k: overhead[k] for k in ("overhead_ratio", "paired_ratio_median", "plain_seconds",
+                                      "telemetry_seconds", "budget")}))
+    if name == "serve_bench":
+        flash = doc["flash_crowd"]
+        log(f"subsystem serve_bench flash crowd: drift at burst {flash['drift_at_burst']} "
+            f"(threshold {flash['drift_threshold']}), hotspot score "
+            f"{flash['hotspot_score_at_burst']}, drift re-clusters "
+            f"{flash['drift_only']['reclusters_at_or_after_burst']}")
+    if name == "integrity_bench":
+        sides = doc["overlap"]
+        log("subsystem integrity_bench overlap: " + json.dumps(
+            {side: {k: sides[side][k] for k in ("true_lost_final", "corrupt_reads_served",
+                                               "detected_total")}
+             for side in ("scrubbed", "unscrubbed")}))
+    log(f"subsystem {name}: {secs:.1f} s, launches {launches}")
+    unexpected = []
+    for key in (k for k, v in criteria.items() if not v):
+        cause = SUBSYSTEM_DEPARTURES.get(name, {}).get(key)
+        if cause is None:
+            unexpected.append(key)
+        else:
+            log(f"subsystem {name}: {key} is false, a recorded departure: {cause}")
+    return launches, unexpected
+
+
+def phase_subsystem(work) -> dict:
+    """Phase 18: the nine subsystem benches in turn.  Returns the kernels'
+    launches (``lloyd`` B1's, ``seg_count`` B2's, ``lloyd_rowmajor`` B3's);
+    B2 must have launched in placement's window."""
+    total = {"lloyd": 0, "seg_count": 0, "lloyd_rowmajor": 0}
+    unexpected = {}
+    for name in SUBSYSTEM_ARGV:
+        part, false = subsystem_bench(name, work)
+        total = {k: total[k] + part[k] for k in total}
+        if false:
+            unexpected[name] = false
+        if name == "placement_bench":
+            check(part["seg_count"] > 0, f"placement's {MAIN_FILES}-file window: no B2 launch")
+    check(not unexpected, f"phase 18: false criteria, no recorded departure: {unexpected}")
+    log(f"phase 18 launches {total}")
+    return total
+
+
+def subsystem_child(work) -> int:
+    """The phase-18 child's body; its launches go to ``subsystem.json``."""
+    t0 = time.perf_counter()
+    launches = phase_subsystem(work)
+    log(f"phase 18 (subsystem benches): {time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(work, "subsystem.json"), "w") as f:
+        json.dump(launches, f)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
@@ -4921,7 +5078,7 @@ def main() -> int:
     parser.add_argument("--seg", action="store_true",
                         help="build and check the threshold count alone (phase 2's B2 rows "
                              "and bisections); prints no ok line")
-    parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12, 13, 14, 15, 16, 17),
+    parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12, 13, 14, 15, 16, 17, 18),
                         default=None,
                         help="build and check the kernels, then run this phase alone; prints "
                              "no ok line")
@@ -4947,7 +5104,7 @@ def main() -> int:
         log(f"quick run done in {time.perf_counter() - t_start:.1f} s; main path skipped")
         return 0
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    child = batch = storage = None
+    child = batch = storage = subsystem = None
     if args.phase is not None:
         try:
             if args.phase == 9:
@@ -4971,6 +5128,10 @@ def main() -> int:
                 log(f"phase 16 launches {phase_native(work)}")
             elif args.phase == 17:
                 log(f"phase 17 launches {phase_bench(work)}")
+            elif args.phase == 18:
+                t0 = time.perf_counter()
+                phase_subsystem(work)
+                log(f"phase 18 (subsystem benches): {time.perf_counter() - t0:.1f} s")
             else:
                 from cdrs_tpu_torch import GeneratorConfig
                 from cdrs_tpu_torch.sim.generator import generate_population
@@ -4984,8 +5145,10 @@ def main() -> int:
         log(f"phase {args.phase} run done in {time.perf_counter() - t_start:.1f} s")
         return 0
     try:
-        # 12a and 12c (host-bound, one core) run in a child beside 3-12b.
+        # 12a and 12c (host-bound, one core) run in a child beside 3-12b, and
+        # 18 (host-bound benches) in another.
         child, child_log, t_child = start_child(work, "placement")
+        subsystem, subsystem_log, t_subsystem = start_child(work, "subsystem")
         launches, cfg, main_result = phase_main_path()
         norm_20k, init_20k = phase_card_vs_cpu()
         stream_launches, stream_times, manifest, events, log_path = phase_stream_path(
@@ -5018,6 +5181,8 @@ def main() -> int:
         batch_launches = join_child(batch, batch_log, t_batch, work, "batch", "13 and 16")
         native_launches = batch_launches.pop("native")
         placement = join_child(child, child_log, t_child, work, "placement", "12a/12c")
+        subsystem_launches = join_child(subsystem, subsystem_log, t_subsystem, work,
+                                        "subsystem", "18")
         log(f"children joined {time.perf_counter() - t0:.1f} s after phase 12b")
         for name in ("lloyd", "seg_count"):
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
@@ -5040,6 +5205,7 @@ def main() -> int:
         stop_child(child)
         stop_child(batch)
         stop_child(storage)
+        stop_child(subsystem)
         shutil.rmtree(work, ignore_errors=True)
 
     kernels = [
@@ -5058,6 +5224,7 @@ def main() -> int:
          "telemetry_share": telemetry_rows["lloyd"]["peak_fraction"],
          "native_launches": native_launches["lloyd"],
          "bench_launches": bench_launches["lloyd"],
+         "subsystem_bench_launches": subsystem_launches["lloyd"],
          **rows["lloyd"], "library_ms": None},
         {"name": "label_threshold_count", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/seg_count.cu",
@@ -5075,7 +5242,8 @@ def main() -> int:
          "telemetry_launches": telemetry_launches["seg_count"],
          "telemetry_share": telemetry_rows["seg_count"]["peak_fraction"],
          "native_launches": native_launches["seg_count"],
-         "bench_launches": bench_launches["seg_count"], **rows["seg_count"]},
+         "bench_launches": bench_launches["seg_count"],
+         "subsystem_bench_launches": subsystem_launches["seg_count"], **rows["seg_count"]},
         {"name": "lloyd_assign_reduce (row-major, labels)", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:443",
@@ -5088,6 +5256,7 @@ def main() -> int:
          "telemetry_share": telemetry_rows["lloyd_rowmajor"]["peak_fraction"],
          "native_launches": native_launches["lloyd_rowmajor"],
          "bench_launches": bench_launches["lloyd_rowmajor"],
+         "subsystem_bench_launches": subsystem_launches["lloyd_rowmajor"],
          **rows["lloyd_rowmajor"], "library_ms": None},
     ]
     for row in kernels:
