@@ -22,8 +22,13 @@
   ``overload_bench`` (lag and availability under brownout), ``geo_bench``
   (region loss, the hierarchical chooser, Black Friday, the WAN partition)
   and ``placement_bench`` (functional against materialized maps, a
-  functional controller window at 100M files); ``common`` holds what they
-  share.
+  functional controller window at 100M files), ``mesh_bench`` (decision
+  identity across mesh shapes, Lloyd iterations a second by shard count,
+  the data = 1 overhead), ``search_bench`` (the guided failure search
+  against blind sampling, the shrunk repro), ``telemetry_overhead`` (the
+  traced and scraped daemon against the plain one) and ``plan_bench``
+  (the SoA planners against ``compat/reference_planners``, the overlapped
+  controller); ``common`` holds what they share.
 
 Nothing here imports the JAX package.
 """

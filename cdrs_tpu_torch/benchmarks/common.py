@@ -1,18 +1,21 @@
 """What the subsystem benches share: the min-rf-2 scoring tables, the
 bit-identity key of window records, the paired telemetry rounds of the
-overhead blocks, the port's ``bench_records`` entry and the artifact
-writer.  Each bench keeps its reference's functions and artifact keys; these
+overhead blocks, the live endpoint's scraper, the port's ``bench_records``
+entry and the artifact writer.  Each bench keeps its reference's functions and artifact keys; these
 are the parts every one of them repeats."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import tempfile
+import threading
 import time
+import urllib.request
 
-__all__ = ["min_rf2_scoring", "strip_seconds", "telemetry_rounds", "bench_record",
+__all__ = ["min_rf2_scoring", "strip_seconds", "telemetry_rounds", "scraping", "bench_record",
            "write_artifact"]
 
 
@@ -64,6 +67,34 @@ def telemetry_rounds(mk, events, repeats: int):
             return time.perf_counter() - t0
 
         return _paired(run_plain, run_instr, repeats)
+
+
+@contextlib.contextmanager
+def scraping(url: str, interval: float = 0.1):
+    """A thread polling ``url``'s ``/metrics`` and ``/statusz`` every
+    ``interval`` seconds while the block runs (at 10 Hz, 10x an aggressive
+    1 s Prometheus scrape interval); yields ``{"n": scrapes answered}``."""
+    stop = threading.Event()
+    counter = {"n": 0}
+
+    def scrape():
+        while not stop.is_set():
+            for path in ("/metrics", "/statusz"):
+                try:
+                    with urllib.request.urlopen(url + path, timeout=2) as r:
+                        r.read()
+                    counter["n"] += 1
+                except OSError:
+                    pass
+            stop.wait(interval)
+
+    th = threading.Thread(target=scrape, daemon=True)
+    th.start()
+    try:
+        yield counter
+    finally:
+        stop.set()
+        th.join(timeout=5.0)
 
 
 def bench_record(metric: str, value, unit: str, device, direction: str | None = None) -> dict:

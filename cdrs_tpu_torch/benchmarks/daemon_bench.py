@@ -53,7 +53,7 @@ from ..device import resolve_device
 from ..serve import ReadRouter, ServeConfig
 from ..sim.access import simulate_access
 from ..sim.generator import generate_population
-from .common import bench_record, write_artifact
+from .common import bench_record, scraping, write_artifact
 
 __all__ = ["run_decision_latency", "run_serve_under_recluster", "run_decay_identity",
            "decision_vs_window"]
@@ -98,25 +98,8 @@ def run_decision_latency(n_files: int = 20_000, n_windows: int = 20,
         daemon = StreamDaemon(_controller(manifest, window_seconds, k, device=dev))
         with ObsServer() as srv:
             daemon.attach_http(srv)
-            stop = threading.Event()
-            counter = {"n": 0}
-
-            def scrape():
-                while not stop.is_set():
-                    for path in ("/metrics", "/statusz"):
-                        try:
-                            with urllib.request.urlopen(srv.url + path, timeout=2) as r:
-                                r.read()
-                            counter["n"] += 1
-                        except OSError:
-                            pass
-                    stop.wait(0.1)
-
-            th = threading.Thread(target=scrape, daemon=True)
-            th.start()
-            dig = daemon.run(log, metrics_path=metrics)
-            stop.set()
-            th.join(timeout=5.0)
+            with scraping(srv.url) as counter:
+                dig = daemon.run(log, metrics_path=metrics)
             with urllib.request.urlopen(srv.url + "/metrics", timeout=5) as r:
                 final_scrape = r.read().decode("utf-8")
             snap = srv.snapshot

@@ -141,11 +141,15 @@ def run_overload_sustain(n_files: int = 2_000, n_burst: int = 24, n_calm: int = 
             # Let the daemon drain the backlog and walk the ladder back down,
             # then stop it between windows.  The trailing partial window
             # never closes in follow mode, so "drained" is level 0 with lag
-            # below the bottom engage threshold.
+            # below the bottom engage threshold, read from a decision made
+            # after the last append (the lag of an earlier one predates the
+            # appended slices, and stopping on it strands them).
+            decided = len(daemon.records)
             deadline = time.monotonic() + 120.0
             floor = bc.engage[0]
             while time.monotonic() < deadline:
-                if daemon._lag["windows"] < floor and daemon._ladder.level == 0:
+                if (len(daemon.records) > decided and daemon._lag["windows"] < floor
+                        and daemon._ladder.level == 0):
                     break
                 time.sleep(d_mean / 2.0)
             daemon.request_stop("bench_done")

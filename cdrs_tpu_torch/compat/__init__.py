@@ -1,1 +1,3 @@
-"""The reference user's call signatures on the port (``reference_api``)."""
+"""The reference user's call signatures on the port (``reference_api``) and the
+legacy object-at-a-time planners the planner bench times against
+(``reference_planners``)."""

@@ -5,7 +5,7 @@
     python3 chip_smoke.py --quick    # build + kernel checks only (no ok line)
     python3 chip_smoke.py --seg      # build + the threshold count's checks only
     python3 chip_smoke.py --phase 10 # build, kernel checks and one phase (9,
-                                     # 10, ..., 17 or 18) alone; no ok line
+                                     # 10, ..., 18 or 19) alone; no ok line
 
 Phases, each of which exits non-zero when a check fails:
 
@@ -324,10 +324,26 @@ Phases, each of which exits non-zero when a check fails:
    every criterion, or the criterion is a ``SUBSYSTEM_DEPARTURES`` entry
    logged with its cause; placement's window must launch B2.  The overhead
    blocks' ratios are printed.  ``--phase 18`` runs it after phases 1-2.
+19. The last four benches, each through its ``main`` at ``--quick`` with
+   its outputs in a temporary directory: ``mesh_bench`` (16,384 x 32 and
+   4,096 x 128 over 1, 2, 4 and 8 shards, all on the one card; decision
+   identity and the kill/resume across shapes at ``{"data": 8}``; the
+   data = 1 pass, whose drift step launches the row-major Lloyd kernel),
+   ``search_bench`` (12 guided cells against as many blind ones, the
+   planted violation shrunk and its repro rerun through ``cli.main`` on the
+   card), ``telemetry_overhead`` (2,000 files, 6 windows, 3 rounds of
+   plain, traced and scraped daemons) and ``plan_bench`` (100,000 files, 2
+   rounds; the serial and overlapped controllers at 3,000 files).  Each
+   must exit 0, stamp the card in ``run_meta`` and ``cold_init``, launch
+   B1, call no plain version on a CUDA tensor and hold every criterion
+   (``telemetry_overhead``'s are its daemon block's two budgets), or the
+   criterion is a ``SUBSYSTEM_DEPARTURES`` entry logged with its cause;
+   ``mesh_bench`` must launch B3.  ``--phase 19`` runs it after phases
+   1-2.
 
 In the whole smoke the parent runs 1-8 and 12b beside four children (12a
-and 12c, and 18, from after phase 2; 13 and 16 from after phase 5; 11, 10
-and 9, each generating its workload, from after phase 5), joins them, then
+and 12c, and 18 then 19, from after phase 2; 13 and 16 from after phase 5;
+11, 10 and 9, each generating its workload, from after phase 5), joins them, then
 runs 14, 15 and 17, which
 time stages, kernels, first launches and the bench's captures, with no
 other process on the card.
@@ -496,10 +512,24 @@ SUBSYSTEM_ARGV = {
     "geo_bench": ["--quick"],
     "placement_bench": ["--quick", "--window_n", str(MAIN_FILES)],
 }
-#: Phase 18's criteria that may be false on the card, with the cause (ROADMAP
-#: Queue C, R7; PERF.md §6).
+#: Phase 19: the last four benches' arguments besides their outputs.
+LAST_BENCH_ARGV = {
+    "mesh_bench": ["--quick"],
+    "search_bench": ["--quick"],
+    "telemetry_overhead": ["--quick"],
+    "plan_bench": ["--quick"],
+}
+#: Phases 18 and 19's criteria that may be false on the card, with the cause (ROADMAP
+#: Queue C, R7, R9, R10; PERF.md §6).
 SUBSYSTEM_OVERHEAD = ("ROADMAP R7: the instrument's cost on the card's host-bound controller "
                       "windows, measured over the reference's 1.05 bound (PERF.md §6)")
+HOST_RATE = ("ROADMAP R10: a host rate at --quick's size, measured in the child beside the "
+             "parent and two other children; smokes read 0.89-1.36M reads/s and 41.5-70.5M "
+             "placements/s across runs, and the standalone run at the defaults holds both "
+             "(PERF.md §6)")
+TELEMETRY_QUICK = ("ROADMAP R9: at --quick's 2,000 files a daemon run lasts about 0.1 s, so the "
+                   "endpoint's start and one 10 Hz scrape round are a few percent of it; the "
+                   "reference's own --quick reads 0.95-1.13 on one host (PERF.md §6)")
 SUBSYSTEM_DEPARTURES: dict[str, dict[str, str]] = {
     "chaos_bench": {"overhead_within_budget": SUBSYSTEM_OVERHEAD},
     "storage_bench": {"overhead_within_budget": SUBSYSTEM_OVERHEAD},
@@ -517,7 +547,12 @@ SUBSYSTEM_DEPARTURES: dict[str, dict[str, str]] = {
         "ladder_recovered_to_rung0": "ROADMAP Queue C11: the ladder walks down one rung a "
                                      "decision, and the windows left after the backlog drains "
                                      "race the wall clock"},
+    "telemetry_overhead": {
+        "within_budget": TELEMETRY_QUICK,
+        "scrape_within_budget": TELEMETRY_QUICK},
+    "daemon_bench": {"routed_1m_reads_per_sec_during_recluster": HOST_RATE},
     "placement_bench": {
+        "recompute_50m_placements_per_sec": HOST_RATE,
         "epoch_diff_10x_faster": "host numpy, the reference's own code: at --quick's 1,000,000 "
                                  "files the epoch diff is 5-6x the materialized one on the "
                                  "card's host; 10x is the 10M-file claim (PERF.md §6)"},
@@ -4969,12 +5004,13 @@ def phase_bench(work):
 
 
 def subsystem_bench(name: str, work) -> tuple[dict, list]:
-    """One of 18's benches: its ``main`` with ``SUBSYSTEM_ARGV[name]`` and
-    every output in ``work``, as a user runs it on the card.  Checks the
-    exit code, ``run_meta``'s card, its criteria (a false one must be a
-    ``SUBSYSTEM_DEPARTURES`` entry, logged with its cause), B1 launches,
-    and no plain version called on a CUDA tensor.  Returns its launches and
-    the false criteria with no recorded departure."""
+    """One of 18's or 19's benches: its ``main`` with ``SUBSYSTEM_ARGV`` or
+    ``LAST_BENCH_ARGV`` and every output in ``work``, as a user runs it on
+    the card.  Checks the exit code, ``run_meta``'s card, its criteria (a
+    false one must be a ``SUBSYSTEM_DEPARTURES`` entry, logged with its
+    cause), B1 launches, and no plain version called on a CUDA tensor.
+    Returns its launches and the false criteria with no recorded
+    departure."""
     import importlib
     import io
 
@@ -4982,7 +5018,7 @@ def subsystem_bench(name: str, work) -> tuple[dict, list]:
 
     mod = importlib.import_module(f"cdrs_tpu_torch.benchmarks.{name}")
     out = os.path.join(work, f"{name}_torch.json")
-    argv = list(SUBSYSTEM_ARGV[name]) + ["--out", out]
+    argv = list({**SUBSYSTEM_ARGV, **LAST_BENCH_ARGV}[name]) + ["--out", out]
     if name == "chaos_bench":
         argv += ["--rack_out", os.path.join(work, "chaos_rack_bench_torch.json")]
     if name == "storage_bench":
@@ -5006,13 +5042,22 @@ def subsystem_bench(name: str, work) -> tuple[dict, list]:
           f"{name} run_meta {doc['run_meta']}")
     check(plain == {"lloyd": 0, "seg_count": 0}, f"{name}: plain versions ran on the card {plain}")
     check(launches["lloyd"] > 0, f"{name}: no B1 launch {launches}")
-    criteria = dict(doc["criteria"])
+    if name == "telemetry_overhead":   # its artifact keeps the reference's keys
+        criteria = {k: doc["daemon"][k] for k in ("within_budget", "scrape_within_budget")}
+        log("subsystem telemetry_overhead daemon " + json.dumps(
+            {k: doc["daemon"][k] for k in ("overhead_ratio", "scrape_overhead_ratio",
+                                           "paired_ratio_median",
+                                           "scraped_paired_ratio_median", "plain_seconds",
+                                           "traced_seconds", "scraped_seconds",
+                                           "scrapes_last_run", "budget")}))
+    else:
+        criteria = dict(doc["criteria"])
     if name == "chaos_bench":
         with open(os.path.join(work, "chaos_rack_bench_torch.json")) as f:
             criteria.update({f"rack_{k}": v for k, v in json.load(f)["criteria"].items()})
     for line in lines:
         log(f"subsystem {name} {line}")
-    overhead = doc.get("overhead")
+    overhead = doc.get("overhead") if name in SUBSYSTEM_ARGV else None
     if name == "storage_bench" and overhead:   # the whole block has its own file
         with open(os.path.join(work, "storage_overhead_torch.json")) as f:
             overhead = json.load(f)
@@ -5043,31 +5088,40 @@ def subsystem_bench(name: str, work) -> tuple[dict, list]:
     return launches, unexpected
 
 
-def phase_subsystem(work) -> dict:
-    """Phase 18: the nine subsystem benches in turn.  Returns the kernels'
-    launches (``lloyd`` B1's, ``seg_count`` B2's, ``lloyd_rowmajor`` B3's);
-    B2 must have launched in placement's window."""
+#: The kernel a bench must launch besides B1: placement's 2.5M-file window
+#: bisects its medians on B2, mesh_bench's data = 1 drift step is one B3.
+MUST_LAUNCH = {"placement_bench": "seg_count", "mesh_bench": "lloyd_rowmajor"}
+
+
+def bench_phase(phase: int, work) -> dict:
+    """Phase 18 (the nine subsystem benches) or 19 (the last four) in turn.
+    Returns the kernels' launches (``lloyd`` B1's, ``seg_count`` B2's,
+    ``lloyd_rowmajor`` B3's)."""
     total = {"lloyd": 0, "seg_count": 0, "lloyd_rowmajor": 0}
     unexpected = {}
-    for name in SUBSYSTEM_ARGV:
+    for name in SUBSYSTEM_ARGV if phase == 18 else LAST_BENCH_ARGV:
         part, false = subsystem_bench(name, work)
         total = {k: total[k] + part[k] for k in total}
         if false:
             unexpected[name] = false
-        if name == "placement_bench":
-            check(part["seg_count"] > 0, f"placement's {MAIN_FILES}-file window: no B2 launch")
-    check(not unexpected, f"phase 18: false criteria, no recorded departure: {unexpected}")
-    log(f"phase 18 launches {total}")
+        if name in MUST_LAUNCH:
+            check(part[MUST_LAUNCH[name]] > 0, f"{name}: no {MUST_LAUNCH[name]} launch {part}")
+    check(not unexpected, f"phase {phase}: false criteria, no recorded departure: {unexpected}")
+    log(f"phase {phase} launches {total}")
     return total
 
 
 def subsystem_child(work) -> int:
-    """The phase-18 child's body; its launches go to ``subsystem.json``."""
+    """The child's body: phase 18, then 19; their launches go to
+    ``subsystem.json`` under ``"18"`` and ``"19"``."""
     t0 = time.perf_counter()
-    launches = phase_subsystem(work)
+    result = {"18": bench_phase(18, work)}
     log(f"phase 18 (subsystem benches): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    result["19"] = bench_phase(19, work)
+    log(f"phase 19 (the last four benches): {time.perf_counter() - t0:.1f} s")
     with open(os.path.join(work, "subsystem.json"), "w") as f:
-        json.dump(launches, f)
+        json.dump(result, f)
     return 0
 
 
@@ -5078,7 +5132,7 @@ def main() -> int:
     parser.add_argument("--seg", action="store_true",
                         help="build and check the threshold count alone (phase 2's B2 rows "
                              "and bisections); prints no ok line")
-    parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12, 13, 14, 15, 16, 17, 18),
+    parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19),
                         default=None,
                         help="build and check the kernels, then run this phase alone; prints "
                              "no ok line")
@@ -5130,8 +5184,12 @@ def main() -> int:
                 log(f"phase 17 launches {phase_bench(work)}")
             elif args.phase == 18:
                 t0 = time.perf_counter()
-                phase_subsystem(work)
+                bench_phase(18, work)
                 log(f"phase 18 (subsystem benches): {time.perf_counter() - t0:.1f} s")
+            elif args.phase == 19:
+                t0 = time.perf_counter()
+                bench_phase(19, work)
+                log(f"phase 19 (the last four benches): {time.perf_counter() - t0:.1f} s")
             else:
                 from cdrs_tpu_torch import GeneratorConfig
                 from cdrs_tpu_torch.sim.generator import generate_population
@@ -5146,7 +5204,7 @@ def main() -> int:
         return 0
     try:
         # 12a and 12c (host-bound, one core) run in a child beside 3-12b, and
-        # 18 (host-bound benches) in another.
+        # 18 then 19 (host-bound benches) in another.
         child, child_log, t_child = start_child(work, "placement")
         subsystem, subsystem_log, t_subsystem = start_child(work, "subsystem")
         launches, cfg, main_result = phase_main_path()
@@ -5181,8 +5239,9 @@ def main() -> int:
         batch_launches = join_child(batch, batch_log, t_batch, work, "batch", "13 and 16")
         native_launches = batch_launches.pop("native")
         placement = join_child(child, child_log, t_child, work, "placement", "12a/12c")
-        subsystem_launches = join_child(subsystem, subsystem_log, t_subsystem, work,
-                                        "subsystem", "18")
+        benches = join_child(subsystem, subsystem_log, t_subsystem, work, "subsystem",
+                             "18 and 19")
+        subsystem_launches, last_launches = benches["18"], benches["19"]
         log(f"children joined {time.perf_counter() - t0:.1f} s after phase 12b")
         for name in ("lloyd", "seg_count"):
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
@@ -5225,6 +5284,7 @@ def main() -> int:
          "native_launches": native_launches["lloyd"],
          "bench_launches": bench_launches["lloyd"],
          "subsystem_bench_launches": subsystem_launches["lloyd"],
+         "phase19_launches": last_launches["lloyd"],
          **rows["lloyd"], "library_ms": None},
         {"name": "label_threshold_count", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/seg_count.cu",
@@ -5243,7 +5303,8 @@ def main() -> int:
          "telemetry_share": telemetry_rows["seg_count"]["peak_fraction"],
          "native_launches": native_launches["seg_count"],
          "bench_launches": bench_launches["seg_count"],
-         "subsystem_bench_launches": subsystem_launches["seg_count"], **rows["seg_count"]},
+         "subsystem_bench_launches": subsystem_launches["seg_count"],
+         "phase19_launches": last_launches["seg_count"], **rows["seg_count"]},
         {"name": "lloyd_assign_reduce (row-major, labels)", "route": "cuda",
          "source": "cdrs_tpu_torch/csrc/lloyd.cu",
          "replaces": "cdrs_tpu/ops/pallas_kernels.py:443",
@@ -5257,6 +5318,7 @@ def main() -> int:
          "native_launches": native_launches["lloyd_rowmajor"],
          "bench_launches": bench_launches["lloyd_rowmajor"],
          "subsystem_bench_launches": subsystem_launches["lloyd_rowmajor"],
+         "phase19_launches": last_launches["lloyd_rowmajor"],
          **rows["lloyd_rowmajor"], "library_ms": None},
     ]
     for row in kernels:

@@ -1,5 +1,7 @@
 """The port's ``benchmarks/chaos_bench`` against the reference's
-``run_chaos_bench``, ``run_rack_bench`` and ``chaos_overhead`` on the CPU.
+``run_chaos_bench`` and ``run_rack_bench`` on the CPU (the rack criteria
+from the port's own init, ``chaos_overhead`` and ``main``:
+``test_torch_bench_chaos_2.py``).
 
 Decay-1 controllers: the reference re-runs on ``backend="jax"`` and the
 port's full re-clusters start from its D² init of the same snapshot
@@ -8,8 +10,6 @@ reference's.  The rack kill is ROADMAP C2's schedule, but C2 is the
 scenario cell's ``alerts_expected`` rule, which the bench has not: from the
 port's own CPU init every rack criterion holds too."""
 
-import json
-
 import pytest
 
 pytest.importorskip("torch")
@@ -17,9 +17,12 @@ pytest.importorskip("jax")
 
 import cdrs_tpu.benchmarks.chaos_bench as ref  # noqa: E402
 from test_torch_scenario_parity import carried_init  # noqa: E402
-from torch_bench_parity import assert_matches, reference_on_jax, round_trips  # noqa: E402
+from torch_bench_parity import (assert_matches, one_torch_thread,  # noqa: E402
+                                reference_on_jax, round_trips)
 
 from cdrs_tpu_torch.benchmarks import chaos_bench  # noqa: E402
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 #: The reference's toy scales (tests/test_faults.py, tests/test_partitions.py
 #: at CDRS_CHAOS_SEED 0).
@@ -48,36 +51,3 @@ def test_chaos_bench_matches_the_reference(fn, kw, tmp_path):
     assert_matches(got, want)
     assert all(got["criteria"].values()), got["criteria"]
     round_trips(got, tmp_path)
-
-
-@pytest.mark.parametrize("kw", [RACK_TOY, dict(resume_check=False)], ids=["toy", "default"])
-def test_rack_criteria_hold_from_the_ports_own_init(kw):
-    out = chaos_bench.run_rack_bench(**kw, device="cpu")
-    assert all(out["criteria"].values()), out["criteria"]
-    assert out["rack_kill"]["flat"]["files_lost_max"] > 0
-
-
-def test_chaos_overhead_has_the_references_keys():
-    kw = dict(n_files=300, duration=240.0, repeats=1)
-    got = chaos_bench.chaos_overhead(**kw, device="cpu")
-    with reference_on_jax(ref):
-        want = ref.chaos_overhead(**kw)
-    assert set(got) == set(want)
-    assert got["windows_per_run"] == want["windows_per_run"] == 4
-    assert got["budget"] == want["budget"] == 1.05
-    assert len(got["plain_windows"]) == len(got["paired_ratios"]) == 1
-
-
-def test_chaos_bench_main_writes_both_artifacts(tmp_path, capsys):
-    out, rack = tmp_path / "kill.json", tmp_path / "rack.json"
-    argv = ["--n_files", "120", "--duration", "720", "--windows", "8", "--kill_window", "3",
-            "--k", "8", "--no_overhead", "--device", "cpu", "--out", str(out),
-            "--rack_out", str(rack)]
-    assert chaos_bench.main(argv) == 0
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    kill_doc, rack_doc = json.loads(out.read_text()), json.loads(rack.read_text())
-    assert line["out"] == str(out) and line["rack_out"] == str(rack)
-    assert line["zero_files_lost"] == kill_doc["criteria"]["zero_files_lost"]
-    assert line["rack_budget_respected"] == rack_doc["criteria"]["budget_respected"]
-    for doc in (kill_doc, rack_doc):
-        assert "torch-cpu" in doc["cold_init"] and doc["run_meta"]["torch"]

@@ -18,9 +18,11 @@ pytest.importorskip("jax")
 
 from cdrs_tpu.benchmarks.control_bench import run_control_bench as ref_run  # noqa: E402
 from torch_bench_parity import (OrderedDraws, assert_matches, carried_in_order,  # noqa: E402
-                                round_trips)
+                                one_torch_thread, round_trips)
 
 from cdrs_tpu_torch.benchmarks import control_bench  # noqa: E402
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: The reference's toy scale (tests/test_control.py) and its defaults.

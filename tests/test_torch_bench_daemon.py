@@ -10,9 +10,8 @@ re-clustering races a background daemon, so its batch count and the epochs
 each batch pins are wall clock too: both sides must publish the same
 epochs, and the verdict must follow the epochs the batches pinned.  The decay identity forces the
 decayed fold on, which the reference does on its numpy backend; both sides
-must be decision-identical on every seed."""
-
-import json
+must be decision-identical on every seed.  ``main --quick``:
+``test_torch_bench_daemon_2.py``."""
 
 import pytest
 
@@ -21,9 +20,12 @@ pytest.importorskip("jax")
 
 import cdrs_tpu.benchmarks.daemon_bench as ref  # noqa: E402
 from test_torch_scenario_parity import carried_init  # noqa: E402
-from torch_bench_parity import assert_matches, reference_on_jax, round_trips  # noqa: E402
+from torch_bench_parity import (assert_matches, one_torch_thread,  # noqa: E402
+                                reference_on_jax, round_trips)
 
 from cdrs_tpu_torch.benchmarks import daemon_bench  # noqa: E402
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 WALL = {"decision_p50_seconds", "decision_p99_seconds", "decision_max_seconds",
         "sub_second_p99", "stage_attribution", "event_to_decision_p99_seconds", "scrapes"}
@@ -71,23 +73,3 @@ def test_decision_vs_window_times_both_sides():
     for key in ("daemon_decision_p50_seconds", "controller_window_p50_seconds",
                 "daemon_over_controller_p50"):
         assert out[key] > 0
-
-
-def test_daemon_bench_main_quick_keeps_the_references_keys(tmp_path, capsys, monkeypatch):
-    """``main --quick``; serving under re-clustering stops at 8 batches here
-    (a loaded host keeps its daemon slow, and the reader routes until the
-    daemon ends)."""
-    serve = daemon_bench.run_serve_under_recluster
-    monkeypatch.setattr(daemon_bench, "run_serve_under_recluster",
-                        lambda **kw: serve(**dict(kw, max_batches=8)))
-    out = tmp_path / "d.json"
-    assert daemon_bench.main(["--quick", "--device", "cpu", "--out", str(out)]) == 0
-    lines = capsys.readouterr().out.strip().splitlines()
-    timing = json.loads(lines[-2])["decision_vs_window"]
-    assert timing["n_files"] == 2_000 and timing["daemon_decision_p50_seconds"] > 0
-    doc = json.loads(out.read_text())
-    assert set(doc) == {"round", "decision_latency", "serve_under_recluster",
-                        "decay_identity", "criteria", "bench_records", "run_meta",
-                        "cold_init"}
-    assert json.loads(lines[-1])["history_appended"] == 0
-    assert doc["criteria"]["trace_reconciled"] and doc["criteria"]["decay_one_decision_identical"]

@@ -3,13 +3,12 @@
 reference on ``backend="jax"``) and, as ``black-friday`` needs, the rows
 its jax backend draws to reseed an emptied cluster (ROADMAP C3).
 
-Black Friday and the WAN partition (region loss:
-``test_torch_bench_geo_regions.py``) must be the reference's in
-every field but wall clock; the chooser's rates are wall clock.  The WAN
+Black Friday (the WAN partition: ``test_torch_bench_geo_2.py``; region
+loss: ``test_torch_bench_geo_regions.py``; ``main``:
+``test_torch_bench_geo_3.py``) must be the reference's in every field but
+wall clock; the chooser's rates are wall clock.  The WAN
 partition is ROADMAP C5's schedule (an init-sensitive scenario cell): its
 bench criteria hold from the port's own CPU init as well."""
-
-import json
 
 import pytest
 
@@ -19,9 +18,11 @@ pytest.importorskip("jax")
 import cdrs_tpu.benchmarks.geo_bench as ref  # noqa: E402
 from test_torch_scenario_parity import carried_init  # noqa: E402
 from test_torch_scenario_parity_6 import jax_reseeds  # noqa: E402
-from torch_bench_parity import assert_matches, reference_on_jax  # noqa: E402
+from torch_bench_parity import assert_matches, one_torch_thread, reference_on_jax  # noqa: E402
 
 from cdrs_tpu_torch.benchmarks import geo_bench  # noqa: E402
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 WALL = {"seconds", "hier_files_per_sec", "hier_placements_per_sec",
         "flat_placements_per_sec", "hier_vs_flat_cost"}
@@ -35,11 +36,8 @@ def run_pair(fn, *args):
     return got, want
 
 
-@pytest.mark.parametrize("fn,n_files,seed", [
-    ("_bench_black_friday", 200, 23), ("_bench_black_friday", 300, 23),
-    ("_bench_wan_partition", 300, 22), ("_bench_wan_partition", 400, 22),
-], ids=["black-friday-quick", "black-friday-default", "wan-quick", "wan-default"])
-def test_geo_scenarios_match_the_reference(fn, n_files, seed):
+def check_scenario(fn, n_files, seed):
+    """One geo scenario against the reference's, and its criteria."""
     got, want = run_pair(fn, n_files, seed)
     assert_matches(got, want, skip=WALL)
     if fn == "_bench_black_friday":
@@ -47,6 +45,13 @@ def test_geo_scenarios_match_the_reference(fn, n_files, seed):
         assert got["drained_back_to_baseline"]
     else:
         assert got["stranded_peak"] > 0 == got["lost_while_stranded"] and got["healed_final"]
+
+
+@pytest.mark.parametrize("fn,n_files,seed", [
+    ("_bench_black_friday", 200, 23), ("_bench_black_friday", 300, 23),
+], ids=["black-friday-quick", "black-friday-default"])
+def test_geo_scenarios_match_the_reference(fn, n_files, seed):
+    check_scenario(fn, n_files, seed)
 
 
 def test_hier_throughput_resolves_the_references_slots():
@@ -57,21 +62,3 @@ def test_hier_throughput_resolves_the_references_slots():
     # their ratio is the mean slots a file (rates are rounded to 0.1/s).
     assert got["hier_placements_per_sec"] / got["hier_files_per_sec"] == pytest.approx(
         want["hier_placements_per_sec"] / want["hier_files_per_sec"], rel=1e-6)
-
-
-def test_geo_bench_main_quick_from_the_ports_own_init(tmp_path, capsys, monkeypatch):
-    """``main --quick`` on the CPU, the chooser cut to 20,000 files: every
-    criterion holds from the port's own init, and the artifact has the
-    reference's keys plus the port's stamps."""
-    run = geo_bench.run_geo_bench
-    monkeypatch.setattr(geo_bench, "run_geo_bench",
-                        lambda **kw: run(**dict(kw, chooser_n=20_000)))
-    out = tmp_path / "g.json"
-    assert geo_bench.main(["--quick", "--device", "cpu", "--out", str(out)]) == 0
-    doc = json.loads(out.read_text())
-    assert all(doc["criteria"].values()), doc["criteria"]
-    assert set(doc) == {"methodology", "region_loss", "hier_throughput", "black_friday",
-                        "wan_partition", "criteria", "bench_records", "round", "quick",
-                        "run_meta", "cold_init"}
-    assert doc["quick"] and doc["round"] == 14
-    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["history_appended"] == 0

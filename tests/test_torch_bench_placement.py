@@ -6,9 +6,8 @@ exceptions, checkpoint and resident bytes, moved sets and the prune check
 must be the reference's (times and rates are wall clock).  The controller
 window runs the port's fold, Lloyd and medians on the device from the
 reference's cold init (decay 1: the reference on ``backend="jax"``): its
-reads routed, locality, p99 and plan hash must be the reference's."""
-
-import json
+reads routed, locality, p99 and plan hash must be the reference's.
+``main --quick``: ``test_torch_bench_placement_2.py``."""
 
 import pytest
 
@@ -17,9 +16,12 @@ pytest.importorskip("jax")
 
 import cdrs_tpu.benchmarks.placement_bench as ref  # noqa: E402
 from test_torch_scenario_parity import carried_init  # noqa: E402
-from torch_bench_parity import assert_matches, reference_on_jax, round_trips  # noqa: E402
+from torch_bench_parity import (assert_matches, one_torch_thread,  # noqa: E402
+                                reference_on_jax, round_trips)
 
 from cdrs_tpu_torch.benchmarks import placement_bench  # noqa: E402
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 WALL = {"seconds", "note", "peak_rss_gb", "flat_files_per_sec", "flat_placements_per_sec",
         "racked_files_per_sec", "racked_placements_per_sec", "racked_mixed_files_per_sec",
@@ -48,18 +50,3 @@ def test_controller_window_matches_the_reference(n):
         got = placement_bench._bench_window(n, 20_000, "cpu")
     assert_matches(got, want, skip=WALL)
     assert got["completed"] and got["reads_routed"] == 20_000
-
-
-def test_placement_bench_main_quick(tmp_path, capsys):
-    out = tmp_path / "p.json"
-    assert placement_bench.main(["--quick", "--window_n", "100000", "--device", "cpu",
-                                 "--out", str(out)]) == 0
-    doc = json.loads(out.read_text())
-    assert doc["controller_window"]["n_files"] == 100_000
-    assert doc["criteria"]["window_completed"] and doc["criteria"]["epoch_diff_prune_exact"]
-    assert doc["criteria"]["checkpoint_20x_smaller"]
-    assert [r["metric"] for r in doc["bench_records"]] == [
-        "placement_recompute_mplacements", "placement_checkpoint_ratio",
-        "placement_resident_ratio", "placement_epoch_diff_speedup",
-        "placement_window_seconds"]
-    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["history_appended"] == 0

@@ -1,4 +1,4 @@
-"""The nine subsystem benches' entry points: each runs as ``python -m
+"""The subsystem benches' entry points: each runs as ``python -m
 cdrs_tpu_torch.benchmarks.<name>``, raises without CUDA unless given
 ``--device cpu``, and writes the port's own artifacts, never a path the
 reference's bench writes (tests read those)."""
@@ -15,7 +15,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
 BENCHES = ("control_bench", "chaos_bench", "storage_bench", "integrity_bench", "serve_bench",
-           "daemon_bench", "overload_bench", "geo_bench", "placement_bench")
+           "daemon_bench", "overload_bench", "geo_bench", "placement_bench", "mesh_bench",
+           "search_bench", "telemetry_overhead", "plan_bench")
 #: Each bench's default output flags besides ``--out``.
 EXTRA_OUTS = {"chaos_bench": ("DEFAULT_RACK_OUT",), "storage_bench": ("DEFAULT_OVERHEAD_OUT",)}
 

@@ -16,6 +16,8 @@ import json
 import math
 
 import numpy as np
+import pytest
+import torch
 
 import cdrs_tpu.control as ref_control
 import cdrs_tpu.ops.kmeans_np as ref_kmeans_np
@@ -25,6 +27,19 @@ from cdrs_tpu_torch.models.replication import ReplicationPolicyModel
 
 #: Wall-clock fields, never compared.
 WALL_CLOCK = frozenset({"seconds", "run_seconds"})
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One torch intra-op thread for the test.  With several pytest-xdist
+    workers on the host's cores, torch's spinning thread pool makes the
+    benches' many small ops tens of times slower than one thread does."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
 
 
 @contextlib.contextmanager

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""The nine subsystem benches at the reference's defaults, one after another,
-on one CUDA card.
+"""The thirteen subsystem benches at the reference's defaults, one after
+another, on one CUDA card.
 
-    python3 tools/subsystem_benches.py OUTDIR              # all nine
+    python3 tools/subsystem_benches.py OUTDIR              # all thirteen
     python3 tools/subsystem_benches.py OUTDIR serve_bench geo_bench
 
 Runs ``python -m cdrs_tpu_torch.benchmarks.<name>`` for each bench with its
@@ -24,9 +24,11 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCHES = ("control_bench", "chaos_bench", "storage_bench", "integrity_bench", "serve_bench",
-           "daemon_bench", "overload_bench", "geo_bench", "placement_bench")
+           "daemon_bench", "overload_bench", "geo_bench", "placement_bench", "mesh_bench",
+           "search_bench", "telemetry_overhead", "plan_bench")
 #: Benches whose ``main`` appends to the port's history outside --quick.
-HISTORY = ("integrity_bench", "daemon_bench", "overload_bench", "geo_bench", "placement_bench")
+HISTORY = ("integrity_bench", "daemon_bench", "overload_bench", "geo_bench", "placement_bench",
+           "mesh_bench", "search_bench", "plan_bench")
 
 
 def main(argv: list[str]) -> int:
