@@ -7,7 +7,8 @@ their work is counted here from the shapes, the same way whatever
 implements them: :func:`kernel_cost` gives the operations and the bytes of
 one call (each input byte read once, each output byte written once), the
 only place the port counts a kernel's work.  Its users are the wrappers
-(``ops/lloyd.lloyd_assign_reduce``, ``ops/seg_count.label_threshold_count``),
+(``ops/lloyd.lloyd_assign_reduce``, ``ops/seg_count.label_threshold_count``,
+``ops/seg_sum.label_segment_sum``),
 the roofline rows of ``cdrs metrics summarize`` (``obs/aggregate.py``) and
 the smoke's bounds.
 
@@ -59,7 +60,8 @@ DEVICE_PEAKS: dict[str, dict] = {
 SPIN_CYCLES = 1_000_000
 
 #: The kernels whose work :func:`kernel_cost` counts, and their sources.
-KERNELS = {"lloyd_assign_reduce": "lloyd", "label_threshold_count": "seg_count"}
+KERNELS = {"lloyd_assign_reduce": "lloyd", "label_threshold_count": "seg_count",
+           "label_segment_sum": "seg_sum"}
 
 _LOCK = threading.Lock()
 #: (kernel, signature, stamp) seen in this process: the first call is timed.
@@ -94,6 +96,9 @@ def kernel_cost(kernel: str, *, n: int, d: int, k: int, n_valid: int | None = No
       tables written ((2 k d + 2 d) cells of four bytes each way, without
       the global 2 d when ``with_global`` is false); operations: four
       compares an element with the global table, two without.
+    * ``label_segment_sum`` (B2's general form): y ((n, d) in ``dtype``)
+      and the int32 labels read once, the (k, d) float32 sums written
+      once; operations: one add an element.
 
     Returns ``{"flops", "bytes", "dtype"}``."""
     esize = 2 if dtype == "bfloat16" else 4
@@ -105,6 +110,9 @@ def kernel_cost(kernel: str, *, n: int, d: int, k: int, n_valid: int | None = No
         g_cells = 2 * d if with_global else 0
         n_bytes = n * d * esize + n * 4 + (2 * k * d + g_cells) * 4 * 2
         ops = (4.0 if with_global else 2.0) * n * d
+    elif kernel == "label_segment_sum":
+        n_bytes = n * (4 + d * esize) + k * d * 4
+        ops = float(n * d)
     else:
         raise ValueError(f"unknown kernel {kernel!r}; known: {sorted(KERNELS)}")
     return {"flops": float(ops), "bytes": float(n_bytes), "dtype": dtype}

@@ -40,7 +40,7 @@ __all__ = ["SOURCES", "build_all", "load", "bind", "scratch", "on_device", "nvcc
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("lloyd", "seg_count")
+SOURCES = ("lloyd", "seg_count", "seg_sum")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernel checks only (no ok line)
     python3 chip_smoke.py --seg      # build + the threshold count's checks only
+    python3 chip_smoke.py --segsum   # build + the float segment sum's checks only
     python3 chip_smoke.py --phase 10 # build, kernel checks and one phase (9,
                                      # 10, ..., 18 or 19) alone; no ok line
 
@@ -42,7 +43,14 @@ Phases, each of which exits non-zero when a check fails:
    paths; config 3's 10,485,760 x 128 and the rehearsal's bf16 rows (row
    chunks).  Each threshold-count row also times the library's segment sum
    of the same 0/1 matrix, ``index_add_`` (``library_seg_ms``, the row's
-   ``library_ms``).
+   ``library_ms``).  Last, B2's general form, the float per-cluster sums of
+   ``label_segment_sum`` (``SEGSUM_ROWS``): the reference's two test shapes,
+   the main path's width with a -1 tail, 1M x 128, k = 1024 in f32 and
+   bf16 with uniform and skewed labels, 1M x 4, k = 20,000, 17M x 128 0/1
+   bf16 (n * d past 2^31, the plain version in 1M-row chunks) and three odd
+   shapes, each within tolerance of its float64 plain version (0/1 sums
+   exactly), bit-identical on a repeat launch, with ``index_add_`` as its
+   ``library_ms``.  No path calls it: the main path must launch it never.
 3. The main path: ``run_pipeline`` on CUDA over 2,500,000 files (seed 10,
    60 s of simulated traffic, k = 8, validated scoring with medians from
    the data).  The Lloyd kernel must run ``kmeans.n_iter + 1`` times and
@@ -1056,12 +1064,190 @@ def seg_rows(reps, gen, n_main):
     return rows
 
 
-def phase_kernels(reps, seg_only=False):
+def segsum_y(n, d, dtype, gen, zero_one=False, chunk_rows=None):
+    """(n, d) ``y`` in ``dtype`` on the card: uniform in [0, 1), or 0/1 with
+    ``zero_one``; with ``chunk_rows`` drawn that many rows at a time
+    straight into ``dtype``."""
+    import torch
+
+    y = torch.empty((n, d), dtype=dtype, device="cuda")
+    step = chunk_rows or max(n, 1)
+    for i in range(0, n, step):
+        part = torch.rand((min(n, i + step) - i, d), generator=gen, device="cuda")
+        y[i:i + step] = (part < 0.5).to(dtype) if zero_one else part.to(dtype)
+    return y
+
+
+def plain_segsum(lab, y, k, chunk_rows=None):
+    """B2's general form in plain PyTorch; with ``chunk_rows`` the float64
+    tables of row chunks of that many rows, added, then rounded once."""
+    import torch
+
+    from cdrs_tpu_torch.ops.seg_sum import label_segment_sum_plain
+
+    if chunk_rows is None:
+        return label_segment_sum_plain(lab, y, k)
+    total = torch.zeros((k, y.shape[1]), dtype=torch.float64, device=y.device)
+    for i in range(0, y.shape[0], chunk_rows):
+        lab_c, y_c = lab[i:i + chunk_rows], y[i:i + chunk_rows]
+        valid = (lab_c >= 0) & (lab_c < k)
+        total.index_add_(0, lab_c[valid].long(), y_c[valid].double())
+    return total.float()
+
+
+def library_segsum_ms(lab, y, k, reps, chunk_rows=None):
+    """The library's segment sum of the same rows: ms of
+    ``torch.zeros(k, d).index_add_(0, lab[valid], y[valid].float())``, the
+    valid rows selected outside the timed window.  With ``chunk_rows`` the
+    rows are selected a chunk at a time and each chunk's index_add_ into
+    one table is timed by its own event pair; the times add."""
+    import torch
+
+    d = y.shape[1]
+    if chunk_rows is None:
+        valid = (lab >= 0) & (lab < k)
+        lab_v, y_v = lab[valid], y[valid].float()
+        ms = time_ms(lambda: torch.zeros((k, d), device="cuda").index_add_(0, lab_v, y_v), reps)
+        del lab_v, y_v
+        return ms
+    table = torch.zeros((k, d), device="cuda")
+    total = 0.0
+    for i in range(0, y.shape[0], chunk_rows):
+        lab_c, y_c = lab[i:i + chunk_rows], y[i:i + chunk_rows]
+        valid = (lab_c >= 0) & (lab_c < k)
+        lab_v, y_v = lab_c[valid], y_c[valid].float()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        table.index_add_(0, lab_v, y_v)
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+        del lab_v, y_v
+    return total
+
+
+def check_segsum(name, n, d, k, dtype, gen, zero_one=False, skew=False, tail=0,
+                 chunk_rows=None):
+    """The float segment-sum kernel against its plain version on the card:
+    each cell within ``1e-5 * sum |y| over its rows + 1e-6`` of the float64
+    plain sums, exactly for 0/1 ``y``; two launches on the same inputs give
+    the same bits, and the launch counter moves by one a call.  Labels are
+    uniform in [-1, k), half of them 0 with ``skew``, the last ``tail`` of
+    them -1.  With ``chunk_rows`` y is drawn, and the plain version and the
+    library yardstick run, over row chunks of that many rows (the plain
+    version timed once).  ``ms`` is one pair of CUDA events around 20
+    back-to-back calls; ``device_ms`` the kernels' own time a call (block
+    tables and fold) from torch.profiler."""
+    import torch
+
+    from cdrs_tpu_torch.obs import kprof
+    from cdrs_tpu_torch.ops import seg_sum
+    from cdrs_tpu_torch.ops.seg_sum import label_segment_sum
+
+    reps = 20
+    y = segsum_y(n, d, dtype, gen, zero_one, chunk_rows)
+    lab = seg_labels(n, k, gen, skew)
+    if tail:
+        lab[n - tail:] = -1
+    before = label_segment_sum.launches
+    got = label_segment_sum(lab, y, k)
+    again = label_segment_sum(lab, y, k)
+    torch.cuda.synchronize()
+    check(label_segment_sum.launches == before + 2,
+          f"seg_sum {name}: {label_segment_sum.launches - before} launches for 2 calls")
+    check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+          f"seg_sum {name}: two launches on the same inputs differ")
+    want = plain_segsum(lab, y, k, chunk_rows)
+    err = (got.double() - want.double()).abs()
+    max_abs = float(err.max())
+    if zero_one:
+        check(max_abs == 0, f"seg_sum {name}: 0/1 sums differ from plain by {max_abs}")
+    else:   # uniform y >= 0: sum |y| over a cell's rows is the plain sum itself
+        over = float((err - (1e-5 * want.double() + 1e-6)).max())
+        check(over <= 0, f"seg_sum {name}: error {max_abs} over the tolerance by {over}")
+    check(bool(torch.isfinite(got).all()) and got.shape == (k, d) and got.dtype == torch.float32,
+          f"seg_sum {name}: output {tuple(got.shape)} {got.dtype} not finite float32")
+    call = lambda: label_segment_sum(lab, y, k)  # noqa: E731
+    ms = time_ms(call, reps)
+    dev_ms, per_call = device_ms(call, "seg_sum_", max(3, min(reps, 10)))
+    check(per_call is None or 0 < per_call <= 2.0,
+          f"seg_sum {name}: {per_call} kernel launches per call (tables and fold)")
+    dev_call = None if dev_ms is None else dev_ms * per_call
+    plain = lambda: plain_segsum(lab, y, k, chunk_rows)  # noqa: E731
+    plain_ms = (time_ms(plain, max(2, reps // 4)) if chunk_rows is None
+                else time_ms(plain, 1, warmup=0))
+    lib_ms = library_segsum_ms(lab, y, k, max(2, reps // 2), chunk_rows)
+    dt = str(dtype).replace("torch.", "")
+    b_ms, b_by = bound_ms(kprof.kernel_cost("label_segment_sum", n=n, d=d, k=k, dtype=dt))
+    p = seg_sum.plan(d, k, y.element_size())
+    log(f"seg_sum {name}: n={n} d={d} k={k} {dt} zero_one={zero_one} skew={skew} tail={tail} "
+        f"max error {max_abs:.3e} ({'exact' if zero_one else 'within tolerance'}), repeat "
+        f"bit-identical; kernel {ms:.4f} ms per call ({l2_note(dev_call, b_ms)}, {per_call} "
+        f"launches seen per call) plain {plain_ms:.4f} ms library index_add_ {lib_ms:.4f} ms "
+        f"bound {b_ms:.4f} ms ({b_by}); plan {p}")
+    del y, lab, got, again, want, err
+    torch.cuda.empty_cache()
+    return {"ms": ms, "device_ms": dev_call, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": max_abs}
+
+
+#: Phase 2's rows of B2's general form: the reference's two test shapes, the
+#: main path's width with a -1 tail, config 3's width in f32 and bf16 with
+#: uniform and skewed labels, 20,000 clusters, n * d past 2^31, and odd
+#: shapes for the plan's other cases (2-byte copies, 13-row chunks, slabs).
+SEGSUM_ROWS = (
+    ("ref-test", 2048, 6, 5, "float32", {}),
+    ("ref-chip", 65_536, 128, 1024, "bfloat16", {"zero_one": True}),
+    ("main-width", MAIN_FILES - 3, 5, K, "float32", {"tail": 1000}),
+    ("wide", 1 << 20, 128, 1024, "float32", {}),
+    ("wide-bf16", 1 << 20, 128, 1024, "bfloat16", {}),
+    ("skew", 1 << 20, 128, 1024, "float32", {"skew": True}),
+    ("skew-bf16", 1 << 20, 128, 1024, "bfloat16", {"skew": True}),
+    ("k20000", 1_000_000, 4, 20_000, "float32", {}),
+    ("past-2^31", 17_000_000, 128, 1024, "bfloat16",
+     {"zero_one": True, "chunk_rows": WIDE_CHUNK_ROWS}),
+    ("odd-bf16", 100_003, 37, 150, "bfloat16", {}),
+    ("odd-wide", 70_001, 300, 33, "float32", {}),
+    ("slabs", 200_003, 3, 60_000, "float32", {}),
+)
+
+
+def segsum_rows(gen) -> dict:
+    """Phase 2's rows of the float segment sum (``SEGSUM_ROWS``)."""
+    import torch
+
+    t0 = time.perf_counter()
+    rows = {}
+    for name, n, d, k, dt, kw in SEGSUM_ROWS:
+        rows[f"seg_sum {name} {n}x{d} k{k} {dt}"] = check_segsum(
+            name, n, d, k, getattr(torch, dt), gen, **kw)
+    log(f"B2 general-form rows: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def segsum_entry(rows: dict, launches: int) -> dict:
+    """The kernels line's entry of the float segment sum: the times of its
+    1M x 128, k = 1024 f32 row, the largest error of all its rows, and its
+    launches on the main path (none calls it)."""
+    wide = rows["seg_sum wide 1048576x128 k1024 float32"]
+    return {"name": "label_segment_sum", "route": "cuda",
+            "source": "cdrs_tpu_torch/csrc/seg_sum.cu",
+            "replaces": "cdrs_tpu/ops/pallas_kernels.py:534", "launches": launches,
+            **wide, "max_abs_err": max(r["max_abs_err"] for r in rows.values())}
+
+
+def phase_kernels(reps, seg_only=False, segsum_only=False):
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     n_main = MAIN_FILES - 3
+    if segsum_only:
+        rows = segsum_rows(gen)
+        log("kernel_shapes " + json.dumps(rows))
+        return rows
     if seg_only:
         t0 = time.perf_counter()
         wide = {"seg_count 2.5Mx5 k8": check_seg("pipeline", n_main, 5, K, reps, gen)}
@@ -1129,8 +1315,10 @@ def phase_kernels(reps, seg_only=False):
     t0 = time.perf_counter()
     wide.update(seg_rows(reps, gen, n_main))
     log(f"B2 general-path rows: {time.perf_counter() - t0:.1f} s")
+    segsum = segsum_rows(gen)
+    wide.update(segsum)
     log("kernel_shapes " + json.dumps(wide))
-    return rows
+    return rows, segsum
 
 
 def main_config():
@@ -1153,16 +1341,19 @@ def phase_main_path():
     from cdrs_tpu_torch import run_pipeline
     from cdrs_tpu_torch.ops.lloyd import lloyd_assign_reduce
     from cdrs_tpu_torch.ops.seg_count import label_threshold_count
+    from cdrs_tpu_torch.ops.seg_sum import label_segment_sum
 
     cfg = main_config()
     torch.cuda.reset_peak_memory_stats()
     lloyd_assign_reduce.launches = 0
     label_threshold_count.launches = 0
+    label_segment_sum.launches = 0
     t0 = time.perf_counter()
     result = run_pipeline(cfg)
     wall = time.perf_counter() - t0
     launches = {"lloyd": lloyd_assign_reduce.launches,
-                "seg_count": label_threshold_count.launches}
+                "seg_count": label_threshold_count.launches,
+                "seg_sum": label_segment_sum.launches}
     peak = torch.cuda.max_memory_allocated()
     dec = result.decision
     log(f"main path: {result.n_files} files, {result.n_events} events, wall {wall:.3f} s, "
@@ -1174,6 +1365,8 @@ def phase_main_path():
           f"iterations + 1 label pass")
     check(launches["seg_count"] == 12,
           f"main path made {launches['seg_count']} threshold-count launches, expected 12")
+    check(launches["seg_sum"] == 0,
+          f"main path made {launches['seg_sum']} float segment-sum launches; no path calls it")
     check(dec.labels.shape == (MAIN_FILES,), f"labels shape {dec.labels.shape}")
     check(dec.centroids.shape == (K, 5), f"centroids shape {dec.centroids.shape}")
     import numpy as np
@@ -5132,6 +5325,9 @@ def main() -> int:
     parser.add_argument("--seg", action="store_true",
                         help="build and check the threshold count alone (phase 2's B2 rows "
                              "and bisections); prints no ok line")
+    parser.add_argument("--segsum", action="store_true",
+                        help="build and check the float segment sum alone (phase 2's rows of "
+                             "B2's general form); prints no ok line")
     parser.add_argument("--phase", type=int, choices=(9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19),
                         default=None,
                         help="build and check the kernels, then run this phase alone; prints "
@@ -5153,7 +5349,11 @@ def main() -> int:
         phase_kernels(reps=20, seg_only=True)
         log(f"seg run done in {time.perf_counter() - t_start:.1f} s; main path skipped")
         return 0
-    rows = phase_kernels(reps=5 if args.quick else 20)
+    if args.segsum:
+        phase_kernels(reps=20, segsum_only=True)
+        log(f"segsum run done in {time.perf_counter() - t_start:.1f} s; main path skipped")
+        return 0
+    rows, segsum = phase_kernels(reps=5 if args.quick else 20)
     if args.quick:
         log(f"quick run done in {time.perf_counter() - t_start:.1f} s; main path skipped")
         return 0
@@ -5320,6 +5520,7 @@ def main() -> int:
          "subsystem_bench_launches": subsystem_launches["lloyd_rowmajor"],
          "phase19_launches": last_launches["lloyd_rowmajor"],
          **rows["lloyd_rowmajor"], "library_ms": None},
+        segsum_entry(segsum, launches["seg_sum"]),
     ]
     for row in kernels:
         check(all(isinstance(row[key], (int, float)) and math.isfinite(row[key])

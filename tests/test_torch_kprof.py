@@ -6,7 +6,9 @@ stream (``obs/aggregate.roofline_rows``).
 kernel table (B1 0.0149, B2 0.0179, B3 0.0019 ms on an H100; B1's general
 path 0.0523, 0.0200 in bf16, and 1.6667 ms at 1M x 128, k = 1024; B2's
 general path 0.1621, 1.6157 and 4.0697 ms at 1M, 10,485,760 and 52,428,800
-(bf16) x 128, k = 1024, and 0.0179 ms at 2,499,997 x 5, k = 64); on the CPU a
+(bf16) x 128, k = 1024, and 0.0179 ms at 2,499,997 x 5, k = 64; B2's general
+form, the float sums, 0.1617 and 0.0815 (bf16) ms at 1M x 128, k = 1024 and
+0.0179 ms at 2,499,997 x 5, k = 8); on the CPU a
 kernel event has ``seconds`` null and its roofline row says "not
 measured"; a build found on disk counts nothing; and the wrappers give
 bit-identical results with the instrument on or off."""
@@ -59,8 +61,13 @@ def _fresh_signatures():
     ("label_threshold_count", dict(n=52_428_800, d=128, k=1024, dtype="bfloat16"), 4.0697,
      "bytes"),
     ("label_threshold_count", dict(n=N_MAIN, d=5, k=64), 0.0179, "bytes"),
+    # B2's general form (float y) at smoke phase 2's shapes.
+    ("label_segment_sum", dict(n=WIDE, d=128, k=1024), 0.1617, "bytes"),
+    ("label_segment_sum", dict(n=WIDE, d=128, k=1024, dtype="bfloat16"), 0.0815, "bytes"),
+    ("label_segment_sum", dict(n=N_MAIN, d=5, k=8), 0.0179, "bytes"),
 ], ids=["B1", "B2", "B3", "B1-1Mx32-k128-f32", "B1-1Mx32-k128-bf16", "B1-1Mx128-k1024-f32",
-        "B2-1Mx128-k1024", "B2-10Mx128-k1024", "B2-52Mx128-k1024-bf16", "B2-2.5Mx5-k64"])
+        "B2-1Mx128-k1024", "B2-10Mx128-k1024", "B2-52Mx128-k1024-bf16", "B2-2.5Mx5-k64",
+        "B2sum-1Mx128-k1024-f32", "B2sum-1Mx128-k1024-bf16", "B2sum-2.5Mx5-k8"])
 def test_kernel_cost_reproduces_the_kernel_table_bounds(kernel, kw, bound_ms, by):
     cost = kprof.kernel_cost(kernel, **kw)
     secs, bound_by = kprof.bound_seconds(cost, kprof.resolve_peaks(H100, cost["dtype"]))
@@ -79,6 +86,19 @@ def test_kernel_cost_counts_each_byte_once():
                   "dtype": "float32"}
     with pytest.raises(ValueError, match="unknown kernel"):
         kprof.kernel_cost("nope", n=1, d=1, k=1)
+
+
+@pytest.mark.parametrize("kw, n_bytes", [
+    (dict(n=WIDE, d=128, k=1024), 541_589_504),
+    (dict(n=WIDE, d=128, k=1024, dtype="bfloat16"), 273_154_048),
+    (dict(n=N_MAIN, d=5, k=8), 60_000_088),
+])
+def test_kernel_cost_of_the_segment_sum(kw, n_bytes):
+    """y and the labels read once, the (k, d) float32 sums written once;
+    one add an element."""
+    cost = kprof.kernel_cost("label_segment_sum", **kw)
+    assert cost == {"flops": float(kw["n"] * kw["d"]), "bytes": float(n_bytes),
+                    "dtype": kw.get("dtype", "float32")}
 
 
 def test_resolve_peaks_knows_only_the_h100():
