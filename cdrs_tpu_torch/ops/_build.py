@@ -16,7 +16,8 @@ them; each run counts ``kernel.builds.<source>`` and its wall time goes to
 the ``kernel.build.seconds`` histogram of the active instrument (a
 library found on disk or already loaded counts nothing); a failed build
 raises with the compiler's output.  ``bind`` sets a function's ctypes
-signature once; ``scratch`` keeps a kernel's reusable buffers.
+signature once; ``scratch`` keeps a kernel's reusable buffers and
+``drop_scratch`` forgets them.
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ from pathlib import Path
 
 from ..obs.telemetry import current
 
-__all__ = ["SOURCES", "build_all", "load", "bind", "scratch", "on_device", "nvcc_path",
-           "ptxas_info", "HOST", "HOST_SOURCE", "HOST_FLAGS", "cxx_path"]
+__all__ = ["SOURCES", "build_all", "load", "bind", "scratch", "drop_scratch", "on_device",
+           "nvcc_path", "ptxas_info", "HOST", "HOST_SOURCE", "HOST_FLAGS", "cxx_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -177,6 +178,13 @@ def scratch(key: tuple, make):
             _scratch.pop(next(iter(_scratch)))
         buf = _scratch[key] = make()
     return buf
+
+
+def drop_scratch(key: tuple) -> None:
+    """Forgets the scratch of ``key`` (the next ``scratch`` call makes it
+    anew): for buffers a failed launch may have left in a state the next
+    call must not find."""
+    _scratch.pop(key, None)
 
 
 def on_device(index: int):

@@ -46,11 +46,15 @@ Phases, each of which exits non-zero when a check fails:
    ``library_ms``).  Last, B2's general form, the float per-cluster sums of
    ``label_segment_sum`` (``SEGSUM_ROWS``): the reference's two test shapes,
    the main path's width with a -1 tail, 1M x 128, k = 1024 in f32 and
-   bf16 with uniform and skewed labels, 1M x 4, k = 20,000, 17M x 128 0/1
-   bf16 (n * d past 2^31, the plain version in 1M-row chunks) and three odd
-   shapes, each within tolerance of its float64 plain version (0/1 sums
-   exactly), bit-identical on a repeat launch, with ``index_add_`` as its
-   ``library_ms``.  No path calls it: the main path must launch it never.
+   bf16 with uniform and skewed labels and f32 with every row in cluster
+   0, 1M x 4, k = 20,000, 1M x 32, k = 65,536, 17M x 128 0/1 bf16 (n * d
+   past 2^31, the plain version in 1M-row chunks) and three odd shapes,
+   each within tolerance of its float64 plain version (0/1 sums exactly),
+   bit-identical on a repeat launch, five of them bit-identical to
+   ``label_segment_sum_ordered`` (the kernels' order in plain PyTorch),
+   each call exactly its plan's launches (a histogram, a sort pass a
+   digit, the sums, the fold), with ``index_add_`` as its ``library_ms``.
+   No path calls it: the main path must launch it never.
 3. The main path: ``run_pipeline`` on CUDA over 2,500,000 files (seed 10,
    60 s of simulated traffic, k = 8, validated scoring with medians from
    the data).  The Lloyd kernel must run ``kmeans.n_iter + 1`` times and
@@ -599,12 +603,10 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int = 10):
-    """(device ms per launch, launches seen per call) of the kernels whose
-    name holds ``kernel``, from torch.profiler over ``reps`` calls; (None,
-    None) when the profiler sees no device time.  The profiler may miss
-    some of a run of short kernels, so the launches seen are at most one
-    per call, not exactly one."""
+def kernel_records(fn, kernel: str, reps: int = 10) -> list:
+    """[(name, device us)] of each launch of the kernels whose name holds
+    ``kernel`` that torch.profiler saw over ``reps`` calls of ``fn`` (one
+    call before, outside the read), in the order they ran."""
     import torch
     from torch.autograd import DeviceType
 
@@ -615,14 +617,55 @@ def device_ms(fn, kernel: str, reps: int = 10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA and kernel in ev.name:
-            total_us += ev.time_range.elapsed_us()
-            count += 1
-    if not count:
+    evs = sorted((ev for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA and kernel in ev.name),
+                 key=lambda ev: ev.time_range.start)
+    return [(ev.name, ev.time_range.elapsed_us()) for ev in evs]
+
+
+def device_ms(fn, kernel: str, reps: int = 10):
+    """(device ms per launch, launches seen per call) of the kernels whose
+    name holds ``kernel``, from torch.profiler over ``reps`` calls; (None,
+    None) when the profiler sees no device time.  The profiler may miss
+    some of a run of short kernels, so the launches seen are at most one
+    per call, not exactly one."""
+    recs = kernel_records(fn, kernel, reps)
+    if not recs:
         return None, None
-    return total_us / count / 1e3, count / reps
+    return sum(us for _, us in recs) / len(recs) / 1e3, len(recs) / reps
+
+
+def whole_calls(recs: list, launches: int, first: str) -> list:
+    """The records of each call that ``recs`` (``kernel_records``) holds
+    whole: a call's records begin with the one whose name holds ``first``
+    and are exactly ``launches``.  A call that lost a record to the
+    profiler is left out, and so are the two a lost ``first`` record
+    merges."""
+    calls = []
+    for rec in recs:
+        if first in rec[0] or not calls:
+            calls.append([])
+        calls[-1].append(rec)
+    return [c for c in calls if len(c) == launches and first in c[0][0]]
+
+
+def whole_read(fn, kernel: str, launches: int, first: str, reps: int = 10, tries: int = 5):
+    """(calls, seen): ``whole_calls`` of the first of up to ``tries``
+    torch.profiler reads of ``reps`` calls of ``fn`` in which at least half
+    the calls were whole, and the records each read saw.  In a long process
+    the profiler drops about one record a read, never adds one.  calls is
+    None when no read had that many whole calls or one saw more than
+    ``launches`` records a call."""
+    seen = []
+    for _ in range(tries):
+        recs = kernel_records(fn, kernel, reps)
+        seen.append(len(recs))
+        if len(recs) > launches * reps:
+            return None, seen
+        calls = whole_calls(recs, launches, first)
+        if 2 * len(calls) >= reps:
+            return calls, seen
+    return None, seen
 
 
 def l2_note(dev_ms, b_ms) -> str:
@@ -1078,6 +1121,20 @@ def segsum_y(n, d, dtype, gen, zero_one=False, chunk_rows=None):
     return y
 
 
+def segsum_inputs(n, d, k, dtype, gen, zero_one=False, skew=False, tail=0, chunk_rows=None,
+                  one_cluster=False):
+    """(y, labels) of a ``SEGSUM_ROWS`` row: ``segsum_y``'s y; labels
+    uniform in [-1, k), half of them 0 with ``skew``, all of them 0 with
+    ``one_cluster``, the last ``tail`` of them -1."""
+    y = segsum_y(n, d, dtype, gen, zero_one, chunk_rows)
+    lab = seg_labels(n, k, gen, skew)
+    if one_cluster:
+        lab.zero_()
+    if tail:
+        lab[n - tail:] = -1
+    return y, lab
+
+
 def plain_segsum(lab, y, k, chunk_rows=None):
     """B2's general form in plain PyTorch; with ``chunk_rows`` the float64
     tables of row chunks of that many rows, added, then rounded once."""
@@ -1128,29 +1185,31 @@ def library_segsum_ms(lab, y, k, reps, chunk_rows=None):
     return total
 
 
-def check_segsum(name, n, d, k, dtype, gen, zero_one=False, skew=False, tail=0,
-                 chunk_rows=None):
-    """The float segment-sum kernel against its plain version on the card:
-    each cell within ``1e-5 * sum |y| over its rows + 1e-6`` of the float64
-    plain sums, exactly for 0/1 ``y``; two launches on the same inputs give
-    the same bits, and the launch counter moves by one a call.  Labels are
-    uniform in [-1, k), half of them 0 with ``skew``, the last ``tail`` of
-    them -1.  With ``chunk_rows`` y is drawn, and the plain version and the
-    library yardstick run, over row chunks of that many rows (the plain
-    version timed once).  ``ms`` is one pair of CUDA events around 20
-    back-to-back calls; ``device_ms`` the kernels' own time a call (block
-    tables and fold) from torch.profiler."""
+def check_segsum(name, n, d, k, dtype, gen, ordered=False, **kw):
+    """The float segment-sum kernels against their plain version on the
+    card: each cell within ``1e-5 * sum |y| over its rows + 1e-6`` of the
+    float64 plain sums, exactly for 0/1 ``y``; two launches on the same
+    inputs give the same bits, and the launch counter moves by one a call;
+    with ``ordered``, the bits of ``label_segment_sum_ordered`` (the
+    kernels' adds in their order, in plain PyTorch on the card).  Inputs
+    as ``segsum_inputs`` draws them; with ``chunk_rows`` the plain version
+    and the library yardstick run over row chunks of that many rows (the
+    plain version timed once).  ``ms`` is one pair of CUDA events around
+    20 back-to-back calls; ``device_ms`` the kernels' own time a call, over
+    the calls of a read of 10 whose every launch torch.profiler saw, each
+    call exactly the plan's launches (a histogram, one sort pass a digit,
+    the sums, the fold; ``whole_read``).  A read that saw more fails, and
+    so do five with fewer than half their calls whole."""
     import torch
 
     from cdrs_tpu_torch.obs import kprof
     from cdrs_tpu_torch.ops import seg_sum
-    from cdrs_tpu_torch.ops.seg_sum import label_segment_sum
+    from cdrs_tpu_torch.ops.seg_sum import label_segment_sum, label_segment_sum_ordered
 
     reps = 20
-    y = segsum_y(n, d, dtype, gen, zero_one, chunk_rows)
-    lab = seg_labels(n, k, gen, skew)
-    if tail:
-        lab[n - tail:] = -1
+    chunk_rows = kw.get("chunk_rows")
+    y, lab = segsum_inputs(n, d, k, dtype, gen, **kw)
+    p = seg_sum.plan(d, k, n)
     before = label_segment_sum.launches
     got = label_segment_sum(lab, y, k)
     again = label_segment_sum(lab, y, k)
@@ -1159,10 +1218,16 @@ def check_segsum(name, n, d, k, dtype, gen, zero_one=False, skew=False, tail=0,
           f"seg_sum {name}: {label_segment_sum.launches - before} launches for 2 calls")
     check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
           f"seg_sum {name}: two launches on the same inputs differ")
+    if ordered:
+        order = label_segment_sum_ordered(lab, y, k, p)
+        differ = int((order.view(torch.int32) != got.view(torch.int32)).sum())
+        check(differ == 0, f"seg_sum {name}: {differ} cells differ from the kernels' order "
+                           f"in plain PyTorch ({p})")
+        del order
     want = plain_segsum(lab, y, k, chunk_rows)
     err = (got.double() - want.double()).abs()
     max_abs = float(err.max())
-    if zero_one:
+    if kw.get("zero_one"):
         check(max_abs == 0, f"seg_sum {name}: 0/1 sums differ from plain by {max_abs}")
     else:   # uniform y >= 0: sum |y| over a cell's rows is the plain sum itself
         over = float((err - (1e-5 * want.double() + 1e-6)).max())
@@ -1171,22 +1236,26 @@ def check_segsum(name, n, d, k, dtype, gen, zero_one=False, skew=False, tail=0,
           f"seg_sum {name}: output {tuple(got.shape)} {got.dtype} not finite float32")
     call = lambda: label_segment_sum(lab, y, k)  # noqa: E731
     ms = time_ms(call, reps)
-    dev_ms, per_call = device_ms(call, "seg_sum_", max(3, min(reps, 10)))
-    check(per_call is None or 0 < per_call <= 2.0,
-          f"seg_sum {name}: {per_call} kernel launches per call (tables and fold)")
-    dev_call = None if dev_ms is None else dev_ms * per_call
+    dev_reps = max(3, min(reps, 10))
+    calls, counts = whole_read(call, "seg_sum_", p.launches, "seg_sum_hist", dev_reps)
+    check(calls is not None or not any(counts),
+          f"seg_sum {name}: torch.profiler saw {counts} kernel launches in reads of {dev_reps} "
+          f"calls, the plan makes {p.launches} a call ({p.passes} sort passes)")
+    dev_call = None if calls is None else sum(us for c in calls for _, us in c) / len(calls) / 1e3
     plain = lambda: plain_segsum(lab, y, k, chunk_rows)  # noqa: E731
     plain_ms = (time_ms(plain, max(2, reps // 4)) if chunk_rows is None
                 else time_ms(plain, 1, warmup=0))
     lib_ms = library_segsum_ms(lab, y, k, max(2, reps // 2), chunk_rows)
     dt = str(dtype).replace("torch.", "")
     b_ms, b_by = bound_ms(kprof.kernel_cost("label_segment_sum", n=n, d=d, k=k, dtype=dt))
-    p = seg_sum.plan(d, k, y.element_size())
-    log(f"seg_sum {name}: n={n} d={d} k={k} {dt} zero_one={zero_one} skew={skew} tail={tail} "
-        f"max error {max_abs:.3e} ({'exact' if zero_one else 'within tolerance'}), repeat "
-        f"bit-identical; kernel {ms:.4f} ms per call ({l2_note(dev_call, b_ms)}, {per_call} "
-        f"launches seen per call) plain {plain_ms:.4f} ms library index_add_ {lib_ms:.4f} ms "
-        f"bound {b_ms:.4f} ms ({b_by}); plan {p}")
+    flags = " ".join(f"{key}={val}" for key, val in kw.items())
+    log(f"seg_sum {name}: n={n} d={d} k={k} {dt} {flags} max error {max_abs:.3e} "
+        f"({'exact' if kw.get('zero_one') else 'within tolerance'}), repeat bit-identical"
+        f"{', the kernels order bit for bit' if ordered else ''}; kernel {ms:.4f} ms "
+        f"per call ({l2_note(dev_call, b_ms)}, {len(calls or ())} calls whole, records seen "
+        f"in reads of {dev_reps} calls {counts}) plain "
+        f"{plain_ms:.4f} ms library index_add_ {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}); "
+        f"plan {p}")
     del y, lab, got, again, want, err
     torch.cuda.empty_cache()
     return {"ms": ms, "device_ms": dev_call, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -1195,8 +1264,10 @@ def check_segsum(name, n, d, k, dtype, gen, zero_one=False, skew=False, tail=0,
 
 #: Phase 2's rows of B2's general form: the reference's two test shapes, the
 #: main path's width with a -1 tail, config 3's width in f32 and bf16 with
-#: uniform and skewed labels, 20,000 clusters, n * d past 2^31, and odd
-#: shapes for the plan's other cases (2-byte copies, 13-row chunks, slabs).
+#: uniform and skewed labels and with every row in one cluster, 20,000 and
+#: 65,536 clusters (two sort passes), n * d past 2^31, and odd shapes (2- and
+#: 4-byte loads in column blocks, 60,000 clusters of a few rows); each row's
+#: last field the flags ``segsum_inputs`` draws its inputs by.
 SEGSUM_ROWS = (
     ("ref-test", 2048, 6, 5, "float32", {}),
     ("ref-chip", 65_536, 128, 1024, "bfloat16", {"zero_one": True}),
@@ -1205,14 +1276,17 @@ SEGSUM_ROWS = (
     ("wide-bf16", 1 << 20, 128, 1024, "bfloat16", {}),
     ("skew", 1 << 20, 128, 1024, "float32", {"skew": True}),
     ("skew-bf16", 1 << 20, 128, 1024, "bfloat16", {"skew": True}),
+    ("one-cluster", 1 << 20, 128, 1024, "float32", {"one_cluster": True}),
     ("k20000", 1_000_000, 4, 20_000, "float32", {}),
+    ("k65536", 1 << 20, 32, 65_536, "float32", {}),
     ("past-2^31", 17_000_000, 128, 1024, "bfloat16",
      {"zero_one": True, "chunk_rows": WIDE_CHUNK_ROWS}),
     ("odd-bf16", 100_003, 37, 150, "bfloat16", {}),
     ("odd-wide", 70_001, 300, 33, "float32", {}),
     ("slabs", 200_003, 3, 60_000, "float32", {}),
 )
-
+#: The rows also held bit for bit to the kernels' order in plain PyTorch.
+SEGSUM_ORDERED = frozenset({"ref-test", "main-width", "skew", "k20000", "slabs"})
 
 def segsum_rows(gen) -> dict:
     """Phase 2's rows of the float segment sum (``SEGSUM_ROWS``)."""
@@ -1222,7 +1296,7 @@ def segsum_rows(gen) -> dict:
     rows = {}
     for name, n, d, k, dt, kw in SEGSUM_ROWS:
         rows[f"seg_sum {name} {n}x{d} k{k} {dt}"] = check_segsum(
-            name, n, d, k, getattr(torch, dt), gen, **kw)
+            name, n, d, k, getattr(torch, dt), gen, ordered=name in SEGSUM_ORDERED, **kw)
     log(f"B2 general-form rows: {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -1235,7 +1309,8 @@ def segsum_entry(rows: dict, launches: int) -> dict:
     return {"name": "label_segment_sum", "route": "cuda",
             "source": "cdrs_tpu_torch/csrc/seg_sum.cu",
             "replaces": "cdrs_tpu/ops/pallas_kernels.py:534", "launches": launches,
-            **wide, "max_abs_err": max(r["max_abs_err"] for r in rows.values())}
+            **wide,
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values())}
 
 
 def phase_kernels(reps, seg_only=False, segsum_only=False):

@@ -6,8 +6,12 @@ rounded once to float32).  For float ``y`` each cell must lie within
 ``1e-5 * sum |y| over its rows + 1e-6`` of the reference's (which also meets
 the reference test's rtol 1e-5, atol 1e-4); for integer-valued ``y`` it must
 be exact.  The reference needs its rows padded to its tile with label -1;
-the port takes any row count.  The kernel's plan (slices, slabs, row
-groups) is checked for the shapes the card runs.
+the port takes any row count.  The CUDA path's order is checked here
+through its plain replica: the plan's sorted order and pieces at the
+shapes the card runs, and ``label_segment_sum_ordered`` (the kernels'
+adds in the kernels' order, which the card must match bit for bit)
+against the reference within the same tolerance, exactly on integer
+sums.
 """
 
 import numpy as np
@@ -21,7 +25,7 @@ from cdrs_tpu.ops.pallas_kernels import label_segment_matmul, seg_tile  # noqa: 
 
 from cdrs_tpu_torch.ops import seg_sum  # noqa: E402
 from cdrs_tpu_torch.ops.seg_sum import (label_segment_sum,  # noqa: E402
-                                        label_segment_sum_plain)
+                                        label_segment_sum_ordered, label_segment_sum_plain)
 
 
 def reference(lab, y, k, tile_rows=None, bf16=False):
@@ -198,34 +202,154 @@ def test_wrapper_on_cpu_is_the_plain_version(seed):
     assert label_segment_sum.launches == before
 
 
-# The shapes smoke phase 2 runs on the card, and odd ones.
-PLAN_SHAPES = [(2048, 6, 5, 4), (65_536, 128, 1024, 2), (2_499_997, 5, 8, 4),
-               (1 << 20, 128, 1024, 4), (1 << 20, 128, 1024, 2), (1_000_000, 4, 20_000, 4),
-               (17_000_000, 128, 1024, 2), (3001, 7, 9, 4), (70_001, 300, 33, 4),
-               (100_003, 37, 150, 2), (50_000, 4, 100_000, 4), (10, 5000, 1, 4),
-               (0, 3, 4, 4)]
+# The shapes smoke phase 2 runs on the card, and odd ones: (n, d, k).
+PLAN_SHAPES = [(2048, 6, 5), (65_536, 128, 1024), (2_499_997, 5, 8), (1 << 20, 128, 1024),
+               (1 << 20, 32, 65_536), (1_000_000, 4, 20_000), (17_000_000, 128, 1024),
+               (3001, 7, 9), (70_001, 300, 33), (100_003, 37, 150), (50_000, 4, 100_000),
+               (10, 5000, 1), (0, 3, 4)]
 
 
-@pytest.mark.parametrize("n, d, k, itemsize", PLAN_SHAPES)
-def test_plan_fits_and_covers_every_cell_and_row(n, d, k, itemsize):
-    p = seg_sum.plan(d, k, itemsize)
-    assert p.smem <= seg_sum.SMEM_MAX
-    assert p.smem == seg_sum._smem(p.slice, p.slab, itemsize)
-    assert p.slice <= d and p.slab <= k and p.rows >= 1
-    assert p.rows * p.slice * itemsize <= seg_sum.STAGE_BYTES or p.rows == 1
-    assert (p.nslices - 1) * p.slice < d <= p.nslices * p.slice
-    assert (p.nslabs - 1) * p.slab < k <= p.nslabs * p.slab
-    for resident in (132, 264, 528):
-        g, group_rows = seg_sum.groups(n, p, resident)
-        assert 1 <= g <= max(1, resident // p.tiles)
-        assert g * group_rows >= n and group_rows % p.rows == 0
-        assert (g - 1) * group_rows < n or g == 1     # no group without rows
+def check_pieces(lab, k, p):
+    """The sorted order holds every row with a label in [0, k) once, in
+    (cluster, row) order; the pieces tile it, each one cluster's run
+    inside one chunk of ``p.piece`` positions, a cluster's pieces
+    adjacent."""
+    keys, ids, starts, ends = seg_sum.sorted_pieces(torch.from_numpy(lab), k, p)
+    keys, ids, starts, ends = keys.numpy(), ids.numpy(), starts.numpy(), ends.numpy()
+    valid = np.flatnonzero((lab >= 0) & (lab < k))
+    np.testing.assert_array_equal(np.sort(ids), valid)
+    np.testing.assert_array_equal(keys, lab[ids])
+    order = np.lexsort((ids, keys))
+    np.testing.assert_array_equal(order, np.arange(len(ids)))
+    if not len(ids):
+        assert len(starts) == 0
+        return
+    assert starts[0] == 0 and ends[-1] == len(ids)
+    np.testing.assert_array_equal(starts[1:], ends[:-1])
+    assert (ends - starts <= p.piece).all() and (ends > starts).all()
+    assert (starts // p.piece == (ends - 1) // p.piece).all()
+    assert (keys[starts] == keys[ends - 1]).all()
+    first_keys = keys[starts]
+    assert (np.diff(first_keys) >= 0).all()   # a cluster's pieces are adjacent
+    return starts, ends
 
 
-def test_plan_keeps_all_features_where_they_fit_and_slices_of_32_at_k1024():
-    assert seg_sum.plan(6, 5).slice == 6 and seg_sum.plan(6, 5).tiles == 1
-    wide = seg_sum.plan(128, 1024)
-    assert (wide.slice, wide.nslices, wide.nslabs) == (32, 4, 1)
-    assert seg_sum.plan(4, 20_000).slice == 2
-    many = seg_sum.plan(4, 100_000)
-    assert many.slice == 1 and many.nslabs == 2
+@pytest.mark.parametrize("n, d, k", PLAN_SHAPES)
+def test_plan_pieces_cover_every_valid_row_once_in_cluster_order(n, d, k):
+    p = seg_sum.plan(d, k, n)
+    assert p.layout == ("rows" if d < 32 else "cols")
+    assert p.piece & (p.piece - 1) == 0 and 32 <= p.piece <= 8192
+    assert p.chunks == max(1, -(-n // p.piece))
+    assert 8 * p.passes >= (k - 1).bit_length() and p.launches == p.passes + 3
+    rng = np.random.default_rng(n % 1000 + d + k)
+    lab = rng.integers(-1, k, size=n, dtype=np.int32)
+    check_pieces(lab, k, p)
+
+
+@pytest.mark.parametrize("n", [1000, 100_003, 1 << 20])
+def test_plan_pieces_of_a_cluster_holding_every_row(n):
+    """Every row in cluster 0 (the smoke's one-cluster row at 1M): one
+    piece a chunk, each a whole chunk but the last."""
+    p = seg_sum.plan(128, 1024, n)
+    starts, ends = check_pieces(np.zeros(n, np.int32), 1024, p)
+    assert len(starts) == p.chunks == -(-n // p.piece)
+    assert (ends[:-1] - starts[:-1] == p.piece).all()
+
+
+def test_plan_at_the_smokes_shapes():
+    """The lane layout follows d, the passes k, the chunk length n."""
+    assert seg_sum.plan(6, 5, 2048) == seg_sum.Plan("rows", 32, 1, 64)
+    assert seg_sum.plan(3, 60_000, 200_003).chunks == 3126
+    wide = seg_sum.plan(128, 1024, 1 << 20)
+    assert (wide.layout, wide.piece, wide.passes, wide.launches) == ("cols", 512, 2, 5)
+    assert seg_sum.plan(5, 8, 2_499_997)[:3] == ("rows", 1024, 1)
+    assert seg_sum.plan(4, 20_000, 1_000_000)[:3] == ("rows", 256, 2)
+    assert seg_sum.plan(3, 60_000, 200_003)[:3] == ("rows", 64, 2)
+    assert seg_sum.plan(32, 65_536, 1 << 20)[:3] == ("cols", 512, 2)
+    assert seg_sum.plan(31, 1, 10).layout == "rows"
+    assert seg_sum.plan(1, 70_000, 10).passes == 3
+    assert seg_sum.plan(128, 1024, 17_000_000).piece == 8192
+
+
+@pytest.mark.parametrize("n, d, k, labels, seed", [
+    (2048, 6, 5, "uniform", 0), (2048, 6, 5, "uniform", 1), (3001, 7, 9, "uniform", 2),
+    (3001, 7, 9, "skewed", 3), (4000, 40, 6, "skewed", 4), (1500, 6, 5, "outside", 5)])
+def test_ordered_version_matches_the_reference(n, d, k, labels, seed):
+    """The kernels' order in plain PyTorch against ``label_segment_matmul``
+    (interpret mode): the reference's own shape, an odd row count, half the
+    rows in one cluster, the "cols" layout (d = 40), labels outside [0, k)."""
+    rng = np.random.default_rng(40 + seed)
+    lab = rng.integers(-1, k, size=n).astype(np.int32)
+    if labels == "skewed":
+        lab[rng.random(n) < 0.5] = 2
+    elif labels == "outside":
+        lab[rng.choice(n, size=300, replace=False)] = np.array([k, 127, 131], np.int32)[
+            np.arange(300) % 3]
+    y = rng.uniform(-1.0, 1.0, size=(n, d)).astype(np.float32)
+    p = seg_sum.plan(d, k, n)
+    got = label_segment_sum_ordered(torch.from_numpy(lab), torch.from_numpy(y), k, p)
+    assert got.dtype == torch.float32 and got.shape == (k, d)
+    assert_close(got.numpy().astype(np.float64), reference(lab, y, k), lab, y, k)
+
+
+@pytest.mark.parametrize("layout_d, n", [(3, 600_000), (32, 300_000)])
+def test_ordered_version_over_long_chunks(layout_d, n):
+    """Chunks of 256 and 128 positions (steps that continue a run, steps
+    that close it, runs inside a step, clusters over many chunks) against
+    the float64 plain version."""
+    rng = np.random.default_rng(layout_d)
+    k = 37
+    lab = np.sort(rng.integers(-1, k, size=n)).astype(np.int32)[rng.permutation(n)]
+    lab[: n // 3] = 5
+    y = rng.uniform(size=(n, layout_d)).astype(np.float32)
+    p = seg_sum.plan(layout_d, k, n)
+    assert p.piece >= 128
+    got = label_segment_sum_ordered(torch.from_numpy(lab), torch.from_numpy(y), k, p)
+    want = label_segment_sum_plain(torch.from_numpy(lab), torch.from_numpy(y), k)
+    assert_close(got.numpy().astype(np.float64), want.numpy().astype(np.float64), lab, y, k)
+
+
+@pytest.mark.parametrize("case", ["integer-rows", "zero-one-bf16-cols", "one-cluster"])
+def test_ordered_version_is_exact_on_integer_sums(case):
+    rng = np.random.default_rng(11)
+    if case == "integer-rows":
+        n, d, k = 4000, 5, 8
+        lab = rng.integers(-1, k, size=n).astype(np.int32)
+        y = torch.from_numpy(rng.integers(-50, 50, size=(n, d)).astype(np.float32))
+        want = reference(lab, y.numpy(), k)
+    elif case == "zero-one-bf16-cols":
+        n, d, k = 8192, 128, 1024
+        lab = rng.integers(-1, k, size=n).astype(np.int32)
+        y01 = (rng.random((n, d)) < 0.5).astype(np.float32)
+        y = torch.from_numpy(y01).to(torch.bfloat16)
+        want = reference(lab, y01, k, bf16=True)
+    else:
+        n, d, k = 5000, 33, 3
+        lab = np.zeros(n, np.int32)
+        y = torch.from_numpy(rng.integers(0, 4, size=(n, d)).astype(np.float32))
+        want = reference(lab, y.numpy(), k)
+    got = label_segment_sum_ordered(torch.from_numpy(lab), y, k,
+                                    seg_sum.plan(d, k, n))
+    np.testing.assert_array_equal(got.numpy().astype(np.float64), want)
+
+
+@pytest.mark.parametrize("n", [0, 2000])
+def test_ordered_version_gives_zeros_for_empty_clusters_and_no_rows(n):
+    rng = np.random.default_rng(12)
+    d, k = 6, 7
+    lab = rng.integers(0, k, size=n).astype(np.int32)
+    lab[lab == 3] = 4
+    y = rng.normal(size=(n, d)).astype(np.float32)
+    got = label_segment_sum_ordered(torch.from_numpy(lab), torch.from_numpy(y), k,
+                                    seg_sum.plan(d, k, n)).numpy()
+    assert (got[3] == 0).all() and not np.signbit(got[3]).any()
+    if n == 0:
+        assert (got == 0).all()
+    else:
+        assert_close(got.astype(np.float64), reference(lab, y, k), lab, y, k)
+
+
+def test_ordered_version_of_labels_all_outside_is_zero():
+    lab = torch.full((500,), 9, dtype=torch.int32)
+    got = label_segment_sum_ordered(lab, torch.ones((500, 40)), 4, seg_sum.plan(40, 4, 500))
+    assert torch.equal(got, torch.zeros((4, 40)))
