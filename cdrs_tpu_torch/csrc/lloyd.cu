@@ -15,7 +15,7 @@
 // No float atomics anywhere: sums are added in a fixed order and counts are
 // integers, so two calls on the same inputs give the same bits.
 //
-// Two paths, one launch each.
+// Three paths, one launch each.
 //
 // * Small path (d <= 8, k <= 16: the pipeline, the stream path and drift).
 //   At d = 5, k = 8 a row costs k*d FMAs per 4*d bytes read, ~2 FMA/byte:
@@ -36,95 +36,76 @@
 //   last block to take a ticket from an integer counter sums the block
 //   partials in block order and resets the ticket.
 //
-// * General path (every other shape: entry()'s d = 5, k = 64, d = 32,
-//   k = 128, d = 128, k = 1024, odd d and k).  What bounds it: 2 n k d
+// * General paths (every other shape).  What bounds them: 2 n k d
 //   operations against 4 n d bytes (f32) is k/2 operations a byte, 64 at
 //   k = 128 and 512 at k = 1024, so f32 work is bound by operations (at
 //   495 / 3 TFLOP/s, the f32-accurate rate of the tensor cores); bf16
 //   points halve the bytes and their products run at 989 TFLOP/s, so
-//   1M x 32, k = 128 in bf16 is bound by its bytes.  The design puts the
-//   products on the tensor cores:
-//   - Tiles.  A block of 256 threads (8 warps, 4 along the rows x 2 along
-//     the centroids) takes 128-row tiles of x; a warp computes a 32-row x
-//     (8 WN)-centroid block of dot products with mma.sync (m16n8k8 TF32 for
-//     f32 points, m16n8k16 bf16 for bf16 points), f32 accumulators in
-//     registers.  First, every block writes its share of csplit: c in the
-//     layout the products read (tiles of 16 WN centroids x a feature chunk,
-//     row-major, zero-padded; f32 points split once into TF32 high and low
-//     parts), then one grid barrier.  Either all of csplit sits in shared
-//     memory, copied once, and x streams through a ring of up to 8 tiles
-//     (two blocks an SM, at most 128 registers); or (when c does not fit,
-//     as at d = 128, k = 1024) a two-slot ring carries (x chunk, c chunk)
-//     pairs: for each 128-row tile, each centroid tile and each chunk of
-//     features (64 at d = 128 in f32), so any d is served (one block an SM,
-//     registers uncapped).  x is staged by coalesced cp.async copies (16
-//     bytes where rows allow, else 8, 4, or plain 2-byte copies for odd
-//     bf16 rows) at a padded row stride that makes every fragment load hit
-//     32 banks; c as whole 16-byte copies of csplit.  The depth is padded to
-//     the instruction's (8 or 16): c's padding is zero, x's last step is
-//     masked.  mma.sync, not wgmma: a wgmma build (A from registers, B in
-//     128-byte-swizzle shared memory, the same staging) gave the same
-//     labels but was slower at d = 32 and only a little faster at d = 128;
-//     wgmma pays with warp-specialised producers (TMA) and epilogues that
-//     overlap the products, the next redesign.  tools/lloyd_breakdown.py
-//     times this path without its sums and with one product of three.
-//   - The split product (f32 points).  Each operand v is split as
-//     hi = rna_tf32(v), lo = rna_tf32(v - hi) (cvt.rna: round to nearest,
-//     ties away, 10 stored mantissa bits): c once a launch (csplit), x as it
-//     is loaded into a fragment.  x.c is taken as lo.hi' + hi.lo' + hi.hi'
-//     (three tensor-core products; lo.lo' dropped).  |v - hi - lo| <=
-//     2^-22 |v|, so each term's error is at most 3.01 * 2^-22 |x_f c_f| <
-//     2^-20 |x_f c_f|, and with the f32 additions of 3 d products (round or
-//     truncate, 2^-23 each):
-//       |dot - x.c| <= (2^-20 + 3 d 2^-23) * sum_f |x_f c_f|,
-//     the order of an f32 dot product's own rounding (the plain version's
-//     cuBLAS product: d 2^-24).  Each distance |c|^2 - 2 dot carries twice
-//     that, so a label can differ from the plain version's only where two
-//     distances lie within the sum of their errors.  bf16 points: the
-//     products of bf16 values are exact in f32, so one bf16 product, c
-//     rounded to bf16 by the wrapper.
-//   - Ranking.  The epilogue of each centroid tile turns a thread's
-//     accumulators into |c_j|^2 - 2 dot (|c|^2 in f32 from shared memory,
-//     taken once a block in feature order, +inf for padded centroids) and
-//     keeps a running best per row with strict < over increasing j.  The
-//     four lanes that share a row, then the two centroid warps, merge by
-//     (distance, index): the lower index wins equal distances, so the first
-//     minimum wins as in the plain version.
-//   - Statistics.  Counts are shared-memory integer atomics.  Sums: cluster
-//     j belongs to warp j mod 8, and its lane l adds features l, l + 32, ...
-//     of that cluster's rows in row order, so each cell has one writer and
-//     a fixed order without atomics.  When the (k, d) table fits in 64 KB
-//     (d = 32, k = 128), the rows are added from the staged tile as each
-//     128-row tile is labelled.  Otherwise (d = 128, k = 1024: 512 KB) the
-//     labels go to device memory (the output, or the wrapper's n-long
-//     scratch), and after its tiles the block makes a few passes over its
-//     own rows, each owning as many clusters as its freed shared memory
-//     holds: for each chunk of 256 labels the pass lists its rows in order
-//     and brings them in by bulk cp.async, 64 at a time, so the gather
-//     keeps many loads in flight.  Either way each block writes its (k, d)
-//     partial once, not per chunk.  The kernel is a cooperative launch
-//     (co-residency guaranteed); after a second grid-wide barrier every
-//     block sums its share of the cells over the block partials in block
-//     order.  The other choices: a one-hot product on the tensor cores (the
-//     TPU kernel's way) costs two thirds of the distance products again for
-//     f32 points, and a thread-block cluster holding the table in
-//     distributed shared memory leaves no room for the tiles.
+//   1M x 32, k = 128 in bf16 is bound by its bytes.  ops/lloyd.py's plan()
+//   picks the path from (d, k, dtype) and passes it with each call:
+//   - the wgmma path (csrc/lloyd_wgmma.cuh, whose note gives its design)
+//     where a row is a whole number of 16-byte units (TMA's row stride:
+//     d % 4 == 0 for f32, d % 8 == 0 for bf16) and a 256-row tile fits a
+//     block: configs 2 and 3 and the rehearsal;
+//   - the mma_sync path (namespace gen below) for the rest: entry()'s
+//     d = 5, k = 64, odd bf16 rows (d = 37), rows too wide for a 256-row
+//     tile (d = 300).
+//   mma_sync path.  A block of 256 threads (8 warps, 4 along the rows x 2
+//   along the centroids) takes 128-row tiles of x; a warp computes a
+//   32-row x (8 WN)-centroid block of dot products with mma.sync (m16n8k8
+//   TF32 for f32 points, m16n8k16 bf16), f32 accumulators in registers.
+//   Every block first writes its share of csplit (c in the layout the
+//   products read, f32 split once into TF32 high and low parts), then a
+//   grid barrier.  Either all of csplit sits in shared memory and x
+//   streams through a ring of up to 8 tiles (two blocks an SM), or a
+//   two-slot ring carries (x chunk, c chunk) pairs, so any d is served.  x
+//   is staged by cp.async copies (16 bytes where rows allow, down to plain
+//   2-byte copies) at a padded row stride that makes every fragment load
+//   hit 32 banks.  The depth is padded to the instruction's: c's padding
+//   is zero, x's last step is masked.  The epilogue of each centroid tile
+//   keeps a running best per row; the lanes and warps of a row merge by
+//   (distance, index).  Sums: counts are shared-memory integer atomics;
+//   cluster j belongs to warp j mod 8 and lane l adds features l, l + 32,
+//   ... of its rows in row order (one writer a cell).  When the (k, d)
+//   table fits in 64 KB the rows are added from the staged tile; else the
+//   labels are stored and the block makes passes over its own rows, each
+//   owning as many clusters as its freed shared memory holds.  A second
+//   grid barrier, then every block sums its cells over the block
+//   partials in block order.
+// * The split product (f32 points, both general paths).  Each operand v is
+//   split as hi = rna_tf32(v), lo = rna_tf32(v - hi) (cvt.rna: round to
+//   nearest, ties away, 10 stored mantissa bits): c once a launch, x as it
+//   is loaded into a fragment.  x.c is taken a k-step of 8 features at a
+//   time as lo.hi' + hi.lo' + hi.hi' (three tensor-core products; lo.lo'
+//   dropped).  |v - hi - lo| <= 2^-22 |v|, so each term's error is at most
+//   3.01 * 2^-22 |x_f c_f| < 2^-20 |x_f c_f|, and with the f32 additions of
+//   3 d products (round or truncate, 2^-23 each):
+//     |dot - x.c| <= (2^-20 + 3 d 2^-23) * sum_f |x_f c_f|,
+//   the order of an f32 dot product's own rounding (the plain version's
+//   cuBLAS product: d 2^-24).  Each distance |c|^2 - 2 dot carries twice
+//   that, so a label can differ from the plain version's only where two
+//   distances lie within the sum of their errors.  bf16 points: the
+//   products of bf16 values are exact in f32, so one bf16 product, c
+//   rounded to bf16 by the wrapper.
 // * with_labels = false (labels == NULL) skips the labels store; the
-//   general path needs them stored when it takes its sums in passes, and
-//   cdrs_lloyd_keeps_labels says when.
+//   general paths need a label buffer where they do not keep the sums in
+//   shared memory (cdrs_lloyd_plan_info's out[1]).
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "lloyd_wgmma.cuh"
 #include "tile.cuh"
 
 namespace {
 
 using cdrs::kStages;
 using cdrs::to_f;
+using lloyd_shared::sq_norm;
 
 struct Args {
   const void* x;
@@ -140,15 +121,8 @@ struct Args {
   int nb;             // partial capacity (blocks)
   int sms;            // streaming multiprocessors of the device
   cudaStream_t stream;
+  int* order;         // (n,) scratch of the wgmma path's sorted sums (NULL: none)
 };
-
-// |c_j|^2 in feature order, each product rounded before it is added (the
-// plain version's order, so both versions rank alike bit for bit).
-__device__ __forceinline__ float sq_norm(const float* cj, int d) {
-  float s = 0.f;
-  for (int f = 0; f < d; ++f) s = __fadd_rn(s, __fmul_rn(cj[f], cj[f]));
-  return s;
-}
 
 // ---------------------------------------------------------------- small path
 
@@ -381,17 +355,7 @@ struct Params {
 
 // ---- fragments and products
 
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t u;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(v));
-  return u;
-}
-
-// v = hi + lo + e, |e| <= 2^-22 |v| (the source note's bound).
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(v);
-  lo = tf32_rna(v - __uint_as_float(hi));
-}
+using lloyd_shared::split_tf32;
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -529,34 +493,20 @@ __device__ __forceinline__ void copy_chunk(unsigned char* dst, const unsigned ch
   else *reinterpret_cast<uint16_t*>(dst) = *reinterpret_cast<const uint16_t*>(src);
 }
 
-// Starts the copy of `rows` rows of `bytes` bytes (source stride src_stride)
-// into shared rows of dst_stride bytes, `gran` bytes a copy.
-__device__ __forceinline__ void stage_rows(unsigned char* dst, int dst_stride,
-                                           const unsigned char* src, int64_t src_stride,
-                                           int bytes, int rows, int gran) {
-  const int per = bytes / gran;
-  const int total = rows * per;
-  for (int q = threadIdx.x; q < total; q += kThreads) {
-    const int r = q / per, o = (q - r * per) * gran;
-    copy_chunk(dst + r * dst_stride + o, src + r * src_stride + o, gran);
-  }
-}
-
-// Adds rows 0..rows-1 of a chunk whose clusters lab[] (shared; -1: not
-// counted) fall in [s0, s0 + ns) into acc[(j - s0) * d + f].  Cluster j
-// belongs to warp j % kWarps and feature f to its lane f % 32: one writer a
-// cell, rows in increasing order, so the same inputs give the same bits.
-// Up to four rows are fetched before they are added, so a gather from
-// device memory keeps several loads in flight.
-template <typename Get>
+// Adds rows 0..rows-1 whose clusters lab[] (shared; -1: not counted) fall in
+// [s0, s0 + ns) into acc[(j - s0) * d + f].  Of the NW warps of the group,
+// cluster j belongs to warp j % NW (`warp` is the caller's) and feature f
+// to its lane f % 32: one writer a cell, rows in increasing order, so the
+// same inputs give the same bits.  Up to four rows are fetched before they
+// are added, so a gather from device memory keeps several loads in flight.
+template <int NW, typename Get>
 __device__ __forceinline__ void add_rows(float* acc, const int* lab, int rows, int s0, int ns,
-                                         int d, Get get) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+                                         int d, int warp, Get get) {
+  const int lane = threadIdx.x & 31;
   for (int r0 = 0; r0 < rows; r0 += 32) {
     const int j = r0 + lane < rows ? lab[r0 + lane] : -1;
     const int rel = j - s0;
-    unsigned m = __ballot_sync(0xffffffffu, j >= 0 && rel >= 0 && rel < ns &&
-                                                (j % kWarps) == w);
+    unsigned m = __ballot_sync(0xffffffffu, j >= 0 && rel >= 0 && rel < ns && (j % NW) == warp);
     while (m) {
       int rr[4], jr[4];
 #pragma unroll
@@ -575,6 +525,101 @@ __device__ __forceinline__ void add_rows(float* acc, const int* lab, int rows, i
           if (rr[q] >= 0) acc[jr[q] * d + f] += v[q];
       }
     }
+  }
+}
+
+// The sums of a block's counted rows [r0, r1) when the (k, d) table does
+// not fit in shared memory: passes over the rows' stored labels, each pass
+// owning `slab` clusters in `smem` (from offset 0; the rows staged at
+// off_stage, the pass's row and label lists at off_list).  For each chunk of
+// NT labels the rows of the pass's clusters are listed in row order, copied
+// in by cp.async, `gather` at a time (`gran` bytes a copy), and added from
+// shared memory.  NT threads (`tid` in [0, NT)) take part; `sync` is their
+// barrier and s_wcnt holds NT / 32 ints.  Each cell of the block's partial
+// my_part is written once.
+template <typename T, int NT, typename Sync>
+__device__ void stat_passes(unsigned char* smem, int off_stage, int off_list, int* s_wcnt,
+                            const int* labels, const unsigned char* xb, int64_t r0, int64_t r1,
+                            int k, int d, int slab, int gather, int gran, float* my_part,
+                            int tid, Sync sync) {
+  constexpr int NW = NT / 32;
+  const int lane = tid & 31, warp = tid >> 5;
+  float* s_slab = (float*)smem;
+  T* stage = (T*)(smem + off_stage);
+  int* s_list = (int*)(smem + off_list);
+  int* s_plab = s_list + NT;
+  const int row_bytes = d * (int)sizeof(T), per = row_bytes / gran;
+  for (int s0 = 0; s0 < k; s0 += slab) {
+    const int ns = min(slab, k - s0);
+    for (int e = tid; e < ns * d; e += NT) s_slab[e] = 0.f;
+    for (int64_t base = r0; base < r1; base += NT) {
+      const int64_t r = base + tid;
+      const int lab = r < r1 ? __ldcg(labels + r) : -1;
+      const bool in = lab >= s0 && lab < s0 + ns;
+      const unsigned bal = __ballot_sync(0xffffffffu, in);
+      if (lane == 0) s_wcnt[warp] = __popc(bal);
+      sync();
+      int before = 0, total = 0;
+      for (int w2 = 0; w2 < NW; ++w2) {
+        before += w2 < warp ? s_wcnt[w2] : 0;
+        total += s_wcnt[w2];
+      }
+      if (in) {
+        const int pos = before + __popc(bal & ((1u << lane) - 1u));
+        s_list[pos] = tid;
+        s_plab[pos] = lab;
+      }
+      sync();
+      for (int sub = 0; sub < total; sub += gather) {
+        const int cnt = min(gather, total - sub);
+        for (int q = tid; q < cnt * per; q += NT) {
+          const int i = q / per, o = (q - i * per) * gran;
+          copy_chunk((unsigned char*)stage + i * row_bytes + o,
+                     xb + (base + s_list[sub + i]) * row_bytes + o, gran);
+        }
+        cdrs::cp_async_commit();
+        cdrs::cp_async_wait<0>();
+        sync();
+        add_rows<NW>(s_slab, s_plab + sub, cnt, s0, ns, d, warp,
+                     [&](int rr, int f) { return to_f(stage[rr * d + f]); });
+        sync();
+      }
+    }
+    sync();
+    for (int e = tid; e < ns * d; e += NT) my_part[(int64_t)s0 * d + e] = s_slab[e];
+    sync();
+  }
+}
+
+// Where the passes' pieces go in the `free` bytes from offset 0 of shared
+// memory: the clusters' sums, then `gather` staged rows, then the lists of
+// NT rows and labels.  False when not even one cluster fits.
+inline bool pass_layout(size_t free, int d, int esz, int nt, int& slab, int& gather,
+                        int& off_stage, int& off_list) {
+  auto a16 = [](size_t v) { return (v + 15) & ~(size_t)15; };
+  const size_t lists = a16((size_t)2 * nt * 4);
+  gather = 64;
+  while (gather > 1 && free < lists + a16((size_t)gather * d * esz) + a16((size_t)4 * d))
+    gather /= 2;
+  const size_t used = lists + a16((size_t)gather * d * esz);
+  const size_t room = free > used ? free - used : 0;
+  slab = (int)((room > 16 ? room - 16 : 0) / (4 * (size_t)d));
+  off_stage = (int)a16((size_t)slab * d * 4);
+  off_list = off_stage + (int)a16((size_t)gather * d * esz);
+  return slab >= 1;
+}
+
+
+// Starts the copy of `rows` rows of `bytes` bytes (source stride src_stride)
+// into shared rows of dst_stride bytes, `gran` bytes a copy.
+__device__ __forceinline__ void stage_rows(unsigned char* dst, int dst_stride,
+                                           const unsigned char* src, int64_t src_stride,
+                                           int bytes, int rows, int gran) {
+  const int per = bytes / gran;
+  const int total = rows * per;
+  for (int q = threadIdx.x; q < total; q += kThreads) {
+    const int r = q / per, o = (q - r * per) * gran;
+    copy_chunk(dst + r * dst_stride + o, src + r * src_stride + o, gran);
   }
 }
 
@@ -706,8 +751,8 @@ __global__ void __launch_bounds__(kThreads, MINB) lloyd_general_kernel(const Par
     }
     __syncthreads();
     if (xt != nullptr)
-      add_rows(s_acc, s_lab, kBM, 0, k, d,
-               [&](int r, int f) { return to_f(xt[r * p.xs + f]); });
+      add_rows<kWarps>(s_acc, s_lab, kBM, 0, k, d, warp,
+                       [&](int r, int f) { return to_f(xt[r * p.xs + f]); });
   };
 
   if (p.resident) {
@@ -779,57 +824,11 @@ __global__ void __launch_bounds__(kThreads, MINB) lloyd_general_kernel(const Par
     for (int64_t e = tid; e < kd; e += kThreads) my_part[e] = s_acc[e];
   } else {
     // Passes over the block's counted rows, each owning p.slab clusters in
-    // the shared memory the tiles used.  For each chunk of labels (read
-    // back from device memory) the rows of the pass's clusters are listed
-    // in row order, copied in by bulk cp.async, p.gather at a time, and
-    // added from shared memory.
-    float* slab = (float*)smem;
-    T* stage = (T*)(smem + p.off_stage);
-    int* s_list = (int*)(smem + p.off_list);
-    int* s_plab = s_list + kLabChunk;
-    int* s_wcnt = s_bj;   // free here: rows of the pass a warp holds
-    const int64_t r0 = t0 * kBM, r1 = min64(t1 * kBM, p.n_valid);
-    const int row_bytes = d * esz, per = row_bytes / p.xgran;
-    for (int s0 = 0; s0 < k; s0 += p.slab) {
-      const int ns = min(p.slab, k - s0);
-      for (int e = tid; e < ns * d; e += kThreads) slab[e] = 0.f;
-      for (int64_t base = r0; base < r1; base += kLabChunk) {
-        const int64_t r = base + tid;
-        const int lab = r < r1 ? __ldcg(p.labels + r) : -1;
-        const bool in = lab >= s0 && lab < s0 + ns;
-        const unsigned bal = __ballot_sync(0xffffffffu, in);
-        if (lane == 0) s_wcnt[warp] = __popc(bal);
-        __syncthreads();
-        int before = 0, total = 0;
-        for (int w2 = 0; w2 < kWarps; ++w2) {
-          before += w2 < warp ? s_wcnt[w2] : 0;
-          total += s_wcnt[w2];
-        }
-        if (in) {
-          const int pos = before + __popc(bal & ((1u << lane) - 1u));
-          s_list[pos] = tid;
-          s_plab[pos] = lab;
-        }
-        __syncthreads();
-        for (int sub = 0; sub < total; sub += p.gather) {
-          const int cnt = min(p.gather, total - sub);
-          for (int q = tid; q < cnt * per; q += kThreads) {
-            const int i = q / per, o = (q - i * per) * p.xgran;
-            copy_chunk((unsigned char*)stage + i * row_bytes + o,
-                       xb + (base + s_list[sub + i]) * row_bytes + o, p.xgran);
-          }
-          cdrs::cp_async_commit();
-          cdrs::cp_async_wait<0>();
-          __syncthreads();
-          add_rows(slab, s_plab + sub, cnt, s0, ns, d,
-                   [&](int rr, int f) { return to_f(stage[rr * d + f]); });
-          __syncthreads();
-        }
-      }
-      __syncthreads();
-      for (int e = tid; e < ns * d; e += kThreads) my_part[(int64_t)s0 * d + e] = slab[e];
-      __syncthreads();
-    }
+    // the shared memory the tiles used.
+    const int64_t r1 = min64(t1 * kBM, p.n_valid);
+    stat_passes<T, kThreads>(smem, p.off_stage, p.off_list, s_bj, p.labels, xb,
+                                           t0 * kBM, r1, k, d, p.slab, p.gather, p.xgran,
+                                           my_part, tid, [] { __syncthreads(); });
   }
   for (int j = tid; j < k; j += kThreads) p.part_counts[(int64_t)blockIdx.x * k + j] = s_cnt[j];
 
@@ -883,17 +882,9 @@ bool plan(int d, int k, int wn, Params& p, size_t& smem) {
     p.off_best = p.off_lab + (int)a16(kLabChunk * 4);
     p.off_acc = p.off_best + (int)a16(2 * kBM * 8);
     smem = (size_t)p.off_acc + acc;
-    // The passes' layout in [0, off_cnt), free once the tiles are done:
-    // the clusters' sums, then p.gather staged rows, then the lists.
-    const size_t lists = a16(2 * kLabChunk * 4);
-    p.gather = 64;
-    while (p.gather > 1 && (size_t)p.off_cnt < lists + a16((size_t)p.gather * d * esz)
-                                                 + a16((size_t)4 * d))
-      p.gather /= 2;
-    const size_t room = (size_t)p.off_cnt - lists - a16((size_t)p.gather * d * esz);
-    p.slab = (int)((room > 16 ? room - 16 : 0) / (4 * (size_t)d));
-    p.off_stage = (int)a16((size_t)p.slab * d * 4);
-    p.off_list = p.off_stage + (int)a16((size_t)p.gather * d * esz);
+    // The passes' layout in [0, off_cnt), free once the tiles are done.
+    pass_layout((size_t)p.off_cnt, d, esz, kThreads, p.slab, p.gather,
+                              p.off_stage, p.off_list);
   };
   p.xs = dp + pad;
   p.cs = dp + pad;
@@ -998,12 +989,130 @@ cudaError_t general_path(const Args& a) {
 
 }  // namespace gen
 
+// -------------------------------------------------- general path on wgmma
+
+namespace wgh {
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point (the
+// library links no driver library of its own).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult got{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
+                                                             12000, cudaEnableDefault, &got);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                                    cudaEnableDefault, &got);
+#endif
+    if (err == cudaSuccess && got == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
+  }
+  return fn;
+}
+
+template <typename T, int BN>
+cudaError_t launch(const Args& a, const wg::Cfg& cfg) {
+  constexpr int esz = (int)sizeof(T);
+  wg::Params p{};
+  size_t smem = 0;
+  if (cfg.bn != BN || !wg::layout(a.d, a.k, esz, cfg, p, smem)) return cudaErrorInvalidValue;
+  if (a.labels == nullptr || a.order == nullptr) return cudaErrorInvalidValue;
+  if (((uintptr_t)a.x & 15) != 0) return cudaErrorMisalignedAddress;   // TMA's base
+  if (a.n > (int64_t)INT32_MAX - wg::kBM) return cudaErrorInvalidValue;   // TMA's row coordinate
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  // x as TMA reads it: boxes of kBM rows x cb bytes, swizzled over cb-byte
+  // rows; features past d and rows past n come in as zeros.
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)a.d, (cuuint64_t)(a.n > 0 ? a.n : 1)};
+  const cuuint64_t strides[1] = {(cuuint64_t)a.d * esz};
+  const cuuint32_t box[2] = {(cuuint32_t)(p.cb / esz), (cuuint32_t)wg::kBM};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle = p.cb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                   : (p.cb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                 : CU_TENSOR_MAP_SWIZZLE_32B);
+  if (enc(&map, esz == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+          2, const_cast<void*>(a.x), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  p.x = a.x;
+  p.c = a.c;
+  p.n = a.n;
+  p.n_valid = a.n_valid;
+  p.d = a.d;
+  p.k = a.k;
+  p.labels = a.labels;
+  p.part_sums = a.part_sums;
+  p.part_counts = a.part_counts;
+  p.sums = a.sums;
+  p.counts = a.counts;
+  p.bar = a.ticket;
+  p.order = a.order;
+  // The wrapper's extra floats past the partials, from a 16-byte boundary.
+  p.csplit = (unsigned char*)(a.part_sums + (((int64_t)a.nb * a.k * a.d + 3) & ~(int64_t)3));
+
+  auto kern = wg::lloyd_wgmma_kernel<T, BN>;
+  static size_t smem_set[32] = {};
+  static size_t occ_smem = 0;   // the last shared-memory size asked, and its answer
+  static int occ_blocks = 0;
+  cudaError_t err = cdrs::set_smem_once(kern, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  if (occ_smem != smem) {
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, wg::kThreads, smem);
+    if (err != cudaSuccess) return err;
+    occ_smem = smem;
+    occ_blocks = blocks;
+  }
+  if (occ_blocks < 1) return cudaErrorInvalidConfiguration;
+  // Persistent: one block an SM, each taking a contiguous run of row tiles,
+  // the runs within one tile of each other.
+  p.ntiles = (a.n + wg::kBM - 1) / wg::kBM;
+  int64_t grid = a.sms;
+  if (grid > p.ntiles) grid = p.ntiles;
+  if (grid < 1) grid = 1;
+  if (grid > a.nb) return cudaErrorInvalidValue;
+  void* args[] = {&p, &map};
+  err = cudaLaunchCooperativeKernel((const void*)kern, dim3((unsigned)grid),
+                                    dim3(wg::kThreads), args, smem, a.stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 template <typename T>
-int launch(const Args& a) {
+cudaError_t path(const Args& a, const wg::Cfg& cfg) {
+  // Only the plan's (type, tile) pairs are built.
+  if constexpr (sizeof(T) == 4) return cfg.bn == 128 ? launch<T, 128>(a, cfg) : cudaErrorInvalidValue;
+  else return cfg.bn == 128 ? launch<T, 128>(a, cfg) : cudaErrorInvalidValue;
+}
+
+}  // namespace wgh
+
+// The plan ops/lloyd.py passes: {path (0 small, 1 mma_sync, 2 wgmma), then
+// the wgmma path's bn, cstages, xstages, resident}.
+enum { kPathSmall = 0, kPathMmaSync = 1, kPathWgmma = 2 };
+
+wg::Cfg cfg_of(const int* plan) { return wg::Cfg{plan[1], plan[2], plan[3], plan[4]}; }
+
+template <typename T>
+int launch(const Args& a, const int* plan) {
   if (a.n < 0 || a.d < 1 || a.k < 1 || a.nb < 2 || a.sms < 1 || a.n_valid < 0 || a.n_valid > a.n)
     return (int)cudaErrorInvalidValue;
-  if (a.d <= 8 && a.k <= 16) return (int)small_path<T>(a);
-  return (int)gen::general_path<T>(a);
+  switch (plan[0]) {
+    case kPathSmall:
+      if (a.d > 8 || a.k > 16) return (int)cudaErrorInvalidValue;
+      return (int)small_path<T>(a);
+    case kPathMmaSync: return (int)gen::general_path<T>(a);
+    case kPathWgmma: return (int)wgh::path<T>(a, cfg_of(plan));
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1012,53 +1121,62 @@ extern "C" {
 
 // x (n, d) row-major f32 or bf16; c (k, d) f32 (already rounded to x's type;
 // |c|^2 is taken in the kernel); labels (n,) int32 or NULL (the general
-// path needs a buffer where cdrs_lloyd_keeps_labels says so); part_sums
-// (nb * k * d + cdrs_lloyd_extra_scratch) f32 and part_counts (nb * k)
-// int32 scratch; ticket one
-// uint32, zero before the first launch (each launch leaves it zero); sums
-// (k, d) f32; counts (k,) f32.  nb >= 2 is the partial capacity in blocks
-// (2 x SMs); sms the device's SM count.  Returns a cudaError_t code (0 =
-// launched).
+// paths need a buffer where cdrs_lloyd_plan_info's out[1] says so); part_sums
+// (nb * k * d + cdrs_lloyd_plan_info's out[0]) f32 and part_counts (nb * k)
+// int32 scratch; ticket one uint32, zero before the first launch (each
+// launch leaves it zero); sums (k, d) f32; counts (k,) f32.  nb >= 2 is the
+// partial capacity in blocks (2 x SMs); sms the device's SM count; plan
+// five ints (cfg_of); order (n,) int32 scratch on the wgmma path (its sums
+// sort each block's rows by cluster), else NULL.
+// Returns a cudaError_t code (0 = launched).
 int cdrs_lloyd_f32(const void* x, const void* c, int64_t n, int64_t n_valid,
                    int d, int k, void* labels, void* part_sums, void* part_counts,
-                   void* ticket, void* sums, void* counts, int nb, int sms, void* stream) {
+                   void* ticket, void* sums, void* counts, int nb, int sms, void* stream,
+                   const int* plan, void* order) {
   const Args a{x, (const float*)c, n, n_valid, d, k, (int*)labels,
                (float*)part_sums, (int*)part_counts, (unsigned*)ticket, (float*)sums,
-               (float*)counts, nb, sms, (cudaStream_t)stream};
-  return launch<float>(a);
+               (float*)counts, nb, sms, (cudaStream_t)stream, (int*)order};
+  return launch<float>(a, plan);
 }
 
 int cdrs_lloyd_bf16(const void* x, const void* c, int64_t n, int64_t n_valid,
                     int d, int k, void* labels, void* part_sums, void* part_counts,
-                    void* ticket, void* sums, void* counts, int nb, int sms, void* stream) {
+                    void* ticket, void* sums, void* counts, int nb, int sms, void* stream,
+                    const int* plan, void* order) {
   const Args a{x, (const float*)c, n, n_valid, d, k, (int*)labels,
                (float*)part_sums, (int*)part_counts, (unsigned*)ticket, (float*)sums,
-               (float*)counts, nb, sms, (cudaStream_t)stream};
-  return launch<__nv_bfloat16>(a);
+               (float*)counts, nb, sms, (cudaStream_t)stream, (int*)order};
+  return launch<__nv_bfloat16>(a, plan);
 }
 
-// Floats part_sums needs past nb * k * d: the general path's csplit, from
-// a 16-byte boundary (0 on the small path or for a shape it cannot serve).
-int64_t cdrs_lloyd_extra_scratch(int d, int k, int bf16) {
-  if (d < 1 || k < 1 || (d <= 8 && k <= 16)) return 0;
-  gen::Params p{};
+// What a plan needs at a shape: out[0] the floats part_sums needs past
+// nb * k * d (c in the products' layout, from a 16-byte boundary; on the
+// wgmma path then |c|^2), out[1] 1 when a call stores labels even without
+// with_labels (sums not inline: passes over the block's rows, or on the
+// wgmma path its rows sorted by cluster, which also takes the n-long order
+// scratch), out[2] the bytes of shared memory a block takes.  Returns 0, or -1 when the plan cannot serve the shape.
+int cdrs_lloyd_plan_info(int d, int k, int bf16, const int* plan, int64_t* out) {
+  out[0] = out[1] = out[2] = 0;
+  if (d < 1 || k < 1) return -1;
+  if (plan[0] == kPathSmall) return d <= 8 && k <= 16 ? 0 : -1;
   size_t smem = 0;
+  if (plan[0] == kPathWgmma) {
+    wg::Params p{};
+    if (!wg::layout(d, k, bf16 ? 2 : 4, cfg_of(plan), p, smem)) return -1;
+    out[0] = (int64_t)p.ntc * p.nfc * (p.chunk / 4) + p.kp + 4;   // c, then |c|^2
+    out[1] = 1;
+    out[2] = (int64_t)smem;
+    return 0;
+  }
+  gen::Params p{};
   const int wn = gen::wn_for(k);
   const bool ok = bf16 ? gen::plan<__nv_bfloat16>(d, k, wn, p, smem)
                        : gen::plan<float>(d, k, wn, p, smem);
-  return ok ? (int64_t)(p.kp / (16 * wn)) * p.nfc * (p.cchunk / 4) + 4 : 0;
-}
-
-// 1 when a call of this shape stores labels even without with_labels (the
-// general path taking its sums in passes over the block's rows), else 0.
-int cdrs_lloyd_keeps_labels(int d, int k, int bf16) {
-  if (d < 1 || k < 1 || (d <= 8 && k <= 16)) return 0;
-  gen::Params p{};
-  size_t smem = 0;
-  const int wn = gen::wn_for(k);
-  const bool ok = bf16 ? gen::plan<__nv_bfloat16>(d, k, wn, p, smem)
-                       : gen::plan<float>(d, k, wn, p, smem);
-  return ok && !p.inline_stats ? 1 : 0;
+  if (!ok) return -1;
+  out[0] = (int64_t)(p.kp / (16 * wn)) * p.nfc * (p.cchunk / 4) + 4;
+  out[1] = p.inline_stats ? 0 : 1;
+  out[2] = (int64_t)smem;
+  return 0;
 }
 
 }  // extern "C"

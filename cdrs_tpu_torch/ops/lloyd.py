@@ -23,16 +23,24 @@ PyTorch; on a CUDA tensor it launches the kernel or raises.  The kernel's
 source note says what bounds it on the card and what its design does
 about that.
 
-One call is one launch.  The wrapper's fixed host cost is kept small: the
-ctypes signature is set once when the library is bound, the SM count is
-read once per device, and the kernel's scratch (block partials and the
-last-block ticket) is made once per (device, stream, k, d, dtype) and
-reused: calls on one stream run in order, so they never share it at once.
-The general path also keeps its copy of c, in the layout its products
-read, past the partials (``cdrs_lloyd_extra_scratch``).  Where it takes its
-sums in passes over stored labels (large k * d:
-``cdrs_lloyd_keeps_labels``) and the caller asked for none, an n-long int32
-label buffer is kept the same way, keyed by n.
+One call is one launch.  Which of the kernel's three paths a call takes
+depends on (d, k, dtype) alone and is decided here, by ``plan``: the
+small path (d <= 8 and k <= 16); the wgmma path (``csrc/lloyd_wgmma.cuh``)
+where a row is a whole number of 16-byte units (TMA's row stride: d % 4
+for f32, d % 8 for bf16) and its tiles fit a block's shared memory, with
+the plan's ring depths and c resident or streamed; the mma_sync path
+otherwise (d = 5, k = 64; odd bf16 widths;
+d = 300).  The plan goes to the kernel with each call.  The wrapper's
+fixed host cost is kept small: the ctypes signature is set once when the
+library is bound, the SM count is read once per device, the plan once per
+shape, and the kernel's scratch (block partials and the ticket) is made
+once per (device, stream, k, d, dtype) and reused: calls on one stream
+run in order, so they never share it at once.  The general paths also keep
+their copy of c, in the layout their products read, past the partials
+(``extra`` floats).  Where they do not keep the sums in shared memory
+(large k * d) the labels are stored; if the caller asked for none, an
+n-long int32 label buffer is kept the same way, keyed by n, and on the
+wgmma path a second one for the block's rows sorted by cluster.
 Outputs are fresh on every call (callers keep them) and are allocated
 without deterministic mode's NaN fill, since the kernel writes them in
 full.
@@ -56,9 +64,10 @@ near-ties):
   default keeps TF32 off for matmuls), then ``argmin``;
 * the kernel's small path (d <= 8 and k <= 16): fmaf chains in feature
   order on the CUDA cores, strict ``<`` over increasing j;
-* the kernel's general path (any other shape): tensor-core products.
-  f32 points are split into TF32 high and low parts (round to nearest)
-  and ``x.c`` is lo.hi' + hi.lo' + hi.hi', within
+* the kernel's general paths (any other shape): tensor-core products
+  (wgmma or mma.sync, the same numerics).  f32 points are split into TF32
+  high and low parts (round to nearest) and ``x.c`` is lo.hi' + hi.lo' +
+  hi.hi', a k-step of 8 features at a time, within
   ``(2^-20 + 3 d 2^-23) sum_f |x_f c_f|`` of the exact product; bf16
   points take one exact bf16 product.  The best per row is kept with
   strict ``<`` over increasing j and merged by (distance, index), so the
@@ -70,6 +79,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -79,16 +89,107 @@ from ..parallel.mesh import collective_bytes_estimate, shard_valid
 from . import _build
 
 __all__ = ["lloyd_assign_reduce", "lloyd_assign_reduce_plain", "centroid_operands",
-           "sharded_assign_reduce", "rowmajor"]
+           "sharded_assign_reduce", "rowmajor", "plan", "wgmma_layout", "Plan", "Layout"]
 
 _KERNEL_DTYPES = {torch.float32: "cdrs_lloyd_f32", torch.bfloat16: "cdrs_lloyd_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
-             + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-#: (d, k, bf16) -> (whether the kernel stores labels even when none are
-#: asked, floats of scratch it needs past the block partials).
-_SHAPES: dict[tuple, tuple[bool, int]] = {}
+             + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
+_INFO_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+#: The kernel's path codes (``csrc/lloyd.cu``'s plan array).
+PATHS = {"small": 0, "mma_sync": 1, "wgmma": 2}
+#: The wgmma path's fixed sizes (``csrc/lloyd_wgmma.cuh``): rows a block
+#: tile (two consumer warpgroups of 128), shared memory a block may take,
+#: consumer threads.
+WG_ROWS = 256
+SMEM_MAX = 227 * 1024
+WG_CONSUMERS = 256
+#: (d, k, bf16) -> (plan, the plan as the kernel takes it, whether the
+#: kernel stores labels even when none are asked, floats of scratch it
+#: needs past the block partials).
+_SHAPES: dict[tuple, tuple] = {}
 #: True inside ``rowmajor()``.
 _ROWMAJOR = contextvars.ContextVar("lloyd_rowmajor", default=False)
+
+
+class Plan(NamedTuple):
+    """A call's path and, on the wgmma path, its tiles: ``bn`` centroids a
+    tile, ``cstages`` c chunks in flight (streamed c), ``xstages`` row
+    tiles of x in the ring, ``resident`` (all of c in shared memory)."""
+    path: str
+    bn: int = 0
+    cstages: int = 0
+    xstages: int = 0
+    resident: int = 0
+
+    def as_ints(self) -> list[int]:
+        return [PATHS[self.path], self.bn, self.cstages, self.xstages, self.resident]
+
+
+class Layout(NamedTuple):
+    """What a wgmma plan takes at a shape, as ``csrc/lloyd_wgmma.cuh``'s
+    ``layout`` computes it: shared memory a block, floats past the partials
+    (c in the products' layout, then |c|^2), and the feature chunks (``cb``
+    bytes of a row each, ``nfc`` of them).  The path always stores the
+    labels and takes an n-long order scratch: its sums sort each block's
+    rows by cluster."""
+    smem: int
+    extra: int
+    cb: int
+    nfc: int
+
+
+def _a16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def wgmma_layout(d: int, k: int, esz: int, p: Plan) -> Layout | None:
+    """The wgmma plan's layout at (d, k) for points of ``esz`` bytes, or
+    None where it cannot serve: rows not a whole number of 16-byte units,
+    more shared memory than a block has, or no room for the sums' sort
+    (9 k + 256 ints) in the freed tiles."""
+    row = d * esz
+    if row % 16 or p.bn < 8 or p.xstages < 1 or (not p.resident and p.cstages < 2):
+        return None
+    cb = 128 if row > 64 else (64 if row > 32 else 32)
+    nfc = -(-row // cb)
+    kp = -(-k // p.bn) * p.bn
+    chunk = (2 if esz == 4 else 1) * p.bn * cb
+    cstages = 1 if p.resident else p.cstages
+    cbuf = (kp // p.bn) * nfc * chunk if p.resident else cstages * chunk
+    off_bar = p.xstages * WG_ROWS * cb * nfc + cbuf
+    smem = off_bar + (2 * p.xstages * nfc + 2 * cstages) * 8 + 1024
+    if smem > SMEM_MAX or (9 * k + WG_CONSUMERS) * 4 > off_bar:
+        return None
+    return Layout(smem, (kp // p.bn) * nfc * chunk // 4 + kp + 4, cb, nfc)
+
+
+def plan(d: int, k: int, dtype) -> Plan:
+    """The kernel's path at (d, k, dtype), and on the wgmma path its tiles.
+
+    Small path: d <= 8 and k <= 16.  wgmma path: rows a whole number of
+    16-byte units (TMA's row stride) and a layout that fits: centroid tiles
+    of 128 (one instance a type is built); all of c resident with 4 to 2 row
+    tiles of x in the ring, else c streamed beside two row tiles through a
+    ring of at least four chunks and two centroid tiles' worth, or beside
+    one row tile through the deepest ring (12 to 2 chunks) that fits.  bf16
+    points whose c would be resident (small k * d, as config 2's 1M x 32,
+    k = 128) keep the mma_sync path: there the products are a sliver of the
+    work, and the wgmma path's ranking and re-read sums made it 6-10%
+    slower in every same-card read (PERF.md, PR 22).  Otherwise the
+    mma_sync path (its layout is the CUDA source's)."""
+    if d <= 8 and k <= 16:
+        return Plan("small")
+    esz = 2 if dtype == torch.bfloat16 else 4
+    if (d * esz) % 16 == 0:
+        bn = 128
+        nfc = -(-d * esz // 128)
+        cands = [Plan("wgmma", bn, 1, xs, 1) for xs in (4, 3, 2)]
+        cands += [Plan("wgmma", bn, cs, 2, 0) for cs in range(12, max(4, 2 * nfc) - 1, -1)]
+        cands += [Plan("wgmma", bn, cs, 1, 0) for cs in range(12, 1, -1)]
+        for cand in cands:
+            if wgmma_layout(d, k, esz, cand) is not None:
+                return Plan("mma_sync") if esz == 2 and cand.resident else cand
+    return Plan("mma_sync")
 
 
 @contextlib.contextmanager
@@ -171,9 +272,13 @@ def lloyd_assign_reduce(x: torch.Tensor, c: torch.Tensor, n_valid: int | None = 
     dev = x.device
     c_used = _rounded(c, x.dtype)   # the kernel takes |c|^2 itself
     sms = sm_count(dev.index)
-    nb = 2 * sms   # neither path keeps more than two blocks on an SM
+    nb = 2 * sms   # no path keeps more than two blocks on an SM
     stream = torch.cuda.current_stream(dev).cuda_stream
-    keeps_labels, extra = _shape_info(d, k, x.dtype)
+    p, plan_arg, keeps_labels, extra = _shape_info(d, k, x.dtype)
+    if p.path == "wgmma" and x.data_ptr() % 16:
+        raise ValueError(f"lloyd kernel: the wgmma path (d={d}, {x.dtype}) reads x by TMA, "
+                         f"which needs a 16-byte aligned start; x starts at "
+                         f"{x.data_ptr():#x}")
     part_sums, part_counts, ticket = _build.scratch(
         ("lloyd", dev.index, stream, k, d, x.dtype),
         lambda: _make_scratch(dev, nb * k * d + extra, nb * k))
@@ -185,15 +290,20 @@ def lloyd_assign_reduce(x: torch.Tensor, c: torch.Tensor, n_valid: int | None = 
     if lab_buf is None and keeps_labels:
         lab_buf = _build.scratch(("lloyd_labels", dev.index, stream, n),
                                  lambda: _label_scratch(dev, n))
+    order = None
+    if p.path == "wgmma":
+        order = _build.scratch(("lloyd_order", dev.index, stream, n),
+                               lambda: _label_scratch(dev, n))
     fn = _build.bind("lloyd", fn_name, _ARGTYPES)
     with _build.on_device(dev.index), probe:
         err = fn(x.data_ptr(), c_used.data_ptr(), n, n_valid, d, k,
                  lab_buf.data_ptr() if lab_buf is not None else None,
                  part_sums.data_ptr(), part_counts.data_ptr(), ticket.data_ptr(),
-                 sums.data_ptr(), counts.data_ptr(), nb, sms, stream)
+                 sums.data_ptr(), counts.data_ptr(), nb, sms, stream, plan_arg,
+                 order.data_ptr() if order is not None else None)
     if err != 0:
         raise RuntimeError(f"lloyd kernel launch failed: cudaError {err} "
-                           f"(n={n}, d={d}, k={k}, dtype={x.dtype})")
+                           f"(n={n}, d={d}, k={k}, dtype={x.dtype}, {p})")
     lloyd_assign_reduce.launches += 1
     if _ROWMAJOR.get():
         lloyd_assign_reduce.rowmajor_launches += 1
@@ -233,21 +343,38 @@ def _cost(x, c, n_valid: int, with_labels: bool) -> dict:
                              with_labels=with_labels)
 
 
-def _shape_info(d: int, k: int, dtype) -> tuple[bool, int]:
-    """(whether the kernel stores labels at this shape even when the caller
-    asked for none, floats of scratch it needs past the block partials), as
-    ``cdrs_lloyd_keeps_labels`` and ``cdrs_lloyd_extra_scratch`` say: the
-    general path's sums taken in passes, and its copy of c in the layout its
-    products read.  Asked once per shape."""
-    if d <= 8 and k <= 16:
-        return False, 0   # the small path
+def _shape_info(d: int, k: int, dtype):
+    """(plan, the plan as a ctypes int array, whether the kernel stores
+    labels at this shape even when the caller asked for none, floats of
+    scratch it needs past the block partials), once per shape: the wgmma
+    path's from ``wgmma_layout``, the mma_sync path's from the CUDA
+    source (``cdrs_lloyd_plan_info``)."""
     key = (d, k, dtype == torch.bfloat16)
     if key not in _SHAPES:
-        keeps = _build.bind("lloyd", "cdrs_lloyd_keeps_labels", [ctypes.c_int] * 3)
-        extra = _build.bind("lloyd", "cdrs_lloyd_extra_scratch", [ctypes.c_int] * 3,
-                            restype=ctypes.c_int64)
-        _SHAPES[key] = (bool(keeps(d, k, int(key[2]))), int(extra(d, k, int(key[2]))))
+        p = plan(d, k, dtype)
+        arg = (ctypes.c_int * 5)(*p.as_ints())
+        if p.path == "small":
+            keeps, extra = False, 0
+        elif p.path == "wgmma":
+            keeps, extra = True, wgmma_layout(d, k, 2 if key[2] else 4, p).extra
+        else:
+            out = plan_info(d, k, dtype, p)
+            if out is None:
+                raise ValueError(f"lloyd kernel: no path serves d={d}, k={k}, {dtype}")
+            extra, keeps, _ = out
+            keeps = bool(keeps)
+        _SHAPES[key] = (p, arg, keeps, extra)
     return _SHAPES[key]
+
+
+def plan_info(d: int, k: int, dtype, p: Plan):
+    """(extra floats, keeps labels, shared-memory bytes) of plan ``p`` at
+    (d, k) as the CUDA source computes them, or None where it cannot serve
+    the shape (builds the library on first use)."""
+    info = _build.bind("lloyd", "cdrs_lloyd_plan_info", _INFO_ARGTYPES)
+    out = (ctypes.c_int64 * 3)()
+    rc = info(d, k, int(dtype == torch.bfloat16), (ctypes.c_int * 5)(*p.as_ints()), out)
+    return None if rc != 0 else (int(out[0]), int(out[1]), int(out[2]))
 
 
 def _label_scratch(dev, n: int):

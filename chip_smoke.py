@@ -26,10 +26,14 @@ Phases, each of which exits non-zero when a check fails:
    which also shows one launch per call; its bound is
    ``obs/kprof.kernel_cost``'s work over the H100's peaks
    (``obs/kprof.DEVICE_PEAKS``), the count the telemetry stream uses.
-   The Lloyd kernel's general path runs at 2.5M x 5, k = 64 (``entry()``'s
+   The Lloyd kernel's general paths run at 2.5M x 5, k = 64 (``entry()``'s
    k), 1M x 32, k = 128 (f32 and bf16), 1M x 128, k = 1024 and two odd
-   shapes; its wide rows also print the bound at the CUDA cores' 67
-   TFLOP/s f32 rate and the time of the product ``x @ c.T`` alone.  The
+   shapes; each B1 row names the path ``ops/lloyd.plan`` gave it (small,
+   mma_sync or wgmma), and on the wgmma path the CUDA source's scratch and
+   shared memory of the plan must equal ``ops/lloyd.wgmma_layout``'s
+   (phase 1 logs the ptxas registers and spills of the wgmma instances);
+   the wide rows also print the bound at the CUDA cores' 67 TFLOP/s f32
+   rate and the time of the product ``x @ c.T`` alone.  The
    bench's k = 1024 shapes (phase 17) follow: B1 at config 3's 10,485,760 x
    128 (f32) and at the config-4 rehearsal's bf16 rows (as many as the
    bench's memory guard leaves on this card); their points are drawn, the
@@ -709,8 +713,9 @@ def phase_environment():
 
 
 def ptxas_summary(text: str) -> list[str]:
-    """One line per kernel instantiation that spills or serves d = 5 (the
-    main path's width), then the largest register count of the library."""
+    """One line per kernel instantiation that spills, serves d = 5 (the
+    main path's width) or is one of B1's wgmma instances, then the largest
+    register count of the library."""
     import re
 
     rows, entry, spill = [], None, ""
@@ -726,7 +731,7 @@ def ptxas_summary(text: str) -> list[str]:
             rows.append((entry, regs, spill))
     clean = "0 bytes stack frame, 0 bytes spill stores"
     out = [f"{e}: {r} registers, {s}" for e, r, s in rows
-           if "Li5E" in e or not s.startswith(clean)]
+           if "Li5E" in e or "wgmma" in e or not s.startswith(clean)]
     if rows:
         busy = sum(not s.startswith(clean) for _, _, s in rows)
         out.append(f"{len(rows)} kernels, at most {max(r for _, r, _ in rows)} registers, "
@@ -813,8 +818,17 @@ def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False,
     import torch
 
     from cdrs_tpu_torch.obs import kprof
+    from cdrs_tpu_torch.ops import lloyd
     from cdrs_tpu_torch.ops.lloyd import centroid_operands, lloyd_assign_reduce
 
+    path = lloyd.plan(d, k, dtype)
+    if path.path == "wgmma":
+        # The wrapper's scratch and the CUDA source's layout of the plan agree.
+        lay = lloyd.wgmma_layout(d, k, 2 if dtype == torch.bfloat16 else 4, path)
+        info = lloyd.plan_info(d, k, dtype, path)
+        want = (lay.extra, 1, lay.smem)
+        check(info == want, f"lloyd {name}: plan {path} takes {info} in the CUDA source, "
+              f"{want} in ops/lloyd.py")
     x = rand_rows(n, d, dtype, n_valid, gen, chunk_rows)
     c = x[torch.randperm(n_valid, generator=gen, device="cuda")[:k]].float()
     lab_k, sums_k, cnt_k = lloyd_assign_reduce(x, c, n_valid, with_labels=True)
@@ -866,7 +880,8 @@ def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False,
         "lloyd_assign_reduce", n=n, d=d, k=k, n_valid=n_valid,
         dtype=str(dtype).replace("torch.", ""), with_labels=with_labels))
     row = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "max_abs_err": max_abs, "disagreements": diff.numel()}
+           "bound_by": b_by, "max_abs_err": max_abs, "disagreements": diff.numel(),
+           "path": path.path}
     extra = ""
     if yardstick:
         cost = kprof.kernel_cost("lloyd_assign_reduce", n=n, d=d, k=k, n_valid=n_valid,
@@ -883,7 +898,7 @@ def check_lloyd(name, n, d, k, dtype, n_valid, reps, gen, with_labels=False,
         extra = (f" (at 67 TFLOP/s f32: {row['bound_ms_67']:.4f} ms, {by}); "
                  f"library x @ c.T {row['library_ms']:.4f} ms")
     log(f"lloyd {name}: n={n} d={d} k={k} {dtype} n_valid={n_valid} "
-        f"with_labels={with_labels} labels agree "
+        f"with_labels={with_labels} path {path.path} labels agree "
         f"{agree:.6f} ({diff.numel()} disagreements, all ties) sums rel {rel:.2e} "
         f"|kernel-plain| {max_abs:.3e} "
         f"two calls bit-identical; kernel {ms:.4f} ms per call ({l2_note(dev_ms, b_ms)}, "

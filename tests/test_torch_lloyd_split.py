@@ -1,13 +1,17 @@
-"""The numerics of B1's general path, emulated on the CPU.
+"""The numerics of B1's general paths, emulated on the CPU.
 
-The CUDA kernel's general path (d > 8 or k > 16, ``csrc/lloyd.cu``) takes
-``x.c`` for f32 points on the tensor cores as three TF32 products: each
-operand is split as hi = rna_tf32(v), lo = rna_tf32(v - hi), and
-x.c = lo.hi' + hi.lo' + hi.hi'.  The kernel runs only on the card
-(``chip_smoke.py`` phase 2 holds it against the plain version there).
-Here a torch helper rounds f32 to TF32 by integer ops on the bits (to
-nearest, ties away from zero, 10 stored mantissa bits, as
-``cvt.rna.tf32.f32``) and forms the same three products.  The labels under
+The CUDA kernel's general paths (d > 8 or k > 16: wgmma in
+``csrc/lloyd_wgmma.cuh``, mma.sync in ``csrc/lloyd.cu``) take ``x.c`` for
+f32 points on the tensor cores as three TF32 products: each operand is
+split as hi = rna_tf32(v), lo = rna_tf32(v - hi), and x.c = lo.hi' +
+hi.lo' + hi.hi', a k-step of 8 features at a time: each step adds the
+three products' sums over its 8 features into one f32 accumulator, in
+that order.  The kernel runs only on the card (``chip_smoke.py`` phase 2
+holds it against the plain version there).  Here a torch helper rounds
+f32 to TF32 by integer ops on the bits (to nearest, ties away from zero,
+10 stored mantissa bits, as ``cvt.rna.tf32.f32``) and forms the same
+products in the same order, each step's sum of 8 exact products rounded
+once into the f32 accumulator.  The labels under
 that product are held against ``lloyd_assign_reduce_pallas_t`` in interpret
 mode and against the plain version: identical except on distance ties
 within 1e-6 relative in f64, as ``tests/test_torch_lloyd.py`` holds them.
@@ -57,11 +61,25 @@ def split_terms(x: torch.Tensor, c: torch.Tensor):
     return xl @ ch.T, xh @ cl.T, xh @ ch.T
 
 
+def kstep_dot(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(n, k) f32 accumulators as the kernel forms them: for each k-step of
+    8 features (the last one zero-padded), lo.hi', hi.lo', hi.hi' in that
+    order, each step's sum of 8 products (exact in f64) added into the f32
+    accumulator with one rounding."""
+    xh, xl = split(x)
+    ch, cl = split(c)
+    acc = torch.zeros((x.shape[0], c.shape[0]), dtype=torch.float32)
+    for f0 in range(0, x.shape[1], 8):
+        sl = slice(f0, f0 + 8)
+        for a, b in ((xl, ch), (xh, cl), (xh, ch)):
+            acc = (acc.double() + a[:, sl].double() @ b[:, sl].double().T).float()
+    return acc
+
+
 def split_labels(x: torch.Tensor, c_used: torch.Tensor, csq: torch.Tensor) -> np.ndarray:
     """First argmin of |c|^2 - 2 dot in f32, dot the split product held in an
-    f32 accumulator, as the kernel ranks."""
-    dot = sum(split_terms(x, c_used)).float()
-    return torch.argmin(csq[None, :] - 2.0 * dot, dim=1).numpy()
+    f32 accumulator k-step by k-step, as the kernel ranks."""
+    return torch.argmin(csq[None, :] - 2.0 * kstep_dot(x, c_used), dim=1).numpy()
 
 
 def assert_labels_match(x, c_used, got, want, rtol=1e-6):
@@ -148,16 +166,20 @@ def test_split_product_error_bound_on_near_tie_rows(d):
     assert split_err <= SPLIT_BOUND
     # One TF32 product (hi.hi') is off by about 2^-11: the split is needed.
     assert float(((terms[2] - exact).abs() / scale).max()) > 16 * SPLIT_BOUND
-    # The 3 d products added in f32, feature by feature, in the kernel's
-    # order within a step (lo.hi', hi.lo', hi.hi'): within the full bound.
-    xh, xl = split(x)
-    ch, cl = split(c)
-    acc = torch.zeros((x.shape[0], 2), dtype=torch.float32)
-    for f in range(d):
-        for a, b in ((xl, ch), (xh, cl), (xh, ch)):
-            acc = acc + a[:, f, None] * b[None, :, f]    # each product exact in f32
+    # The products added into an f32 accumulator in the kernel's order, a
+    # k-step of 8 features at a time (lo.hi', hi.lo', hi.hi'): within the
+    # full bound, and so is the coarser model of 3 d roundings, one a
+    # product, feature by feature.
+    acc = kstep_dot(x, c)
     acc_err = (acc.double() - exact).abs() / scale
     assert float(acc_err.max()) <= accumulate_bound(d)
+    xh, xl = split(x)
+    ch, cl = split(c)
+    fine = torch.zeros((x.shape[0], 2), dtype=torch.float32)
+    for f in range(d):
+        for a, b in ((xl, ch), (xh, cl), (xh, ch)):
+            fine = fine + a[:, f, None] * b[None, :, f]    # each product exact in f32
+    assert float(((fine.double() - exact).abs() / scale).max()) <= accumulate_bound(d)
     # A label moves only where the two exact distances lie within the sum
     # of their errors: each distance |c|^2 - 2 dot carries twice its
     # product's error, plus the f32 roundings of |c|^2 - 2 dot itself.
