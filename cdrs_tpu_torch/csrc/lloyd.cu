@@ -1017,12 +1017,12 @@ EncodeTiled encoder() {
   return fn;
 }
 
-template <typename T, int BN>
-cudaError_t launch(const Args& a, const wg::Cfg& cfg) {
+template <typename T>
+cudaError_t path(const Args& a, const wg::Cfg& cfg) {
   constexpr int esz = (int)sizeof(T);
   wg::Params p{};
   size_t smem = 0;
-  if (cfg.bn != BN || !wg::layout(a.d, a.k, esz, cfg, p, smem)) return cudaErrorInvalidValue;
+  if (!wg::layout(a.d, a.k, esz, cfg, p, smem)) return cudaErrorInvalidValue;
   if (a.labels == nullptr || a.order == nullptr) return cudaErrorInvalidValue;
   if (((uintptr_t)a.x & 15) != 0) return cudaErrorMisalignedAddress;   // TMA's base
   if (a.n > (int64_t)INT32_MAX - wg::kBM) return cudaErrorInvalidValue;   // TMA's row coordinate
@@ -1059,7 +1059,7 @@ cudaError_t launch(const Args& a, const wg::Cfg& cfg) {
   // The wrapper's extra floats past the partials, from a 16-byte boundary.
   p.csplit = (unsigned char*)(a.part_sums + (((int64_t)a.nb * a.k * a.d + 3) & ~(int64_t)3));
 
-  auto kern = wg::lloyd_wgmma_kernel<T, BN>;
+  auto kern = wg::lloyd_wgmma_kernel<T>;
   static size_t smem_set[32] = {};
   static size_t occ_smem = 0;   // the last shared-memory size asked, and its answer
   static int occ_blocks = 0;
@@ -1086,20 +1086,13 @@ cudaError_t launch(const Args& a, const wg::Cfg& cfg) {
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t path(const Args& a, const wg::Cfg& cfg) {
-  // Only the plan's (type, tile) pairs are built.
-  if constexpr (sizeof(T) == 4) return cfg.bn == 128 ? launch<T, 128>(a, cfg) : cudaErrorInvalidValue;
-  else return cfg.bn == 128 ? launch<T, 128>(a, cfg) : cudaErrorInvalidValue;
-}
-
 }  // namespace wgh
 
 // The plan ops/lloyd.py passes: {path (0 small, 1 mma_sync, 2 wgmma), then
-// the wgmma path's bn, cstages, xstages, resident}.
+// the wgmma path's cstages, xstages, resident}.
 enum { kPathSmall = 0, kPathMmaSync = 1, kPathWgmma = 2 };
 
-wg::Cfg cfg_of(const int* plan) { return wg::Cfg{plan[1], plan[2], plan[3], plan[4]}; }
+wg::Cfg cfg_of(const int* plan) { return wg::Cfg{plan[1], plan[2], plan[3]}; }
 
 template <typename T>
 int launch(const Args& a, const int* plan) {
@@ -1126,7 +1119,7 @@ extern "C" {
 // int32 scratch; ticket one uint32, zero before the first launch (each
 // launch leaves it zero); sums (k, d) f32; counts (k,) f32.  nb >= 2 is the
 // partial capacity in blocks (2 x SMs); sms the device's SM count; plan
-// five ints (cfg_of); order (n,) int32 scratch on the wgmma path (its sums
+// four ints (cfg_of); order (n,) int32 scratch on the wgmma path (its sums
 // sort each block's rows by cluster), else NULL.
 // Returns a cudaError_t code (0 = launched).
 int cdrs_lloyd_f32(const void* x, const void* c, int64_t n, int64_t n_valid,

@@ -6,7 +6,7 @@
 // The wgmma path.  One block an SM (persistent; a cooperative launch, so
 // its two grid barriers are safe), each taking a contiguous run of 256-row
 // tiles of x, the runs within one tile of each other; 384 threads in three
-// warpgroups, centroid tiles of 128 (BN):
+// warpgroups, centroid tiles of kBN = 128:
 // - Prologue (every thread).  Every block writes its share of c as the
 //   products read it: for each (centroid tile, feature chunk of cb = 32,
 //   64 or 128 bytes) a block of 128 rows x cb bytes, K-major and swizzled
@@ -100,6 +100,7 @@ using lloyd_shared::sq_norm;
 using lloyd_shared::split_tf32;
 
 constexpr int kBM = 256;          // rows a block tile: 128 a consumer warpgroup
+constexpr int kBN = 128;          // centroids a tile (the wgmma instructions' N)
 constexpr int kThreads = 384;     // a producer warpgroup and two consumer warpgroups
 constexpr int kConsumers = 256;
 constexpr size_t kSmemMax = 227 * 1024;
@@ -125,9 +126,9 @@ struct Params {
   int* order;           // (n,) each block's counted rows sorted by cluster
   unsigned* bar;        // grid barrier word: zero between launches
   int64_t ntiles;        // 256-row tiles of x: block b takes [b ntiles / grid, (b + 1) ntiles / grid)
-  int bn, kp, ntc;      // centroids a tile, k rounded up to it, centroid tiles
+  int kp, ntc;          // k rounded up to kBN, centroid tiles
   int cb, nfc;          // bytes of a feature chunk's row (the swizzle span), chunks
-  int chunk;            // bytes of one (centroid tile, feature chunk) of c: parts x bn x cb
+  int chunk;            // bytes of one (centroid tile, feature chunk) of c: parts x kBN x cb
   int cstages, xstages, resident;
   int off_c, off_bar;
 };
@@ -335,7 +336,7 @@ __device__ void fold_partials(const V* part, float* out, int64_t cells, int nb, 
 
 // c as the products read it, written by every block for its share before
 // the first grid barrier: for each (centroid tile, feature chunk) `chunk`
-// bytes, the tile's bn centroids x cb bytes of features, K-major and
+// bytes, the tile's kBN centroids x cb bytes of features, K-major and
 // swizzled as the shared-memory tile will be (so one bulk copy brings it),
 // features past d and centroids past k zero; f32 points: the TF32 high
 // parts, then the low parts (split once here); bf16 points: the values,
@@ -353,7 +354,7 @@ __device__ void write_csplit(const Params& p) {
     const int64_t r = e / per_row;   // j * nfc + fc
     const int ff = (int)(e - r * per_row);
     const int j = (int)(r / p.nfc), fc = (int)(r - (int64_t)j * p.nfc);
-    const int jt = j / p.bn, nn = j - jt * p.bn, f = fc * per_row + ff;
+    const int jt = j / kBN, nn = j - jt * kBN, f = fc * per_row + ff;
     const float v = (j < p.k && f < p.d) ? p.c[(int64_t)j * p.d + f] : 0.f;
     // f32: within each k-step of 8 features, feature 2u goes to position u
     // and 2u + 1 to u + 4, as the x fragments are read (kstep_tf32).
@@ -364,7 +365,7 @@ __device__ void write_csplit(const Params& p) {
       uint32_t hi, lo;
       split_tf32(v, hi, lo);
       *reinterpret_cast<uint32_t*>(dst) = hi;
-      *reinterpret_cast<uint32_t*>(dst + p.bn * p.cb) = lo;
+      *reinterpret_cast<uint32_t*>(dst + kBN * p.cb) = lo;
     } else {
       *reinterpret_cast<__nv_bfloat16*>(dst) = __float2bfloat16_rn(v);
     }
@@ -625,11 +626,11 @@ __device__ void sorted_sums(const Params& p, unsigned char* smem, const int* cnt
   else stream_sums<T, 4>(p, s_off, rows, order, my_part, cw, lane);
 }
 
-template <typename T, int BN>
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 lloyd_wgmma_kernel(const Params p, const __grid_constant__ CUtensorMap xmap) {
   constexpr bool F32 = sizeof(T) == 4;
-  constexpr int NACC = BN / 2;   // accumulators a thread holds for one m64 block
+  constexpr int NACC = kBN / 2;   // accumulators a thread holds for one m64 block
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const int tid = threadIdx.x;
@@ -739,16 +740,16 @@ lloyd_wgmma_kernel(const Params p, const __grid_constant__ CUtensorMap xmap) {
         const int r = 2 * m + h;
         float lo = INFINITY;
 #pragma unroll
-        for (int nt = 0; nt < BN / 8; ++nt) {
-          const float2 cs = *reinterpret_cast<const float2*>(g_csq + jt * BN + nt * 8 + 2 * t);
+        for (int nt = 0; nt < kBN / 8; ++nt) {
+          const float2 cs = *reinterpret_cast<const float2*>(g_csq + jt * kBN + nt * 8 + 2 * t);
           lo = fminf(lo, fminf(cs.x - 2.f * acc[m][4 * nt + 2 * h],
                                cs.y - 2.f * acc[m][4 * nt + 2 * h + 1]));
         }
         if (lo < bv[r]) {
           int at = 0;
 #pragma unroll
-          for (int nt = BN / 8 - 1; nt >= 0; --nt) {   // the last match seen is the first column
-            const int j = jt * BN + nt * 8 + 2 * t;
+          for (int nt = kBN / 8 - 1; nt >= 0; --nt) {   // the last match seen is the first column
+            const int j = jt * kBN + nt * 8 + 2 * t;
             const float2 cs = *reinterpret_cast<const float2*>(g_csq + j);
             if (cs.y - 2.f * acc[m][4 * nt + 2 * h + 1] == lo) at = j + 1;
             if (cs.x - 2.f * acc[m][4 * nt + 2 * h] == lo) at = j;
@@ -759,8 +760,8 @@ lloyd_wgmma_kernel(const Params p, const __grid_constant__ CUtensorMap xmap) {
       }
     } else {
 #pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        const int j = jt * BN + nt * 8 + 2 * t;
+      for (int nt = 0; nt < kBN / 8; ++nt) {
+        const int j = jt * kBN + nt * 8 + 2 * t;
         const float2 cs = *reinterpret_cast<const float2*>(g_csq + j);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -847,7 +848,7 @@ lloyd_wgmma_kernel(const Params p, const __grid_constant__ CUtensorMap xmap) {
         c_in(q + fc);
         const unsigned char* xc = x_chunk(i, fc);
         const unsigned char* cc = c_chunk(jt, fc, q);
-        const uint64_t bh = make_desc(cc, p.cb), bl = make_desc(cc + BN * p.cb, p.cb);
+        const uint64_t bh = make_desc(cc, p.cb), bl = make_desc(cc + kBN * p.cb, p.cb);
         const int nks = k_steps(fc);
         for (int ks = 0; ks < nks; ++ks, ++step) {
           const int sd = (fc == 0 && ks == 0) ? 0 : 1, set = step % kSets;
@@ -919,10 +920,8 @@ lloyd_wgmma_kernel(const Params p, const __grid_constant__ CUtensorMap xmap) {
 
 // A plan of this path, as ops/lloyd.py's plan() makes it.
 struct Cfg {
-  int bn, cstages, xstages, resident;
+  int cstages, xstages, resident;
 };
-
-inline size_t a16(size_t v) { return (v + 15) & ~(size_t)15; }
 
 // The plan's shared-memory layout for (d, k) points of esz bytes: the x
 // ring (xstages row tiles of nfc chunks of kBM x cb bytes) from offset 0,
@@ -932,15 +931,14 @@ inline size_t a16(size_t v) { return (v + 15) & ~(size_t)15; }
 // the freed tiles cannot hold the sums' sort (9 k + kConsumers ints).
 inline bool layout(int d, int k, int esz, const Cfg& c, Params& p, size_t& smem) {
   const int row = d * esz;
-  if (d < 1 || k < 1 || row % 16 != 0 || c.bn < 8 || c.xstages < 1
+  if (d < 1 || k < 1 || row % 16 != 0 || c.xstages < 1
       || (!c.resident && c.cstages < 2))
     return false;
   p.cb = row > 64 ? 128 : (row > 32 ? 64 : 32);
   p.nfc = (row + p.cb - 1) / p.cb;
-  p.bn = c.bn;
-  p.kp = (k + c.bn - 1) / c.bn * c.bn;
-  p.ntc = p.kp / c.bn;
-  p.chunk = (esz == 4 ? 2 : 1) * c.bn * p.cb;
+  p.kp = (k + kBN - 1) / kBN * kBN;
+  p.ntc = p.kp / kBN;
+  p.chunk = (esz == 4 ? 2 : 1) * kBN * p.cb;
   p.cstages = c.resident ? 1 : c.cstages;
   p.xstages = c.xstages;
   p.resident = c.resident;

@@ -98,9 +98,10 @@ _INFO_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
 #: The kernel's path codes (``csrc/lloyd.cu``'s plan array).
 PATHS = {"small": 0, "mma_sync": 1, "wgmma": 2}
 #: The wgmma path's fixed sizes (``csrc/lloyd_wgmma.cuh``): rows a block
-#: tile (two consumer warpgroups of 128), shared memory a block may take,
-#: consumer threads.
+#: tile (two consumer warpgroups of 128), centroids a tile (the wgmma
+#: instructions' N), shared memory a block may take, consumer threads.
 WG_ROWS = 256
+WG_CENTROIDS = 128
 SMEM_MAX = 227 * 1024
 WG_CONSUMERS = 256
 #: (d, k, bf16) -> (plan, the plan as the kernel takes it, whether the
@@ -112,34 +113,27 @@ _ROWMAJOR = contextvars.ContextVar("lloyd_rowmajor", default=False)
 
 
 class Plan(NamedTuple):
-    """A call's path and, on the wgmma path, its tiles: ``bn`` centroids a
-    tile, ``cstages`` c chunks in flight (streamed c), ``xstages`` row
-    tiles of x in the ring, ``resident`` (all of c in shared memory)."""
+    """A call's path and, on the wgmma path, its tiles: ``cstages`` c
+    chunks in flight (streamed c), ``xstages`` row tiles of x in the ring,
+    ``resident`` (all of c in shared memory)."""
     path: str
-    bn: int = 0
     cstages: int = 0
     xstages: int = 0
     resident: int = 0
 
     def as_ints(self) -> list[int]:
-        return [PATHS[self.path], self.bn, self.cstages, self.xstages, self.resident]
+        return [PATHS[self.path], self.cstages, self.xstages, self.resident]
 
 
 class Layout(NamedTuple):
-    """What a wgmma plan takes at a shape, as ``csrc/lloyd_wgmma.cuh``'s
-    ``layout`` computes it: shared memory a block, floats past the partials
-    (c in the products' layout, then |c|^2), and the feature chunks (``cb``
-    bytes of a row each, ``nfc`` of them).  The path always stores the
-    labels and takes an n-long order scratch: its sums sort each block's
-    rows by cluster."""
+    """The shared memory a wgmma plan takes at a shape, as
+    ``csrc/lloyd_wgmma.cuh``'s ``layout`` computes it, and its feature
+    chunks (``cb`` bytes of a row each, ``nfc`` of them).  ``plan`` reads
+    it only to choose a plan that fits; the scratch a call needs comes from
+    the CUDA source (``plan_info``)."""
     smem: int
-    extra: int
     cb: int
     nfc: int
-
-
-def _a16(v: int) -> int:
-    return (v + 15) & ~15
 
 
 def wgmma_layout(d: int, k: int, esz: int, p: Plan) -> Layout | None:
@@ -148,19 +142,19 @@ def wgmma_layout(d: int, k: int, esz: int, p: Plan) -> Layout | None:
     more shared memory than a block has, or no room for the sums' sort
     (9 k + 256 ints) in the freed tiles."""
     row = d * esz
-    if row % 16 or p.bn < 8 or p.xstages < 1 or (not p.resident and p.cstages < 2):
+    if row % 16 or p.xstages < 1 or (not p.resident and p.cstages < 2):
         return None
     cb = 128 if row > 64 else (64 if row > 32 else 32)
     nfc = -(-row // cb)
-    kp = -(-k // p.bn) * p.bn
-    chunk = (2 if esz == 4 else 1) * p.bn * cb
+    ntc = -(-k // WG_CENTROIDS)
+    chunk = (2 if esz == 4 else 1) * WG_CENTROIDS * cb
     cstages = 1 if p.resident else p.cstages
-    cbuf = (kp // p.bn) * nfc * chunk if p.resident else cstages * chunk
+    cbuf = ntc * nfc * chunk if p.resident else cstages * chunk
     off_bar = p.xstages * WG_ROWS * cb * nfc + cbuf
     smem = off_bar + (2 * p.xstages * nfc + 2 * cstages) * 8 + 1024
     if smem > SMEM_MAX or (9 * k + WG_CONSUMERS) * 4 > off_bar:
         return None
-    return Layout(smem, (kp // p.bn) * nfc * chunk // 4 + kp + 4, cb, nfc)
+    return Layout(smem, cb, nfc)
 
 
 def plan(d: int, k: int, dtype) -> Plan:
@@ -168,7 +162,7 @@ def plan(d: int, k: int, dtype) -> Plan:
 
     Small path: d <= 8 and k <= 16.  wgmma path: rows a whole number of
     16-byte units (TMA's row stride) and a layout that fits: centroid tiles
-    of 128 (one instance a type is built); all of c resident with 4 to 2 row
+    of 128 (``WG_CENTROIDS``); all of c resident with 4 to 2 row
     tiles of x in the ring, else c streamed beside two row tiles through a
     ring of at least four chunks and two centroid tiles' worth, or beside
     one row tile through the deepest ring (12 to 2 chunks) that fits.  bf16
@@ -181,11 +175,10 @@ def plan(d: int, k: int, dtype) -> Plan:
         return Plan("small")
     esz = 2 if dtype == torch.bfloat16 else 4
     if (d * esz) % 16 == 0:
-        bn = 128
         nfc = -(-d * esz // 128)
-        cands = [Plan("wgmma", bn, 1, xs, 1) for xs in (4, 3, 2)]
-        cands += [Plan("wgmma", bn, cs, 2, 0) for cs in range(12, max(4, 2 * nfc) - 1, -1)]
-        cands += [Plan("wgmma", bn, cs, 1, 0) for cs in range(12, 1, -1)]
+        cands = [Plan("wgmma", 1, xs, 1) for xs in (4, 3, 2)]
+        cands += [Plan("wgmma", cs, 2, 0) for cs in range(12, max(4, 2 * nfc) - 1, -1)]
+        cands += [Plan("wgmma", cs, 1, 0) for cs in range(12, 1, -1)]
         for cand in cands:
             if wgmma_layout(d, k, esz, cand) is not None:
                 return Plan("mma_sync") if esz == 2 and cand.resident else cand
@@ -346,21 +339,20 @@ def _cost(x, c, n_valid: int, with_labels: bool) -> dict:
 def _shape_info(d: int, k: int, dtype):
     """(plan, the plan as a ctypes int array, whether the kernel stores
     labels at this shape even when the caller asked for none, floats of
-    scratch it needs past the block partials), once per shape: the wgmma
-    path's from ``wgmma_layout``, the mma_sync path's from the CUDA
-    source (``cdrs_lloyd_plan_info``)."""
+    scratch it needs past the block partials), once per shape.  The last
+    two come from the CUDA source (``cdrs_lloyd_plan_info``) on both
+    general paths, so the scratch is sized by the code that uses it."""
     key = (d, k, dtype == torch.bfloat16)
     if key not in _SHAPES:
         p = plan(d, k, dtype)
-        arg = (ctypes.c_int * 5)(*p.as_ints())
+        arg = (ctypes.c_int * len(p.as_ints()))(*p.as_ints())
         if p.path == "small":
             keeps, extra = False, 0
-        elif p.path == "wgmma":
-            keeps, extra = True, wgmma_layout(d, k, 2 if key[2] else 4, p).extra
         else:
             out = plan_info(d, k, dtype, p)
             if out is None:
-                raise ValueError(f"lloyd kernel: no path serves d={d}, k={k}, {dtype}")
+                raise ValueError(f"lloyd kernel: the CUDA source refuses plan {p} at d={d}, "
+                                 f"k={k}, {dtype}")
             extra, keeps, _ = out
             keeps = bool(keeps)
         _SHAPES[key] = (p, arg, keeps, extra)
@@ -373,7 +365,8 @@ def plan_info(d: int, k: int, dtype, p: Plan):
     the shape (builds the library on first use)."""
     info = _build.bind("lloyd", "cdrs_lloyd_plan_info", _INFO_ARGTYPES)
     out = (ctypes.c_int64 * 3)()
-    rc = info(d, k, int(dtype == torch.bfloat16), (ctypes.c_int * 5)(*p.as_ints()), out)
+    ints = p.as_ints()
+    rc = info(d, k, int(dtype == torch.bfloat16), (ctypes.c_int * len(ints))(*ints), out)
     return None if rc != 0 else (int(out[0]), int(out[1]), int(out[2]))
 
 

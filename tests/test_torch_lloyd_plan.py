@@ -3,13 +3,14 @@
 ``ops/lloyd.plan(d, k, dtype)`` picks the kernel's path from the shape and
 type alone (the kernel runs only on the card; ``chip_smoke.py`` phase 2
 holds each path against the plain version there and checks that the CUDA
-source's ``cdrs_lloyd_plan_info`` gives the same numbers as
-``wgmma_layout``).  Here the choice is held for each shape class: small
-shapes, rows that are not a whole number of 16-byte units (TMA's row
+source's ``cdrs_lloyd_plan_info`` gives the shared memory that
+``wgmma_layout`` does).  Here the choice is held for each shape class:
+small shapes, rows that are not a whole number of 16-byte units (TMA's row
 stride: d % 4 for f32, d % 8 for bf16), tiles too wide for a block, c
-resident or streamed, f32 and bf16.  ``wgmma_layout``'s numbers are held
-against the CUDA source's formulas written out here, and at two shapes
-against the byte counts worked by hand.
+resident or streamed, f32 and bf16.  ``wgmma_layout``'s shared memory is
+held to what each ring slot and c chunk adds, and at two shapes to the
+byte counts worked by hand.  The scratch a call takes is the CUDA
+source's: the wrapper asks ``plan_info`` for it on both general paths.
 """
 
 import inspect
@@ -19,8 +20,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from cdrs_tpu_torch.ops import lloyd  # noqa: E402
-from cdrs_tpu_torch.ops.lloyd import (SMEM_MAX, WG_CONSUMERS, WG_ROWS, Plan,  # noqa: E402
-                                      plan, wgmma_layout)
+from cdrs_tpu_torch.ops.lloyd import (SMEM_MAX, WG_CENTROIDS, WG_CONSUMERS,  # noqa: E402
+                                      WG_ROWS, Plan, plan, wgmma_layout)
 
 F32, BF16 = torch.float32, torch.bfloat16
 
@@ -47,9 +48,8 @@ def test_plan_picks_the_path_of_each_shape_class(d, k, dtype, path, resident):
     assert p.path == path
     if path == "wgmma":
         assert p.resident == resident
-        assert p.bn == 128   # one instance a type is built
         assert wgmma_layout(d, k, 2 if dtype == BF16 else 4, p) is not None
-        assert len(p.as_ints()) == 5 and p.as_ints()[0] == lloyd.PATHS["wgmma"]
+        assert p.as_ints() == [lloyd.PATHS["wgmma"], p.cstages, p.xstages, p.resident]
 
 
 def test_plan_depends_on_shape_and_type_only():
@@ -60,44 +60,41 @@ def test_plan_depends_on_shape_and_type_only():
     assert plan(128, 1024, F32) != plan(128, 1024, BF16)
 
 
-def _c_layout(d, k, esz, p):
-    """csrc/lloyd_wgmma.cuh's layout(), term by term."""
-    row = d * esz
-    if row % 16:
-        return None
-    cb = 128 if row > 64 else (64 if row > 32 else 32)
-    nfc = (row + cb - 1) // cb
-    kp = (k + p.bn - 1) // p.bn * p.bn
-    ntc = kp // p.bn
-    chunk = (2 if esz == 4 else 1) * p.bn * cb     # TF32 high and low parts for f32
-    cstages = 1 if p.resident else p.cstages
-    off_c = p.xstages * WG_ROWS * cb * nfc
-    off_bar = off_c + (ntc * nfc * chunk if p.resident else cstages * chunk)
-    smem = off_bar + (2 * p.xstages * nfc + 2 * cstages) * 8 + 1024
-    if smem > 227 * 1024 or (9 * k + 256) * 4 > off_bar:
-        return None
-    return smem, ntc * nfc * chunk // 4 + kp + 4
-
-
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_layout_matches_the_cuda_formulas_and_fits(dtype):
+    # csrc/lloyd_wgmma.cuh's layout(): a row tile of x in the ring takes
+    # WG_ROWS x cb x nfc bytes and two barriers a chunk; a c chunk of the
+    # streamed ring takes parts x WG_CENTROIDS x cb bytes (TF32 high and
+    # low parts for f32) and two barriers; resident c takes every chunk.
     esz = 2 if dtype == BF16 else 4
+    parts = 2 if dtype == F32 else 1
     seen = 0
     for d in (4, 8, 12, 16, 24, 32, 40, 64, 96, 128, 160, 200):
         for k in (17, 40, 64, 128, 150, 512, 1024, 3000):
-            p = plan(d, k, dtype)
-            for cand in [p] + [Plan("wgmma", bn, cs, xs, res)
-                               for bn in (64, 128)
-                               for cs, xs, res in ((1, 2, 1), (2, 1, 0), (4, 1, 0), (12, 1, 0))]:
-                if cand.path != "wgmma":
-                    continue
+            for cand in [Plan("wgmma", cs, xs, res)
+                         for cs, xs, res in ((1, 2, 1), (2, 1, 0), (4, 1, 0), (12, 1, 0))]:
                 lay = wgmma_layout(d, k, esz, cand)
-                want = _c_layout(d, k, esz, cand)
-                assert (lay is None) == (want is None), (d, k, cand)
-                if lay is not None:
-                    assert (lay.smem, lay.extra) == want
-                    assert lay.smem <= SMEM_MAX
-                    seen += 1
+                if (d * esz) % 16:
+                    assert lay is None, (d, k, cand)
+                    continue
+                if lay is None:
+                    continue
+                seen += 1
+                assert lay.smem <= SMEM_MAX and (9 * k + WG_CONSUMERS) * 4 <= lay.smem
+                assert lay.cb * (lay.nfc - 1) < d * esz <= lay.cb * lay.nfc
+                chunk = parts * WG_CENTROIDS * lay.cb
+                more_x = wgmma_layout(d, k, esz, cand._replace(xstages=cand.xstages + 1))
+                if more_x is not None:
+                    assert more_x.smem - lay.smem == WG_ROWS * lay.cb * lay.nfc + 16 * lay.nfc
+                if cand.resident:
+                    ntc = -(-k // WG_CENTROIDS)
+                    streamed = wgmma_layout(d, k, esz, Plan("wgmma", 2, cand.xstages, 0))
+                    if streamed is not None:
+                        assert lay.smem - streamed.smem == (ntc * lay.nfc - 2) * chunk - 16
+                else:
+                    more_c = wgmma_layout(d, k, esz, cand._replace(cstages=cand.cstages + 1))
+                    if more_c is not None:
+                        assert more_c.smem - lay.smem == chunk + 16
     assert seen > 50
 
 
@@ -105,18 +102,17 @@ def test_layout_byte_counts_by_hand():
     # 1M x 128, k = 1024, f32: one 256-row tile of x (4 chunks of 256 x 128
     # bytes = 131072) and 3 c chunks of 2 x 128 x 128 (32768 each): 229376;
     # barriers (2 x 4 + 2 x 3) x 8 = 112; 1024 to align: 230512 bytes.
-    # Extra floats: 8 x 4 chunks of 8192, 1024 |c|^2, 4 to align: 263172.
     p = plan(128, 1024, F32)
-    assert p == Plan("wgmma", 128, 3, 1, 0)
-    assert wgmma_layout(128, 1024, 4, p)[:2] == (230512, 263172)
+    assert p == Plan("wgmma", 3, 1, 0)
+    assert wgmma_layout(128, 1024, 4, p) == (230512, 128, 4)
     # 1M x 32, k = 128, f32: 4 row tiles of 256 x 128 bytes (131072), c
     # resident (1 x 1 chunks of 2 x 128 x 128 = 32768), barriers (2 x 4 + 2)
-    # x 8 = 80, 1024: 164944 bytes.  Extra floats: 8192 of c, 128 |c|^2, 4.
+    # x 8 = 80, 1024: 164944 bytes.
     p = plan(32, 128, F32)
-    assert p == Plan("wgmma", 128, 1, 4, 1)
-    assert wgmma_layout(32, 128, 4, p)[:2] == (164944, 8192 + 128 + 4)
+    assert p == Plan("wgmma", 1, 4, 1)
+    assert wgmma_layout(32, 128, 4, p) == (164944, 128, 1)
     # The same shape in bf16 would fit resident, and so takes mma_sync.
-    assert wgmma_layout(32, 128, 2, Plan("wgmma", 128, 1, 4, 1)) is not None
+    assert wgmma_layout(32, 128, 2, Plan("wgmma", 1, 4, 1)) is not None
     assert plan(32, 128, BF16).path == "mma_sync"
 
 
@@ -132,19 +128,34 @@ def test_plan_prefers_resident_c_then_two_row_tiles_then_the_deepest_ring():
     assert (p.resident, p.xstages) == (0, 1)
     assert wgmma_layout(128, 1024, 4, p._replace(cstages=p.cstages + 1)) is None
     # A ring needs two chunks at least: one in use, one coming.
-    assert wgmma_layout(256, 1024, 2, Plan("wgmma", 128, 1, 1, 0)) is None
-    assert wgmma_layout(256, 1024, 2, Plan("wgmma", 128, 2, 1, 0)) is not None
+    assert wgmma_layout(256, 1024, 2, Plan("wgmma", 1, 1, 0)) is None
+    assert wgmma_layout(256, 1024, 2, Plan("wgmma", 2, 1, 0)) is not None
     assert WG_CONSUMERS == 256
 
 
-def test_shape_info_of_wgmma_and_small_paths_needs_no_library():
-    lloyd._SHAPES.clear()
+def test_shape_info_of_wgmma_and_small_paths_needs_no_library(monkeypatch):
+    # The small path needs no scratch and asks the library nothing; both
+    # general paths take their scratch from the CUDA source's plan_info
+    # (here a stand-in, since the library is built only on the card), and
+    # a plan the CUDA source refuses raises rather than run.
+    asked = []
+
+    def info(d, k, dtype, p):
+        asked.append((d, k, dtype, p))
+        return None if k == 77 else (1000 + k, 1, 200_000)
+
+    monkeypatch.setattr(lloyd, "plan_info", info)
+    monkeypatch.setattr(lloyd, "_SHAPES", {})
+    p, arg, keeps, extra = lloyd._shape_info(5, 8, F32)
+    assert (p.path, keeps, extra) == ("small", False, 0) and asked == []
     p, arg, keeps, extra = lloyd._shape_info(128, 1024, BF16)
-    assert p.path == "wgmma" and keeps is True
-    assert extra == wgmma_layout(128, 1024, 2, p).extra
+    assert p.path == "wgmma" and (keeps, extra) == (True, 2024)
     assert list(arg) == p.as_ints()
-    p, _, keeps, extra = lloyd._shape_info(5, 8, F32)
-    assert (p.path, keeps, extra) == ("small", False, 0)
+    assert asked == [(128, 1024, BF16, p)]
+    p, _, keeps, extra = lloyd._shape_info(300, 33, F32)
+    assert p.path == "mma_sync" and (keeps, extra) == (True, 1033)
+    with pytest.raises(ValueError, match="refuses"):
+        lloyd._shape_info(128, 77, F32)
 
 
 def test_breakdown_variants_find_their_source_text():

@@ -18,7 +18,8 @@ the products alone.  Each build is
 called through its C interface with the plan ``ops/lloyd.plan`` gives the
 shape, on the same inputs (``with_labels`` off, as the Lloyd loop calls
 it).  A row's ``device_ms`` are torch.profiler's kernel
-time a launch, ``event_ms`` one CUDA-event pair around back-to-back calls of
+time a launch (from the first of up to four reads that saw a launch;
+``reads`` lists the records each read saw), ``event_ms`` one CUDA-event pair around back-to-back calls of
 the wrapper (host included), ``library_ms`` the product ``x @ c.T`` alone
 (1M-row chunks at the wide rows) and ``bound_ms`` ``obs/kprof``'s bound.
 Only the build as it is gives the kernel's results: the others are for
@@ -87,6 +88,8 @@ SHAPES = [(1 << 20, 32, 128, "float32"), (1 << 20, 32, 128, "bfloat16"),
           (2_500_000, 5, 64, "float32")]
 CONFIG3_ROWS = 10_485_760
 CHUNK_ROWS = 1 << 20
+#: torch.profiler reads a row may take before its device time is null.
+READS = 4
 ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
             + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
 
@@ -190,9 +193,10 @@ def child(code: str, wide: bool, reps: int) -> int:
     for n, d, k, dt in shapes(wide):
         x, c = inputs(n, d, k, getattr(torch, dt), gen)
         call = lambda: lloyd_assign_reduce(x, c, n, with_labels=False)  # noqa: E731
-        dev, seen = smoke.device_ms(call, "lloyd_", max(3, reps // 2))
+        reads = []
+        dev, seen = smoke.device_ms(call, "lloyd_", max(3, reps // 2), tries=READS, reads=reads)
         print(json.dumps({"n": n, "d": d, "k": k, "dtype": dt, "device_ms": dev,
-                          "launches_seen": seen}), flush=True)
+                          "launches_seen": seen, "reads": reads}), flush=True)
         del x, c
         torch.cuda.empty_cache()
     return 0
@@ -244,10 +248,10 @@ def main() -> int:
         runs = [(name, p) for name in libs
                 if not (name == "one_product" and bf16)          # one bf16 product already
                 and not (name in ("no_rank", "no_products") and p.path != "wgmma")]
-        dev = {}
+        dev, reads = {}, {}
         for name, plan in runs:
             lib = libs.get(name, libs["as_is"])
-            arg = (ctypes.c_int * 5)(*plan.as_ints())
+            arg = (ctypes.c_int * len(plan.as_ints()))(*plan.as_ints())
             info = (ctypes.c_int64 * 3)()
             if lib.cdrs_lloyd_plan_info(d, k, bf16, arg, info) != 0:
                 sys.exit(f"lloyd_breakdown: no layout for {plan} at d={d}, k={k}")
@@ -265,7 +269,8 @@ def main() -> int:
                 if err:
                     raise RuntimeError(f"{name}: cudaError {err}")
 
-            dev[name] = smoke.device_ms(call, "lloyd_", reps)[0]
+            reads[name] = []
+            dev[name] = smoke.device_ms(call, "lloyd_", reps, tries=READS, reads=reads[name])[0]
             del part_sums, part_counts
         wrapper = lambda: lloyd.lloyd_assign_reduce(x, c, n, with_labels=False)  # noqa: E731
         c_op = lloyd.centroid_operands(c, dt)[0].to(dt)
@@ -274,7 +279,8 @@ def main() -> int:
         b_ms, b_by = smoke.bound_ms(kprof.kernel_cost(
             "lloyd_assign_reduce", n=n, d=d, k=k, n_valid=n, dtype=dtype, with_labels=False))
         rows.append({"n": n, "d": d, "k": k, "dtype": dtype, "plan": p._asdict(),
-                     "device_ms": dev, "event_ms": smoke.time_ms(wrapper, reps),
+                     "device_ms": dev, "reads": reads,
+                     "event_ms": smoke.time_ms(wrapper, reps),
                      "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
         if not args.parent:
             print(json.dumps(rows[-1]), flush=True)
